@@ -1,0 +1,32 @@
+"""Carry state across from the JAX package: its parameters and keys,
+exported as numpy arrays, become the port's tensors and keys."""
+from __future__ import annotations
+
+from typing import Any
+
+import numpy as np
+import torch
+
+from repro_torch import resolve_device
+
+__all__ = ["params_from_numpy", "key_from_numpy"]
+
+
+def params_from_numpy(tree: Any, device=None) -> Any:
+    """A tree (dict / list / tuple) of numpy arrays -> the same tree of
+    tensors on ``device`` (CUDA unless "cpu"), dtypes kept."""
+    dev = resolve_device(device)
+    if isinstance(tree, dict):
+        return {k: params_from_numpy(v, dev) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(params_from_numpy(v, dev) for v in tree)
+    return torch.from_numpy(np.array(tree, copy=True)).to(dev)
+
+
+def key_from_numpy(key_data) -> torch.Tensor:
+    """A jax key's ``(..., 2)`` uint32 data -> the port's int64 key."""
+    data = np.asarray(key_data)
+    if data.shape[-1:] != (2,) or data.dtype != np.uint32:
+        raise ValueError(f"expected (..., 2) uint32 key data, got "
+                         f"{data.shape} {data.dtype}")
+    return torch.from_numpy(data.astype(np.int64))

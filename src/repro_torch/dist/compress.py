@@ -1,0 +1,298 @@
+"""Compressed aggregation codec of the homomorphic mechanisms.
+
+Every client clips and encodes its update into integer messages, the
+messages are summed as integers, and the *sum* is decoded, so the
+aggregated error follows the mechanism's law exactly:
+
+  aggregate_gaussian — N(0, sigma^2) exactly (paper Prop. 3)
+  aggregate_laplace  — Laplace(0, sigma/sqrt(2)) exactly
+  irwin_hall         — IH(n, 0, sigma^2) exactly (Sec. 4.2)
+
+Shared randomness comes from one per-round key: the global (A, B) draw
+uses it directly, client i's dither uses ``fold_in(key, i)``, and the
+decode recomputes the dither from the same key, so only integers cross
+between parties.
+
+Two wire formats:
+
+  * unfused (default): one signed ``msg_dtype`` word per coordinate;
+  * fused (``CompressionConfig(fused=True)``): dither + quantize + bias +
+    bit-pack run in one kernel pass per direction (``kernels.ops``: the
+    CUDA kernels on the card, their plain versions on the CPU), and the
+    sum carries b-bit fields packed into int32 words.  Both clamp to the
+    same ``PackGeometry``, so they encode identical messages.
+
+This slice holds the codec and ``compress_tree`` with ``axis=None``
+(point-to-point); the process-group sum across client ranks, the layered
+mechanisms and ``none_`` are listed in ROADMAP.md.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.core import coding, dither, prng
+from repro_torch.core.aggregate import AggregateGaussianMechanism
+from repro_torch.core.f32 import true_div
+from repro_torch.core.irwin_hall import IrwinHallMechanism
+from repro_torch.core.packing import PackGeometry, geometry_for_range
+from repro_torch.kernels import ops
+
+PyTree = Any
+
+MECHANISMS = (
+    "none_",
+    "aggregate_gaussian",
+    "aggregate_laplace",
+    "irwin_hall",
+    "layered_shifted",
+    "layered_direct",
+)
+
+HOMOMORPHIC = ("aggregate_gaussian", "aggregate_laplace", "irwin_hall")
+
+_MSG_DTYPES = {"int32": torch.int32, "int16": torch.int16, "int8": torch.int8}
+
+# default packed field width per payload dtype: the widest field whose
+# biased sums fit the dtype's signed range unfused and stay f32-exact
+# (<= 2^24) in the fused decode
+_DEFAULT_PACK_BITS = {"int32": 24, "int16": 15, "int8": 7}
+
+
+def _not_ported(what: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what} is not ported to repro_torch yet (see ROADMAP.md)")
+
+
+@dataclasses.dataclass(frozen=True)
+class CompressionConfig:
+    """Cross-client compression.
+
+    mechanism: one of MECHANISMS (this slice runs the HOMOMORPHIC ones).
+    sigma:     std of the *aggregated* error.
+    clip:      per-coordinate clip applied before encoding.
+    msg_dtype: integer payload ("int32"/"int16"/"int8") of the unfused path.
+    per_coord: one (A, B) shared draw per coordinate vs one per tensor.
+    fused:     run through the fused encode/decode kernels with packed
+               b-bit payloads.
+    msg_bits:  packed field width b for the aggregate mechanisms (their
+               step scale A is clamped so messages fit); for irwin_hall an
+               upper bound on the derived natural width.  None picks the
+               ``msg_dtype`` default.
+    """
+
+    mechanism: str = "aggregate_gaussian"
+    sigma: float = 1e-4
+    clip: float = 1.0
+    msg_dtype: str = "int32"
+    per_coord: bool = True
+    fused: bool = False
+    msg_bits: Optional[int] = None
+
+    def __post_init__(self):
+        if self.mechanism not in MECHANISMS:
+            raise KeyError(
+                f"unknown mechanism {self.mechanism!r}; have {MECHANISMS}"
+            )
+        if self.mechanism != "none_" and not self.sigma > 0.0:
+            raise ValueError(f"sigma must be > 0, got {self.sigma}")
+        if self.msg_dtype not in _MSG_DTYPES:
+            raise KeyError(f"msg_dtype {self.msg_dtype!r} not in {_MSG_DTYPES}")
+        if self.fused and self.mechanism not in HOMOMORPHIC:
+            raise ValueError(
+                f"fused packing needs an integer-homomorphic mechanism "
+                f"({HOMOMORPHIC}), got {self.mechanism!r}"
+            )
+        if self.msg_bits is not None and not 2 <= self.msg_bits <= 24:
+            raise ValueError(
+                f"msg_bits must be in [2, 24], got {self.msg_bits}"
+            )
+
+
+def _make_mech(comp: CompressionConfig, n: int):
+    if comp.mechanism in ("aggregate_gaussian", "aggregate_laplace"):
+        return AggregateGaussianMechanism(
+            n, comp.sigma, comp.per_coord,
+            family=comp.mechanism.removeprefix("aggregate_"),
+        )
+    return IrwinHallMechanism(n, comp.sigma)
+
+
+def leaf_geometry(comp: CompressionConfig, n: int) -> Optional[PackGeometry]:
+    """Packed-field geometry of one homomorphic leaf, or None when the
+    config runs the unclamped int32 path (not fused, no msg_bits)."""
+    if comp.mechanism not in HOMOMORPHIC:
+        return None
+    if not comp.fused and comp.msg_bits is None:
+        return None
+    n = max(int(n), 1)
+    bits = (comp.msg_bits if comp.msg_bits is not None
+            else _DEFAULT_PACK_BITS[comp.msg_dtype])
+    mech = _make_mech(comp, n)
+    if isinstance(mech, IrwinHallMechanism):
+        # natural range, capped at the configured width
+        m_nat = math.ceil(comp.clip / mech.w) + 1
+        m_cap = ((1 << bits) - 1) // (2 * n)
+        return geometry_for_range(min(m_nat, max(m_cap, 2)), n)
+    return mech.pack_geometry(bits)
+
+
+def _leaf_params(comp: CompressionConfig, n: int, kt, shape, device) -> Tuple[
+        Any, Optional[torch.Tensor], Optional[PackGeometry]]:
+    """(step, offset, geometry) of a homomorphic leaf: step is the dither
+    step (scalar w, or the shared per-coordinate A*w tensor), offset the
+    shared additive term (B*sigma, or None)."""
+    mech = _make_mech(comp, n)
+    geom = leaf_geometry(comp, n)
+    if isinstance(mech, AggregateGaussianMechanism):
+        a_min = (mech.a_min_for_geometry(comp.clip, geom)
+                 if geom is not None
+                 else mech.a_min_for_range(2.0 * comp.clip))
+        t = mech.global_randomness(kt, shape, a_min=a_min, device=device)
+        return t.A * mech.w, t.B * comp.sigma, geom
+    return mech.w, None, geom
+
+
+def encode_leaf(x32, comp: CompressionConfig, step, s_i,
+                geom: Optional[PackGeometry]) -> torch.Tensor:
+    """One client's integer message for a clipped f32 leaf: biased packed
+    int32 words (R, 128) when fused, else the signed per-coordinate
+    message (clamped to the shared geometry when one is active)."""
+    if comp.fused:
+        return ops.fused_pack_encode(x32, s_i, step, geom.bits, geom.m_max)
+    m = dither.dither_encode(x32, step, s_i)
+    if geom is not None:
+        m = torch.clamp(m, -geom.m_max, geom.m_max)
+    return m
+
+
+def _step_dec(step, n):
+    """step / n.  ``n`` is a python int (the cohort size: a scalar step is
+    divided in f64, as the reference's static step is) or a numpy float32
+    (the realized count: divided in f32, as the reference's traced one)."""
+    if isinstance(step, torch.Tensor):
+        return true_div(step, float(np.float32(n)))
+    if isinstance(n, np.floating):
+        return float(np.float32(step) / np.float32(n))
+    return step / n
+
+
+def decode_leaf_sum(m_sum, comp: CompressionConfig, n, r_msgs,
+                    step, offset, s_sum, geom: Optional[PackGeometry],
+                    shape) -> torch.Tensor:
+    """Decode the SUM of ``r_msgs`` messages into the across-clients mean
+    + exact noise.  ``n`` is the decode divisor (the cohort size, or the
+    realized count for straggler renormalization, see ``_step_dec``);
+    ``r_msgs`` the number of messages summed (their biases are removed)."""
+    step_dec = _step_dec(step, n)
+    if comp.fused:
+        bias = float(np.float32(r_msgs) * np.float32(geom.bias))
+        s_eff = s_sum + bias
+        return ops.fused_unpack_decode(m_sum, s_eff, step_dec, offset,
+                                       geom.bits, shape)
+    y = (m_sum.to(torch.float32) - s_sum) * step_dec
+    return y if offset is None else y + offset
+
+
+def _compress_leaf(x, comp: CompressionConfig, key, n: int, device):
+    if comp.mechanism not in HOMOMORPHIC:
+        raise _not_ported(f"mechanism {comp.mechanism!r}")
+    dtype = x.dtype
+    x32 = torch.clamp(x.to(device=device, dtype=torch.float32),
+                      -comp.clip, comp.clip)
+    shape = tuple(x32.shape)
+    kt, ks = prng.split(key)
+    step, offset, geom = _leaf_params(comp, n, kt, shape, device)
+    s_i = dither.dither_noise(prng.fold_in(ks, 0), shape, device=device)
+    m = encode_leaf(x32, comp, step, s_i, geom)
+    if not comp.fused:  # the narrow payload dtype wraps as the wire does
+        m = m.to(_MSG_DTYPES[comp.msg_dtype]).to(torch.int32)
+    y = decode_leaf_sum(m, comp, n, 1, step, offset, s_i, geom, shape)
+    return y.to(dtype)
+
+
+def _flatten(tree):
+    """Leaves in the reference's pytree order (dict keys sorted) and a
+    function rebuilding the structure from new leaves."""
+    if isinstance(tree, torch.Tensor):
+        return [tree], lambda leaves: leaves[0]
+    if isinstance(tree, dict):
+        keys = sorted(tree)
+        parts = [_flatten(tree[k]) for k in keys]
+    elif isinstance(tree, (list, tuple)):
+        keys = None
+        parts = [_flatten(v) for v in tree]
+    else:
+        raise TypeError(f"unsupported tree node {type(tree).__name__}")
+    sizes = [len(p[0]) for p in parts]
+    leaves = [leaf for p in parts for leaf in p[0]]
+
+    def rebuild(new):
+        out, off = [], 0
+        for (_, fn), k in zip(parts, sizes):
+            out.append(fn(new[off:off + k]))
+            off += k
+        if keys is not None:
+            return dict(zip(keys, out))
+        return type(tree)(out)
+
+    return leaves, rebuild
+
+
+def compress_tree(grads: PyTree, comp: CompressionConfig, key,
+                  axis: Optional[str] = None, n_clients: int = 1,
+                  device=None) -> PyTree:
+    """Compress a tree of tensors point to point (``axis=None``): quantize
+    + exact noise, no sum across clients.  Runs on the card unless
+    ``device="cpu"``."""
+    if axis is not None:
+        raise _not_ported("the process-group sum across client ranks")
+    device = resolve_device(device)
+    n = max(int(n_clients), 1)
+    leaves, rebuild = _flatten(grads)
+    return rebuild([
+        _compress_leaf(g, comp, prng.fold_in(key, i), n, device)
+        for i, g in enumerate(leaves)
+    ])
+
+
+# --------------------------------------------------------- bit accounting
+def message_bits(comp: CompressionConfig, n_clients: int, *,
+                 num_samples: int = 8192, device=None) -> float:
+    """Per-coordinate message size (bits) one client sends per round for
+    inputs clipped to [-clip, clip]: irwin_hall's exact fixed-length size,
+    or the aggregate mechanisms' expected Elias-gamma length over a
+    deterministic draw of the shared randomness and uniform inputs."""
+    n = max(int(n_clients), 1)
+    t = 2.0 * comp.clip
+    if comp.mechanism == "irwin_hall":
+        return float(IrwinHallMechanism(n, comp.sigma).bits_fixed(t))
+    if comp.mechanism not in HOMOMORPHIC:
+        raise _not_ported(f"message_bits for {comp.mechanism!r}")
+    device = resolve_device(device)
+    kx, kr = prng.split(prng.PRNGKey(0))
+    x = prng.uniform(kx, (num_samples,), -comp.clip, comp.clip, device=device)
+    mech = _make_mech(comp, n)
+    tshared = mech.global_randomness(prng.fold_in(kr, 0), x.shape,
+                                     device=device)
+    s = mech.client_randomness(prng.fold_in(kr, 1), x.shape, device=device)
+    m = mech.encode(x, s, tshared)
+    return float(coding.elias_gamma_bits(m).to(torch.float32).mean())
+
+
+def wire_bits_per_coord(comp: CompressionConfig, n_clients: int,
+                        size: Optional[int] = None) -> float:
+    """Bits per coordinate a client's payload occupies on the wire:
+    ``32 / group`` for the fused packed format (exact, including word
+    padding, when ``size`` is given), else the ``msg_dtype`` width."""
+    geom = leaf_geometry(comp, max(int(n_clients), 1))
+    if comp.fused and geom is not None:
+        if size:
+            return 32.0 * geom.n_words(size) / size
+        return 32.0 / geom.group
+    return float(torch.iinfo(_MSG_DTYPES[comp.msg_dtype]).bits)

@@ -1,0 +1,95 @@
+"""Public wrappers of the fused codec: shape padding and layout, so
+callers pass natural shapes.
+
+Dispatch follows the tensors' device: a CPU tensor runs the plain
+PyTorch version (``ref``), a CUDA tensor the hand-written kernel
+(``fused_agg``), which raises if it cannot launch.  There is no
+fallback between the two.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from repro_torch.kernels import fused_agg as fg
+from repro_torch.kernels import ref
+
+LANES = 128
+
+
+def _pad_rows(x: torch.Tensor, g: int, value: float = 0.0) -> torch.Tensor:
+    """Flatten to (R, g, 128) rows, padding with ``value`` (steps pad
+    with 1.0 so padded lanes never divide by zero).  A view when no
+    padding is needed."""
+    row = g * LANES
+    R = -(-x.numel() // row)
+    pad = R * row - x.numel()
+    flat = x.reshape(-1)
+    if pad:
+        flat = torch.cat([flat, flat.new_full((pad,), value)])
+    return flat.reshape(R, g, LANES)
+
+
+def _on_cuda(t: torch.Tensor) -> bool:
+    if t.device.type == "cuda":
+        return True
+    if t.device.type == "cpu":
+        return False
+    raise ValueError(f"no fused codec for device {t.device}")
+
+
+def _is_scalar(step) -> bool:
+    return isinstance(step, (int, float))
+
+
+def _full(t, shape) -> torch.Tensor:
+    """``t`` broadcast to ``shape`` as a contiguous tensor."""
+    return t.expand(shape).contiguous() if tuple(t.shape) != tuple(shape) else t
+
+
+def fused_pack_encode(x: torch.Tensor, s: torch.Tensor, step, bits: int,
+                      m_max: int) -> torch.Tensor:
+    """Fused homomorphic encode: dither-quantize ``x`` at ``step`` (python
+    scalar, or tensor broadcastable to x.shape for the per-coordinate
+    aggregate mechanisms), clamp to [-m_max, m_max], bias, and pack to
+    ``bits``-wide unsigned fields -> int32 words (R, 128).  Packed words
+    of different clients ADD homomorphically; the caller clips x."""
+    # 24-bit cap: biased field sums stay <= 2^24, exactly representable
+    # in the f32 decode (wider fields would silently lose low bits)
+    if not 2 <= bits <= 24:
+        raise ValueError(f"packed field width must be in [2, 24], got {bits}")
+    if tuple(s.shape) != tuple(x.shape):
+        raise ValueError(f"dither shape {tuple(s.shape)} != {tuple(x.shape)}")
+    g = max(32 // bits, 1)
+    xr, sr = _pad_rows(x, g), _pad_rows(s, g)
+    tr = float(step) if _is_scalar(step) else _pad_rows(
+        _full(step, x.shape), g, value=1.0)
+    if _on_cuda(x):
+        return fg.fused_encode(xr, sr, tr, bits, m_max)
+    return ref.fused_encode_ref(xr, sr, tr, bits, m_max)
+
+
+def fused_unpack_decode(word: torch.Tensor, s_eff: torch.Tensor, step_dec,
+                        offset, bits: int, shape) -> torch.Tensor:
+    """Fused homomorphic decode of SUMMED packed words back to ``shape``:
+    unpack unsigned fields, subtract ``s_eff`` (= dither_sum + r * m_max
+    for r summed messages), rescale by ``step_dec`` (mechanism step / n;
+    scalar or tensor) and add ``offset`` (B * sigma, or None)."""
+    if not 2 <= bits <= 24:
+        raise ValueError(f"packed field width must be in [2, 24], got {bits}")
+    shape = tuple(shape)
+    g = max(32 // bits, 1)
+    se = _pad_rows(s_eff, g)
+    if word.dim() != 2 or word.shape != (se.shape[0], LANES):
+        raise ValueError(f"words {tuple(word.shape)} do not match "
+                         f"{se.shape[0]} rows of {LANES}")
+    tr = float(step_dec) if _is_scalar(step_dec) else _pad_rows(
+        _full(step_dec, s_eff.shape), g, value=1.0)
+    off = None if offset is None else _pad_rows(
+        _full(offset, s_eff.shape), g)
+    if _on_cuda(word):
+        y = fg.fused_decode(word, se, tr, off, bits)
+    else:
+        y = ref.fused_decode_ref(word, se, tr, off, bits)
+    return y.reshape(-1)[: math.prod(shape)].reshape(shape)
