@@ -22,7 +22,7 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.core import dither, prng
-from repro_torch.core.f32 import true_div
+from repro_torch.core.f32 import rcp_mul
 from repro_torch.core.decompose import (
     DecomposeTables,
     decompose_gaussian,
@@ -123,5 +123,5 @@ class AggregateGaussianMechanism:
         return dither.dither_encode(x_i, t.A * self.w, s_i)
 
     def decode_sum(self, m_sum, s_sum, t: AggGaussShared):
-        step = true_div(t.A * self.w, self.n)
+        step = rcp_mul(t.A * self.w, self.n)
         return (m_sum.to(torch.float32) - s_sum) * step + t.B * self.sigma

@@ -13,11 +13,11 @@ iteration, frozen once accepted), so every lane's (A, B) is the
 reference's.  Finished lanes are compacted away, so the work of an
 iteration is proportional to the lanes still looping.
 
-Where XLA contracts a multiply and an add into one fused multiply-add
-(the interpolation, the mixture threshold, the unif recursion) the port
-rounds once too (``f32.fma``), so rejection branches and (A, B) bits agree
-with the reference; what differs is the last bit of ``exp`` / ``log1p``
-(see tests/test_torch_aggregate.py).
+The arithmetic is the reference's as XLA compiles it (``core/f32``):
+one rounding where XLA contracts a multiply and an add (the
+interpolation, the mixture threshold, the unif recursion), a multiply by
+the f32 reciprocal where it divides by a constant, and XLA's own ``exp``
+and ``log1p``, so every (A, B) is the jitted reference's, bit for bit.
 """
 from __future__ import annotations
 
@@ -29,7 +29,8 @@ import numpy as np
 import torch
 
 from repro_torch.core import prng
-from repro_torch.core.f32 import fma, true_div
+from repro_torch.core import f32
+from repro_torch.core.f32 import fma, rcp_mul
 from repro_torch.core.irwin_hall import NormalizedIrwinHall
 
 __all__ = [
@@ -193,7 +194,7 @@ def decompose_unif(tables: DecomposeTables, keys) -> Tuple[torch.Tensor,
         u = prng.uniform(k1, (), -0.5, 0.5)
         v = prng.uniform(k2, ())
         pdf = interp(u.abs(), tb["norm_xs"], tb["norm_fs"], right=0.0)
-        accept = v <= true_div(pdf, f0)
+        accept = v <= rcp_mul(pdf, f0)
         s = interp(v * f0, tb["inv_y"], tb["inv_x"])
         b_new = fma(a * torch.sign(u) * 0.5, s + 0.5, b)
         a_new = a * (0.5 - s)
@@ -221,19 +222,18 @@ def decompose_gaussian(tables: DecomposeTables, keys) -> Tuple[torch.Tensor,
     if tables.family == "laplace":
         b = 1.0 / math.sqrt(2.0)
         x = prng.laplace(kx) * b
-        g_x = true_div(torch.exp(true_div(-x.abs(), b)), 2.0 * b)
+        g_x = rcp_mul(f32.exp(rcp_mul(-x.abs(), b)), 2.0 * b)
     else:
         x = prng.normal(kx)
-        g_x = true_div(torch.exp(-0.5 * x * x),
-                       math.sqrt(2.0 * math.pi))
+        g_x = rcp_mul(f32.exp(-0.5 * x * x), math.sqrt(2.0 * math.pi))
     v = prng.uniform(kv) * g_x
     scale = tables.L
-    f_unit = true_div(interp(true_div(x.abs(), scale), tb["norm_xs"],
-                             tb["norm_fs"], right=0.0), scale)
+    f_unit = rcp_mul(interp(rcp_mul(x.abs(), scale), tb["norm_xs"],
+                            tb["norm_fs"], right=0.0), scale)
     # exact-IH component (A, B) = (1, 0)
     take_f = v > fma(torch.full_like(f_unit, -tables.lam), f_unit, g_x)
     s = interp(v, tb["psi_inv_y"], tb["psi_inv_x"])  # psi~^{-1}(v)
     a_u, b_u = decompose_unif(tables, ku)
-    A = true_div(2.0 * a_u * s, tables.L)
+    A = rcp_mul(2.0 * a_u * s, tables.L)
     B = 2.0 * b_u * s
     return torch.where(take_f, 1.0, A), torch.where(take_f, 0.0, B)

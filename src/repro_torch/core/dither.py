@@ -14,7 +14,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core import prng
-from repro_torch.core.f32 import true_div
+from repro_torch.core.f32 import rcp_fma_div, true_div
 
 __all__ = ["round_half_up", "dither_noise", "dither_encode", "dither_decode"]
 
@@ -30,8 +30,14 @@ def dither_noise(key, shape=(), device=None, out=None) -> torch.Tensor:
 
 
 def dither_encode(x, w, s, *, msg_dtype=torch.int32) -> torch.Tensor:
-    """M = round(x / w + s). ``w`` may be a scalar or broadcastable tensor."""
-    return round_half_up(true_div(x, w) + s).to(msg_dtype)
+    """M = round(x / w + s). ``w`` may be a scalar or broadcastable tensor.
+    A scalar step is a compile-time constant in the reference, which XLA
+    divides by as ``fma(x, 1/w, s)``; a tensor step divides exactly."""
+    if isinstance(w, torch.Tensor):
+        q = true_div(x, w) + s
+    else:
+        q = rcp_fma_div(x, w, s)
+    return round_half_up(q).to(msg_dtype)
 
 
 def dither_decode(m, w, s) -> torch.Tensor:

@@ -13,10 +13,8 @@ so any slice ``[start, start + count)`` of a draw is computable on its
 own: bulk draws are made chunk by chunk, bounding peak memory at the
 chunk's int64 temporaries whatever the full size.
 
-``normal`` and ``laplace`` go through transcendental functions whose
-last bit differs between libraries; the port carries the same
-polynomial ``erfinv`` as XLA's and matches jax within a few ulp (see
-tests/test_torch_prng.py for the measured bound).
+``normal`` and ``laplace`` go through XLA's own f32 ``erfinv`` polynomial,
+``log1p`` and ``sqrt`` (``core/f32``), so they match jax bit for bit.
 """
 from __future__ import annotations
 
@@ -26,11 +24,12 @@ from typing import Optional, Sequence, Union
 import numpy as np
 import torch
 
+from repro_torch.core import f32
 from repro_torch.core.f32 import fma
 
 __all__ = [
-    "PRNGKey", "fold_in", "split", "random_bits", "uniform", "normal",
-    "laplace", "erfinv", "CHUNK",
+    "PRNGKey", "fold_in", "split", "random_bits", "uniform", "bernoulli",
+    "normal", "laplace", "erfinv", "CHUNK",
 ]
 
 M32 = 0xFFFFFFFF
@@ -129,19 +128,27 @@ def _bits_to_unit(bits: torch.Tensor) -> torch.Tensor:
 
 
 def _scale(unit: torch.Tensor, minval: float, maxval: float) -> torch.Tensor:
-    """jax's ``max(lo, u * (hi - lo) + lo)`` with f32 lo, hi."""
+    """jax's ``max(lo, u * (hi - lo) + lo)`` with f32 lo, hi; XLA
+    contracts the multiply-add."""
     lo, hi = np.float32(minval), np.float32(maxval)
     span = float(np.float32(hi - lo))
-    out = unit * span + float(lo)
+    if math.frexp(span)[0] == 0.5:
+        # a power-of-two span scales exactly: one rounding either way
+        out = unit * span + float(lo)
+    else:
+        out = fma(unit, span, float(lo))
     return torch.clamp_min(out, float(lo))
 
 
 def uniform(key: Key, shape: Shape = (), minval: float = 0.0,
             maxval: float = 1.0, device=None,
-            out: Optional[torch.Tensor] = None) -> torch.Tensor:
+            out: Optional[torch.Tensor] = None,
+            start: int = 0) -> torch.Tensor:
     """f32 U[minval, maxval) draws, bitwise equal to ``jax.random.uniform``.
     A single key is drawn in chunks of ``CHUNK`` into ``out`` (allocated
-    on ``device`` when not given); batched keys give one draw each."""
+    on ``device`` when not given): elements ``[start, start + size)`` of
+    its flat draw, so a larger draw can be made piece by piece; batched
+    keys give one draw each."""
     shape = _shape(shape)
     if key.dim() > 1:
         return _scale(_bits_to_unit(random_bits(key, shape)), minval, maxval)
@@ -149,14 +156,20 @@ def uniform(key: Key, shape: Shape = (), minval: float = 0.0,
         device = key.device if device is None else torch.device(device)
         out = torch.empty(shape, dtype=torch.float32, device=device)
     flat = out.view(-1)
-    for start in range(0, flat.numel(), CHUNK):
-        count = min(CHUNK, flat.numel() - start)
+    for lo in range(0, flat.numel(), CHUNK):
+        count = min(CHUNK, flat.numel() - lo)
         # repro-lint: disable=rng-key-reuse -- each chunk hashes its own
-        # disjoint counter range [start, start + count) of the one draw
-        bits = _bits_range(key, start, count, flat.device)
-        flat[start:start + count] = _scale(_bits_to_unit(bits), minval,
-                                           maxval)
+        # disjoint counter range of the one draw
+        bits = _bits_range(key, start + lo, count, flat.device)
+        flat[lo:lo + count] = _scale(_bits_to_unit(bits), minval, maxval)
     return out
+
+
+def bernoulli(key: Key, p: float = 0.5, shape: Shape = (),
+              device=None) -> torch.Tensor:
+    """bool draws, bitwise equal to ``jax.random.bernoulli``: U[0, 1) < p
+    in f32."""
+    return uniform(key, shape, device=device) < float(np.float32(p))
 
 
 # Giles' single-precision erfinv, in XLA's coefficient order (Horner from
@@ -172,9 +185,9 @@ _ERFINV_LARGE = (-0.000200214257, 0.000100950558, 0.00134934322,
 
 def erfinv(x: torch.Tensor) -> torch.Tensor:
     """f32 inverse error function (Giles 2010), as XLA evaluates it."""
-    w = -torch.log1p(-x * x)
+    w = -f32.log1p(-x * x)
     small = w < 5.0
-    w = torch.where(small, w - 2.5, torch.sqrt(w) - 3.0)
+    w = torch.where(small, w - 2.5, f32.sqrt(w) - 3.0)
     p = torch.where(small, _ERFINV_SMALL[0], _ERFINV_LARGE[0])
     for cs, cl in zip(_ERFINV_SMALL[1:], _ERFINV_LARGE[1:]):
         p = fma(p, w, torch.where(small, cs, cl))
@@ -196,4 +209,4 @@ def normal(key: Key, shape: Shape = (), device=None) -> torch.Tensor:
 def laplace(key: Key, shape: Shape = (), device=None) -> torch.Tensor:
     """f32 standard Laplace: sign(u) * log1p(-|u|), u ~ U(-1 + eps, 1)."""
     u = uniform(key, shape, _LAPLACE_LO, 1.0, device=device)
-    return torch.sign(u) * torch.log1p(-u.abs())
+    return torch.sign(u) * f32.log1p(-u.abs())

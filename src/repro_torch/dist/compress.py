@@ -7,6 +7,10 @@ aggregated error follows the mechanism's law exactly:
   aggregate_gaussian — N(0, sigma^2) exactly (paper Prop. 3)
   aggregate_laplace  — Laplace(0, sigma/sqrt(2)) exactly
   irwin_hall         — IH(n, 0, sigma^2) exactly (Sec. 4.2)
+  layered_shifted    — per-client N(0, n sigma^2) decoded locally
+                       (Def. 5; not homomorphic)
+  layered_direct     — as above with the direct layering (Def. 4)
+  none_              — clip only (no quantization)
 
 Shared randomness comes from one per-round key: the global (A, B) draw
 uses it directly, client i's dither uses ``fold_in(key, i)``, and the
@@ -22,9 +26,9 @@ Two wire formats:
     sum carries b-bit fields packed into int32 words.  Both clamp to the
     same ``PackGeometry``, so they encode identical messages.
 
-This slice holds the codec and ``compress_tree`` with ``axis=None``
-(point-to-point); the process-group sum across client ranks, the layered
-mechanisms and ``none_`` are listed in ROADMAP.md.
+This module holds the codec and ``compress_tree`` with ``axis=None``
+(point-to-point); the process-group sum across client ranks is listed in
+ROADMAP.md.
 """
 from __future__ import annotations
 
@@ -38,8 +42,10 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.core import coding, dither, prng
 from repro_torch.core.aggregate import AggregateGaussianMechanism
-from repro_torch.core.f32 import true_div
+from repro_torch.core.distributions import Gaussian
+from repro_torch.core.f32 import rcp_mul, true_div
 from repro_torch.core.irwin_hall import IrwinHallMechanism
+from repro_torch.core.layered import LayeredQuantizer
 from repro_torch.core.packing import PackGeometry, geometry_for_range
 from repro_torch.kernels import ops
 
@@ -73,7 +79,7 @@ def _not_ported(what: str) -> NotImplementedError:
 class CompressionConfig:
     """Cross-client compression.
 
-    mechanism: one of MECHANISMS (this slice runs the HOMOMORPHIC ones).
+    mechanism: one of MECHANISMS.
     sigma:     std of the *aggregated* error.
     clip:      per-coordinate clip applied before encoding.
     msg_dtype: integer payload ("int32"/"int16"/"int8") of the unfused path.
@@ -172,11 +178,14 @@ def encode_leaf(x32, comp: CompressionConfig, step, s_i,
 
 
 def _step_dec(step, n):
-    """step / n.  ``n`` is a python int (the cohort size: a scalar step is
-    divided in f64, as the reference's static step is) or a numpy float32
-    (the realized count: divided in f32, as the reference's traced one)."""
+    """step / n.  ``n`` is a python int (the cohort size, a constant in the
+    reference: a scalar step is divided in f64, a tensor one by XLA's f32
+    reciprocal) or a numpy float32 (the realized count, traced in the
+    reference: divided in f32)."""
     if isinstance(step, torch.Tensor):
-        return true_div(step, float(np.float32(n)))
+        if isinstance(n, np.floating):
+            return true_div(step, float(n))
+        return rcp_mul(step, n)
     if isinstance(n, np.floating):
         return float(np.float32(step) / np.float32(n))
     return step / n
@@ -199,14 +208,25 @@ def decode_leaf_sum(m_sum, comp: CompressionConfig, n, r_msgs,
     return y if offset is None else y + offset
 
 
+def _layered_q(comp: CompressionConfig, n: int) -> LayeredQuantizer:
+    """Per-client noise N(0, n sigma^2) averages to N(0, sigma^2)."""
+    return LayeredQuantizer(Gaussian(comp.sigma * math.sqrt(n)),
+                            shifted=comp.mechanism == "layered_shifted")
+
+
 def _compress_leaf(x, comp: CompressionConfig, key, n: int, device):
-    if comp.mechanism not in HOMOMORPHIC:
-        raise _not_ported(f"mechanism {comp.mechanism!r}")
     dtype = x.dtype
     x32 = torch.clamp(x.to(device=device, dtype=torch.float32),
                       -comp.clip, comp.clip)
     shape = tuple(x32.shape)
+    if comp.mechanism == "none_":
+        return x32.to(dtype)
     kt, ks = prng.split(key)
+    if comp.mechanism not in HOMOMORPHIC:
+        # point-to-point AINQ: encode and decode locally
+        q = _layered_q(comp, n)
+        rand = q.randomness(prng.fold_in(ks, 0), shape, device=device)
+        return q.decode(q.encode(x32, rand), rand).to(dtype)
     step, offset, geom = _leaf_params(comp, n, kt, shape, device)
     s_i = dither.dither_noise(prng.fold_in(ks, 0), shape, device=device)
     m = encode_leaf(x32, comp, step, s_i, geom)
@@ -265,24 +285,32 @@ def compress_tree(grads: PyTree, comp: CompressionConfig, key,
 def message_bits(comp: CompressionConfig, n_clients: int, *,
                  num_samples: int = 8192, device=None) -> float:
     """Per-coordinate message size (bits) one client sends per round for
-    inputs clipped to [-clip, clip]: irwin_hall's exact fixed-length size,
-    or the aggregate mechanisms' expected Elias-gamma length over a
+    inputs clipped to [-clip, clip]: the fixed-length mechanisms' exact
+    code size (irwin_hall, layered_shifted), or the variable-length ones'
+    expected Elias-gamma length (aggregate_*, layered_direct) over a
     deterministic draw of the shared randomness and uniform inputs."""
     n = max(int(n_clients), 1)
     t = 2.0 * comp.clip
+    if comp.mechanism == "none_":
+        return 32.0
     if comp.mechanism == "irwin_hall":
         return float(IrwinHallMechanism(n, comp.sigma).bits_fixed(t))
-    if comp.mechanism not in HOMOMORPHIC:
-        raise _not_ported(f"message_bits for {comp.mechanism!r}")
+    if comp.mechanism == "layered_shifted":
+        return float(_layered_q(comp, n).fixed_bits(t))
     device = resolve_device(device)
     kx, kr = prng.split(prng.PRNGKey(0))
     x = prng.uniform(kx, (num_samples,), -comp.clip, comp.clip, device=device)
-    mech = _make_mech(comp, n)
-    tshared = mech.global_randomness(prng.fold_in(kr, 0), x.shape,
-                                     device=device)
-    s = mech.client_randomness(prng.fold_in(kr, 1), x.shape, device=device)
-    m = mech.encode(x, s, tshared)
-    return float(coding.elias_gamma_bits(m).to(torch.float32).mean())
+    if comp.mechanism == "layered_direct":
+        q = _layered_q(comp, n)
+        m = q.encode(x, q.randomness(kr, x.shape, device=device))
+    else:
+        mech = _make_mech(comp, n)
+        tshared = mech.global_randomness(prng.fold_in(kr, 0), x.shape,
+                                         device=device)
+        s = mech.client_randomness(prng.fold_in(kr, 1), x.shape,
+                                   device=device)
+        m = mech.encode(x, s, tshared)
+    return coding.mean_of_total(coding.elias_gamma_total(m), m.numel())
 
 
 def wire_bits_per_coord(comp: CompressionConfig, n_clients: int,

@@ -1,10 +1,13 @@
 """Federated-learning loop at paper scale (explicit n-client rounds).
 
-Each round samples a cohort, gathers every member's update, encodes each
-through the message-level codec of ``repro_torch.runtime.protocol`` and
-decodes the integer sum to the mean update plus exact noise, then takes
-an SGD step.  Updates are flat tensors, or dicts of tensors, on the
-protocol's device.
+Each round samples a cohort, gathers every member's update, and
+aggregates the updates with the configured mechanism, then takes an SGD
+step.  Mechanisms with an integer wire format run through the
+message-level codec of ``repro_torch.runtime.protocol``: each member's
+update is encoded as soon as it exists and the server decodes the
+messages to the mean update plus exact noise.  The others ("none",
+"sigm") run the central estimator of ``repro_torch.core.mechanisms``.
+Updates are flat tensors, or dicts of tensors, on the round's device.
 """
 from __future__ import annotations
 
@@ -15,6 +18,7 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.core.mechanisms import get_mechanism
 from repro_torch.dist import compress as dcompress
 from repro_torch.runtime import protocol
 
@@ -62,15 +66,15 @@ class FederatedAveraging:
         self.client_grad = client_grad
         self.device = resolve_device(device)
         mech = protocol.canonical_mechanism(cfg.mechanism)
-        if mech not in dcompress.HOMOMORPHIC:
-            raise dcompress._not_ported(f"FL mechanism {mech!r}")
-        kw = dict(cfg.mech_kwargs)
-        self.proto = protocol.RoundProtocol(
-            mechanism=mech, sigma=cfg.sigma, clip=cfg.clip,
-            per_coord=bool(kw.get("per_coord", True)),
-            packed=bool(kw.get("packed", False)),
-            msg_bits=kw.get("msg_bits"), device=str(self.device),
-        )
+        self.proto = None
+        if mech in protocol.PROTOCOL_MECHANISMS:
+            kw = dict(cfg.mech_kwargs)
+            self.proto = protocol.RoundProtocol(
+                mechanism=mech, sigma=cfg.sigma, clip=cfg.clip,
+                per_coord=bool(kw.get("per_coord", True)),
+                packed=bool(kw.get("packed", False)),
+                msg_bits=kw.get("msg_bits"), device=str(self.device),
+            )
 
     def _cohort(self, rnd: int) -> np.ndarray:
         cfg = self.cfg
@@ -82,22 +86,10 @@ class FederatedAveraging:
         cohort = self._cohort(rnd)
         n = len(cohort)
         key = protocol.round_key(cfg.seed, rnd)
-        # each member's update is encoded as soon as it exists, so only
-        # one full-precision update is alive at a time
-        msgs, d = [], 0
-        for pos, c in enumerate(cohort):
-            leaves, _ = dcompress._flatten(self.client_grad(params, int(c),
-                                                            rnd))
-            flat = torch.cat([g.reshape(-1) for g in leaves])
-            d = flat.numel()
-            # repro-lint: disable=rng-key-reuse -- the codec derives client
-            # pos's stream via split(key)[pos] internally, so passing the
-            # same round key per cohort member is the protocol's contract
-            msgs.append(self.proto.client_message(key, n, pos, flat))
-            del leaves, flat
-        mean_update, bits = self.proto.decode(
-            key, n, torch.stack(msgs), np.ones(n, bool), d=d)
-        del msgs
+        if self.proto is None:
+            mean_update, bits = self._central(params, cohort, key, rnd)
+        else:
+            mean_update, bits = self._codec(params, cohort, key, rnd)
         leaves, rebuild = dcompress._flatten(params)
         out, off = [], 0
         for p in leaves:
@@ -105,6 +97,39 @@ class FederatedAveraging:
             out.append(p - cfg.lr * u)
             off += p.numel()
         return rebuild(out), {"cohort": n, "bits_per_coord": bits}
+
+    def _update(self, params, c: int, rnd: int) -> torch.Tensor:
+        leaves, _ = dcompress._flatten(self.client_grad(params, c, rnd))
+        return torch.cat([g.reshape(-1) for g in leaves])
+
+    def _codec(self, params, cohort, key, rnd: int):
+        """Mean update + exact noise through the integer message codec.
+        Each member's update is encoded as soon as it exists, so only one
+        full-precision update is alive at a time."""
+        n = len(cohort)
+        msgs, d = None, 0
+        for pos, c in enumerate(cohort):
+            flat = self._update(params, int(c), rnd)
+            d = flat.numel()
+            # repro-lint: disable=rng-key-reuse -- the codec derives client
+            # pos's stream via split(key)[pos] internally, so passing the
+            # same round key per cohort member is the protocol's contract
+            m = self.proto.client_message(key, n, pos, flat)
+            if msgs is None:  # the (n, payload) stack, filled in place
+                msgs = m.new_empty((n, m.numel()))
+            msgs[pos] = m
+            del flat, m
+        return self.proto.decode(key, n, msgs, np.ones(n, bool), d=d)
+
+    def _central(self, params, cohort, key, rnd: int):
+        """Mean update + noise from the central estimator ("none",
+        "sigm"), which takes every member's clipped update at once."""
+        cfg = self.cfg
+        xs = torch.stack([self._update(params, int(c), rnd) for c in cohort])
+        xs = torch.clamp(xs, -cfg.clip, cfg.clip)
+        mech = get_mechanism(cfg.mechanism, len(cohort), cfg.sigma,
+                             device=self.device, **dict(cfg.mech_kwargs))
+        return mech.run(key, xs)
 
     def run(self, params: PyTree, n_rounds: int, *,
             checkpoint_dir: Optional[str] = None,

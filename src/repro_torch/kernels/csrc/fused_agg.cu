@@ -11,6 +11,7 @@
 // G = 32 / bits fields per int32 word, words are (R, 128).
 //
 //   encode: m = clamp(floor(x / step + s + 1/2), -m_max, m_max)
+//           (scalar step: floor(fma(x, rcp, s) + 1/2), rcp = f32(1/step))
 //           word[r, c] = OR_j (m[r, j, c] + m_max) << (bits * j)
 //   decode: u_j = (word[r, c] >> (bits * j)) & mask
 //           y[r, j, c] = (u_j - s_eff[r, j, c]) * step [+ offset]
@@ -24,10 +25,13 @@
 // reuse to exploit.
 //
 // Rounding: the words must equal the plain PyTorch version bitwise, so
-// every f32 operation is an explicitly rounded intrinsic in the
-// reference's left-to-right order -- ((x / step) + s) + 0.5 and
-// ((u - s_eff) * step) + offset -- never contracted into an FMA, and the
-// file is built without --use_fast_math (and with --fmad=false).
+// every f32 operation is an explicitly rounded intrinsic in the order of
+// the reference as XLA compiles it -- ((x / step) + s) + 0.5 for an
+// array step; for a scalar step, a compile-time constant there, XLA
+// multiplies by its f32 reciprocal in one fused multiply-add,
+// fma(x, rcp, s) + 0.5 -- and ((u - s_eff) * step) + offset; nothing else
+// is contracted into an FMA, and the file is built without
+// --use_fast_math (and with --fmad=false).
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -39,7 +43,7 @@ constexpr int kThreads = 256;
 __global__ void fused_encode_kernel(const float* __restrict__ x,
                                     const float* __restrict__ s,
                                     const float* __restrict__ step_arr,
-                                    float step, long long n_words, int bits,
+                                    float rcp, long long n_words, int bits,
                                     int group, int m_max,
                                     int32_t* __restrict__ out) {
   long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
@@ -51,8 +55,10 @@ __global__ void fused_encode_kernel(const float* __restrict__ x,
   uint32_t word = 0u;
   for (int j = 0; j < group; ++j) {
     const long long i = base + (long long)j * kLanes;
-    const float st = step_arr != nullptr ? step_arr[i] : step;
-    const float q = __fadd_rn(__fadd_rn(__fdiv_rn(x[i], st), s[i]), 0.5f);
+    const float d = step_arr != nullptr
+                        ? __fadd_rn(__fdiv_rn(x[i], step_arr[i]), s[i])
+                        : __fmaf_rn(x[i], rcp, s[i]);
+    const float q = __fadd_rn(d, 0.5f);
     const float m = fminf(fmaxf(floorf(q), lo), hi);
     const uint32_t u = (uint32_t)((int32_t)m + m_max);
     word |= u << (bits * j);
@@ -94,17 +100,17 @@ unsigned int blocks_for(long long n) {
 extern "C" {
 
 // x, s, [step_arr]: (rows, group, 128) f32; out: (rows, 128) int32.
-// step_arr == nullptr selects the scalar ``step``.  Returns the launch's
-// cudaGetLastError().
+// step_arr == nullptr selects a scalar step given by its f32 reciprocal
+// ``rcp``.  Returns the launch's cudaGetLastError().
 int fused_encode_launch(const float* x, const float* s,
-                        const float* step_arr, float step, long long rows,
+                        const float* step_arr, float rcp, long long rows,
                         int bits, int group, int m_max, int32_t* out,
                         void* stream) {
   const long long n_words = rows * kLanes;
   if (n_words > 0) {
     fused_encode_kernel<<<blocks_for(n_words), kThreads, 0,
                           (cudaStream_t)stream>>>(
-        x, s, step_arr, step, n_words, bits, group, m_max, out);
+        x, s, step_arr, rcp, n_words, bits, group, m_max, out);
   }
   return (int)cudaGetLastError();
 }

@@ -5,6 +5,8 @@ They replace the Pallas TPU kernels of the JAX package's
 ``kernels/fused_agg.py``:
 
     m      = clamp(floor(x / step + s + 1/2), -m_max, m_max)
+             (a scalar step: floor(fma(x, f32(1/step), s) + 1/2), as XLA
+             compiles the reference's division by a constant)
     word_c = sum_j (m[j, c] + m_max) << (bits * j)     G = 32//bits
 
     u_j = (word_sum >> (bits * j)) & mask              (unsigned)
@@ -24,6 +26,7 @@ from typing import Optional, Union
 
 import torch
 
+from repro_torch.core.f32 import rcp
 from repro_torch.kernels import build
 
 LANES = 128
@@ -92,6 +95,8 @@ def fused_encode(x: torch.Tensor, s: torch.Tensor,
     for name, t in (("x", x), ("s", s)):
         _check(name, t, torch.float32, shape, x.device)
     step_ptr, step_val = _step_args(step, shape, x.device)
+    if step_ptr is None:
+        step_val = rcp(step_val)
     out = torch.empty((R, LANES), dtype=torch.int32, device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream

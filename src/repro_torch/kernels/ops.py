@@ -1,10 +1,16 @@
-"""Public wrappers of the fused codec: shape padding and layout, so
-callers pass natural shapes.
+"""Public wrappers of the kernels: shape padding and layout, so callers
+pass natural shapes.
+
+  * ``fused_pack_encode`` / ``fused_unpack_decode``: the homomorphic
+    biased-field codec (``fused_agg``);
+  * ``dither_pack_encode`` / ``dither_unpack_decode``: the signed
+    quantize-and-pack codec (``dither_pack``);
+  * ``layered_encode`` / ``layered_decode``: the Gaussian shifted layered
+    quantizer (``layered_encode``).
 
 Dispatch follows the tensors' device: a CPU tensor runs the plain
-PyTorch version (``ref``), a CUDA tensor the hand-written kernel
-(``fused_agg``), which raises if it cannot launch.  There is no
-fallback between the two.
+PyTorch version (``ref``), a CUDA tensor the hand-written kernel, which
+raises if it cannot launch.  There is no fallback between the two.
 """
 from __future__ import annotations
 
@@ -12,7 +18,9 @@ import math
 
 import torch
 
+from repro_torch.kernels import dither_pack as dp
 from repro_torch.kernels import fused_agg as fg
+from repro_torch.kernels import layered_encode as le
 from repro_torch.kernels import ref
 
 LANES = 128
@@ -36,7 +44,7 @@ def _on_cuda(t: torch.Tensor) -> bool:
         return True
     if t.device.type == "cpu":
         return False
-    raise ValueError(f"no fused codec for device {t.device}")
+    raise ValueError(f"no kernel for device {t.device}")
 
 
 def _is_scalar(step) -> bool:
@@ -93,3 +101,81 @@ def fused_unpack_decode(word: torch.Tensor, s_eff: torch.Tensor, step_dec,
     else:
         y = ref.fused_decode_ref(word, se, tr, off, bits)
     return y.reshape(-1)[: math.prod(shape)].reshape(shape)
+
+
+# ------------------------------------------- signed dither quantize+pack
+def _signed_group(bits: int) -> int:
+    if bits not in (4, 8, 16):
+        raise ValueError(
+            f"signed packing takes bits in (4, 8, 16), got {bits}")
+    return 32 // bits
+
+
+def dither_pack_encode(x: torch.Tensor, s: torch.Tensor, w: float,
+                       bits: int = 8):
+    """Quantize + pack a tensor of any shape -> (int32 words (R, 128),
+    numel): m = clip(floor(x / w + s + 1/2)) to the signed ``bits`` range,
+    G = 32 // bits fields per word.  ``s`` matches x's shape."""
+    g = _signed_group(bits)
+    if tuple(s.shape) != tuple(x.shape):
+        raise ValueError(f"dither shape {tuple(s.shape)} != {tuple(x.shape)}")
+    xr, sr = _pad_rows(x, g), _pad_rows(s, g)
+    if _on_cuda(x):
+        return dp.dither_pack(xr, sr, float(w), bits), x.numel()
+    return ref.dither_pack_ref(xr, sr, float(w), bits), x.numel()
+
+
+def dither_unpack_decode(word: torch.Tensor, s: torch.Tensor, w: float,
+                         bits: int, shape) -> torch.Tensor:
+    """Unpack + decode (m - s) * w back to ``shape``."""
+    g = _signed_group(bits)
+    shape = tuple(shape)
+    sr = _pad_rows(s, g)
+    if word.dim() != 2 or word.shape != (sr.shape[0], LANES):
+        raise ValueError(f"words {tuple(word.shape)} do not match "
+                         f"{sr.shape[0]} rows of {LANES}")
+    if _on_cuda(word):
+        y = dp.unpack_decode(word, sr, float(w), bits)
+    else:
+        y = ref.unpack_decode_ref(word, sr, float(w), bits)
+    return y.reshape(-1)[: math.prod(shape)].reshape(shape)
+
+
+# ------------------------------------------------- shifted layered codec
+def _rows(t: torch.Tensor) -> torch.Tensor:
+    """Flatten to (R, 128) rows, zero-padded (a view when no padding)."""
+    return _pad_rows(t, 1).reshape(-1, LANES)
+
+
+def layered_encode(x: torch.Tensor, u: torch.Tensor, layer: torch.Tensor,
+                   sigma: float) -> torch.Tensor:
+    """Gaussian shifted layered encode of any shape -> int32 messages of
+    x's shape: m = floor(x / step + (u - 1/2) + 1/2), step = b+(W) +
+    b+(peak - W) for N(0, sigma^2).  Padded lanes hold x = 0 and
+    W = 0 (step = the largest, no division by zero)."""
+    for name, t in (("u", u), ("layer", layer)):
+        if tuple(t.shape) != tuple(x.shape):
+            raise ValueError(f"{name} shape {tuple(t.shape)} != "
+                             f"{tuple(x.shape)}")
+    xr, ur, lr = _rows(x), _rows(u), _rows(layer)
+    if _on_cuda(x):
+        m = le.layered_encode(xr, ur, lr, float(sigma))
+    else:
+        m = ref.layered_encode_ref(xr, ur, lr, float(sigma))
+    return m.reshape(-1)[: x.numel()].reshape(x.shape)
+
+
+def layered_decode(m: torch.Tensor, u: torch.Tensor, layer: torch.Tensor,
+                   sigma: float) -> torch.Tensor:
+    """Gaussian shifted layered decode: y = (m - (u - 1/2)) * step +
+    offset, one rounding for the multiply-add; f32 of m's shape."""
+    for name, t in (("u", u), ("layer", layer)):
+        if tuple(t.shape) != tuple(m.shape):
+            raise ValueError(f"{name} shape {tuple(t.shape)} != "
+                             f"{tuple(m.shape)}")
+    mr, ur, lr = _rows(m.to(torch.int32)), _rows(u), _rows(layer)
+    if _on_cuda(m):
+        y = le.layered_decode(mr, ur, lr, float(sigma))
+    else:
+        y = ref.layered_decode_ref(mr, ur, lr, float(sigma))
+    return y.reshape(-1)[: m.numel()].reshape(m.shape)

@@ -2,13 +2,16 @@
 JAX package's oracles: the CPU path of ``ops`` and the yardstick the
 kernels are held to on the card.
 
-Scalar steps divide through ``true_div``, correctly rounded on every
-device, as the kernels divide."""
+A tensor step divides exactly (``true_div``); a python scalar step is
+a compile-time constant in the reference, which XLA divides by as
+``fma(x, f32(1/step), s)`` (``rcp_fma_div``), and so do the kernels."""
 from __future__ import annotations
 
+import numpy as np
 import torch
 
-from repro_torch.core.f32 import true_div
+from repro_torch.core.distributions import Gaussian
+from repro_torch.core.f32 import fma, rcp_fma_div, true_div
 
 
 def fused_encode_ref(x, s, step, bits: int, m_max: int) -> torch.Tensor:
@@ -16,8 +19,9 @@ def fused_encode_ref(x, s, step, bits: int, m_max: int) -> torch.Tensor:
     tensor ``step``) are (..., G, C) with G = 32 // bits; returns packed
     int32 words (..., C)."""
     g = max(32 // bits, 1)
-    m = torch.clamp(torch.floor(true_div(x, step) + s + 0.5),
-                    -m_max, m_max)
+    q = (true_div(x, step) + s if isinstance(step, torch.Tensor)
+         else rcp_fma_div(x, step, s))
+    m = torch.clamp(torch.floor(q + 0.5), -m_max, m_max)
     u = m.to(torch.int32) + m_max
     word = torch.zeros(u.shape[:-2] + u.shape[-1:], dtype=torch.int32,
                        device=u.device)
@@ -41,3 +45,62 @@ def fused_decode_ref(word, s_eff, step, offset, bits: int) -> torch.Tensor:
     u = unpack_biased_ref(word, bits).to(torch.float32)
     y = (u - s_eff) * step
     return y if offset is None else y + offset
+
+
+# ------------------------------------------------- shifted layered codec
+def layered_encode_ref(x, u, layer, sigma: float) -> torch.Tensor:
+    """Shifted layered encode for a Gaussian target, in the order the JAX
+    package's core path compiles to (``core/layered.py`` with
+    ``Gaussian.step_shifted``): step = fma(r(W), s, r(peak - W) * s) with
+    r(v) = sqrt(max(-2 log(clip(v s sqrt(2 pi), 1e-37, 1)), 0)), then
+    m = floor(x / step + (u - 1/2) + 1/2)."""
+    step = Gaussian(sigma).step_shifted(layer)
+    return torch.floor(true_div(x, step) + (u - 0.5) + 0.5).to(torch.int32)
+
+
+def layered_decode_ref(m, u, layer, sigma: float) -> torch.Tensor:
+    """y = fma(m - (u - 1/2), b+(W) + b+(peak - W),
+    (b+(W) - b+(peak - W)) / 2)."""
+    step, offset = Gaussian(sigma).step_offset_shifted(layer)
+    return fma(m.to(torch.float32) - (u - 0.5), step, offset)
+
+
+# ------------------------------------------- signed dither quantize+pack
+def dither_encode_ref(x, s, w: float, bits: int) -> torch.Tensor:
+    """m = floor(x * f32(1/w) + s + 1/2) clamped to the signed ``bits``
+    range, int32.  The reference multiplies by ``1.0 / w`` (a python
+    float, so f32(1/w) rounded from f64); XLA contracts it with ``+ s``."""
+    lo, hi = -(1 << (bits - 1)), (1 << (bits - 1)) - 1
+    m = torch.floor(fma(x, float(np.float32(1.0 / w)), s) + 0.5)
+    return torch.clamp(m, lo, hi).to(torch.int32)
+
+
+def pack_ref(m, bits: int) -> torch.Tensor:
+    """Pack groups of (32 // bits) signed ints into int32 words over the
+    second-to-last axis: m (..., G, C) -> (..., C)."""
+    g = 32 // bits
+    if m.shape[-2] != g:
+        raise ValueError(f"pack axis has {m.shape[-2]} fields, need {g}")
+    mask = (1 << bits) - 1
+    word = torch.zeros(m.shape[:-2] + m.shape[-1:], dtype=torch.int32,
+                       device=m.device)
+    for j in range(g):
+        word |= (m[..., j, :] & mask) << (bits * j)
+    return word
+
+
+def unpack_ref(word, bits: int) -> torch.Tensor:
+    """Inverse of pack_ref with sign extension: (..., C) -> (..., G, C)."""
+    g = 32 // bits
+    return torch.stack([(word << (32 - bits * (j + 1))) >> (32 - bits)
+                        for j in range(g)], dim=-2)
+
+
+def dither_pack_ref(x, s, w: float, bits: int) -> torch.Tensor:
+    """x, s (..., G, C) -> packed int32 (..., C)."""
+    return pack_ref(dither_encode_ref(x, s, w, bits), bits)
+
+
+def unpack_decode_ref(word, s, w: float, bits: int) -> torch.Tensor:
+    """Packed words + dither -> dequantized values (m - s) * w."""
+    return (unpack_ref(word, bits).to(torch.float32) - s) * w

@@ -12,7 +12,10 @@ uploads are its integer message:
 
 The server decodes the *sum* of whatever subset of the announced cohort
 reported (straggler renormalization: divide by the realized count r, not
-the announced n).  Keys and arithmetic follow the JAX package's
+the announced n).  The individual (layered) mechanisms are not
+homomorphic: the server decodes each reported client's message with its
+shared randomness, one client at a time, and averages the decoded values
+over the realized count.  Keys and arithmetic follow the JAX package's
 protocol, so the same ``(seed, rnd)`` gives the same payloads.
 
 ``ROUND_TIMES`` splits a round's wall time by phase when ``timing(True)``
@@ -23,6 +26,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import math
 import time
 from typing import Dict, Optional, Tuple
 
@@ -32,7 +36,10 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.core import coding, dither, prng
 from repro_torch.core.aggregate import AggregateGaussianMechanism
+from repro_torch.core.distributions import Gaussian
+from repro_torch.core.f32 import true_div
 from repro_torch.core.irwin_hall import IrwinHallMechanism
+from repro_torch.core.layered import LayeredQuantizer
 from repro_torch.dist import compress as dcompress
 
 __all__ = [
@@ -60,7 +67,8 @@ _ALIASES = {
     "none_": "none",
 }
 
-# seconds per phase ("ab_draw", "dither", "encode", "sum", "decode")
+# seconds per phase ("ab_draw", "dither", "encode", "sum", "decode",
+# "bits": the Elias-gamma count of unpacked messages)
 ROUND_TIMES: Dict[str, float] = {}
 _TIMING = [False]
 
@@ -128,8 +136,7 @@ class RoundProtocol:
     """Per-deployment codec parameters (the cohort size varies per round
     and is passed per call).
 
-    mechanism: aggregate_gaussian | aggregate_laplace | irwin_hall
-               (aliases accepted; individual_* wait for core/layered.py).
+    mechanism: one of PROTOCOL_MECHANISMS (aliases accepted).
     sigma:     std of the *aggregated* error for the full cohort.
     clip:      per-coordinate clip before encoding.
     per_coord: one shared (A, B) per coordinate vs per tensor.
@@ -157,13 +164,15 @@ class RoundProtocol:
                 f"mechanism {self.mechanism!r} has no integer wire format; "
                 f"protocol mechanisms: {PROTOCOL_MECHANISMS}"
             )
-        if self.mechanism not in dcompress.HOMOMORPHIC:
-            raise dcompress._not_ported(f"mechanism {self.mechanism!r}")
         if not self.sigma > 0.0:
             raise ValueError(f"sigma must be > 0, got {self.sigma}")
         if self.msg_dtype not in dcompress._MSG_DTYPES:
             raise KeyError(f"msg_dtype {self.msg_dtype!r} not in "
                            f"{dcompress._MSG_DTYPES}")
+        if self.packed and self.mechanism not in dcompress.HOMOMORPHIC:
+            raise ValueError(
+                f"packed uplink needs an integer-homomorphic mechanism "
+                f"({dcompress.HOMOMORPHIC}), got {self.mechanism!r}")
         object.__setattr__(self, "device", str(resolve_device(self.device)))
 
     @property
@@ -209,6 +218,12 @@ class RoundProtocol:
             _SHARED[tag] = hit
         return hit
 
+    def _layered_q(self, n: int) -> LayeredQuantizer:
+        """Per-client noise N(0, n sigma^2) averages to N(0, sigma^2)."""
+        return LayeredQuantizer(
+            Gaussian(self.sigma * math.sqrt(n)),
+            shifted=self.mechanism == "individual_shifted")
+
     def _agg_mech(self, n: int) -> AggregateGaussianMechanism:
         family = ("laplace" if self.mechanism == "aggregate_laplace"
                   else "gaussian")
@@ -226,6 +241,13 @@ class RoundProtocol:
         d = x.numel()
         kt, ks = prng.split(key)
         ck = prng.split(ks, n)[pos]
+        if self.mechanism not in dcompress.HOMOMORPHIC:
+            q = self._layered_q(n)
+            with _phase("dither", self._dev):
+                rand = q.randomness(ck, (d,), device=self._dev)
+            with _phase("encode", self._dev):
+                m = q.encode(x, rand)
+                return m.to(dcompress._MSG_DTYPES[self.msg_dtype])
         step, _, geom = self._shared(kt, n, d)
         with _phase("dither", self._dev):
             s_i = dither.dither_noise(ck, (d,), device=self._dev)
@@ -261,6 +283,8 @@ class RoundProtocol:
         msgs = torch.as_tensor(msgs).to(dev)
         kt, ks = prng.split(key)
         cks = prng.split(ks, n)
+        if self.mechanism not in dcompress.HOMOMORPHIC:
+            return self._decode_individual(cks, n, msgs, mask, r, d)
         step, offset, geom = self._shared(kt, n, d)
         _SHARED.clear()  # the round's draw dies with this decode
 
@@ -286,11 +310,39 @@ class RoundProtocol:
                     m_sum.reshape(-1, 128), self._comp(), r, r, step,
                     offset, s_sum, geom, (d,))
                 return y, float(np.float32(32.0 * msgs.shape[-1] / d))
-            bits = coding.elias_gamma_bits(msgs).to(torch.float32)
-            bits_pc = float((bits * live[:, None]).sum()
-                            / float(r * np.float32(d)))
+            bits_pc = self._bits_per_coord(msgs, mask, r, d)
             # announced-n step, realized-r divisor (r == n recovers the
             # exact-error decode)
             y = (m_sum.to(torch.float32) - s_sum) * \
                 dcompress._step_dec(step, r)
             return (y if offset is None else y + offset), bits_pc
+
+    def _bits_per_coord(self, msgs, mask, r, d: int) -> float:
+        """Measured Elias-gamma bits per coordinate of the reported
+        messages: the reference's sum / (r * d), with the sum exact."""
+        with _phase("bits", self._dev):
+            total = sum(coding.elias_gamma_total(msgs[j])
+                        for j in range(msgs.shape[0]) if mask[j])
+        return float(np.float32(total) / (r * np.float32(d)))
+
+    def _decode_individual(self, cks, n: int, msgs, mask, r,
+                           d: int) -> Tuple[torch.Tensor, float]:
+        """Decode each reported client's message with its (U, layer) and
+        average over the realized count, one client at a time: the
+        reference's vmap over the cohort holds n (U, layer) pairs, 2 n d
+        floats, where this holds one."""
+        dev = self._dev
+        q = self._layered_q(n)
+        msgs = msgs.to(torch.int32)  # as the reference, before any sum
+        y = torch.zeros(d, dtype=torch.float32, device=dev)
+        for j in range(n):
+            if not mask[j]:
+                continue  # the reference adds its decode times 0
+            with _phase("dither", dev):
+                rand = q.randomness(cks[j], (d,), device=dev)
+            with _phase("decode", dev):
+                y += q.decode(msgs[j], rand)
+            del rand
+        with _phase("decode", dev):
+            y = true_div(y, float(r))
+        return y, self._bits_per_coord(msgs, mask, r, d)

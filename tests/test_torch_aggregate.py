@@ -3,12 +3,18 @@ package's, on the CPU.
 
 Tables are host numpy built by the same code: equal exactly.  The
 per-coordinate draw runs each coordinate's rejection loop with the
-reference's keys and branch tests, so every coordinate takes the same
-branch; the values differ only where exp / erfinv / log1p differ in the
-last bit between XLA and PyTorch, amplified by the psi^-1 interpolation.
-Measured at d = 4096 over seeds 0-3 and n in {4, 6}: A and B within
-6.4e-6 relative (<= 89 ulp); bit-exact shares of A / B >= 98.9% / 98.2%
-for gaussian and >= 97.3% / 94.2% for laplace; no branch differs."""
+reference's keys, branch tests and arithmetic as XLA compiles it
+(``core/f32``: its exp, erfinv and log1p, reciprocal multiplies and fused
+multiply-adds).  The reference's own bits depend on the jit context: in
+the round codec (``runtime/protocol._encode_jit``) XLA leaves v * f0 in
+DECOMPOSEUNIF's interpolation uncontracted, in a standalone
+``jax.jit(global_randomness)`` it contracts it.  The port follows the
+codec: its (A, B) give the codec's unpacked payload words bit for bit,
+where messages of ~1e6 expose every ulp of A (test below), and agree
+with the standalone draw on every branch and within 1e-5 relative
+(measured at d = 4096, seeds 0-1, n in {4, 6}: within 6.4e-6 relative;
+exact shares of A / B >= 99.1% / 98.5% for gaussian, >= 97.9% / 95.3%
+for laplace)."""
 import jax
 import numpy as np
 import pytest
@@ -16,13 +22,12 @@ import torch
 
 from repro.core import aggregate as jagg
 from repro.core import decompose as jdec
+from repro.runtime import protocol as jproto
+from repro_torch import convert
 from repro_torch.core import aggregate as tagg
 from repro_torch.core import decompose as tdec
 from repro_torch.core import prng
-
-# relative error bound on A and B (stated above) and the exact share
-REL_TOL = 1e-5
-MIN_EXACT = {"gaussian": (0.97, 0.97), "laplace": (0.96, 0.93)}
+from repro_torch.runtime import protocol as tproto
 
 TABLE_FIELDS = ("norm_xs", "norm_fs", "inv_y", "inv_x", "psi_xs",
                 "psi_inv_y", "psi_inv_x")
@@ -52,6 +57,12 @@ def test_interp_matches_jnp(right):
     assert np.array_equal(ref, got)
 
 
+# relative error bound on A and B against the standalone jitted draw,
+# and the exact shares of A and B (stated above)
+REL_TOL = 1e-5
+MIN_EXACT = {"gaussian": (0.97, 0.97), "laplace": (0.96, 0.93)}
+
+
 def _rel(a, b):
     return np.abs(a - b) / np.maximum(np.abs(a), 1e-30)
 
@@ -65,7 +76,8 @@ def test_global_randomness_per_coord(family, n, seed):
     tm = tagg.AggregateGaussianMechanism(n, sigma, True, family)
     # a clamp that binds on a few percent of coordinates
     a_min = 0.05
-    jt = jm.global_randomness(jax.random.PRNGKey(seed), (d,), a_min=a_min)
+    jt = jax.jit(lambda k: jm.global_randomness(k, (d,), a_min=a_min))(
+        jax.random.PRNGKey(seed))
     tt = tm.global_randomness(prng.PRNGKey(seed), (d,), a_min=a_min,
                               device="cpu")
     A, B = np.asarray(jt.A), np.asarray(jt.B)
@@ -76,17 +88,37 @@ def test_global_randomness_per_coord(family, n, seed):
     assert int(branch.sum()) == 0
     assert np.array_equal(A == a_min, tA == a_min)
     assert 0 < (A == a_min).mean() < 0.5
-    assert _rel(A, tA).max() <= REL_TOL
-    assert _rel(B, tB).max() <= REL_TOL
+    assert _rel(A, tA).max() <= REL_TOL and _rel(B, tB).max() <= REL_TOL
     ea, eb = MIN_EXACT[family]
     assert (A == tA).mean() >= ea and (B == tB).mean() >= eb
+
+
+@pytest.mark.parametrize("family", ["gaussian", "laplace"])
+@pytest.mark.parametrize("n", [4, 6])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_shared_draw_bitwise_in_the_codec(family, n, seed):
+    """The draw as the round codec compiles it: the unpacked payload
+    words floor(x / (A w) + s + 1/2), with A clamped only at the int32
+    bound, are ~1e6 and move with any ulp of A; they are equal."""
+    d, sigma = 4096, 1e-3
+    jp = jproto.RoundProtocol(mechanism=f"aggregate_{family}", sigma=sigma)
+    tp = tproto.RoundProtocol(mechanism=f"aggregate_{family}", sigma=sigma,
+                              device="cpu")
+    key = jproto.round_key(seed, 3)
+    x = np.random.default_rng(seed).uniform(-1, 1, d).astype(np.float32)
+    ref = jp.client_message(key, n, 1, x)
+    got = tp.client_message(convert.key_from_numpy(np.asarray(key)), n, 1,
+                            torch.from_numpy(x)).numpy()
+    assert np.abs(ref).max() > 1e5
+    assert np.array_equal(ref, got)
 
 
 @pytest.mark.parametrize("family", ["gaussian", "laplace"])
 def test_global_randomness_per_tensor(family):
     jm = jagg.AggregateGaussianMechanism(4, 0.1, False, family)
     tm = tagg.AggregateGaussianMechanism(4, 0.1, False, family)
-    jt = jm.global_randomness(jax.random.PRNGKey(3), (5, 7))
+    jt = jax.jit(lambda k: jm.global_randomness(k, (5, 7)))(
+        jax.random.PRNGKey(3))
     tt = tm.global_randomness(prng.PRNGKey(3), (5, 7), device="cpu")
     assert tuple(tt.A.shape) == (5, 7)
     assert bool((tt.A == tt.A[0, 0]).all())

@@ -5,8 +5,8 @@ by chip_smoke.py.
 
 Inputs are made with numpy from a seed and handed to both packages.
 Packed words must be bitwise equal to the reference's Pallas kernel
-(interpret mode) and to its XLA oracle; a field that lands one step away
-at an exact floor tie would be counted and reported, never absorbed."""
+(interpret mode) and to its XLA oracle, for scalar and per-coordinate
+steps alike."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -31,61 +31,25 @@ def _inputs(bits, m_max, percoord, shape=(1000, 37)):
     return x, s, step
 
 
-def _fields(words, bits):
-    w = np.asarray(words).astype(np.int64) & 0xFFFFFFFF
-    g = max(32 // bits, 1)
-    return np.stack([(w >> (bits * j)) & ((1 << bits) - 1) for j in range(g)])
-
-
 def _t(a):
     return a if isinstance(a, float) else torch.from_numpy(np.asarray(a))
-
-
-def _tie_lanes(x, s, step, bits, m_max):
-    """Fields where the true quotient, x / step + s, and XLA's compiled
-    form of a division by a constant, fma(x, 1 / step, s), floor to
-    different messages, in the (G, R, 128) layout of the packed words."""
-    step32 = np.float32(step)
-    q_div = np.floor(x / step32 + s + np.float32(0.5))
-    rcp = np.float64(np.float32(1.0) / step32)
-    q_rcp = np.floor((x.astype(np.float64) * rcp + s).astype(np.float32)
-                     + np.float32(0.5))
-    tie = np.clip(q_div, -m_max, m_max) != np.clip(q_rcp, -m_max, m_max)
-    g = max(32 // bits, 1)
-    rows = ops._pad_rows(torch.from_numpy(tie.astype(np.float32)), g)
-    return rows.numpy().transpose(1, 0, 2) != 0
 
 
 @pytest.mark.parametrize("bits,m_max", SWEEP)
 @pytest.mark.parametrize("percoord", [False, True])
 @pytest.mark.parametrize("impl", ["xla", "pallas"])
-def test_encode_words_bitwise(bits, m_max, percoord, impl, record_property):
-    """Per-coordinate steps: words bitwise equal.  A scalar step is a
-    compile-time constant in the reference, and XLA on the CPU compiles
-    x / step + s as fma(x, 1 / step, s), which is not the correctly
-    rounded quotient; the port
-    (and its CUDA kernel) divide exactly.  The two then differ by one
-    step exactly where the two quotients straddle a floor boundary: those
-    fields are counted, reported and each one checked to be such a tie."""
+def test_encode_words_bitwise(bits, m_max, percoord, impl):
+    """Words bitwise equal.  A scalar step is a compile-time constant in
+    the reference, which XLA divides by as fma(x, f32(1 / step), s): the
+    port (and its CUDA kernel) compute just that; a per-coordinate step
+    divides exactly on both sides."""
     x, s, step = _inputs(bits, m_max, percoord)
     w_ref = np.asarray(jops.fused_pack_encode(
         jnp.asarray(x), jnp.asarray(s),
         jnp.asarray(step) if percoord else step, bits, m_max, impl=impl))
     w = ops.fused_pack_encode(_t(x), _t(s), _t(step), bits, m_max)
     assert w.dtype == torch.int32 and tuple(w.shape) == w_ref.shape
-    f_ref, f = _fields(w_ref, bits), _fields(w.numpy(), bits)
-    diff = np.abs(f - f_ref)
-    ties = int((diff == 1).sum())
-    record_property("floor_ties", ties)
-    assert int((diff > 1).sum()) == 0
-    if percoord:
-        assert ties == 0, f"{ties} fields one step away"
-        assert np.array_equal(w.numpy(), w_ref)
-        return
-    tie_lanes = _tie_lanes(x, s, step, bits, m_max)
-    assert np.array_equal(diff == 1, tie_lanes), (
-        f"{ties} fields differ, not all at reciprocal floor ties")
-    assert ties <= 5e-3 * x.size, f"{ties} floor ties of {x.size} fields"
+    assert np.array_equal(w.numpy(), w_ref)
 
 
 @pytest.mark.parametrize("bits,m_max", SWEEP)
