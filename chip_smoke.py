@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's main path on one CUDA card and check it.
+"""Drive the PyTorch port's paths on one CUDA card and check them.
 
 The main path is one compressed FL round (``repro_torch.fl.federated``
 over a ``RoundProtocol``) at the full width of the smallest model in the
@@ -8,7 +8,10 @@ clip 1.0, through three mechanisms: aggregate_gaussian and irwin_hall on
 the packed wire (b = 8-bit fields, the fused_agg kernels) and
 individual_shifted on the unpacked wire (the layered kernels); the
 signed dither_pack kernels run on their own entry point,
-``ops.dither_pack_encode`` / ``ops.dither_unpack_decode``.  Phases, each
+``ops.dither_pack_encode`` / ``ops.dither_unpack_decode``.  The serve
+path runs qwen1.5-0.5b itself, uncut, with seeded random weights:
+``launch.serve.drive`` over a ``ServeEngine``, whose prefill attention
+goes through the flash_attention kernel in every layer.  Phases, each
 fatal on failure:
 
   1. build every CUDA source of the port with nvcc (sm_90a), one nvcc
@@ -18,7 +21,10 @@ fatal on failure:
      {8, 4, 16, 24}, scalar and array step, with and without offset;
      layered messages bitwise and decode within 1e-6 at sigma_client 0.5
      and 0.01; dither_pack words bitwise and decode equal for b in
-     {4, 8, 16}, w = 0.05; and each on one ragged size;
+     {4, 8, 16}, w = 0.05; and each on one ragged size; flash_attention
+     within 2e-5 (f32) or one bf16 ulp + 2e-5 (bf16) of its plain
+     version at the serve path's shapes and at GQA, non-causal and ragged
+     ones;
   3. run each path with its kernels' launch counts set to 0 just before
      and read just after: FederatedAveraging for aggregate_gaussian
      (per-coordinate, sigma 0.25) and irwin_hall (sigma 5e-3), 2 packed
@@ -28,10 +34,16 @@ fatal on failure:
      dither_pack entry point at full width; check the counts, the wire
      width or Elias-gamma bits, and the error law (KS against
      N(0, sigma^2) on a 2^20-coordinate subsample; IH support and std;
-     the dither error inside [-w/2, w/2]);
-  4. time each kernel (CUDA events, median of 10) beside its byte bound
-     and its plain version, measure the card's device-to-device copy
-     rate, and split each round's wall time by phase.
+     the dither error inside [-w/2, w/2]); then the serve path: 16
+     requests (prompts of 256-2048 tokens, 64 or 8 generated) through 8
+     slots in bf16, with exactly 24 flash launches per prefill, and in
+     f32 the engine's tokens against the naive loop's and a
+     teacher-forced full forward;
+  4. time each kernel (CUDA events, median of 10) beside its bound and
+     its plain version (flash_attention also beside
+     ``scaled_dot_product_attention``, timed here only), measure the
+     card's device-to-device copy rate, and split each round's wall time
+     by phase.
 
 Prints the card's name and power limit, a ``kernels`` JSON line, and as
 its last line ``{"ok": true, "device": {...}}``; the full report goes to
@@ -41,6 +53,7 @@ result line otherwise.  Run from the repository root:
 """
 from __future__ import annotations
 
+import copy
 import json
 import math
 import subprocess
@@ -76,6 +89,8 @@ KERNELS = {  # name: (source, replaced TPU kernel)
                        "src/repro/kernels/layered_encode.py:67"),
     "layered_decode": ("layered.cu",
                        "src/repro/kernels/layered_encode.py:72"),
+    "flash_attention": ("flash_attention.cu",
+                        "src/repro/kernels/flash_attention.py:77"),
 }
 # device-memory rate (bytes/s) and f32 rate outside the tensor cores
 # (flop/s) by card name, from NVIDIA's data sheets
@@ -96,6 +111,19 @@ def check(cond: bool, msg: str) -> None:
 
 def log(*args) -> None:
     print(*args, flush=True)
+
+
+# dense bf16 tensor-core rate (flop/s) by card name, NVIDIA's data sheets
+_BF16_RATES = (("H100 PCIe", 756e12), ("H100 NVL", 835e12),
+               ("H200", 989e12), ("H100", 989e12))
+
+
+def bf16_rate(name: str) -> float:
+    for tag, flops in _BF16_RATES:
+        if tag in name:
+            return flops
+    raise RuntimeError(f"no bf16 rate known for card {name!r}: add it to "
+                       f"_BF16_RATES")
 
 
 def card_rates(name: str) -> tuple:
@@ -339,23 +367,97 @@ def compare_dither_pack(device, gen) -> dict:
     return worst
 
 
+# flash attention cases: (B, T, S, H, HK, D, causal); the serve path's
+# prefill shapes first (qwen1.5-0.5b: 16 heads of 64), then GQA at
+# D = 128, non-causal with S != T, and a ragged causal size
+FLASH_CASES = (
+    (1, 2048, 2048, 16, 16, 64, True),
+    (1, 8192, 8192, 16, 16, 64, True),
+    (2, 1024, 1024, 16, 2, 128, True),
+    (2, 64, 192, 4, 4, 16, False),
+    (1, 1000, 1000, 4, 4, 32, True),
+)
+FLASH_ATOL = 2e-5  # the reference's own bar (tests/test_kernels.py)
+
+
+def bf16_ulp(x):
+    """The spacing of bf16 values at |x| (2^(e - 8) for |x| = m 2^e,
+    m in [0.5, 1))."""
+    import torch
+
+    _, e = torch.frexp(x.float())
+    return torch.ldexp(torch.ones_like(x, dtype=torch.float32), e - 8)
+
+
+def flash_inputs(case, dtype, gen, device):
+    import torch
+
+    B, T, S, H, HK, D, _ = case
+    return tuple(torch.randn(shape, generator=gen, device=device).to(dtype)
+                 for shape in ((B, T, H, D), (B, S, HK, D), (B, S, HK, D)))
+
+
+def compare_flash(device, gen) -> dict:
+    """The flash kernel against its plain version at each FLASH_CASES
+    shape: f32 within FLASH_ATOL, bf16 within one bf16 ulp of the plain
+    result plus FLASH_ATOL (the serve path's (1, 8192) shape in bf16
+    only)."""
+    import torch
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+
+    worst, cases = 0.0, []
+    for case in FLASH_CASES:
+        causal = case[6]
+        for dtype in (torch.bfloat16, torch.float32):
+            if case[1] == 8192 and dtype == torch.float32:
+                continue
+            q, k, v = flash_inputs(case, dtype, gen, device)
+            got = fa.flash_attention(q, k, v, causal)
+            want = ref.flash_attention_ref(q, k, v, causal)
+            torch.cuda.synchronize()
+            check(got.dtype == dtype and got.shape == q.shape,
+                  f"flash {case} {dtype}: {got.dtype} {tuple(got.shape)}")
+            check(bool(torch.isfinite(got).all()), f"flash {case}: non-finite")
+            diff = (got.float() - want.float()).abs()
+            bar = (FLASH_ATOL if dtype == torch.float32
+                   else bf16_ulp(want) + FLASH_ATOL)
+            over = int((diff > bar).sum())
+            err = float(diff.max())
+            check(over == 0, f"flash {case} {dtype}: {over} outputs over the "
+                  f"bar, max |diff| {err}")
+            worst = max(worst, err)
+            cases.append({"case": list(case), "dtype": str(dtype),
+                          "max_abs_err": err})
+            log(f"flash_attention {case} {dtype}: max |diff| {err:.3g} "
+                f"(bar {'2e-5' if dtype == torch.float32 else '1 ulp + 2e-5'})")
+            del q, k, v, got, want, diff
+    torch.cuda.empty_cache()
+    return {"flash_attention": worst, "flash_cases": cases}
+
+
 # ------------------------------------------------------------- phase 3
-def reset_launches() -> None:
+def _counters() -> tuple:
     from repro_torch.kernels import dither_pack as dp
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import fused_agg as fg
     from repro_torch.kernels import layered_encode as le
 
-    for counts in (fg.LAUNCHES, dp.LAUNCHES, le.LAUNCHES):
+    return fg.LAUNCHES, dp.LAUNCHES, le.LAUNCHES, fa.LAUNCHES
+
+
+def reset_launches() -> None:
+    for counts in _counters():
         for k in counts:
             counts[k] = 0
 
 
 def read_launches() -> dict:
-    from repro_torch.kernels import dither_pack as dp
-    from repro_torch.kernels import fused_agg as fg
-    from repro_torch.kernels import layered_encode as le
-
-    return {**fg.LAUNCHES, **dp.LAUNCHES, **le.LAUNCHES}
+    out = {}
+    for counts in _counters():
+        out.update(counts)
+    return out
 
 
 def client_targets(c: int, d: int, device):
@@ -469,6 +571,260 @@ def run_dither_pack(device, gen) -> dict:
     del x, s, words, y, err
     torch.cuda.empty_cache()
     return {"launches": launches, "max_err": emax, "std": estd}
+
+
+SERVE_ARCH = "qwen1.5-0.5b"
+SERVE_REQUESTS = 16
+SERVE_SLOTS = 8
+SERVE_PREFILL = 2048
+SERVE_GEN = 64
+MARGIN = 1e-4  # a differing greedy token is a tie below this top-2 margin
+
+
+def serve_model(device):
+    """qwen1.5-0.5b at full width: the port's specs (their element count
+    must be D_FULL) and init law from a seeded generator on the card, in
+    f32 (the config's param dtype)."""
+    from repro_torch import configs
+    from repro_torch.launch import serve as launch
+    from repro_torch.models import nn, registry
+
+    cfg = configs.get_config(SERVE_ARCH)
+    specs = registry.param_specs(cfg)
+    check(nn.spec_numel(specs) == D_FULL,
+          f"{SERVE_ARCH} specs hold {nn.spec_numel(specs)} parameters")
+    model = launch.build_model(cfg.scaled(compute_dtype="float32"), 0, device)
+    n = sum(p.numel() for p in model.parameters())
+    check(n == D_FULL, f"{SERVE_ARCH} model holds {n} parameters")
+    return cfg, model
+
+
+def serve_requests(cfg, n: int, seed: int = 1) -> list:
+    """``n`` requests with prompt lengths uniform in [256, 2048] and
+    ``max_gen`` 64, every fourth 8 (so slots free and refill mid-flight),
+    from ``numpy.random.default_rng(seed)``."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    lengths = rng.integers(256, SERVE_PREFILL + 1, size=n)
+    return [(r, rng.integers(0, cfg.vocab, size=(int(p),), dtype=np.int32),
+             8 if r % 4 == 3 else SERVE_GEN) for r, p in enumerate(lengths)]
+
+
+def run_serve(cfg, model32, device) -> dict:
+    """The serve path in the config's compute dtype (bf16): 16 requests
+    through ``launch.serve.drive`` on 8 slots, with the launch counts set
+    to 0 just before and read just after (a 2-request warm-up first)."""
+    import statistics
+
+    import torch
+
+    from repro_torch.launch import serve as launch
+    from repro_torch.models.config import torch_dtype
+    from repro_torch.serve import ServeEngine
+
+    dtype = torch_dtype(cfg.compute_dtype)
+    model = copy.deepcopy(model32).to(dtype)  # the reference casts at use
+    engine = ServeEngine(cfg, max_slots=SERVE_SLOTS,
+                         max_prefill_len=SERVE_PREFILL,
+                         max_gen_len=SERVE_GEN, device=device)
+    launch.drive(engine, model, [(r, toks[:256], 4) for r, toks, _ in
+                                 serve_requests(cfg, 2, seed=9)])
+    requests = serve_requests(cfg, SERVE_REQUESTS)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    outputs, stats = launch.drive(engine, model, requests)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    check(stats["prefills"] == SERVE_REQUESTS, f"serve: {stats['prefills']} "
+          f"prefills for {SERVE_REQUESTS} requests")
+    for k, v in launches.items():
+        want = cfg.n_layers * stats["prefills"] if k == "flash_attention" else 0
+        check(v == want, f"serve path: {v} {k} launches, expected {want}")
+    for rid, toks, max_gen in requests:
+        out = outputs[rid]
+        check(len(out) == max_gen, f"serve rid {rid}: {len(out)} tokens, "
+              f"expected {max_gen}")
+        check(all(0 <= t < cfg.vocab for t in out), f"serve rid {rid}: "
+              f"token out of range")
+    res = {
+        "launches": launches, "peak_bytes": peak,
+        "tokens_per_s": stats["tokens_per_s"],
+        "step_ms_median": statistics.median(stats["step_ms"]),
+        "prefill_s_per_1k": 1e3 * stats["prefill_s"] / stats["prompt_tokens"],
+        **{k: stats[k] for k in ("steps", "tokens_out", "wall_s",
+                                 "mean_occupancy", "prefills",
+                                 "prompt_tokens", "prefill_s")}}
+    log(f"serve {SERVE_ARCH} ({cfg.compute_dtype}): {SERVE_REQUESTS} "
+        f"requests, {stats['prompt_tokens']} prompt tokens, "
+        f"{stats['tokens_out']} tokens out in {stats['steps']} steps, "
+        f"{stats['wall_s']:.3f} s: {stats['tokens_per_s']:.1f} tokens/s, "
+        f"median decode step {res['step_ms_median']:.3f} ms, prefill "
+        f"{res['prefill_s_per_1k']:.4f} s per 1k prompt tokens, mean "
+        f"occupancy {stats['mean_occupancy']:.3f}, peak "
+        f"{peak / 2**30:.2f} GiB; launches {launches}")
+    del model, engine
+    torch.cuda.empty_cache()
+    return res
+
+
+def _kernel_ms(events, reps: int) -> list:
+    """(name, ms per rep) of the device-side rows of a profile (kernels,
+    copies, sets), largest first.  The CPU-side rows (aten ops) carry the
+    device time of the kernels they launched too and are left out, so
+    each kernel counts once."""
+    from torch.autograd import DeviceType
+
+    rows = [(e.key, float(e.device_time_total) / 1e3 / reps) for e in events
+            if e.device_type != DeviceType.CPU and e.device_time_total > 0]
+    return sorted(rows, key=lambda kv: -kv[1])
+
+
+def profile_serve(cfg, model32, device, n_prefills: int = 2,
+                  n_steps: int = 4) -> dict:
+    """Where the serve path's time goes: ``n_prefills`` prefills of 1024
+    tokens and, with all 8 slots active, ``n_steps`` decode steps, each
+    window run first without and then under ``torch.profiler`` (CPU +
+    CUDA).  For each window: the unprofiled wall ms (host clock, ended by
+    a synchronize),
+    the profiled wall ms (the profiler's own host cost included), the
+    device's busy ms (the sum of the device-side rows of the trace:
+    kernels and copies on one stream), its idle share against the
+    unprofiled wall of the same work, the flash kernel's ms and the five
+    largest kernels.  A failure here, or a trace with no device time,
+    fails the run.  After the counted run: the launches here are not the
+    path's."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models.config import torch_dtype
+    from repro_torch.serve import ServeEngine
+
+    model = copy.deepcopy(model32).to(torch_dtype(cfg.compute_dtype))
+    engine = ServeEngine(cfg, max_slots=SERVE_SLOTS,
+                         max_prefill_len=SERVE_PREFILL,
+                         max_gen_len=SERVE_GEN, device=device)
+    rng = np.random.default_rng(3)
+    prompts = rng.integers(0, cfg.vocab, size=(SERVE_SLOTS, 1024),
+                           dtype=np.int32)
+    state = engine.init_state()
+    for i in range(SERVE_SLOTS):
+        _, prefix = engine.prefill(model, prompts[i])
+        state = engine.insert(state, prefix, i)
+    state, _, _ = engine.generate_step(model, state)  # warm
+
+    def window(fn, reps: int) -> dict:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / reps
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+            wall_prof = (time.perf_counter() - t0) * 1e3 / reps
+        dev = _kernel_ms(prof.key_averages(), reps)
+        check(bool(dev), "serve profile: the trace holds no device time")
+        busy = sum(ms for _, ms in dev)
+        flash = sum(ms for k, ms in dev if "flash_attention" in k)
+        return {"wall_ms": wall, "wall_profiled_ms": wall_prof,
+                "device_ms": busy, "idle_share": 1.0 - busy / wall,
+                "flash_ms": flash, "top": dev[:5]}
+
+    out = {"prefill_1024": window(lambda: engine.prefill(model, prompts[0]),
+                                  n_prefills)}
+    holder = [state]
+
+    def step():
+        holder[0], _, _ = engine.generate_step(model, holder[0])
+
+    out["decode_step"] = window(step, n_steps)
+    for name, w in out.items():
+        log(f"serve profile {name}: wall {w['wall_ms']:.3f} ms (profiled "
+            f"{w['wall_profiled_ms']:.3f} ms), device busy "
+            f"{w['device_ms']:.3f} ms (idle share {w['idle_share']:.3f}), "
+            f"flash_attention {w['flash_ms']:.3f} ms; top "
+            + "; ".join(f"{k[:60]} {ms:.3f}" for k, ms in w["top"]))
+    del model, engine, state, holder
+    torch.cuda.empty_cache()
+    return out
+
+
+def _margins(logits):
+    top = logits.float().topk(2, dim=-1).values
+    return top[..., 0] - top[..., 1]
+
+
+def check_serve_f32(cfg, model32, device, n_prompt: int = 512,
+                    n_gen: int = 16) -> dict:
+    """In f32: the engine's tokens equal the naive loop's for 2 prompts,
+    and a teacher-forced full forward (flash kernel) re-derives the naive
+    loop's greedy tokens (plain decode attention).  A differing token is
+    allowed only where the top-2 margin of the teacher-forced logits there
+    is below MARGIN, once in all; the rest of an engine row is not
+    compared after it (its history differs)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models import registry
+    from repro_torch.serve import ServeEngine, naive_generate
+
+    cfg = cfg.scaled(compute_dtype="float32")
+    rng = np.random.default_rng(2)
+    prompts = torch.as_tensor(
+        rng.integers(0, cfg.vocab, size=(2, n_prompt), dtype=np.int32),
+        device=device)
+    naive = naive_generate(cfg, model32, {"tokens": prompts}, n_gen)
+    engine = ServeEngine(cfg, max_slots=2, max_prefill_len=n_prompt,
+                         max_gen_len=n_gen, device=device)
+    state = engine.init_state()
+    for i in range(2):
+        _, prefix = engine.prefill(model32, prompts[i])
+        state = engine.insert(state, prefix, i, max_gen=n_gen)
+    outs = [state["tokens"].clone()]
+    for _ in range(n_gen - 1):
+        state, tok, _ = engine.generate_step(model32, state)
+        outs.append(tok)
+    eng = torch.stack(outs, dim=1)
+    full = torch.cat([prompts, naive[:, :-1]], dim=1)
+    with torch.no_grad():
+        logits = registry.logits_fn(cfg, model32, {"tokens": full})
+    tail = logits[:, n_prompt - 1:]
+    check(bool(torch.isfinite(tail).all()), "f32 forward: non-finite logits")
+    forced = torch.clamp(tail.argmax(dim=-1), 0, cfg.vocab - 1)
+    margin = _margins(tail).cpu()
+    naive_h, eng_h, forced_h = (t.cpu().numpy() for t in (naive, eng, forced))
+    ties = []
+
+    def tie(what, b, t):
+        m = float(margin[b, t])
+        log(f"{what}: row {b} token {t} differs; top-2 margin {m:.3g}")
+        check(m < MARGIN, f"{what}: row {b} token {t} differs with top-2 "
+              f"margin {m} >= {MARGIN}")
+        ties.append({"check": what, "row": b, "token": t, "margin": m})
+
+    for b in range(2):
+        for t in np.flatnonzero(forced_h[b] != naive_h[b]):
+            tie("teacher-forced forward vs naive", b, int(t))
+        diff = np.flatnonzero(eng_h[b] != naive_h[b])
+        if diff.size:
+            tie("engine vs naive", b, int(diff[0]))
+    check(len(ties) <= 1, f"{len(ties)} differing tokens; at most 1 allowed")
+    log(f"serve f32 checks: engine == naive and teacher-forced forward == "
+        f"naive for 2 x {n_prompt} prompt tokens x {n_gen} generated "
+        f"({len(ties)} tie(s)); smallest top-2 margin "
+        f"{float(margin.min()):.4g}")
+    del logits, tail, engine, state
+    torch.cuda.empty_cache()
+    return {"ties": ties, "min_margin": float(margin.min()),
+            "tokens": naive_h.tolist()}
 
 
 def check_gaussian_law(mech: str, res: dict, sigma: float) -> dict:
@@ -617,6 +973,55 @@ def time_new_kernels(device, gen, rates: tuple) -> list:
     return rows
 
 
+def time_flash(device, gen, mem_rate: float, f32_rate: float,
+               bf16_tc: float) -> list:
+    """The flash kernel at the serve path's (1, T, 16, 64) bf16 causal
+    shapes, T in {2048, 8192}: CUDA events, median of 10 (plain: 3),
+    beside its bound — the larger of the bytes (q, k, v read once, out
+    written once) over the memory rate and the causal FLOPs
+    (4 B H T S D / 2) over the bf16 tensor-core rate — the same FLOPs at
+    the f32 CUDA-core rate, and ``scaled_dot_product_attention`` at the
+    same shape and dtype (the library yardstick, timed only here)."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+
+    rows = []
+    for T in (2048, 8192):
+        case = (1, T, T, 16, 16, 64, True)
+        B, _, S, H, _, D, _ = case
+        q, k, v = flash_inputs(case, torch.bfloat16, gen, device)
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        ms = cuda_ms(lambda: fa.flash_attention(q, k, v, True))
+        plain_ms = cuda_ms(lambda: ref.flash_attention_ref(q, k, v, True),
+                           reps=3)
+        lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True))
+        flops = 4 * B * H * T * S * D / 2
+        nbytes = 2 * (2 * B * T * H * D + 2 * B * S * H * D)
+        bytes_ms = nbytes / mem_rate * 1e3
+        ops_ms = flops / bf16_tc * 1e3
+        bound = max(bytes_ms, ops_ms)
+        f32_ms = flops / f32_rate * 1e3
+        by = "bytes" if bytes_ms >= ops_ms else "operations"
+        log(f"flash_attention (1, {T}, 16, 64) bf16 causal: {ms:.4f} ms, "
+            f"bound {bound:.4f} ms by {by} ({flops / 1e9:.2f} GFLOP at "
+            f"{bf16_tc / 1e12:.0f} TFLOP/s; bytes {bytes_ms:.4f} ms), "
+            f"{100 * bound / ms:.1f}% of it; at the f32 rate "
+            f"{f32_ms:.4f} ms, {100 * f32_ms / ms:.1f}% of it; plain "
+            f"{plain_ms:.4f} ms; scaled_dot_product_attention {lib_ms:.4f} ms "
+            f"({ms / lib_ms:.1f}x faster than the kernel)")
+        rows.append({"name": "flash_attention", "config": f"T = {T}",
+                     "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+                     "bound_by": by, "bytes": nbytes, "flops": flops,
+                     "f32_ms": f32_ms, "library_ms": lib_ms})
+        del q, k, v, qt, kt, vt
+    torch.cuda.empty_cache()
+    return rows
+
+
 def copy_rate(device) -> dict:
     """The card's achievable device-to-device rate: ``copy_`` of a
     4.29 GB f32 tensor, CUDA events, median of 10; bytes read + written
@@ -668,6 +1073,8 @@ def main() -> int:
     worst = compare_kernels(device, gen)
     worst.update(compare_layered(device, gen))
     worst.update(compare_dither_pack(device, gen))
+    flash = compare_flash(device, gen)
+    worst["flash_attention"] = flash["flash_attention"]
     log(f"phase 2 done at {time.perf_counter() - t_start:.1f} s")
 
     # 3. the main path: each path with its launch counts
@@ -712,6 +1119,12 @@ def main() -> int:
             f"{json.dumps({k: round(v, 4) for k, v in r['split'].items()})}"
             f" s, peak memory {r['peak_bytes'] / 2**30:.2f} GiB")
     dpath = run_dither_pack(device, gen)
+    cfg, model32 = serve_model(device)
+    serve = run_serve(cfg, model32, device)
+    serve_f32 = check_serve_f32(cfg, model32, device)
+    serve_profile = profile_serve(cfg, model32, device)
+    del model32
+    torch.cuda.empty_cache()
     log(f"phase 3 done at {time.perf_counter() - t_start:.1f} s")
 
     # 4. times
@@ -721,8 +1134,10 @@ def main() -> int:
     rates = rates + (copy["rate"],)
     rows = time_kernels(device, gen, rates) + time_new_kernels(device, gen,
                                                                rates)
+    rows += time_flash(device, gen, rates[0], rates[1], bf16_rate(name))
     launches = {k: sum(r["launches"][k] for r in res.values())
-                + dpath["launches"][k] for k in KERNELS}
+                + dpath["launches"][k] + serve["launches"][k]
+                for k in KERNELS}
     kernels = []
     for kname, (src, replaces) in KERNELS.items():
         main_row = next(r for r in rows if r["name"] == kname)
@@ -733,14 +1148,17 @@ def main() -> int:
             "plain_ms": main_row["plain_ms"],
             "bound_ms": main_row["bound_ms"],
             "bound_by": main_row["bound_by"],
-            "library_ms": None})
+            "library_ms": main_row.get("library_ms")})
     total = time.perf_counter() - t_start
     report = {"card": smi, "build_s": secs, "kernel_rows": rows,
               "copy": copy, "dither_pack_path": dpath,
               "message_bits_layered_shifted": fixed,
               "rounds": {m: {k: v for k, v in r.items() if k != "errs"}
                          for m, r in res.items()},
-              "laws": laws, "kernels": kernels, "seconds": total}
+              "laws": laws, "flash_cases": flash["flash_cases"],
+              "serve": serve, "serve_f32": serve_f32,
+              "serve_profile": serve_profile,
+              "kernels": kernels, "seconds": total}
     out_dir = ROOT / "build"
     try:
         out_dir.mkdir(exist_ok=True)

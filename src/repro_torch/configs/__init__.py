@@ -1,0 +1,52 @@
+"""Architecture configs, copied from the JAX package's ``repro.configs``.
+
+``ARCHS`` keeps all ten ids.  The port has the four dense families'
+configs (qwen1.5-0.5b, starcoder2-3b, qwen3-32b, minitron-4b);
+``get_config`` / ``get_smoke_config`` of another family raise
+NotImplementedError until its slice lands (see ROADMAP.md).
+"""
+from __future__ import annotations
+
+import importlib
+from typing import Dict, List
+
+from repro_torch.models.config import ModelConfig
+
+ARCHS: List[str] = [
+    "dbrx-132b",
+    "phi3.5-moe-42b-a6.6b",
+    "starcoder2-3b",
+    "qwen3-32b",
+    "qwen1.5-0.5b",
+    "minitron-4b",
+    "whisper-small",
+    "zamba2-7b",
+    "rwkv6-1.6b",
+    "llava-next-mistral-7b",
+]
+
+# the ported configs; the other ids belong to families not ported yet
+_MODULES: Dict[str, str] = {
+    "starcoder2-3b": "starcoder2_3b",
+    "qwen3-32b": "qwen3_32b",
+    "qwen1.5-0.5b": "qwen15_05b",
+    "minitron-4b": "minitron_4b",
+}
+
+
+def _module(arch: str):
+    if arch not in ARCHS:
+        raise KeyError(f"unknown arch {arch!r}; expected one of {ARCHS}")
+    if arch not in _MODULES:
+        raise NotImplementedError(
+            f"{arch}: its model family is not ported to repro_torch yet "
+            f"(see ROADMAP.md, Queue 1)")
+    return importlib.import_module(f"repro_torch.configs.{_MODULES[arch]}")
+
+
+def get_config(arch: str) -> ModelConfig:
+    return _module(arch).CONFIG
+
+
+def get_smoke_config(arch: str) -> ModelConfig:
+    return _module(arch).SMOKE

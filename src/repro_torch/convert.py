@@ -1,5 +1,5 @@
 """Carry state across from the JAX package: its parameters and keys,
-exported as numpy arrays, become the port's tensors and keys."""
+exported as numpy arrays, become the port's tensors, keys and models."""
 from __future__ import annotations
 
 from typing import Any
@@ -8,8 +8,9 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.models.transformer import Transformer
 
-__all__ = ["params_from_numpy", "key_from_numpy"]
+__all__ = ["params_from_numpy", "key_from_numpy", "transformer_from_numpy"]
 
 
 def params_from_numpy(tree: Any, device=None) -> Any:
@@ -30,3 +31,10 @@ def key_from_numpy(key_data) -> torch.Tensor:
         raise ValueError(f"expected (..., 2) uint32 key data, got "
                          f"{data.shape} {data.dtype}")
     return torch.from_numpy(data.astype(np.int64))
+
+
+def transformer_from_numpy(cfg, tree: Any, device=None):
+    """The reference's dense-model parameter tree (numpy arrays, layer
+    stacks on a leading axis) -> the port's ``Transformer`` on
+    ``device`` (CUDA unless "cpu"), dtypes kept."""
+    return Transformer(cfg, params_from_numpy(tree, device))

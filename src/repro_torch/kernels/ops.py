@@ -6,7 +6,9 @@ pass natural shapes.
   * ``dither_pack_encode`` / ``dither_unpack_decode``: the signed
     quantize-and-pack codec (``dither_pack``);
   * ``layered_encode`` / ``layered_decode``: the Gaussian shifted layered
-    quantizer (``layered_encode``).
+    quantizer (``layered_encode``);
+  * ``flash_attention``: block online-softmax attention
+    (``flash_attention``).
 
 Dispatch follows the tensors' device: a CPU tensor runs the plain
 PyTorch version (``ref``), a CUDA tensor the hand-written kernel, which
@@ -19,6 +21,7 @@ import math
 import torch
 
 from repro_torch.kernels import dither_pack as dp
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import fused_agg as fg
 from repro_torch.kernels import layered_encode as le
 from repro_torch.kernels import ref
@@ -179,3 +182,17 @@ def layered_decode(m: torch.Tensor, u: torch.Tensor, layer: torch.Tensor,
     else:
         y = ref.layered_decode_ref(mr, ur, lr, float(sigma))
     return y.reshape(-1)[: m.numel()].reshape(m.shape)
+
+
+# ------------------------------------------------------- flash attention
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool = True) -> torch.Tensor:
+    """q (B, T, H, D), k / v (B, S, HK, D) -> (B, T, H, D) in q's dtype;
+    GQA (H % HK == 0), ragged T and S, D in {16, 32, 64, 128}, f32 or
+    bf16.  The causal mask is the Pallas kernel's: query i sees keys
+    0..i (aligned at the top left, whatever S is).  The same shapes are
+    refused on both devices."""
+    fa.check_shapes(q, k, v)
+    if _on_cuda(q):
+        return fa.flash_attention(q, k, v, causal)
+    return ref.flash_attention_ref(q, k, v, causal)

@@ -104,3 +104,48 @@ def dither_pack_ref(x, s, w: float, bits: int) -> torch.Tensor:
 def unpack_decode_ref(word, s, w: float, bits: int) -> torch.Tensor:
     """Packed words + dither -> dequantized values (m - s) * w."""
     return (unpack_ref(word, bits).to(torch.float32) - s) * w
+
+
+# ------------------------------------------------------- flash attention
+NEG_INF = -1e30
+
+
+def mha_ref(q, k, v, causal: bool = True) -> torch.Tensor:
+    """q (B, T, H, D), k/v (B, S, H, D) -> (B, T, H, D), f32 softmax; the
+    causal mask is aligned at the bottom right (``tril(k=S-T)``), as the
+    reference's ``mha_ref``."""
+    T, D = q.shape[1], q.shape[3]
+    S = k.shape[1]
+    s = torch.einsum("bthd,bshd->bhts", q, k).to(torch.float32) * (D ** -0.5)
+    if causal:
+        mask = torch.ones((T, S), dtype=torch.bool, device=q.device).tril(S - T)
+        s = torch.where(mask, s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bhts,bshd->bthd", p.to(v.dtype), v)
+
+
+def flash_attention_ref(q, k, v, causal: bool = True) -> torch.Tensor:
+    """What the Pallas flash kernel computes, written plainly: q
+    (B, T, H, D), k/v (B, S, HK, D) with H % HK == 0 -> (B, T, H, D) in
+    q's dtype.  f32 arithmetic: ``q * D^-1/2`` rounded to f32 before the
+    product, scores masked to -1e30 (never -inf) where ``col > row``
+    (causal, aligned at the top left: query i sees keys 0..i, whatever
+    S is), P kept in f32 for P V, and the sum clamped below by 1e-30."""
+    B, T, H, D = q.shape
+    HK = k.shape[2]
+    g = H // HK
+    S = k.shape[1]
+    q32 = q.to(torch.float32) * (D ** -0.5)
+    k32 = k.to(torch.float32).repeat_interleave(g, dim=2)
+    v32 = v.to(torch.float32).repeat_interleave(g, dim=2)
+    s = torch.einsum("bthd,bshd->bhts", q32, k32)
+    if causal:
+        rows = torch.arange(T, device=q.device)[:, None]
+        cols = torch.arange(S, device=q.device)[None, :]
+        s = torch.where(cols <= rows, s, NEG_INF)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m)
+    l = p.sum(dim=-1, keepdim=True)
+    o = torch.einsum("bhts,bshd->bthd", p, v32)
+    o = o / l.clamp_min(1e-30).permute(0, 2, 1, 3)
+    return o.to(q.dtype)

@@ -1,0 +1,90 @@
+"""Attention of the dense models (the port of ``repro.models.attention``).
+
+``flash_attention``, the full-sequence (prefill / training) attention,
+goes to ``kernels.ops.flash_attention``: the hand-written kernel on the
+card, its plain version on the CPU.  It takes the masks that kernel
+supports, causal or none, with queries starting at position 0; a
+sliding window or a query offset raises on both devices (zamba2's window
+comes with its slice, see ROADMAP.md).
+
+``decode_attention`` (one new token against a KV cache) is plain
+PyTorch, as the reference computes it outside any Pallas kernel.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels import ops
+
+NEG_INF = -1e30
+
+
+def flash_attention(q, k, v, *, causal: bool = True, q_offset=0,
+                    window: Optional[int] = None):
+    """q: (B, Tq, HQ, D); k, v: (B, S, HK, D) with HQ % HK == 0 ->
+    (B, Tq, HQ, D) in v's dtype.  The reference's ``q_chunk`` /
+    ``kv_chunk`` tiling has no counterpart: the kernel picks its own."""
+    if window is not None:
+        raise NotImplementedError(
+            "sliding-window attention is not ported yet (it comes with "
+            "zamba2's slice, see ROADMAP.md)")
+    if not (isinstance(q_offset, int) and q_offset == 0):
+        raise NotImplementedError(
+            "a query offset is not ported yet: the flash kernel's causal "
+            "mask starts the queries at position 0 (see ROADMAP.md)")
+    return ops.flash_attention(q, k, v, causal=causal).to(v.dtype)
+
+
+def decode_attention(q, k_cache, v_cache, new_k, new_v, *,
+                     window: Optional[int] = None, valid_len=None,
+                     kv_pos=None, q_pos=None):
+    """Single-token decode: q (B, 1, HQ, D) attends to the full cache
+    (B, S, HK, D) plus its own freshly computed (new_k, new_v).
+
+    Cache validity, one of three ways:
+      * neither ``valid_len`` nor ``kv_pos``: every cache row is valid;
+      * ``valid_len`` (B,): rows ``[0, valid_len)`` are valid (the
+        slot-pool engine);
+      * ``kv_pos`` (B, S): per-row absolute positions, -1 = empty.
+    ``window`` masks rows at or before ``q_pos - window`` (``q_pos``
+    defaults to ``valid_len``).  Masked rows score -1e30 and contribute
+    exactly 0.  Products are summed in f32 (the reference's
+    ``preferred_element_type``), the result is cast to the cache's dtype.
+    """
+    B, _, HQ, D = q.shape
+    S, HK = k_cache.shape[1], k_cache.shape[2]
+    G = HQ // HK
+    f32 = torch.float32
+    qg = (q.reshape(B, HK, G, D) * D ** -0.5).to(k_cache.dtype)
+    s_cache = torch.einsum("bkgd,bskd->bkgs", qg.to(f32), k_cache.to(f32))
+    if q_pos is None and valid_len is not None:
+        q_pos = valid_len
+    mask = None  # (B, S): True where the cache row is attended
+    if kv_pos is not None:
+        mask = kv_pos >= 0
+        if window is not None and q_pos is not None:
+            mask = mask & (kv_pos > q_pos[:, None] - window)
+    elif valid_len is not None:
+        idx = torch.arange(S, device=q.device)
+        mask = idx[None, :] < valid_len[:, None]
+        if window is not None and q_pos is not None:
+            mask = mask & (idx[None, :] > q_pos[:, None] - window)
+    elif window is not None and q_pos is not None:
+        idx = torch.arange(S, device=q.device)
+        mask = idx[None, :] > q_pos[:, None] - window
+    if mask is not None:
+        s_cache = torch.where(mask[:, None, None, :], s_cache, NEG_INF)
+    s_self = torch.einsum("bkgd,bkd->bkg", qg.to(f32),
+                          new_k.reshape(B, HK, D).to(qg.dtype).to(f32))
+    # two-part softmax: the cache and the new token, no concatenation
+    m = torch.maximum(s_cache.amax(dim=-1), s_self)
+    p_cache = torch.exp(s_cache - m[..., None])
+    p_self = torch.exp(s_self - m)
+    denom = p_cache.sum(dim=-1) + p_self
+    out = torch.einsum("bkgs,bskd->bkgd",
+                       p_cache.to(v_cache.dtype).to(f32), v_cache.to(f32))
+    out = out + p_self[..., None] * new_v.reshape(B, HK, 1, D).to(f32)
+    out = out / denom[..., None]
+    return out.reshape(B, 1, HQ, D).to(v_cache.dtype)

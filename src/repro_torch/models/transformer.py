@@ -1,0 +1,306 @@
+"""Dense decoder-only transformer (GQA + RoPE), the backbone of
+qwen1.5 / starcoder2 / qwen3 / minitron (the port of
+``repro.models.transformer``, dense kind only: moe raises).
+
+``param_specs`` keeps the reference's tree, with layer stacks on a
+leading axis; ``Transformer`` holds one ``DecoderLayer`` module per
+layer under the reference's parameter names (``attn.wq`` ... ``attn.bv``,
+``attn.q_norm``, ``mlp.w_gate``, ``norm1_w``, ...).  The functions take
+that module where the reference takes its parameter tree.
+
+Full-sequence attention (prefill) runs through the flash kernel
+(``attention.flash_attention``); single-token decode through the plain
+``attention.decode_attention``.  Weights are cast to the compute dtype
+at each use, as in the reference; a model already cast with
+``Transformer.to(dtype)`` gives the same values without the casts.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, List
+
+import torch
+from torch import nn as tnn
+
+from repro_torch.models import attention, nn
+from repro_torch.models.config import ModelConfig, torch_dtype
+from repro_torch.models.nn import ParamSpec
+
+
+def _dense_only(cfg: ModelConfig) -> None:
+    if cfg.kind != "dense":
+        raise NotImplementedError(
+            f"kind={cfg.kind!r}: only the dense transformer is ported "
+            f"(see ROADMAP.md, Queue 1)")
+
+
+# ----------------------------------------------------------------- specs
+def _stack(spec: ParamSpec, n: int) -> ParamSpec:
+    return ParamSpec((n,) + spec.shape, ("layers",) + spec.axes, spec.init,
+                     spec.scale, spec.dtype)
+
+
+def attn_specs(cfg: ModelConfig) -> Dict[str, ParamSpec]:
+    d, hq, hk, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    s: Dict[str, ParamSpec] = {
+        "wq": ParamSpec((d, hq * hd), ("embed", "heads")),
+        "wk": ParamSpec((d, hk * hd), ("embed", "kv")),
+        "wv": ParamSpec((d, hk * hd), ("embed", "kv")),
+        "wo": ParamSpec((hq * hd, d), ("heads", "embed")),
+    }
+    if cfg.qkv_bias:
+        s["bq"] = ParamSpec((hq * hd,), ("heads",), "zeros")
+        s["bk"] = ParamSpec((hk * hd,), ("kv",), "zeros")
+        s["bv"] = ParamSpec((hk * hd,), ("kv",), "zeros")
+    if cfg.qk_norm:
+        s["q_norm"] = ParamSpec((hd,), (None,), "ones")
+        s["k_norm"] = ParamSpec((hd,), (None,), "ones")
+    return s
+
+
+def mlp_specs(cfg: ModelConfig) -> Dict[str, ParamSpec]:
+    d, f = cfg.d_model, cfg.d_ff
+    if cfg.act == "swiglu":
+        return {
+            "w_gate": ParamSpec((d, f), ("embed", "mlp")),
+            "w_up": ParamSpec((d, f), ("embed", "mlp")),
+            "w_down": ParamSpec((f, d), ("mlp", "embed")),
+        }
+    return {
+        "w_up": ParamSpec((d, f), ("embed", "mlp")),
+        "b_up": ParamSpec((f,), ("mlp",), "zeros"),
+        "w_down": ParamSpec((f, d), ("mlp", "embed")),
+        "b_down": ParamSpec((d,), ("embed",), "zeros"),
+    }
+
+
+def norm_specs(cfg: ModelConfig, name: str) -> Dict[str, ParamSpec]:
+    d = cfg.d_model
+    s = {f"{name}_w": ParamSpec((d,), ("embed",), "ones")}
+    if cfg.norm == "layernorm":
+        s[f"{name}_b"] = ParamSpec((d,), ("embed",), "zeros")
+    return s
+
+
+def layer_specs(cfg: ModelConfig) -> Dict[str, Any]:
+    _dense_only(cfg)
+    s: Dict[str, Any] = {"attn": attn_specs(cfg), "mlp": mlp_specs(cfg)}
+    s.update(norm_specs(cfg, "norm1"))
+    s.update(norm_specs(cfg, "norm2"))
+    return s
+
+
+def param_specs(cfg: ModelConfig) -> Dict[str, Any]:
+    stacked = nn.map_specs(lambda _, sp: _stack(sp, cfg.n_layers),
+                           layer_specs(cfg))
+    specs: Dict[str, Any] = {
+        "embed": ParamSpec((cfg.padded_vocab, cfg.d_model),
+                           ("vocab_in", "embed"), "embed"),
+        "layers": stacked,
+    }
+    specs.update(norm_specs(cfg, "final"))
+    if not cfg.tie_embeddings:
+        specs["lm_head"] = ParamSpec((cfg.d_model, cfg.padded_vocab),
+                                     ("embed", "vocab"))
+    return specs
+
+
+# --------------------------------------------------------------- modules
+def _params(tree: Dict[str, torch.Tensor]) -> tnn.ParameterDict:
+    return tnn.ParameterDict(
+        {k: tnn.Parameter(t, requires_grad=False) for k, t in tree.items()})
+
+
+class DecoderLayer(tnn.Module):
+    """One decoder layer's parameters under the reference's names:
+    ``attn`` and ``mlp`` (ParameterDicts) and ``norm1_w`` / ``norm2_w``
+    (+ ``_b`` for LayerNorm)."""
+
+    def __init__(self, tree: Dict[str, Any]):
+        super().__init__()
+        self.attn = _params(tree["attn"])
+        self.mlp = _params(tree["mlp"])
+        for name, t in tree.items():
+            if name not in ("attn", "mlp"):
+                setattr(self, name, tnn.Parameter(t, requires_grad=False))
+
+
+class Transformer(tnn.Module):
+    """The dense model: ``embed``, ``layers`` (one DecoderLayer each),
+    ``final_w`` (+ ``final_b``), ``lm_head`` when embeddings are untied.
+    Built from a parameter tree in the reference's layout (layer stacks
+    on a leading axis; each layer's slice is copied out)."""
+
+    def __init__(self, cfg: ModelConfig, tree: Dict[str, Any]):
+        super().__init__()
+        _dense_only(cfg)
+        self.cfg = cfg
+        L = cfg.n_layers
+
+        def layer(i, node):
+            if isinstance(node, dict):
+                return {k: layer(i, v) for k, v in node.items()}
+            if node.shape[0] != L:
+                raise ValueError(f"layer stack of {node.shape[0]}, "
+                                 f"expected {L}")
+            return node[i].clone()
+
+        self.layers = tnn.ModuleList(
+            [DecoderLayer(layer(i, tree["layers"])) for i in range(L)])
+        for name, t in tree.items():
+            if name != "layers":
+                setattr(self, name, tnn.Parameter(t, requires_grad=False))
+
+
+# --------------------------------------------------------------- forward
+def _norm(cfg: ModelConfig, x, p, name: str):
+    """``p``: a DecoderLayer (norm1 / norm2) or the Transformer (final)."""
+    if cfg.norm == "layernorm":
+        return nn.layer_norm(x, getattr(p, f"{name}_w"),
+                             getattr(p, f"{name}_b"))
+    return nn.rms_norm(x, getattr(p, f"{name}_w"))
+
+
+def _project_qkv(cfg: ModelConfig, lp: DecoderLayer, x):
+    B, T = x.shape[:2]
+    hq, hk, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    a = lp.attn
+    q = nn.dense(x, a["wq"], a.get("bq")).reshape(B, T, hq, hd)
+    k = nn.dense(x, a["wk"], a.get("bk")).reshape(B, T, hk, hd)
+    v = nn.dense(x, a["wv"], a.get("bv")).reshape(B, T, hk, hd)
+    if cfg.qk_norm:
+        q = nn.rms_norm(q, a["q_norm"])
+        k = nn.rms_norm(k, a["k_norm"])
+    return q, k, v
+
+
+def attn_block(cfg: ModelConfig, lp: DecoderLayer, x, rope, *, window=None):
+    """Full-sequence (prefill) attention through the flash kernel.
+    Returns (out, (k, v))."""
+    cos, sin = rope
+    q, k, v = _project_qkv(cfg, lp, x)
+    q = nn.apply_rope(q, cos, sin)
+    k = nn.apply_rope(k, cos, sin)
+    o = attention.flash_attention(q, k, v, causal=True,
+                                  window=window or cfg.window)
+    B, T = x.shape[:2]
+    out = nn.dense(o.reshape(B, T, -1), lp.attn["wo"])
+    return out, (k, v)
+
+
+def attn_block_decode(cfg: ModelConfig, lp: DecoderLayer, x, cache, *,
+                      pos=None, valid_len=None, kv_pos=None, window=None):
+    """Single-token decode against a cache (B, S, HK, hd).  Returns
+    (out, (new_k, new_v)); the new KV is RoPE-rotated at ``pos`` (B, 1),
+    which defaults to the cache length S (the naive loop's cache holds
+    exactly the S previous positions)."""
+    k_cache, v_cache = cache
+    B = x.shape[0]
+    if pos is None:
+        pos = torch.full((B, 1), k_cache.shape[1], dtype=torch.int32,
+                         device=x.device)
+    cos, sin = nn.rope_at(cfg.hd, pos, cfg.rope_theta, x.dtype)
+    q, k, v = _project_qkv(cfg, lp, x)
+    q = nn.apply_rope_direct(q, cos, sin)
+    k = nn.apply_rope_direct(k, cos, sin)
+    o = attention.decode_attention(q, k_cache, v_cache, k, v, window=window,
+                                   valid_len=valid_len, kv_pos=kv_pos,
+                                   q_pos=pos[:, 0])
+    out = nn.dense(o.reshape(B, 1, -1), lp.attn["wo"])
+    return out, (k, v)
+
+
+def mlp_block(cfg: ModelConfig, lp: DecoderLayer, x):
+    m = lp.mlp
+    if cfg.act == "swiglu":
+        return nn.swiglu(x, m["w_gate"], m["w_up"], m["w_down"])
+    return nn.gelu_mlp(x, m["w_up"], m["b_up"], m["w_down"], m["b_down"])
+
+
+def decoder(cfg: ModelConfig, model: Transformer, x, rope):
+    """Run the layers.  Returns (y, caches): caches is the (k, v) pair
+    stacked over layers, (L, B, T, HK, hd) each (for prefill)."""
+    ks: List[torch.Tensor] = []
+    vs: List[torch.Tensor] = []
+    h = x
+    for lp in model.layers:
+        a, (k, v) = attn_block(cfg, lp, _norm(cfg, h, lp, "norm1"), rope)
+        h = h + a
+        h = h + mlp_block(cfg, lp, _norm(cfg, h, lp, "norm2"))
+        ks.append(k)
+        vs.append(v)
+    return h, (torch.stack(ks), torch.stack(vs))
+
+
+def decoder_decode(cfg: ModelConfig, model: Transformer, x, caches):
+    """Single-token decode through the layers; caches: stacked
+    (L, B, S, HK, hd) pair holding exactly the S previous positions.
+    Returns (y, new_kv stacked (L, B, 1, HK, hd)); the caller appends."""
+    k_all, v_all = caches
+    h = x
+    nks, nvs = [], []
+    for i, lp in enumerate(model.layers):
+        a, (nk, nv) = attn_block_decode(
+            cfg, lp, _norm(cfg, h, lp, "norm1"), (k_all[i], v_all[i]),
+            window=cfg.window)
+        h = h + a
+        h = h + mlp_block(cfg, lp, _norm(cfg, h, lp, "norm2"))
+        nks.append(nk)
+        nvs.append(nv)
+    return h, (torch.stack(nks), torch.stack(nvs))
+
+
+def decoder_decode_slots(cfg: ModelConfig, model: Transformer, x, caches,
+                         lengths, keep):
+    """Slot-pool decode: one token per slot against a preallocated cache.
+    x: (N, 1, D); caches: stacked (L, N, S_max, HK, hd) pair; lengths
+    (N,): valid cache rows per slot (the absolute position of the
+    incoming token).
+
+    Unlike the reference, which returns updated copies, the new KV is
+    written IN PLACE into ``caches`` at row ``min(lengths, S_max - 1)``
+    of each slot; slots with ``keep`` (N,) False get their old row written
+    back, so their cache stays bitwise as it was (the engine's
+    ``select``).  Returns (y, caches)."""
+    k_all, v_all = caches
+    N, S = x.shape[0], k_all.shape[2]
+    pos = lengths[:, None]
+    write = torch.clamp(lengths, max=S - 1).long()
+    rows = torch.arange(N, device=x.device)
+    h = x
+    for i, lp in enumerate(model.layers):
+        kc, vc = k_all[i], v_all[i]
+        a, (nk, nv) = attn_block_decode(
+            cfg, lp, _norm(cfg, h, lp, "norm1"), (kc, vc), pos=pos,
+            valid_len=lengths, window=cfg.window)
+        for cache, new in ((kc, nk[:, 0]), (vc, nv[:, 0])):
+            old = cache[rows, write]
+            cache[rows, write] = torch.where(keep[:, None, None],
+                                             new.to(cache.dtype), old)
+        h = h + a
+        h = h + mlp_block(cfg, lp, _norm(cfg, h, lp, "norm2"))
+    return h, caches
+
+
+def embed_tokens(cfg: ModelConfig, model: Transformer, tokens, dtype):
+    # gather, then cast: the same values as the reference's cast-then-gather
+    return model.embed[tokens].to(dtype)
+
+
+def unembed(cfg: ModelConfig, model: Transformer, h):
+    w = model.embed.T if cfg.tie_embeddings else model.lm_head
+    return nn.dense(h, w)
+
+
+def forward(cfg: ModelConfig, model: Transformer, tokens, *,
+            last_only: bool = False):
+    """Prefill / training forward -> (logits, caches).  ``last_only``
+    computes logits for the final position only."""
+    dtype = torch_dtype(cfg.compute_dtype)
+    x = embed_tokens(cfg, model, tokens, dtype)
+    rope = nn.rope_freqs(cfg.hd, x.shape[1] + 1, cfg.rope_theta, dtype,
+                         device=x.device)
+    y, caches = decoder(cfg, model, x, rope)
+    if last_only:
+        y = y[:, -1:]
+    y = _norm(cfg, y, model, "final")
+    return unembed(cfg, model, y), caches

@@ -1,0 +1,219 @@
+"""Continuous-batching decode engine over a fixed pool of KV-cache slots
+(the port of ``repro.serve.engine``).
+
+Requests stream through three phases:
+
+  prefill(model, tokens)  -> (logits, Prefix)   # run the prompt
+  insert(state, prefix, slot)                   # copy prefix -> slot
+  generate_step(model, state) -> (state, tokens, done)
+
+Each slot is independent: slots sit at different depths (per-slot
+``lengths``), finish at different times (EOS / per-request ``max_gen`` /
+cache capacity) and are re-inserted into without touching neighbours.
+Inactive slots are frozen bitwise, which makes full-occupancy engine
+decode token-identical to the naive loop (``serve.oracle``).
+
+Unlike the reference, which returns new arrays, the port updates the
+cache in place: ``insert`` writes the prompt's rows and the state's
+bookkeeping into the given state, and ``generate_step`` writes each
+active slot's new KV row into the cache (``select``: an inactive slot's
+row is written back unchanged) and returns new bookkeeping tensors.
+
+Families: dense (slot-pool KV cache with ``valid_len`` masking: rows past
+a slot's length score -1e30 and contribute exactly 0).  moe, rwkv6 and
+zamba2 are not ported yet and raise NotImplementedError (see
+ROADMAP.md); whisper / llava need per-request side inputs and raise as
+in the reference.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.models import registry, transformer
+from repro_torch.models.config import ModelConfig, torch_dtype
+
+
+@dataclasses.dataclass(frozen=True)
+class EngineConfig:
+    max_slots: int = 4
+    max_prefill_len: int = 64
+    max_gen_len: int = 32
+    eos_id: Optional[int] = None
+
+    @property
+    def max_seq_len(self) -> int:
+        return self.max_prefill_len + self.max_gen_len
+
+
+@dataclasses.dataclass
+class Prefix:
+    """A prefilled prompt, ready to insert into a slot."""
+
+    cache: Any                # per-family cache tree, batch dim = 1
+    length: int               # prompt length P
+    next_token: torch.Tensor  # () int32: the first generated token
+    last_logits: torch.Tensor  # (1, 1, V) last-position prompt logits
+
+
+# ------------------------------------------------------------- families
+class _DenseFamily:
+    """dense: preallocated (L, N, S_max, HK, hd) KV slot pool.
+    ``decoder_decode_slots`` masks rows >= lengths[slot] with -1e30, so
+    stale rows contribute exact-zero probability; per-slot RoPE comes
+    from position-direct ``rope_at``."""
+
+    def __init__(self, cfg: ModelConfig, ecfg: EngineConfig,
+                 device: torch.device):
+        self.cfg, self.ecfg, self.device = cfg, ecfg, device
+        self.capacity = ecfg.max_seq_len
+
+    def init_cache(self) -> Dict[str, torch.Tensor]:
+        return registry.init_decode_state(
+            self.cfg, self.ecfg.max_slots, self.ecfg.max_seq_len,
+            self.device)
+
+    def prefill(self, model, tokens):
+        logits, (k, v) = transformer.forward(self.cfg, model, tokens,
+                                             last_only=True)
+        return logits, {"k": k, "v": v}
+
+    def insert(self, cache, prefix_cache, slot: int) -> None:
+        P = prefix_cache["k"].shape[2]
+        for k in ("k", "v"):
+            cache[k][:, slot, :P] = prefix_cache[k][:, 0]
+
+    def step(self, model, tokens, cache, lengths, keep):
+        """Logits of one decode step; writes the kept slots' new rows
+        into ``cache`` (the select merge, see the module docstring)."""
+        cfg = self.cfg
+        x = transformer.embed_tokens(cfg, model, tokens,
+                                     torch_dtype(cfg.compute_dtype))
+        y, _ = transformer.decoder_decode_slots(
+            cfg, model, x, (cache["k"], cache["v"]), lengths, keep=keep)
+        y = transformer._norm(cfg, y, model, "final")
+        return transformer.unembed(cfg, model, y)
+
+
+def _make_family(cfg: ModelConfig, ecfg: EngineConfig, device):
+    if cfg.kind == "dense":
+        return _DenseFamily(cfg, ecfg, device)
+    if cfg.kind in ("moe", "rwkv6", "zamba2"):
+        raise NotImplementedError(
+            f"serve engine: kind={cfg.kind!r} is not ported to repro_torch "
+            f"yet (see ROADMAP.md, Queue 1)")
+    raise NotImplementedError(
+        f"serve engine does not support kind={cfg.kind!r} "
+        "(whisper/llava need per-request frames/patches)")
+
+
+# --------------------------------------------------------------- engine
+class ServeEngine:
+    """Fixed-slot continuous-batching engine for one model family, on
+    ``device`` (CUDA unless "cpu")."""
+
+    def __init__(self, cfg: ModelConfig, *, max_slots: int = 4,
+                 max_prefill_len: int = 64, max_gen_len: int = 32,
+                 eos_id: Optional[int] = None, device=None):
+        self.cfg = cfg
+        self.ecfg = EngineConfig(max_slots, max_prefill_len, max_gen_len,
+                                 eos_id)
+        self.device = resolve_device(device)
+        self.family = _make_family(cfg, self.ecfg, self.device)
+
+    # ---------------------------------------------------------- state
+    def init_state(self) -> Dict[str, Any]:
+        N = self.ecfg.max_slots
+
+        def i32():
+            return torch.zeros((N,), dtype=torch.int32, device=self.device)
+
+        return {
+            "cache": self.family.init_cache(),
+            "tokens": i32(),    # last emitted token per slot
+            "lengths": i32(),   # sequence depth (cache rows in use)
+            "gen": i32(),       # tokens emitted so far per request
+            "max_gen": i32(),   # per-request generation budget
+            "active": torch.zeros((N,), dtype=torch.bool,
+                                  device=self.device),
+        }
+
+    def occupancy(self, state) -> float:
+        return float(state["active"].cpu().float().mean())
+
+    def free_slots(self, state):
+        return [int(i) for i in torch.nonzero(~state["active"].cpu())[:, 0]]
+
+    def _greedy(self, logits) -> torch.Tensor:
+        # argmax takes the first maximal index, as jnp.argmax does
+        tok = torch.argmax(logits[:, -1], dim=-1)
+        return torch.clamp(tok, 0, self.cfg.vocab - 1).to(torch.int32)
+
+    # -------------------------------------------------------- prefill
+    @torch.no_grad()
+    def prefill(self, model, tokens) -> Tuple[torch.Tensor, Prefix]:
+        """Run one prompt (1-d or (1, P) ints).  Returns (last-position
+        logits (1, 1, V), Prefix)."""
+        tokens = torch.as_tensor(tokens, device=self.device).to(torch.int32)
+        if tokens.dim() == 1:
+            tokens = tokens[None]
+        P = tokens.shape[1]
+        if not 0 < P <= self.ecfg.max_prefill_len:
+            raise ValueError(
+                f"prompt length {P} not in (0, {self.ecfg.max_prefill_len}]")
+        logits, cache = self.family.prefill(model, tokens)
+        tok = self._greedy(logits)[0]
+        return logits, Prefix(cache=cache, length=P, next_token=tok,
+                              last_logits=logits)
+
+    # --------------------------------------------------------- insert
+    @torch.no_grad()
+    def insert(self, state, prefix: Prefix, slot: int,
+               max_gen: Optional[int] = None) -> Dict[str, Any]:
+        """Copy a prefilled prompt into ``slot`` of ``state`` (in place,
+        evicting whatever was there) and return the state.  ``max_gen``
+        caps this request's emitted tokens (prefill token included),
+        clamped to the engine budget."""
+        mg = self.ecfg.max_gen_len if max_gen is None else int(max_gen)
+        mg = max(1, min(mg, self.ecfg.max_gen_len))
+        self.family.insert(state["cache"], prefix.cache, slot)
+        state["tokens"][slot] = prefix.next_token
+        state["lengths"][slot] = prefix.length
+        state["gen"][slot] = 1  # the prefill emitted one
+        state["max_gen"][slot] = mg
+        state["active"][slot] = mg > 1
+        return state
+
+    # ----------------------------------------------------------- step
+    @torch.no_grad()
+    def generate_step(self, model, state):
+        """One batched decode step over every slot.  Returns (new_state,
+        tokens (N,), done (N,)); ``tokens[i]`` is fresh only where
+        ``state['active'][i]`` was True, and ``done`` marks slots that
+        just finished (EOS / max_gen / capacity).  The cache is updated
+        in place and shared with the new state."""
+        active = state["active"]
+        cache = state["cache"]
+        logits = self.family.step(model, state["tokens"][:, None], cache,
+                                  state["lengths"], active)
+        tok = torch.where(active, self._greedy(logits), state["tokens"])
+        act = active.to(torch.int32)
+        gen = state["gen"] + act
+        lengths = state["lengths"] + act
+        done = active & (gen >= state["max_gen"])
+        if self.ecfg.eos_id is not None:
+            done = done | (active & (tok == self.ecfg.eos_id))
+        if self.family.capacity is not None:
+            done = done | (active & (lengths >= self.family.capacity))
+        new_state = {
+            "cache": cache,
+            "tokens": tok,
+            "lengths": lengths,
+            "gen": gen,
+            "max_gen": state["max_gen"],
+            "active": active & ~done,
+        }
+        return new_state, tok, done

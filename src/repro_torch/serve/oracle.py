@@ -1,0 +1,45 @@
+"""Naive one-batch generation loop, kept as the engine's correctness
+oracle (the port of ``repro.serve.oracle``, dense kind).
+
+Every request in one batch, decode steps in lockstep, the dense cache
+*grows* by one row per step and never drops a position.  ``ServeEngine``
+at full occupancy must be token-identical to this loop: same RoPE
+(``rope_at`` positions), same greedy argmax + clip, and the engine's
+padded cache rows contribute exact-zero probability.
+"""
+from __future__ import annotations
+
+from typing import Dict
+
+import torch
+
+from repro_torch.models import registry
+from repro_torch.models.config import ModelConfig
+
+
+def _greedy(cfg: ModelConfig, logits) -> torch.Tensor:
+    tok = torch.argmax(logits[:, -1:], dim=-1).to(torch.int32)
+    return torch.clamp(tok, 0, cfg.vocab - 1)
+
+
+@torch.no_grad()
+def naive_generate(cfg: ModelConfig, model, prompts: Dict,
+                   n_tokens: int) -> torch.Tensor:
+    """Greedy-decode ``n_tokens`` per sequence (the prefill argmax plus
+    n_tokens - 1 decode steps).  ``prompts``: batch dict with tokens
+    (B, P) on the model's device.  Returns (B, n_tokens) int32."""
+    if cfg.kind == "whisper":
+        raise NotImplementedError(
+            "whisper serving needs an encoder pass + cross-KV plumbing; "
+            "not covered by the naive oracle")
+    serve = registry.serve_fn(cfg)
+    logits, (k, v) = registry.prefill_fn(cfg)(model, prompts)
+    tok = _greedy(cfg, logits)
+    out = [tok]
+    for _ in range(n_tokens - 1):
+        logits, (nk, nv) = serve(model, {"tokens": tok}, {"k": k, "v": v})
+        k = torch.cat([k, nk], dim=2)  # grow; never drop a position
+        v = torch.cat([v, nv], dim=2)
+        tok = _greedy(cfg, logits)
+        out.append(tok)
+    return torch.cat(out, dim=1)
