@@ -1,16 +1,19 @@
-// Flash attention (block online softmax) for Hopper, f32 arithmetic.
+// Flash attention (block online softmax) for Hopper, f32.
 //
-// Replaces the Pallas TPU kernel of src/repro/kernels/flash_attention.py:
+// Replaces, for f32 inputs, the Pallas TPU kernel of
+// src/repro/kernels/flash_attention.py:
 //   flash_attention_kernel <- flash_attention.flash_attention_tpu (_kernel)
 // and takes the layout of its wrapper src/repro/kernels/ops.py
 // (flash_attention): q (B, T, H, D), k and v (B, S, HK, D), out
-// (B, T, H, D), all contiguous, f32 or bf16.  What it computes is the
-// Pallas kernel's function, not its block layout:
+// (B, T, H, D), all contiguous f32.  (bf16 inputs go to
+// flash_attention_sm90.cu, which computes the JAX model's bf16 function
+// on the tensor cores.)  What it computes is the Pallas kernel's
+// function, not its block layout:
 //
 //   s[i, j] = (f32(q[i]) * D^-1/2) . f32(k[j])     (scaled q rounded to f32)
 //   s[i, j] = -1e30 where j >= S, or j > i when causal (aligned top left)
 //   running m, l, acc over KV tiles in f32; P stays f32 for P V
-//   out[i]  = acc / max(l, 1e-30), cast to q's dtype
+//   out[i]  = acc / max(l, 1e-30)
 //
 // KV tiles that lie wholly above the causal diagonal are skipped.  Rows
 // of q past T and of k / v past S load as 0 and are never stored, so
@@ -18,12 +21,10 @@
 // in place of the wrapper's jnp.repeat.
 //
 // What bounds it on this card: operations.  Causal attention at T = S =
-// 2048, 16 heads, D = 64 is 8.6 GFLOP against 16.8 MB of bf16 q, k, v and
-// out: 9 us at the bf16 tensor-core rate (989 TFLOP/s), 5 us of bytes at
-// 3.35 TB/s, 128 us at the f32 rate outside the tensor cores (67 TFLOP/s).
-// This kernel is the simple version: f32 FMAs on CUDA cores, written as
-// explicit fmaf (the build passes --fmad=false), so it cannot beat the
-// f32 figure; wgmma with TMA loads and a bf16 P is the next step.
+// 2048, 16 heads, D = 64 is 8.6 GFLOP against 33.6 MB of f32 q, k, v and
+// out: 10 us of bytes at 3.35 TB/s, 128 us at the f32 rate outside the
+// tensor cores (67 TFLOP/s), which is this kernel's bound: f32 FMAs on
+// CUDA cores, written as explicit fmaf (the build passes --fmad=false).
 //
 // Design: one block of 256 threads per (batch * head, 64-row query
 // tile); it loops over 64-row KV tiles staged in shared memory as f32 (K
@@ -32,7 +33,6 @@
 // FMAs per two shared loads), reduces its rows' max and sum over the 16
 // threads that share them with warp shuffles, writes P^T to shared memory
 // and accumulates 4 rows x D/16 columns of the output.
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -46,15 +46,6 @@ constexpr int kLQ = kBQ + kPad;
 constexpr int kLK = kBK + kPad;
 constexpr float kNegInf = -1e30f;
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-__device__ __forceinline__ void store_as(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store_as(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16_rn(x);
-}
-
 template <int D>
 constexpr size_t smem_bytes() {
   return sizeof(float) *
@@ -62,10 +53,11 @@ constexpr size_t smem_bytes() {
           (size_t)kBK * kLQ);
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads)
-    flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                           const T* __restrict__ v, T* __restrict__ o,
+    flash_attention_kernel(const float* __restrict__ q,
+                           const float* __restrict__ k,
+                           const float* __restrict__ v, float* __restrict__ o,
                            int t_len, int s_len, int heads, int kv_heads,
                            int causal, float scale) {
   constexpr int kCols = D / 16;                  // output columns a thread
@@ -89,17 +81,17 @@ __global__ void __launch_bounds__(kThreads)
 
   const long long q_stride = (long long)heads * D;
   const long long k_stride = (long long)kv_heads * D;
-  const T* qb = q + ((long long)b * t_len * heads + h) * D;
-  const T* kb = k + ((long long)b * s_len * kv_heads + hk) * D;
-  const T* vb = v + ((long long)b * s_len * kv_heads + hk) * D;
-  T* ob = o + ((long long)b * t_len * heads + h) * D;
+  const float* qb = q + ((long long)b * t_len * heads + h) * D;
+  const float* kb = k + ((long long)b * s_len * kv_heads + hk) * D;
+  const float* vb = v + ((long long)b * s_len * kv_heads + hk) * D;
+  float* ob = o + ((long long)b * t_len * heads + h) * D;
 
   for (int i = tid; i < kBQ * D; i += kThreads) {
     const int r = i / D;
     const int d = i - r * D;
     const int t = q0 + r;
     qt[d * kLQ + r] =
-        t < t_len ? __fmul_rn(to_f32(qb[t * q_stride + d]), scale) : 0.f;
+        t < t_len ? __fmul_rn(qb[t * q_stride + d], scale) : 0.f;
   }
 
   float m_run[4], l_run[4], acc[4][kCols];
@@ -123,8 +115,8 @@ __global__ void __launch_bounds__(kThreads)
       const int s = k0 + c;
       float kv = 0.f, vv = 0.f;
       if (s < s_len) {
-        kv = to_f32(kb[s * k_stride + d]);
-        vv = to_f32(vb[s * k_stride + d]);
+        kv = kb[s * k_stride + d];
+        vv = vb[s * k_stride + d];
       }
       kt[d * kLK + c] = kv;
       vs[c * D + d] = vv;
@@ -220,12 +212,12 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
       for (int w = 0; w < kVec; ++w) {
         const int e = g * 16 * kVec + tx * kVec + w;
-        store_as(&ob[t * q_stride + e], __fdiv_rn(acc[i][g * kVec + w], l));
+        ob[t * q_stride + e] = __fdiv_rn(acc[i][g * kVec + w], l);
       }
   }
 }
 
-template <typename T, int D>
+template <int D>
 int launch(const void* q, const void* k, const void* v, void* o, int batch,
            int t_len, int s_len, int heads, int kv_heads, int causal,
            float scale, cudaStream_t stream) {
@@ -233,37 +225,15 @@ int launch(const void* q, const void* k, const void* v, void* o, int batch,
   // The shared-memory limit is a property of the instance: set it once
   // (thread-safe static initialisation) and keep its status for later calls.
   static const cudaError_t attr = cudaFuncSetAttribute(
-      flash_attention_kernel<T, D>,
+      flash_attention_kernel<D>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (attr != cudaSuccess) return (int)attr;
   const dim3 grid((t_len + kBQ - 1) / kBQ, batch * heads);
-  flash_attention_kernel<T, D><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), t_len, s_len, heads,
-      kv_heads, causal, scale);
+  flash_attention_kernel<D><<<grid, kThreads, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o), t_len, s_len,
+      heads, kv_heads, causal, scale);
   return (int)cudaGetLastError();
-}
-
-template <typename T>
-int launch_d(const void* q, const void* k, const void* v, void* o, int batch,
-             int t_len, int s_len, int heads, int kv_heads, int head_dim,
-             int causal, float scale, cudaStream_t stream) {
-  switch (head_dim) {
-    case 16:
-      return launch<T, 16>(q, k, v, o, batch, t_len, s_len, heads, kv_heads,
-                           causal, scale, stream);
-    case 32:
-      return launch<T, 32>(q, k, v, o, batch, t_len, s_len, heads, kv_heads,
-                           causal, scale, stream);
-    case 64:
-      return launch<T, 64>(q, k, v, o, batch, t_len, s_len, heads, kv_heads,
-                           causal, scale, stream);
-    case 128:
-      return launch<T, 128>(q, k, v, o, batch, t_len, s_len, heads, kv_heads,
-                            causal, scale, stream);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
 }
 
 }  // namespace
@@ -271,23 +241,31 @@ int launch_d(const void* q, const void* k, const void* v, void* o, int batch,
 extern "C" {
 
 // q, o: (batch, t_len, heads, head_dim); k, v: (batch, s_len, kv_heads,
-// head_dim); contiguous; dtype 0 = f32, 1 = bf16; head_dim in {16, 32,
-// 64, 128}; heads % kv_heads == 0; t_len, s_len >= 1.  ``scale`` is
-// f32(head_dim^-1/2).  Launches on ``stream`` and returns its
-// cudaGetLastError() (or cudaErrorInvalidValue for an unsupported
-// dtype or head_dim).
+// head_dim); contiguous f32; head_dim in {16, 32, 64, 128}; heads %
+// kv_heads == 0; t_len, s_len >= 1.  ``scale`` is f32(head_dim^-1/2).
+// Launches on ``stream`` and returns its cudaGetLastError() (or
+// cudaErrorInvalidValue for an unsupported head_dim).
 int flash_attention_launch(const void* q, const void* k, const void* v,
                            void* o, int batch, int t_len, int s_len,
                            int heads, int kv_heads, int head_dim, int causal,
-                           float scale, int dtype, void* stream) {
+                           float scale, void* stream) {
   const cudaStream_t st = (cudaStream_t)stream;
-  if (dtype == 0)
-    return launch_d<float>(q, k, v, o, batch, t_len, s_len, heads, kv_heads,
-                           head_dim, causal, scale, st);
-  if (dtype == 1)
-    return launch_d<__nv_bfloat16>(q, k, v, o, batch, t_len, s_len, heads,
-                                   kv_heads, head_dim, causal, scale, st);
-  return (int)cudaErrorInvalidValue;
+  switch (head_dim) {
+    case 16:
+      return launch<16>(q, k, v, o, batch, t_len, s_len, heads, kv_heads,
+                        causal, scale, st);
+    case 32:
+      return launch<32>(q, k, v, o, batch, t_len, s_len, heads, kv_heads,
+                        causal, scale, st);
+    case 64:
+      return launch<64>(q, k, v, o, batch, t_len, s_len, heads, kv_heads,
+                        causal, scale, st);
+    case 128:
+      return launch<128>(q, k, v, o, batch, t_len, s_len, heads, kv_heads,
+                         causal, scale, st);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // extern "C"

@@ -1,0 +1,659 @@
+// Flash attention for Hopper tensor cores (wgmma + TMA), bf16.
+//
+// Replaces, for bf16 inputs, the Pallas TPU kernel of
+// src/repro/kernels/flash_attention.py (flash_attention_tpu, _kernel),
+// and computes what the JAX model's prefill attention,
+// src/repro/models/attention.py (flash_attention), computes in bf16:
+//
+//   qs      = bf16(f32(q) * f32(bf16(D^-1/2)))      (attention.py:46)
+//   s[i, j] = qs[i] . k[j], summed in f32            (wgmma, f32 accumulators)
+//   s[i, j] = -1e30 where j >= S, or j > i when causal (aligned top left)
+//   online softmax over 128-key tiles: m and l in f32, l sums the f32 p
+//   acc    += bf16(p) . v, summed in f32             (wgmma, P from registers)
+//   out     = bf16_rn(acc / max(l, 1e-30))
+//
+// f32 inputs go to flash_attention.cu, which keeps the Pallas kernel's
+// f32 function.  q (B, T, H, D), k and v (B, S, HK, D), out (B, T, H, D),
+// all contiguous bf16, D in {16, 32, 64, 128}, H % HK == 0.
+//
+// What bounds it on this card: operations.  Causal attention is
+// 4 B H T S D / 2 FLOPs (two products over the lower triangle): 137 GFLOP
+// at (1, 8192, 16, 64), 0.139 ms at the dense bf16 tensor-core rate of
+// 989 TFLOP/s, against 0.020 ms to move q, k, v and out once at 3.35 TB/s.
+// The design keeps both products on the tensor cores and the loads off
+// the threads that compute:
+//   * one block of 384 threads per (b * h, 128 query rows), the heaviest
+//     causal tiles launched first.  Warpgroup 0 is the producer: one
+//     thread issues the TMA loads.  Warpgroups 1 and 2 each own 64 query
+//     rows (wgmma's M) and run the softmax on their own accumulators;
+//     setmaxnreg moves registers from the producer to them;
+//   * K and V tiles of 128 keys x D, bf16, in a 2-stage ring of shared
+//     memory guarded by full / empty mbarriers, loaded by TMA in the
+//     swizzle that wgmma reads: 128B for rows of 64 columns (D = 64, and
+//     D = 128 as two 64-column boxes), 64B at D = 32, 32B at D = 16;
+//   * S = Q K^T: wgmma m64n128k16, both operands K-major in shared memory;
+//   * O += P V: P goes from the S accumulators to bf16 A fragments in
+//     registers (the accumulator's thread / row mapping is the A
+//     fragment's), V is the MN-major B operand (the transpose bit);
+//   * row max and row sum over the 4 threads of a quad; the correction
+//     scales O in registers; only the causal diagonal and the last S tile
+//     are masked, and KV tiles above the diagonal are skipped;
+//   * ragged T and S: the tensor maps are 4-D, (D, heads, T or S, B), so
+//     TMA zero-fills rows past T or S inside a batch; rows past T are
+//     never stored; GQA reads KV head h / (H / HK) as a TMA coordinate.
+// Softmax and GEMM do not overlap inside a warpgroup and the two
+// consumers are not ping-ponged: this is the simple version of the shape.
+// The build passes --fmad=false, so the softmax's multiply-adds are
+// written as fmaf; exp(x - m) is exp2f(x log2(e) - m log2(e)).
+#include <cuda.h>  // CUtensorMap and the driver's enums; no -lcuda needed
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kBM = 128;       // query rows per block
+constexpr int kBN = 128;       // keys per KV tile
+constexpr int kThreads = 384;  // the producer and two consumer warpgroups
+constexpr int kConsumers = 256;
+constexpr int kEmptyArrivals = 8;  // one per consumer warp
+constexpr float kNegInf = -1e30f;
+constexpr float kLog2e = 1.44269504088896340736f;
+// a barrier wait that has not completed after this many cycles (about
+// 10 s) traps instead of hanging the card
+constexpr long long kWaitCycles = 20000000000LL;
+
+template <int D>
+struct Tile {
+  static constexpr int kCols = D < 64 ? D : 64;          // columns a box
+  static constexpr int kRowBytes = 2 * kCols;            // 32, 64, 128
+  static constexpr int kBoxes = D / kCols;               // 2 at D = 128
+  static constexpr int kBoxBytes = kBN * kRowBytes;      // 128 rows
+  static constexpr int kBytes = kBoxes * kBoxBytes;      // 128 x D bf16
+  static constexpr int kStepsPerBox = kRowBytes / 32;    // k16 steps a row
+  // the wgmma descriptor's layout type: 1 = 128B, 2 = 64B, 3 = 32B swizzle
+  static constexpr int kLayout =
+      kRowBytes == 128 ? 1 : (kRowBytes == 64 ? 2 : 3);
+  // Q, two K and two V tiles, the barriers, and room to align to 1024
+  static constexpr size_t kSmem = 5 * (size_t)kBytes + 64 + 1024;
+};
+
+// ------------------------------------------------------------ barriers
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+__device__ __forceinline__ bool mbar_try_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(done)
+      : "r"(bar), "r"(parity)
+      : "memory");
+  return done != 0;
+}
+
+// Wait until the phase of parity ``parity`` has completed.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  if (mbar_try_wait(bar, parity)) return;
+  const long long t0 = clock64();
+  while (!mbar_try_wait(bar, parity))
+    if (clock64() - t0 > kWaitCycles) __trap();
+}
+
+// --------------------------------------------------------------- TMA
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int c0, int c1, int c2,
+                                         int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::"
+      "complete_tx::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
+      "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// ------------------------------------------------------------- wgmma
+// Shared-memory matrix descriptor: start address, leading and stride byte
+// offsets (all >> 4), swizzle layout type in bits 62-63.
+__device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo,
+                                              uint32_t sbo, int layout) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) |
+         ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
+         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | ((uint64_t)layout << 62);
+}
+
+// A K-major operand (Q, K): swizzled rows of kRowBytes, 8-row groups
+// 8 * kRowBytes apart; the leading offset is unused.
+template <int D>
+__device__ __forceinline__ uint64_t desc_k_major(uint32_t addr) {
+  using G = Tile<D>;
+  return make_desc(addr, 16, 8 * G::kRowBytes, G::kLayout);
+}
+
+// The MN-major operand (V): 8-key groups 8 * kRowBytes apart (stride),
+// 64-column boxes kBoxBytes apart (leading; only D = 128 has two).
+template <int D>
+__device__ __forceinline__ uint64_t desc_mn_major(uint32_t addr) {
+  using G = Tile<D>;
+  return make_desc(addr, G::kBoxBytes, 8 * G::kRowBytes, G::kLayout);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// Keep the compiler from moving register accesses across the fences.
+__device__ __forceinline__ void fence_reg(float& r) {
+  asm volatile("" : "+f"(r)::"memory");
+}
+__device__ __forceinline__ void fence_reg(uint32_t& r) {
+  asm volatile("" : "+r"(r)::"memory");
+}
+
+// S (64 x 128, f32) = A (64 x 16) B (16 x 128), both from shared memory,
+// K-major; scale_d == 0 ignores the accumulator's old value.
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
+                                              uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_rs_n16(float (&d)[8],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_rs_n32(float (&d)[16],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+// O (64 x D, f32) += P (64 x 16, bf16 fragments in registers) V (16 x D
+// from shared memory, MN-major).
+template <int D>
+__device__ __forceinline__ void wgmma_pv(float (&o)[D / 2],
+                                         const uint32_t (&a)[4],
+                                         uint64_t db) {
+  if constexpr (D == 16) wgmma_rs_n16(o, a, db, 1);
+  if constexpr (D == 32) wgmma_rs_n32(o, a, db, 1);
+  if constexpr (D == 64) wgmma_rs_n64(o, a, db, 1);
+  if constexpr (D == 128) wgmma_rs_n128(o, a, db, 1);
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float x) {
+  x = __fadd_rn(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return __fadd_rn(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+
+// ------------------------------------------------------------ kernel
+// Grid: (B * H, ceil(T / 128)); block: 384 threads.  blockIdx.y counts the
+// query tiles from the last, so that the causal tiles with the most KV
+// tiles start first.
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_attention_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
+                                const __grid_constant__ CUtensorMap tm_k,
+                                const __grid_constant__ CUtensorMap tm_v,
+                                __nv_bfloat16* __restrict__ out, int t_len,
+                                int s_len, int heads, int kv_heads,
+                                int causal, float scale) {
+  using G = Tile<D>;
+  extern __shared__ uint8_t smem_raw[];
+  // the swizzle patterns repeat every 1024 bytes: align the tiles to it
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  uint8_t* q_tile_ptr = smem_raw + (base - raw);
+  const uint32_t sq = base;                    // Q, 128 x D
+  const uint32_t sk = base + G::kBytes;        // K, 2 stages
+  const uint32_t sv = base + 3 * G::kBytes;    // V, 2 stages
+  const uint32_t q_full = base + 5 * G::kBytes;
+  const uint32_t kv_full = q_full + 8;         // + 8 * stage
+  const uint32_t kv_empty = q_full + 24;       // + 8 * stage
+
+  const int bh = blockIdx.x;
+  const int b = bh / heads;
+  const int h = bh - b * heads;
+  const int hk = h / (heads / kv_heads);
+  const int q_tile = gridDim.y - 1 - blockIdx.y;
+  const int q0 = q_tile * kBM;
+  int n_kv = (s_len + kBN - 1) / kBN;
+  if (causal) n_kv = min(n_kv, q_tile + 1);  // skip tiles above the diagonal
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int st = 0; st < 2; ++st) {
+      mbar_init(kv_full + 8 * st, 1);
+      mbar_init(kv_empty + 8 * st, kEmptyArrivals);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 0) {
+    // ------------------------------------------------------ producer
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(q_full, G::kBytes);
+      for (int x = 0; x < G::kBoxes; ++x)
+        tma_load(sq + x * G::kBoxBytes, &tm_q, q_full, x * 64, h, q0, b);
+      for (int j = 0; j < n_kv; ++j) {
+        const int st = j & 1;
+        mbar_wait(kv_empty + 8 * st, ((j >> 1) & 1) ^ 1);
+        mbar_expect_tx(kv_full + 8 * st, 2 * G::kBytes);
+        for (int x = 0; x < G::kBoxes; ++x) {
+          tma_load(sk + st * G::kBytes + x * G::kBoxBytes, &tm_k,
+                   kv_full + 8 * st, x * 64, hk, j * kBN, b);
+          tma_load(sv + st * G::kBytes + x * G::kBoxBytes, &tm_v,
+                   kv_full + 8 * st, x * 64, hk, j * kBN, b);
+        }
+      }
+    }
+    return;
+  }
+
+  // -------------------------------------------------------- consumers
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+  const int cw = wg - 1;                   // rows cw * 64 .. of the tile
+  const int t = threadIdx.x & 127;
+  const int lane = t & 31;
+  const int c0 = (lane & 3) * 2;           // first column of an 8-group
+  const int row0 = q0 + cw * 64 + (t >> 5) * 16 + (lane >> 2);
+  const int row1 = row0 + 8;               // the accumulators' two rows
+
+  // qs = bf16(q * bf16(D^-1/2)) in place, then hand the tile to wgmma
+  mbar_wait(q_full, 0);
+  {
+    uint4* qv = reinterpret_cast<uint4*>(q_tile_ptr);
+    for (int i = threadIdx.x - 128; i < G::kBytes / 16; i += kConsumers) {
+      uint4 w = qv[i];
+      __nv_bfloat162* e = reinterpret_cast<__nv_bfloat162*>(&w);
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const float2 f = __bfloat1622float2(e[c]);
+        e[c] = __floats2bfloat162_rn(__fmul_rn(f.x, scale),
+                                     __fmul_rn(f.y, scale));
+      }
+      qv[i] = w;
+    }
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    asm volatile("bar.sync 1, %0;\n" ::"n"(kConsumers) : "memory");
+  }
+
+  float o[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+  float m0 = kNegInf, m1 = kNegInf, l0 = 0.f, l1 = 0.f;
+  const uint32_t q_wg = sq + cw * 64 * G::kRowBytes;
+
+  for (int j = 0; j < n_kv; ++j) {
+    const int st = j & 1;
+    const int k0 = j * kBN;
+    const uint32_t k_st = sk + st * G::kBytes;
+    const uint32_t v_st = sv + st * G::kBytes;
+    mbar_wait(kv_full + 8 * st, (j >> 1) & 1);
+
+    // S = qs K^T
+    float s[64];
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const uint32_t off = (kk / G::kStepsPerBox) * G::kBoxBytes +
+                           (kk % G::kStepsPerBox) * 32;
+      wgmma_ss_n128(s, desc_k_major<D>(q_wg + off),
+                    desc_k_major<D>(k_st + off), kk > 0);
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+#pragma unroll
+    for (int i = 0; i < 64; ++i) fence_reg(s[i]);
+
+    // s[4n + 2i + e] is (row i ? row1 : row0, column k0 + 8n + c0 + e)
+    if (k0 + kBN > s_len || (causal && k0 + kBN - 1 > q0 + cw * 64)) {
+#pragma unroll
+      for (int n = 0; n < 16; ++n)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int col = k0 + 8 * n + c0 + e;
+          const bool out_s = col >= s_len;
+          if (out_s || (causal && col > row0)) s[4 * n + e] = kNegInf;
+          if (out_s || (causal && col > row1)) s[4 * n + 2 + e] = kNegInf;
+        }
+    }
+
+    // online softmax: m_new = max(m, max s); p = exp(s - m_new);
+    // l = l corr + sum p; O = O corr
+    float mx0 = m0, mx1 = m1;
+#pragma unroll
+    for (int n = 0; n < 16; ++n) {
+      mx0 = fmaxf(mx0, fmaxf(s[4 * n], s[4 * n + 1]));
+      mx1 = fmaxf(mx1, fmaxf(s[4 * n + 2], s[4 * n + 3]));
+    }
+    mx0 = quad_max(mx0);
+    mx1 = quad_max(mx1);
+    const float ml0 = __fmul_rn(mx0, kLog2e);
+    const float ml1 = __fmul_rn(mx1, kLog2e);
+    const float corr0 = exp2f(__fmaf_rn(m0, kLog2e, -ml0));
+    const float corr1 = exp2f(__fmaf_rn(m1, kLog2e, -ml1));
+    float sum0 = 0.f, sum1 = 0.f;
+#pragma unroll
+    for (int n = 0; n < 16; ++n)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        s[4 * n + e] = exp2f(__fmaf_rn(s[4 * n + e], kLog2e, -ml0));
+        s[4 * n + 2 + e] = exp2f(__fmaf_rn(s[4 * n + 2 + e], kLog2e, -ml1));
+        sum0 = __fadd_rn(sum0, s[4 * n + e]);
+        sum1 = __fadd_rn(sum1, s[4 * n + 2 + e]);
+      }
+    l0 = __fmaf_rn(l0, corr0, quad_sum(sum0));
+    l1 = __fmaf_rn(l1, corr1, quad_sum(sum1));
+    m0 = mx0;
+    m1 = mx1;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) {
+      o[4 * n] = __fmul_rn(o[4 * n], corr0);
+      o[4 * n + 1] = __fmul_rn(o[4 * n + 1], corr0);
+      o[4 * n + 2] = __fmul_rn(o[4 * n + 2], corr1);
+      o[4 * n + 3] = __fmul_rn(o[4 * n + 3], corr1);
+    }
+
+    // P in bf16 as the A fragments of the 8 k16 steps over the tile's keys:
+    // step kk takes the accumulator columns of 8-groups 2 kk and 2 kk + 1
+    uint32_t p[8][4];
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk)
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+        p[kk][r] = pack_bf16(s[8 * kk + 2 * r], s[8 * kk + 2 * r + 1]);
+
+    // O += P V
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) fence_reg(o[i]);
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) fence_reg(p[kk][r]);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk)
+      wgmma_pv<D>(o, p[kk], desc_mn_major<D>(v_st + kk * 16 * G::kRowBytes));
+    wgmma_commit();
+    wgmma_wait_all();
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) fence_reg(o[i]);
+    if (lane == 0) mbar_arrive(kv_empty + 8 * st);
+  }
+
+  // out = bf16(O / max(l, 1e-30)); rows past T are not stored
+  const float d0 = fmaxf(l0, 1e-30f), d1 = fmaxf(l1, 1e-30f);
+  const size_t row_stride = (size_t)heads * D;
+  __nv_bfloat16* ob = out + ((size_t)b * t_len * heads + h) * D + c0;
+  if (row0 < t_len) {
+    __nv_bfloat16* dst = ob + (size_t)row0 * row_stride;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n)
+      *reinterpret_cast<__nv_bfloat162*>(dst + 8 * n) = __floats2bfloat162_rn(
+          __fdiv_rn(o[4 * n], d0), __fdiv_rn(o[4 * n + 1], d0));
+  }
+  if (row1 < t_len) {
+    __nv_bfloat16* dst = ob + (size_t)row1 * row_stride;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n)
+      *reinterpret_cast<__nv_bfloat162*>(dst + 8 * n) = __floats2bfloat162_rn(
+          __fdiv_rn(o[4 * n + 2], d1), __fdiv_rn(o[4 * n + 3], d1));
+  }
+}
+
+// -------------------------------------------------------------- host
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from the driver, found through the runtime (so
+// the library needs no -lcuda); null if the driver has none.
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = []() -> EncodeTiled {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err != cudaSuccess || found != cudaDriverEntryPointSuccess)
+      return nullptr;
+    return reinterpret_cast<EncodeTiled>(p);
+  }();
+  return fn;
+}
+
+constexpr int kNoEncoder = -1;        // the driver has no tensor maps
+constexpr int kEncodeFailed = -1000;  // minus the CUresult
+
+// A 4-D map of a contiguous (batch, len, heads, D) bf16 tensor, innermost
+// first: (D, heads, len, batch), box (kCols, 1, 128, 1).  Rows past len
+// read as 0.
+template <int D>
+int encode(CUtensorMap* map, const void* ptr, int batch, int len,
+           int heads) {
+  using G = Tile<D>;
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return kNoEncoder;
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)heads,
+                              (cuuint64_t)len, (cuuint64_t)batch};
+  const cuuint64_t strides[3] = {2ull * D, 2ull * D * heads,
+                                 2ull * D * heads * len};
+  const cuuint32_t box[4] = {(cuuint32_t)G::kCols, 1, (cuuint32_t)kBN, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  const CUtensorMapSwizzle swizzle =
+      G::kRowBytes == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+      : G::kRowBytes == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                           : CU_TENSOR_MAP_SWIZZLE_32B;
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                        const_cast<void*>(ptr), dims, strides, box, elem,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : kEncodeFailed - (int)r;
+}
+
+template <int D>
+int launch(const void* q, const void* k, const void* v, void* o, int batch,
+           int t_len, int s_len, int heads, int kv_heads, int causal,
+           float scale, cudaStream_t stream) {
+  using G = Tile<D>;
+  // set once per instance (thread-safe static initialisation)
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      flash_attention_sm90_kernel<D>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)G::kSmem);
+  if (attr != cudaSuccess) return (int)attr;
+  CUtensorMap tq, tk, tv;
+  int err = encode<D>(&tq, q, batch, t_len, heads);
+  if (err == 0) err = encode<D>(&tk, k, batch, s_len, kv_heads);
+  if (err == 0) err = encode<D>(&tv, v, batch, s_len, kv_heads);
+  if (err != 0) return err;
+  const dim3 grid(batch * heads, (t_len + kBM - 1) / kBM);
+  flash_attention_sm90_kernel<D><<<grid, kThreads, G::kSmem, stream>>>(
+      tq, tk, tv, static_cast<__nv_bfloat16*>(o), t_len, s_len, heads,
+      kv_heads, causal, scale);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// q, o: (batch, t_len, heads, head_dim); k, v: (batch, s_len, kv_heads,
+// head_dim); contiguous bf16, 16-byte aligned; head_dim in {16, 32, 64,
+// 128}; heads % kv_heads == 0; t_len, s_len >= 1; batch * heads < 2^31 and
+// ceil(t_len / 128) <= 65535.  ``scale`` is f32(bf16(head_dim^-1/2)).
+// Launches on ``stream`` and returns its cudaGetLastError(), or
+// cudaErrorInvalidValue for an unsupported head_dim, -1 if the driver has
+// no cuTensorMapEncodeTiled, or -1000 - r if it returned CUresult r.
+int flash_attention_sm90_launch(const void* q, const void* k, const void* v,
+                                void* o, int batch, int t_len, int s_len,
+                                int heads, int kv_heads, int head_dim,
+                                int causal, float scale, void* stream) {
+  const cudaStream_t st = (cudaStream_t)stream;
+  switch (head_dim) {
+    case 16:
+      return launch<16>(q, k, v, o, batch, t_len, s_len, heads, kv_heads,
+                        causal, scale, st);
+    case 32:
+      return launch<32>(q, k, v, o, batch, t_len, s_len, heads, kv_heads,
+                        causal, scale, st);
+    case 64:
+      return launch<64>(q, k, v, o, batch, t_len, s_len, heads, kv_heads,
+                        causal, scale, st);
+    case 128:
+      return launch<128>(q, k, v, o, batch, t_len, s_len, heads, kv_heads,
+                         causal, scale, st);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+}  // extern "C"

@@ -1,16 +1,25 @@
-"""Wrapper of the CUDA kernel in ``csrc/flash_attention.cu``: block
-online-softmax attention in f32 arithmetic, replacing the Pallas TPU
-kernel of the JAX package's ``kernels/flash_attention.py``.
+"""Wrappers of the two CUDA flash-attention kernels, one per dtype, which
+replace the Pallas TPU kernel of the JAX package's
+``kernels/flash_attention.py``:
+
+* bf16 -> ``csrc/flash_attention_sm90.cu`` (``flash_attention_sm90``):
+  wgmma and TMA on the tensor cores, computing the JAX model's bf16
+  attention (``repro.models.attention.flash_attention``): q scaled by
+  bf16(D^-1/2) and rounded to bf16, scores summed in f32, P rounded to
+  bf16 for P V, l summed from the f32 p.  Plain version:
+  ``ref.flash_attention_bf16_ref``.
+* f32 -> ``csrc/flash_attention.cu`` (``flash_attention_f32``): the
+  Pallas kernel's function in f32 on CUDA cores.  Plain version:
+  ``ref.flash_attention_ref``.
 
 q (B, T, H, D), k / v (B, S, HK, D), all contiguous on one CUDA device,
-one dtype (f32 or bf16), D in {16, 32, 64, 128}, H % HK == 0.  Returns
-(B, T, H, D) in q's dtype.  The kernel masks the ragged edges of T and S
-and indexes the KV head of each query head (GQA) itself, so nothing is
-padded, repeated or copied.  The wrapper checks its inputs, allocates
-the output, launches on the current stream, raises if the launch
-failed, and adds one to ``LAUNCHES``.  The plain version is
-``ref.flash_attention_ref``; ``ops.flash_attention`` picks between the
-two by device.
+one dtype, D in {16, 32, 64, 128}, H % HK == 0.  Returns (B, T, H, D) in
+q's dtype.  The kernels mask the ragged edges of T and S and index the
+KV head of each query head (GQA) themselves, so nothing is padded,
+repeated or copied.  The wrapper checks its inputs, allocates the
+output, launches on the current stream, raises if the launch failed, and
+adds one to the kernel's ``LAUNCHES`` entry.  ``ops.flash_attention``
+picks between kernel and plain version by device.
 """
 from __future__ import annotations
 
@@ -18,28 +27,37 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, ref
 
 HEAD_DIMS = (16, 32, 64, 128)
-DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# dtype -> (kernel name, C library, launch function)
+KERNELS = {
+    torch.bfloat16: ("flash_attention_sm90", "flash_attention_sm90",
+                     "flash_attention_sm90_launch"),
+    torch.float32: ("flash_attention_f32", "flash_attention",
+                    "flash_attention_launch"),
+}
+# the sm90 kernel's query tiles run along the grid's y dimension
+_MAX_Q_TILES = 65535
+_TILE = 128
 
 # launches since the last reset (a plain dict of ints)
-LAUNCHES = {"flash_attention": 0}
+LAUNCHES = {name: 0 for name, _, _ in KERNELS.values()}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _TYPED: set = set()
 
 
-def _lib() -> ctypes.CDLL:
-    lib = build.load("flash_attention")
-    if id(lib) not in _TYPED:
-        lib.flash_attention_launch.argtypes = [
-            _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, ctypes.c_float, _I,
-            _P]
-        lib.flash_attention_launch.restype = ctypes.c_int
-        _TYPED.add(id(lib))
-    return lib
+def _launcher(dtype: torch.dtype):
+    _, lib_name, fn_name = KERNELS[dtype]
+    fn = getattr(build.load(lib_name), fn_name)
+    if id(fn) not in _TYPED:
+        fn.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                       ctypes.c_float, _P]
+        fn.restype = ctypes.c_int
+        _TYPED.add(id(fn))
+    return fn
 
 
 def check_shapes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
@@ -60,16 +78,17 @@ def check_shapes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
                          f"KV heads")
     if T < 1 or S < 1:
         raise ValueError(f"empty sequence: T={T}, S={S}")
-    if q.dtype not in DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+    if q.dtype not in KERNELS or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"q, k, v must share one dtype of "
-                        f"{list(DTYPES)}, got {q.dtype}, {k.dtype}, "
+                        f"{list(KERNELS)}, got {q.dtype}, {k.dtype}, "
                         f"{v.dtype}")
     return B, T, S, H, HK, D
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True) -> torch.Tensor:
-    """Launch the kernel: (B, T, H, D) attention output in q's dtype."""
+    """Launch q's dtype's kernel: (B, T, H, D) attention output in q's
+    dtype."""
     B, T, S, H, HK, D = check_shapes(q, k, v)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention launches on CUDA, got {q.device}")
@@ -78,16 +97,32 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             raise ValueError(f"{name} is on {t.device}, expected {q.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    if B * H > 65535:
-        raise ValueError(f"B * H = {B * H} exceeds the grid's 65535")
+    name = KERNELS[q.dtype][0]
+    if q.dtype == torch.bfloat16:
+        for label, t in (("q", q), ("k", k), ("v", v)):
+            if t.data_ptr() % 16:
+                raise ValueError(f"{label} must be 16-byte aligned for TMA")
+        if B * H >= 2 ** 31 or -(-T // _TILE) > _MAX_Q_TILES:
+            raise ValueError(f"B * H = {B * H} or T = {T} exceeds the "
+                             f"grid's limits")
+        scale = ref.bf16_scale(D)
+    else:
+        if B * H > 65535:
+            raise ValueError(f"B * H = {B * H} exceeds the grid's 65535")
+        scale = float(D) ** -0.5
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = _lib().flash_attention_launch(
+        err = _launcher(q.dtype)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, T,
-            S, H, HK, D, int(causal), float(D) ** -0.5, DTYPES[q.dtype],
-            stream)
+            S, H, HK, D, int(causal), scale, stream)
+    if err == -1:
+        raise RuntimeError(f"{name}: the CUDA driver has no "
+                           f"cuTensorMapEncodeTiled")
+    if err <= -1000:
+        raise RuntimeError(f"{name}: cuTensorMapEncodeTiled failed with "
+                           f"CUresult {-1000 - err}")
     if err != 0:
-        raise RuntimeError(f"flash_attention launch failed: CUDA error {err}")
-    LAUNCHES["flash_attention"] += 1
+        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
+    LAUNCHES[name] += 1
     return out

@@ -190,9 +190,15 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """q (B, T, H, D), k / v (B, S, HK, D) -> (B, T, H, D) in q's dtype;
     GQA (H % HK == 0), ragged T and S, D in {16, 32, 64, 128}, f32 or
     bf16.  The causal mask is the Pallas kernel's: query i sees keys
-    0..i (aligned at the top left, whatever S is).  The same shapes are
-    refused on both devices."""
+    0..i (aligned at the top left, whatever S is).  Each dtype computes
+    one function on both devices: bf16 the JAX model's bf16 attention (q
+    scaled in bf16, P rounded to bf16; the sm90 kernel or
+    ``ref.flash_attention_bf16_ref``), f32 the Pallas kernel's f32
+    function (the f32 kernel or ``ref.flash_attention_ref``).  The same
+    shapes are refused on both devices."""
     fa.check_shapes(q, k, v)
     if _on_cuda(q):
         return fa.flash_attention(q, k, v, causal)
+    if q.dtype == torch.bfloat16:
+        return ref.flash_attention_bf16_ref(q, k, v, causal)
     return ref.flash_attention_ref(q, k, v, causal)

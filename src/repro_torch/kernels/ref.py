@@ -149,3 +149,60 @@ def flash_attention_ref(q, k, v, causal: bool = True) -> torch.Tensor:
     o = torch.einsum("bhts,bshd->bthd", p, v32)
     o = o / l.clamp_min(1e-30).permute(0, 2, 1, 3)
     return o.to(q.dtype)
+
+
+# keys per tile of the bf16 kernel's online softmax (csrc/
+# flash_attention_sm90.cu): P is rounded to bf16 against the running max
+# of the tiles seen so far, so the tiling is part of the function
+BF16_KV_TILE = 128
+
+
+def bf16_scale(D: int) -> float:
+    """D^-1/2 rounded to bf16: the JAX model's ``q * D**-0.5`` on a bf16
+    array takes the Python float as a weakly typed bf16 scalar."""
+    return float(torch.tensor(D ** -0.5, dtype=torch.bfloat16))
+
+
+def scale_q_bf16(q) -> torch.Tensor:
+    """bf16(f32(q) * bf16(D^-1/2)), the JAX model's scaled q in bf16 (the
+    f32 product of two bf16 values is exact, so this is one rounding)."""
+    return (q.to(torch.float32) * bf16_scale(q.shape[-1])).to(torch.bfloat16)
+
+
+def flash_attention_bf16_ref(q, k, v, causal: bool = True) -> torch.Tensor:
+    """What the JAX model's attention (``repro.models.attention.
+    flash_attention``) computes in bf16, written plainly: q (B, T, H, D),
+    k/v (B, S, HK, D) bf16 with H % HK == 0 -> (B, T, H, D) bf16.  q is
+    scaled by bf16(D^-1/2) and rounded to bf16; scores are f32 products of
+    that and k (f32 einsums, no TF32), masked to -1e30 where ``col > row``
+    (causal, aligned at the top left); an online softmax over tiles of
+    ``BF16_KV_TILE`` keys keeps m and l in f32, l summing the f32 p; P is
+    rounded to bf16 for P V (f32 sums); the output is acc / max(l, 1e-30)
+    rounded to bf16."""
+    B, T, H, D = q.shape
+    HK = k.shape[2]
+    g = H // HK
+    S = k.shape[1]
+    f32, bf16 = torch.float32, torch.bfloat16
+    qs = scale_q_bf16(q).to(f32)
+    k32 = k.to(f32).repeat_interleave(g, dim=2)
+    v32 = v.to(f32).repeat_interleave(g, dim=2)
+    m = torch.full((B, H, T, 1), NEG_INF, dtype=f32, device=q.device)
+    l = torch.zeros((B, H, T, 1), dtype=f32, device=q.device)
+    acc = torch.zeros((B, H, T, D), dtype=f32, device=q.device)
+    rows = torch.arange(T, device=q.device)[:, None]
+    kv_tile = BF16_KV_TILE
+    for k0 in range(0, S, kv_tile):
+        s = torch.einsum("bthd,bshd->bhts", qs, k32[:, k0:k0 + kv_tile])
+        if causal:
+            cols = torch.arange(k0, k0 + s.shape[-1], device=q.device)
+            s = torch.where(cols[None, :] <= rows, s, NEG_INF)
+        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+        p = torch.exp(s - m_new)
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(dim=-1, keepdim=True)
+        acc = acc * corr + torch.einsum("bhts,bshd->bhtd", p.to(bf16).to(f32),
+                                        v32[:, k0:k0 + kv_tile])
+        m = m_new
+    o = acc / l.clamp_min(1e-30)
+    return o.permute(0, 2, 1, 3).to(bf16)

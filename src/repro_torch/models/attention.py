@@ -1,11 +1,15 @@
 """Attention of the dense models (the port of ``repro.models.attention``).
 
 ``flash_attention``, the full-sequence (prefill / training) attention,
-goes to ``kernels.ops.flash_attention``: the hand-written kernel on the
-card, its plain version on the CPU.  It takes the masks that kernel
-supports, causal or none, with queries starting at position 0; a
-sliding window or a query offset raises on both devices (zamba2's window
-comes with its slice, see ROADMAP.md).
+goes to ``kernels.ops.flash_attention``: a hand-written kernel on the
+card, its plain version on the CPU, one function per dtype.  In bf16 it
+computes what the reference computes in bf16 (q scaled by bf16(D^-1/2)
+in bf16, scores summed in f32, P rounded to bf16 for P V against the
+running max of 128-key tiles: the wgmma kernel ``flash_attention_sm90``);
+in f32 the Pallas kernel's f32 function (``flash_attention_f32``).  It
+takes the masks those kernels support, causal or none, with queries
+starting at position 0; a sliding window or a query offset raises on
+both devices (zamba2's window comes with its slice, see ROADMAP.md).
 
 ``decode_attention`` (one new token against a KV cache) is plain
 PyTorch, as the reference computes it outside any Pallas kernel.
@@ -24,8 +28,11 @@ NEG_INF = -1e30
 def flash_attention(q, k, v, *, causal: bool = True, q_offset=0,
                     window: Optional[int] = None):
     """q: (B, Tq, HQ, D); k, v: (B, S, HK, D) with HQ % HK == 0 ->
-    (B, Tq, HQ, D) in v's dtype.  The reference's ``q_chunk`` /
-    ``kv_chunk`` tiling has no counterpart: the kernel picks its own."""
+    (B, Tq, HQ, D) in v's dtype: bf16 the reference's bf16 function, f32
+    its f32 function (see the module's docstring).  The reference's
+    ``q_chunk`` / ``kv_chunk`` tiling has no counterpart: the kernels pick
+    their own, and in bf16 the KV tile (128 keys) sets the running max
+    that P is rounded against."""
     if window is not None:
         raise NotImplementedError(
             "sliding-window attention is not ported yet (it comes with "
