@@ -12,7 +12,8 @@ signed dither_pack kernels run on their own entry point,
 path runs qwen1.5-0.5b itself, uncut, with seeded random weights:
 ``launch.serve.drive`` over a ``ServeEngine``, whose bf16 prefill
 attention goes through the flash_attention_sm90 kernel (wgmma + TMA) in
-every layer; its f32 checks go through the flash_attention_f32 kernel.
+every layer; its f32 checks go through the flash_attention_f32 kernel
+(3xTF32 wgmma + TMA).
 Phases, each fatal on failure:
 
   1. build every CUDA source of the port with nvcc (sm_90a), one nvcc
@@ -46,7 +47,8 @@ Phases, each fatal on failure:
      flash_attention_f32 launches per forward and no sm90 launch;
   4. time each kernel (CUDA events, median of 10) beside its bound and
      its plain version (the flash kernels also beside
-     ``scaled_dot_product_attention``, timed here only), measure the
+     ``scaled_dot_product_attention``, timed here only; the f32 kernel's
+     bound is its 3xTF32 work on the tensor cores), measure the
      card's device-to-device copy rate, and split each round's wall time
      by phase.
 
@@ -96,7 +98,7 @@ KERNELS = {  # name: (source, replaced TPU kernel)
                        "src/repro/kernels/layered_encode.py:72"),
     "flash_attention_sm90": ("flash_attention_sm90.cu",
                              "src/repro/kernels/flash_attention.py:77"),
-    "flash_attention_f32": ("flash_attention.cu",
+    "flash_attention_f32": ("flash_attention_f32_sm90.cu",
                             "src/repro/kernels/flash_attention.py:77"),
 }
 # device-memory rate (bytes/s) and f32 rate outside the tensor cores
@@ -125,12 +127,26 @@ _BF16_RATES = (("H100 PCIe", 756e12), ("H100 NVL", 835e12),
                ("H200", 989e12), ("H100", 989e12))
 
 
-def bf16_rate(name: str) -> float:
-    for tag, flops in _BF16_RATES:
+# dense TF32 tensor-core rate (flop/s) by card name, NVIDIA's data sheets
+# (half their "with sparsity" figures)
+_TF32_RATES = (("H100 PCIe", 378e12), ("H100 NVL", 417.5e12),
+               ("H200", 495e12), ("H100", 495e12))
+
+
+def _rate(table, kind: str, name: str) -> float:
+    for tag, flops in table:
         if tag in name:
             return flops
-    raise RuntimeError(f"no bf16 rate known for card {name!r}: add it to "
-                       f"_BF16_RATES")
+    raise RuntimeError(f"no {kind} rate known for card {name!r}: add it "
+                       f"to _{kind.upper()}_RATES")
+
+
+def bf16_rate(name: str) -> float:
+    return _rate(_BF16_RATES, "bf16", name)
+
+
+def tf32_rate(name: str) -> float:
+    return _rate(_TF32_RATES, "tf32", name)
 
 
 def card_rates(name: str) -> tuple:
@@ -1022,13 +1038,14 @@ def time_new_kernels(device, gen, rates: tuple) -> list:
 
 # timed flash shapes, causal: (B, T, S, H, HK, D, dtype): the serve
 # path's heads (qwen1.5-0.5b, 16 of 64) at T = 2048 and 8192 and
-# qwen3-32b's GQA heads (64 query, 8 KV, of 128) at 4096 in bf16; the
-# f32 kernel at the first
+# qwen3-32b's GQA heads (64 query, 8 KV, of 128) at 4096, in bf16 and f32
 FLASH_TIMED = (
     (1, 2048, 2048, 16, 16, 64, "bfloat16"),
     (1, 8192, 8192, 16, 16, 64, "bfloat16"),
     (1, 4096, 4096, 64, 8, 128, "bfloat16"),
     (1, 2048, 2048, 16, 16, 64, "float32"),
+    (1, 8192, 8192, 16, 16, 64, "float32"),
+    (1, 4096, 4096, 64, 8, 128, "float32"),
 )
 
 
@@ -1055,14 +1072,18 @@ def batched_ms(fn, n: int = 20, reps: int = 5) -> float:
 
 
 def time_flash(device, gen, mem_rate: float, f32_rate: float,
-               bf16_tc: float) -> list:
+               bf16_tc: float, tf32_tc: float) -> list:
     """Each flash kernel at the FLASH_TIMED shapes (``batched_ms``), beside
     its bound — the larger of the bytes (q, k, v read once, out written
-    once) over the memory rate and the causal FLOPs (4 B H T S D / 2) over
-    the rate of its inputs' type: the bf16 tensor-core rate for bf16, the
-    f32 rate outside the tensor cores for f32 — its plain version
-    (``cuda_ms``, 3 runs) and ``scaled_dot_product_attention`` at the same
-    shape and dtype (``enable_gqa`` where HK < H; the library yardstick,
+    once) over the memory rate and the least operations the card needs
+    for the causal FLOPs (4 B H T S D / 2) at its inputs' accuracy: once
+    at the bf16 tensor-core rate for bf16, three times at the TF32
+    tensor-core rate for f32 (3xTF32, f32 accuracy on the tensor cores;
+    the bound at the f32 rate outside the tensor cores is logged beside)
+    — its plain version (``cuda_ms``, 3 runs) and
+    ``scaled_dot_product_attention`` at the same shape and dtype
+    (``enable_gqa`` where HK < H, and then also on K and V repeated to H
+    heads beforehand, ``library_expanded_ms``; the library yardstick,
     timed only here)."""
     import torch
     import torch.nn.functional as F
@@ -1080,28 +1101,45 @@ def time_flash(device, gen, mem_rate: float, f32_rate: float,
         name = "flash_attention_sm90" if bf16 else "flash_attention_f32"
         plain = (ref.flash_attention_bf16_ref if bf16
                  else ref.flash_attention_ref)
-        rate = bf16_tc if bf16 else f32_rate
         ms = batched_ms(lambda: fa.flash_attention(q, k, v, True))
         plain_ms = cuda_ms(lambda: plain(q, k, v, True), reps=3)
         lib_ms = batched_ms(lambda: F.scaled_dot_product_attention(
             qt, kt, vt, is_causal=True, enable_gqa=HK < H))
+        lib_x_ms = None
+        if HK < H:
+            kx, vx = (x.repeat_interleave(H // HK, dim=1) for x in (kt, vt))
+            lib_x_ms = batched_ms(lambda: F.scaled_dot_product_attention(
+                qt, kx, vx, is_causal=True))
+            del kx, vx
         flops = 4 * B * H * T * S * D / 2
         nbytes = q.element_size() * (2 * B * T * H * D + 2 * B * S * HK * D)
         bytes_ms = nbytes / mem_rate * 1e3
-        ops_ms = flops / rate * 1e3
+        ops_ms = (flops / bf16_tc if bf16 else 3 * flops / tf32_tc) * 1e3
         bound = max(bytes_ms, ops_ms)
         by = "bytes" if bytes_ms >= ops_ms else "operations"
         shape = f"({B}, {T}, {H} / {HK} heads, {D}) {dt} causal"
+        rate = (f"{flops / 1e9:.2f} GFLOP at {bf16_tc / 1e12:.0f} TFLOP/s"
+                if bf16 else f"3 x {flops / 1e9:.2f} GFLOP at "
+                f"{tf32_tc / 1e12:.1f} TFLOP/s TF32")
+        row = {"name": name, "config": shape, "ms": ms,
+               "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+               "bytes": nbytes, "flops": flops, "library_ms": lib_ms,
+               "library_expanded_ms": lib_x_ms}
+        extra = ""
+        if not bf16:
+            core_ms = max(bytes_ms, flops / f32_rate * 1e3)
+            row["cuda_core_bound_ms"] = core_ms
+            extra = (f"; CUDA-core bound {core_ms:.4f} ms at "
+                     f"{f32_rate / 1e12:.0f} TFLOP/s f32, "
+                     f"{100 * core_ms / ms:.1f}% of it")
+        lib_x = ("" if lib_x_ms is None else
+                 f"; SDPA on repeated K, V {lib_x_ms:.4f} ms")
         log(f"{name} {shape}: {ms:.4f} ms, bound {bound:.4f} ms by {by} "
-            f"({flops / 1e9:.2f} GFLOP at {rate / 1e12:.0f} TFLOP/s; bytes "
-            f"{bytes_ms:.4f} ms), {100 * bound / ms:.1f}% of it, "
-            f"{flops / ms / 1e9:.1f} TFLOP/s; plain {plain_ms:.4f} ms; "
-            f"scaled_dot_product_attention {lib_ms:.4f} ms (kernel / SDPA "
-            f"{ms / lib_ms:.2f})")
-        rows.append({"name": name, "config": shape, "ms": ms,
-                     "plain_ms": plain_ms, "bound_ms": bound,
-                     "bound_by": by, "bytes": nbytes, "flops": flops,
-                     "library_ms": lib_ms})
+            f"({rate}; bytes {bytes_ms:.4f} ms), {100 * bound / ms:.1f}% of "
+            f"it{extra}, {flops / ms / 1e9:.1f} TFLOP/s; plain "
+            f"{plain_ms:.4f} ms; scaled_dot_product_attention "
+            f"{lib_ms:.4f} ms (kernel / SDPA {ms / lib_ms:.2f}){lib_x}")
+        rows.append(row)
         del q, k, v, qt, kt, vt
     torch.cuda.empty_cache()
     return rows
@@ -1152,8 +1190,15 @@ def main() -> int:
     log(f"build: {json.dumps(secs)} s")
     for lib, text in build.BUILD_LOG.items():
         for line in text.splitlines():
-            if "registers" in line or "spill" in line:
+            if ("registers" in line or "spill" in line
+                    or "Compiling entry" in line
+                    or "Performance Loss" in line):
                 log(f"  ptxas {lib}: {line.strip()}")
+    f32_lib = build.load("flash_attention_f32_sm90")
+    smem = {d: f32_lib.flash_attention_f32_smem_bytes(d)
+            for d in (16, 32, 64, 128)}
+    log(f"  flash_attention_f32_sm90 dynamic shared memory by head dim "
+        f"(bytes; ptxas does not report it): {json.dumps(smem)}")
 
     # 2. kernels against their plain versions
     gen = torch.Generator(device=device)
@@ -1223,7 +1268,8 @@ def main() -> int:
     rates = rates + (copy["rate"],)
     rows = time_kernels(device, gen, rates) + time_new_kernels(device, gen,
                                                                rates)
-    rows += time_flash(device, gen, rates[0], rates[1], bf16_rate(name))
+    rows += time_flash(device, gen, rates[0], rates[1], bf16_rate(name),
+                       tf32_rate(name))
     launches = {k: sum(r["launches"][k] for r in res.values())
                 + dpath["launches"][k] + serve["launches"][k]
                 + serve_f32["launches"][k] for k in KERNELS}
@@ -1239,7 +1285,8 @@ def main() -> int:
             "bound_by": main_row["bound_by"],
             "library_ms": main_row.get("library_ms")})
     total = time.perf_counter() - t_start
-    report = {"card": smi, "build_s": secs, "kernel_rows": rows,
+    report = {"card": smi, "build_s": secs, "f32_flash_smem": smem,
+              "kernel_rows": rows,
               "copy": copy, "dither_pack_path": dpath,
               "message_bits_layered_shifted": fixed,
               "rounds": {m: {k: v for k, v in r.items() if k != "errs"}

@@ -3,8 +3,8 @@
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled by
 ``nvcc`` for ``sm_90a`` into ``build/kernels/<name>-<hash>.so`` at the
 root of the checkout (a git-ignored directory); the hash covers the
-source and the flags, so an edited source rebuilds and an unchanged one
-is loaded as it is.  The library is bound with ctypes.  A failed build
+source, every shared header ``csrc/*.cuh`` and the flags, so an edited
+source or header rebuilds and an unchanged one is loaded as it is.  The library is bound with ctypes.  A failed build
 raises with nvcc's output.  Never built with ``--use_fast_math``: the
 kernels' words must match the plain versions bitwise.
 """
@@ -42,9 +42,11 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"{name}-{digest}.so"
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(FLAGS).encode())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
 def _start(name: str):

@@ -12,9 +12,9 @@
 //   acc    += bf16(p) . v, summed in f32             (wgmma, P from registers)
 //   out     = bf16_rn(acc / max(l, 1e-30))
 //
-// f32 inputs go to flash_attention.cu, which keeps the Pallas kernel's
-// f32 function.  q (B, T, H, D), k and v (B, S, HK, D), out (B, T, H, D),
-// all contiguous bf16, D in {16, 32, 64, 128}, H % HK == 0.
+// f32 inputs go to flash_attention_f32_sm90.cu, which keeps the Pallas
+// kernel's f32 function.  q (B, T, H, D), k and v (B, S, HK, D), out
+// (B, T, H, D), all contiguous bf16, D in {16, 32, 64, 128}, H % HK == 0.
 //
 // What bounds it on this card: operations.  Causal attention is
 // 4 B H T S D / 2 FLOPs (two products over the lower triangle): 137 GFLOP
@@ -45,10 +45,9 @@
 // consumers are not ping-ponged: this is the simple version of the shape.
 // The build passes --fmad=false, so the softmax's multiply-adds are
 // written as fmaf; exp(x - m) is exp2f(x log2(e) - m log2(e)).
-#include <cuda.h>  // CUtensorMap and the driver's enums; no -lcuda needed
 #include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+
+#include "sm90_common.cuh"
 
 namespace {
 
@@ -59,9 +58,6 @@ constexpr int kConsumers = 256;
 constexpr int kEmptyArrivals = 8;  // one per consumer warp
 constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.44269504088896340736f;
-// a barrier wait that has not completed after this many cycles (about
-// 10 s) traps instead of hanging the card
-constexpr long long kWaitCycles = 20000000000LL;
 
 template <int D>
 struct Tile {
@@ -78,71 +74,7 @@ struct Tile {
   static constexpr size_t kSmem = 5 * (size_t)kBytes + 64 + 1024;
 };
 
-// ------------------------------------------------------------ barriers
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-      "r"(bytes)
-      : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
-               : "memory");
-}
-
-__device__ __forceinline__ bool mbar_try_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-      "selp.u32 %0, 1, 0, p;\n}\n"
-      : "=r"(done)
-      : "r"(bar), "r"(parity)
-      : "memory");
-  return done != 0;
-}
-
-// Wait until the phase of parity ``parity`` has completed.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  if (mbar_try_wait(bar, parity)) return;
-  const long long t0 = clock64();
-  while (!mbar_try_wait(bar, parity))
-    if (clock64() - t0 > kWaitCycles) __trap();
-}
-
-// --------------------------------------------------------------- TMA
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
-                                         uint32_t bar, int c0, int c1, int c2,
-                                         int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::"
-      "complete_tx::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
-      "r"(c2), "r"(c3)
-      : "memory");
-}
-
 // ------------------------------------------------------------- wgmma
-// Shared-memory matrix descriptor: start address, leading and stride byte
-// offsets (all >> 4), swizzle layout type in bits 62-63.
-__device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo,
-                                              uint32_t sbo, int layout) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) |
-         ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
-         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | ((uint64_t)layout << 62);
-}
-
 // A K-major operand (Q, K): swizzled rows of kRowBytes, 8-row groups
 // 8 * kRowBytes apart; the leading offset is unused.
 template <int D>
@@ -157,23 +89,6 @@ template <int D>
 __device__ __forceinline__ uint64_t desc_mn_major(uint32_t addr) {
   using G = Tile<D>;
   return make_desc(addr, G::kBoxBytes, 8 * G::kRowBytes, G::kLayout);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-// Keep the compiler from moving register accesses across the fences.
-__device__ __forceinline__ void fence_reg(float& r) {
-  asm volatile("" : "+f"(r)::"memory");
-}
-__device__ __forceinline__ void fence_reg(uint32_t& r) {
-  asm volatile("" : "+r"(r)::"memory");
 }
 
 // S (64 x 128, f32) = A (64 x 16) B (16 x 128), both from shared memory,
@@ -311,16 +226,6 @@ __device__ __forceinline__ void wgmma_pv(float (&o)[D / 2],
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-__device__ __forceinline__ float quad_max(float x) {
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
-  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
-}
-
-__device__ __forceinline__ float quad_sum(float x) {
-  x = __fadd_rn(x, __shfl_xor_sync(0xffffffffu, x, 1));
-  return __fadd_rn(x, __shfl_xor_sync(0xffffffffu, x, 2));
 }
 
 // ------------------------------------------------------------ kernel
@@ -543,36 +448,6 @@ __global__ void __launch_bounds__(kThreads, 1)
 }
 
 // -------------------------------------------------------------- host
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
-                                 cuuint32_t, void*, const cuuint64_t*,
-                                 const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave,
-                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled from the driver, found through the runtime (so
-// the library needs no -lcuda); null if the driver has none.
-EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = []() -> EncodeTiled {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (err != cudaSuccess || found != cudaDriverEntryPointSuccess)
-      return nullptr;
-    return reinterpret_cast<EncodeTiled>(p);
-  }();
-  return fn;
-}
-
-constexpr int kNoEncoder = -1;        // the driver has no tensor maps
-constexpr int kEncodeFailed = -1000;  // minus the CUresult
-
 // A 4-D map of a contiguous (batch, len, heads, D) bf16 tensor, innermost
 // first: (D, heads, len, batch), box (kCols, 1, 128, 1).  Rows past len
 // read as 0.

@@ -8,9 +8,10 @@ replace the Pallas TPU kernel of the JAX package's
   bf16(D^-1/2) and rounded to bf16, scores summed in f32, P rounded to
   bf16 for P V, l summed from the f32 p.  Plain version:
   ``ref.flash_attention_bf16_ref``.
-* f32 -> ``csrc/flash_attention.cu`` (``flash_attention_f32``): the
-  Pallas kernel's function in f32 on CUDA cores.  Plain version:
-  ``ref.flash_attention_ref``.
+* f32 -> ``csrc/flash_attention_f32_sm90.cu`` (``flash_attention_f32``):
+  the Pallas kernel's f32 function on the tensor cores, each product as
+  three TF32 products of hi / lo splits (3xTF32, f32 accuracy), wgmma and
+  TMA as the bf16 kernel.  Plain version: ``ref.flash_attention_ref``.
 
 q (B, T, H, D), k / v (B, S, HK, D), all contiguous on one CUDA device,
 one dtype, D in {16, 32, 64, 128}, H % HK == 0.  Returns (B, T, H, D) in
@@ -34,12 +35,18 @@ HEAD_DIMS = (16, 32, 64, 128)
 KERNELS = {
     torch.bfloat16: ("flash_attention_sm90", "flash_attention_sm90",
                      "flash_attention_sm90_launch"),
-    torch.float32: ("flash_attention_f32", "flash_attention",
+    torch.float32: ("flash_attention_f32", "flash_attention_f32_sm90",
                     "flash_attention_launch"),
 }
-# the sm90 kernel's query tiles run along the grid's y dimension
+# both kernels run b * h along the grid's x dimension and the query tiles
+# of 128 rows along y
 _MAX_Q_TILES = 65535
 _TILE = 128
+# The f32 kernel's key order inside each 8-key step of P V: TF32 wgmma's
+# A fragment takes columns (c, c + 4) where the accumulator holds (2c,
+# 2c + 1), so A column i is key TF32_KEY_ORDER[i], and the kernel writes
+# V^T's columns in the same order.
+TF32_KEY_ORDER = (0, 2, 4, 6, 1, 3, 5, 7)
 
 # launches since the last reset (a plain dict of ints)
 LAUNCHES = {name: 0 for name, _, _ in KERNELS.values()}
@@ -98,17 +105,15 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
     name = KERNELS[q.dtype][0]
+    for label, t in (("q", q), ("k", k), ("v", v)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{label} must be 16-byte aligned for TMA")
+    if B * H >= 2 ** 31 or -(-T // _TILE) > _MAX_Q_TILES:
+        raise ValueError(f"B * H = {B * H} or T = {T} exceeds the grid's "
+                         f"limits")
     if q.dtype == torch.bfloat16:
-        for label, t in (("q", q), ("k", k), ("v", v)):
-            if t.data_ptr() % 16:
-                raise ValueError(f"{label} must be 16-byte aligned for TMA")
-        if B * H >= 2 ** 31 or -(-T // _TILE) > _MAX_Q_TILES:
-            raise ValueError(f"B * H = {B * H} or T = {T} exceeds the "
-                             f"grid's limits")
         scale = ref.bf16_scale(D)
     else:
-        if B * H > 65535:
-            raise ValueError(f"B * H = {B * H} exceeds the grid's 65535")
         scale = float(D) ** -0.5
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):

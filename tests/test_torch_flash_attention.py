@@ -3,8 +3,9 @@ attention (the CPU path of ``ops.flash_attention``, and the yardstick of
 the CUDA kernels on the card) in f32 against the Pallas kernel in
 interpret mode and against ``mha_ref``, and in bf16 against the JAX
 model's attention (``repro.models.attention.flash_attention``) in bf16;
-``decode_attention`` in its three mask modes; the dispatch by dtype; and
-the shapes and masks the port refuses.  Inputs are made with numpy from
+``decode_attention`` in its three mask modes; the dispatch by dtype; the
+shapes and masks the port refuses; and the error budget of the f32
+kernel's 3xTF32 design, by a CPU emulation of its arithmetic.  Inputs are made with numpy from
 a seed and handed to both."""
 import jax
 import jax.numpy as jnp
@@ -42,6 +43,14 @@ def _qkv(B, T, S, H, HK, D, seed=11):
 
 def _t(*arrays):
     return [torch.from_numpy(a) for a in arrays]
+
+
+def _pallas(q, k, v, causal):
+    """The Pallas kernel in interpret mode, through the reference's ops
+    wrapper (GQA repeat and padding to 64-blocks)."""
+    return np.asarray(jops.flash_attention(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=causal,
+        bq=64, bk=64, interpret=True))
 
 
 def _bf16(*arrays):
@@ -99,9 +108,7 @@ def test_plain_matches_pallas_kernel(B, T, S, H, HK, D, causal):
     (interpret mode, through the reference's ops wrapper: GQA repeat and
     padding to 64-blocks) within 2e-5."""
     q, k, v = _qkv(B, T, S, H, HK, D)
-    want = np.asarray(jops.flash_attention(
-        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=causal,
-        bq=64, bk=64, interpret=True))
+    want = _pallas(q, k, v, causal)
     got = ops.flash_attention(*_t(q, k, v), causal=causal)
     assert got.dtype == torch.float32 and got.shape == (B, T, H, D)
     np.testing.assert_allclose(got.numpy(), want, atol=ATOL, rtol=0)
@@ -321,3 +328,206 @@ def test_decode_attention_matches_reference(mode):
         **{k: (torch.from_numpy(a) if isinstance(a, np.ndarray) else a)
            for k, a in kw.items()})
     np.testing.assert_allclose(got.numpy(), want, atol=1e-6, rtol=0)
+
+
+# ------------------------------------------- the f32 kernel's 3xTF32 design
+# csrc/flash_attention_f32_sm90.cu splits every operand x into TF32 hi =
+# rna(x) and lo = rna(x - hi) and sums three TF32 products per 8-deep
+# k-step, lo.hi, hi.lo, hi.hi, into f32 accumulators; P V takes the keys
+# of each 8-key step in the order fa.TF32_KEY_ORDER.  The card alone runs
+# the kernel; these tests hold an emulation of its arithmetic to the bar.
+TF32_DROP = 13  # f32 mantissa bits below TF32's 10
+# the kernel's keys per KV tile by head dim
+F32_KV_TILE = {16: 64, 32: 64, 64: 64, 128: 32}
+
+
+def _tf32_np(x):
+    """cvt.rna.tf32.f32 in numpy: round the 13 dropped mantissa bits to
+    nearest, ties away from zero (on the magnitude bits), keep f32's
+    exponent range."""
+    bits = np.asarray(x, dtype=np.float32).view(np.uint32)
+    half = np.uint32(1 << (TF32_DROP - 1))
+    mask = np.uint32((0xFFFFFFFF << TF32_DROP) & 0xFFFFFFFF)
+    return ((bits + half) & mask).view(np.float32)
+
+
+def _split_np(x):
+    x = np.asarray(x, dtype=np.float32)
+    hi = _tf32_np(x)
+    return hi, _tf32_np(x - hi)
+
+
+def _tf32(x):
+    """The same rounding on a torch f32 tensor (int32 bit arithmetic)."""
+    b = x.contiguous().view(torch.int32)
+    return ((b + (1 << (TF32_DROP - 1))) & -(1 << TF32_DROP)).view(
+        torch.float32)
+
+
+def _split(x):
+    hi = _tf32(x)
+    return hi, _tf32(x - hi)
+
+
+def _mm_tf32(acc, a, b, terms):
+    """acc + a @ b over the last / first-but-one axes, 8-deep k-steps in
+    order; each step adds its products (exact in f32 for TF32 inputs,
+    summed over the step in f64 and rounded once: the tensor core's own
+    sum order is not IEEE) in the kernel's term order."""
+    a_hi, a_lo = _split(a)
+    b_hi, b_lo = _split(b)
+    pairs = ([(a_lo, b_hi), (a_hi, b_lo), (a_hi, b_hi)] if terms == 3
+             else [(a_hi, b_hi)])
+    for k0 in range(0, a.shape[-1], 8):
+        for x, y in pairs:
+            acc = acc + (x[..., k0:k0 + 8].double()
+                         @ y[..., k0:k0 + 8, :].double()).float()
+    return acc
+
+
+LOG2E = np.float32(1.4426950408889634)
+
+
+def _exp_kernel(x, m):
+    """exp(x - m) as the kernel computes it: exp2f(fma(x, log2(e),
+    -f32(m log2(e)))) (the f64 product of two f32 values is exact, so
+    one f64 subtraction and the rounding to f32 stand in for the FMA)."""
+    ml = (m * float(LOG2E)).double()
+    return torch.exp2((x.double() * float(LOG2E) - ml).float())
+
+
+def _emulate_f32_kernel(q, k, v, causal, terms=3,
+                        key_order=fa.TF32_KEY_ORDER, permute_v=True):
+    """The f32 kernel's function as it computes it: q scaled and rounded
+    to f32, S = qs K^T and O += P V as TF32 products, online softmax over
+    its KV tiles with its exp2 form in f32, keys permuted inside each 8-key
+    step of P V (V's rows with P's columns unless ``permute_v`` is off)."""
+    B, T, H, D = q.shape
+    S, g = k.shape[1], H // k.shape[2]
+    qs = (q * D ** -0.5).permute(0, 2, 1, 3)
+    kh = k.repeat_interleave(g, dim=2).permute(0, 2, 1, 3)
+    vh = v.repeat_interleave(g, dim=2).permute(0, 2, 1, 3)
+    m = torch.full((B, H, T, 1), ref.NEG_INF)
+    l = torch.zeros((B, H, T, 1))
+    o = torch.zeros((B, H, T, D))
+    rows = torch.arange(T)[:, None]
+    order = torch.tensor(key_order)
+    bn = F32_KV_TILE[D]
+    for k0 in range(0, S, bn):
+        kt, vt = kh[:, :, k0:k0 + bn], vh[:, :, k0:k0 + bn]
+        s = _mm_tf32(torch.zeros((B, H, T, kt.shape[2])), qs,
+                     kt.transpose(-1, -2), terms)
+        if causal:
+            cols = torch.arange(k0, k0 + kt.shape[2])[None, :]
+            s = torch.where(cols <= rows, s, ref.NEG_INF)
+        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+        corr = _exp_kernel(m, m_new)
+        p = _exp_kernel(s, m_new)
+        l = l * corr + p.sum(dim=-1, keepdim=True)
+        # the kernel's zero-filled keys past S pad the tile to 8-key steps
+        pad = -kt.shape[2] % 8
+        p = torch.nn.functional.pad(p, (0, pad))
+        vt = torch.nn.functional.pad(vt, (0, 0, 0, pad))
+        n = p.shape[-1]
+        perm = (torch.arange(0, n, 8)[:, None] + order[None, :]).reshape(-1)
+        vt = vt[:, :, perm] if permute_v else vt
+        o = _mm_tf32(o * corr, p[..., perm], vt, terms)
+        m = m_new
+    o = o / l.clamp_min(1e-30)
+    return o.permute(0, 2, 1, 3)
+
+
+TIE = np.float32(1 + 2 ** -11)  # exactly half a TF32 ulp above 1
+EDGE_VALUES = [
+    (1.0, 1.0), (TIE, 1 + 2 ** -10), (-TIE, -(1 + 2 ** -10)),
+    (np.nextafter(TIE, np.float32(0)), 1.0), (2.0 ** 20, 2.0 ** 20),
+    (2.0 ** -126, 2.0 ** -126), (np.float32(2.0 - 2 ** -23), 2.0),
+    (-1e30, None), (1e-40, None), (0.0, 0.0), (3.0e38, None),
+]
+
+
+@pytest.mark.parametrize("x,hi_want", EDGE_VALUES)
+def test_tf32_split_edge_values(x, hi_want):
+    """hi = rna(x) keeps 10 mantissa bits, ties away from zero; lo =
+    rna(x - hi); both TF32 (the 13 low bits 0).  hi + lo is x within
+    2^-22 relative; a denormal x within 2^-137 absolute (TF32 keeps f32's
+    exponent range but only the 10 top mantissa bits of a denormal, so
+    lo's own rounding sets the floor: half of 2^13 denormal steps)."""
+    x = np.float32(x)
+    hi, lo = _split_np(x)
+    low = np.uint32((1 << TF32_DROP) - 1)
+    assert (hi.view(np.uint32) & low) == 0 and (lo.view(np.uint32) & low) == 0
+    if hi_want is not None:
+        assert hi == np.float32(hi_want)
+    err = abs(float(x) - (float(hi) + float(lo)))
+    assert err <= max(2.0 ** -22 * abs(float(x)), 2.0 ** -137)
+
+
+def test_tf32_split_torch_matches_numpy():
+    """The torch split used by the emulation equals the numpy helper
+    bitwise, on 2^16 standard-normal values, their scaled copies and the
+    edge values."""
+    rng = np.random.default_rng(21)
+    x = rng.standard_normal(1 << 16, dtype=np.float32)
+    x = np.concatenate([x, x * np.float32(1e-3), x * np.float32(1e6),
+                        np.array([e for e, _ in EDGE_VALUES], np.float32)])
+    hi, lo = _split(torch.from_numpy(x))
+    hi_np, lo_np = _split_np(x)
+    np.testing.assert_array_equal(hi.numpy().view(np.uint32),
+                                  hi_np.view(np.uint32))
+    np.testing.assert_array_equal(lo.numpy().view(np.uint32),
+                                  lo_np.view(np.uint32))
+
+
+def test_tf32_key_order_matches_fragment_layouts():
+    """TF32_KEY_ORDER follows from the two layouts.  In an 8-column group
+    of the m64nN f32 accumulator, lane (g, c) = (lane / 4, lane % 4)
+    holds d[4n + r] at (row g + 8 (r >> 1), column 2c + (r & 1)); the
+    m64k8 TF32 A fragment's a_r is (row g + 8 (r & 1), column c + 4
+    (r >> 1)).  The kernel feeds a0..a3 = d[4n], d[4n + 2], d[4n + 1],
+    d[4n + 3]: the rows agree, and A column i takes key
+    TF32_KEY_ORDER[i]."""
+    feed = (0, 2, 1, 3)
+    order = [None] * 8
+    for c in range(4):
+        for r in range(4):
+            d = feed[r]
+            assert 8 * (d >> 1) == 8 * (r & 1)  # same row, g or g + 8
+            order[c + 4 * (r >> 1)] = 2 * c + (d & 1)
+    assert tuple(order) == fa.TF32_KEY_ORDER
+    assert sorted(order) == list(range(8))
+
+
+@pytest.mark.parametrize("B,T,S,H,HK,D,causal", PALLAS_CASES)
+def test_3xtf32_emulation_meets_the_bar(B, T, S, H, HK, D, causal):
+    """The f32 kernel's arithmetic (3xTF32, its term order, KV tiles and
+    key permutation) lands within 2e-5 of the Pallas kernel in interpret
+    mode and of ``flash_attention_ref``."""
+    q, k, v = _qkv(B, T, S, H, HK, D, seed=17)
+    got = _emulate_f32_kernel(*_t(q, k, v), causal).numpy()
+    np.testing.assert_allclose(got, _pallas(q, k, v, causal), atol=ATOL,
+                               rtol=0)
+    want = ref.flash_attention_ref(*_t(q, k, v), causal=causal).numpy()
+    np.testing.assert_allclose(got, want, atol=ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("B,T,S,H,HK,D,causal",
+                         [c for c in PALLAS_CASES if c[5] == 64])
+def test_one_tf32_product_misses_the_bar(B, T, S, H, HK, D, causal):
+    """With one TF32 product (hi.hi) per step the same emulation is more
+    than 2e-5 off at D = 64: the kernel needs all three."""
+    q, k, v = _qkv(B, T, S, H, HK, D, seed=17)
+    one = _emulate_f32_kernel(*_t(q, k, v), causal, terms=1).numpy()
+    want = ref.flash_attention_ref(*_t(q, k, v), causal=causal).numpy()
+    assert float(np.abs(one - want).max()) > ATOL
+
+
+def test_key_permutation_must_reach_v():
+    """P's columns and V^T's columns take the same key order: permuting
+    P alone misses the bar by far, permuting both meets it."""
+    q, k, v = _t(*_qkv(1, 64, 64, 2, 2, 32, seed=18))
+    want = ref.flash_attention_ref(q, k, v).numpy()
+    both = _emulate_f32_kernel(q, k, v, True).numpy()
+    np.testing.assert_allclose(both, want, atol=ATOL, rtol=0)
+    p_only = _emulate_f32_kernel(q, k, v, True, permute_v=False).numpy()
+    assert float(np.abs(p_only - want).max()) > 100 * ATOL
