@@ -13,7 +13,10 @@ path runs qwen1.5-0.5b itself, uncut, with seeded random weights:
 ``launch.serve.drive`` over a ``ServeEngine``, whose bf16 prefill
 attention goes through the flash_attention_sm90 kernel (wgmma + TMA) in
 every layer; its f32 checks go through the flash_attention_f32 kernel
-(3xTF32 wgmma + TMA).
+(3xTF32 wgmma + TMA).  The same round also runs across 4 client ranks
+spawned on the card (``dist.compress.compress_tree(axis=group)``, gloo),
+each rank holding one client's update shaped as qwen1.5-0.5b's
+parameter tree, and through the async runtime and a checkpoint-resume.
 Phases, each fatal on failure:
 
   1. build every CUDA source of the port with nvcc (sm_90a), one nvcc
@@ -29,13 +32,24 @@ Phases, each fatal on failure:
      + 2e-5, the f32 flash kernel within 2e-5 of
      ``ref.flash_attention_ref``, at the serve path's shapes and at GQA
      (qwen3-32b's 64 / 8 heads of 128 among them), non-causal and ragged
-     ones;
+     ones; and the bf16 kernel (128-key tiles) against the plain version
+     at the model configs' kv_chunk 1024, at the shapes with more than
+     1024 keys: every output within one ulp + 2^-9 max|v|, at least 90%
+     within one ulp + 2e-5;
   3. run each path with its kernels' launch counts set to 0 just before
      and read just after: FederatedAveraging for aggregate_gaussian
-     (per-coordinate, sigma 0.25) and irwin_hall (sigma 5e-3), 2 packed
-     rounds each, and individual_shifted (sigma 0.25), 2 unpacked rounds;
+     (per-coordinate, sigma 0.25) and irwin_hall (sigma 5e-3), one packed
+     round each, and individual_shifted (sigma 0.25), one unpacked round;
      one individual_direct round at 2^24 coordinates (no layered
-     launches: the configuration picks the plain path); and the
+     launches: the configuration picks the plain path); 4 client ranks
+     (3b: an NCCL probe of 2 ranks on the card, recorded only, then
+     compress_tree across 4 gloo ranks for aggregate_gaussian and
+     irwin_hall fused b = 8 and layered_shifted: outputs bitwise equal
+     across ranks, each case's two kernels once per leaf on every rank,
+     the summed words equal to the one-process sum of the clients'
+     words, the error law); the async runtime at d = 2^24 (3c: 3 rounds
+     at staleness 0 bitwise equal to the sync loop, a checkpoint-resume
+     from round 1 bitwise equal to the run without the break); and the
      dither_pack entry point at full width; check the counts, the wire
      width or Elias-gamma bits, and the error law (KS against
      N(0, sigma^2) on a 2^20-coordinate subsample; IH support and std;
@@ -75,7 +89,7 @@ D_FULL = 463_987_712  # sum of qwen1.5-0.5b's parameter sizes
 N_CLIENTS = 4
 BITS = 8
 CLIP = 1.0
-ROUNDS = 2
+ROUNDS = 1
 KS_SAMPLE = 1 << 20
 DECODE_ATOL = 1e-6
 SIGMA_IND = 0.25  # individual_shifted: per-client sigma 0.25 * sqrt(4)
@@ -410,6 +424,15 @@ FLASH_ATOL = 2e-5  # the reference's own bar (tests/test_kernels.py)
 # same running max, so nearly all outputs agree to one ulp
 BF16_P_BAR = 2.0 ** -9
 BF16_SHARE = 0.99
+# the kernel's 128-key tile against the plain version at the model
+# configs' kv_chunk 1024 (the JAX model's tiling): P rounds against
+# another running max, so only the P bar holds for every output; the
+# share within one ulp + 2e-5 is the stated bar (measured on an H100
+# 92.97-95.76%; the CPU analog, the plain version at 128 against the JAX
+# model at 1024, 93.1%: tests/test_torch_flash_attention.py::
+# test_bf16_at_the_configs_kv_chunk)
+CONFIG_KV_CHUNK = 1024
+CONFIG_CHUNK_SHARE = 0.90
 
 
 def bf16_ulp(x):
@@ -480,10 +503,42 @@ def compare_flash(device, gen) -> dict:
                       f"2e-5, max |diff| {err}")
                 log(f"{name} {case}: max |diff| {err:.3g} (bar 2e-5)")
             worst[name] = max(worst[name], err)
+            if bf16 and case[2] > CONFIG_KV_CHUNK:
+                row["config_kv_chunk"] = config_chunk_row(q, k, v, got,
+                                                          case)
             cases.append(row)
             del q, k, v, got, want, diff
     torch.cuda.empty_cache()
     return {**worst, "flash_cases": cases}
+
+
+def config_chunk_row(q, k, v, got, case) -> dict:
+    """The bf16 kernel (128-key tile) against the plain version at the
+    configs' kv_chunk: every output within one ulp + 2^-9 max|v|, at
+    least CONFIG_CHUNK_SHARE within one ulp + 2e-5."""
+    import torch
+
+    from repro_torch.kernels import ref
+
+    want = ref.flash_attention_bf16_ref(q, k, v, case[6],
+                                        kv_tile=CONFIG_KV_CHUNK)
+    diff = (got.float() - want.float()).abs()
+    ulp = bf16_ulp(want)
+    vmax = float(v.float().abs().max())
+    over = int((diff > ulp + BF16_P_BAR * vmax).sum())
+    share = float((diff <= ulp + FLASH_ATOL).float().mean())
+    unequal = float((got != want).float().mean())
+    err = float(diff.max())
+    check(over == 0 and share >= CONFIG_CHUNK_SHARE,
+          f"flash {case} bf16 at kv_chunk {CONFIG_KV_CHUNK}: {over} over "
+          f"the P bar, {share:.6f} within one ulp + 2e-5")
+    log(f"flash_attention_sm90 {case} against the plain version at "
+        f"kv_chunk {CONFIG_KV_CHUNK}: max |diff| {err:.3g}, "
+        f"{100 * share:.4f}% within one ulp + 2e-5 (bar "
+        f"{100 * CONFIG_CHUNK_SHARE:.0f}%), {100 * unequal:.2f}% not equal")
+    del want, diff
+    return {"kv_chunk": CONFIG_KV_CHUNK, "max_abs_err": err,
+            "share_within_ulp": share, "unequal": unequal}
 
 
 # ------------------------------------------------------------- phase 3
@@ -620,6 +675,414 @@ def run_dither_pack(device, gen) -> dict:
     del x, s, words, y, err
     torch.cuda.empty_cache()
     return {"launches": launches, "max_err": emax, "std": estd}
+
+
+# ------------------------------------------------------------ phase 3b
+# compress_tree across client ranks on the one card: each rank holds one
+# client's update, shaped as qwen1.5-0.5b's parameter tree
+RANKS = 4
+RANK_BACKEND = "gloo"  # the caller names it; NCCL is probed, not used
+RANK_CASES = (  # (mechanism, sigma, fused)
+    ("aggregate_gaussian", 0.25, True),
+    ("irwin_hall", 5e-3, True),
+    ("layered_shifted", SIGMA_IND, False),
+)
+RANK_KEY = 11  # compress_tree's key: PRNGKey(RANK_KEY)
+RANK_TIMEOUT = 420.0
+
+
+def held(where: str) -> None:
+    """Log the device memory this process still holds (the serve
+    phase's peak counts what earlier phases left)."""
+    import torch
+
+    log(f"device memory allocated {where}: "
+        f"{torch.cuda.memory_allocated() / 2**30:.3f} GiB")
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def client_flat(c: int, device):
+    """Client ``c``'s update, flat in the tree's leaf order: N(0, 0.25),
+    drawn on the card from seed 2000 + c."""
+    import torch
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(2_000 + c)
+    return torch.randn(D_FULL, generator=gen, device=device) * 0.5
+
+
+def _views(node, flat, off: int):
+    """(tree of views of ``flat`` shaped as the spec tree ``node``, the
+    next offset); module-level, so no closure keeps ``flat`` alive."""
+    from repro_torch.models import nn
+
+    if nn.is_spec(node):
+        n = math.prod(node.shape)
+        return flat[off:off + n].view(node.shape), off + n
+    out = {}
+    for k in sorted(node):
+        out[k], off = _views(node[k], flat, off)
+    return out, off
+
+
+def tree_of(flat):
+    """Views of ``flat`` shaped as qwen1.5-0.5b's parameter tree, in the
+    JAX package's leaf order (dict keys sorted)."""
+    from repro_torch import configs
+    from repro_torch.models import registry
+
+    tree, end = _views(
+        registry.param_specs(configs.get_config(SERVE_ARCH)), flat, 0)
+    check(end == flat.numel(), f"tree holds {end} of {flat.numel()}")
+    return tree
+
+
+def _leaves(tree) -> list:
+    from repro_torch.dist import compress as dcompress
+
+    return dcompress._flatten(tree)[0]
+
+
+def _comp(mech: str, sigma: float, fused: bool):
+    from repro_torch.dist import compress as dcompress
+
+    return dcompress.CompressionConfig(
+        mechanism=mech, sigma=sigma, clip=CLIP, fused=fused,
+        msg_bits=BITS if fused else None)
+
+
+def _digest(tensors) -> str:
+    import hashlib
+
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def rank_main(rank: int, n: int, port: int, device: str, results) -> None:
+    """One client rank: its update as the parameter tree, then one
+    ``compress_tree(axis=group, n_clients=n)`` per case, timed between
+    two barriers, with the kernel counts set to 0 just before and read
+    just after.  Reports the launches, wall, peak memory and a digest of
+    the output; rank 0 also the digests of the summed words and the
+    error sample."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.core import prng
+    from repro_torch.dist import compress as dcompress
+
+    try:
+        device = torch.device(device)
+        torch.cuda.set_device(device)
+        dist.init_process_group(RANK_BACKEND,
+                                init_method=f"tcp://localhost:{port}",
+                                rank=rank, world_size=n)
+        group = dist.group.WORLD
+        tree = tree_of(client_flat(rank, device))
+        sample_idx = torch.arange(0, D_FULL, D_FULL // KS_SAMPLE,
+                                  device=device)[:KS_SAMPLE]
+        out = {"rank": rank, "backend": dist.get_backend(group), "cases": {}}
+        psum = dcompress._psum_msg
+        for mech, sigma, fused in RANK_CASES:
+            comp = _comp(mech, sigma, fused)
+            sums = []
+
+            def recording(m, comp, grp):  # rank 0 keeps the summed words
+                total = psum(m, comp, grp)
+                if rank == 0:
+                    sums.append(total.clone())
+                return total
+
+            dcompress._psum_msg = recording
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            dist.barrier()
+            reset_launches()
+            t0 = time.perf_counter()
+            y = dcompress.compress_tree(tree, comp, prng.PRNGKey(RANK_KEY),
+                                        axis=group, n_clients=n,
+                                        device=device)
+            torch.cuda.synchronize()
+            dist.barrier()
+            wall = time.perf_counter() - t0
+            launches = read_launches()
+            dcompress._psum_msg = psum
+            ys = _leaves(y)
+            res = {"wall": wall, "launches": launches, "leaves": len(ys),
+                   "peak_bytes": torch.cuda.max_memory_allocated(),
+                   "y_digest": _digest(ys),
+                   "finite": bool(all(torch.isfinite(t).all() for t in ys))}
+            if rank == 0:
+                res["sum_digest"] = _digest(sums) if sums else None
+                flat_y = torch.cat([t.reshape(-1) for t in ys])[sample_idx]
+                mean = torch.zeros_like(flat_y)
+                for c in range(n):
+                    mean += torch.clamp(client_flat(c, device)[sample_idx],
+                                        -CLIP, CLIP)
+                res["err"] = (flat_y - mean / n).double().cpu().numpy()
+                del flat_y, mean
+            out["cases"][mech] = res
+            del y, ys, sums
+            torch.cuda.empty_cache()
+        results.put(out)
+    except BaseException as e:  # reported to the parent, then re-raised
+        import traceback
+
+        results.put({"rank": rank, "error": traceback.format_exc()})
+        raise
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def nccl_probe_main(rank: int, port: int, results) -> None:
+    """Two NCCL ranks on the same card, one all_reduce: records whether
+    NCCL accepts the communicator."""
+    import torch
+    import torch.distributed as dist
+
+    try:
+        torch.cuda.set_device(0)
+        dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                                rank=rank, world_size=2)
+        t = torch.ones(4, device="cuda")
+        dist.all_reduce(t)
+        torch.cuda.synchronize()
+        results.put((rank, f"ok: sum {t.tolist()}"))
+    except Exception as e:  # noqa: BLE001 -- the refusal is the result
+        results.put((rank, f"refused: {type(e).__name__}: "
+                           f"{str(e).splitlines()[0][:300]}"))
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def _spawn(target, args_of, n: int, timeout: float) -> list:
+    """``n`` spawned processes of ``target(*args_of(i), results)``; their
+    results, and every process stopped."""
+    import multiprocessing
+    import queue
+
+    ctx = multiprocessing.get_context("spawn")
+    results = ctx.Queue()
+    procs = [ctx.Process(target=target, args=(*args_of(i), results))
+             for i in range(n)]
+    for p in procs:
+        p.start()
+    got = []
+    deadline = time.monotonic() + timeout
+    try:
+        while len(got) < n:
+            try:
+                got.append(results.get(
+                    timeout=max(deadline - time.monotonic(), 0.1)))
+            except queue.Empty:
+                break
+    finally:
+        for p in procs:
+            p.join(timeout=max(deadline - time.monotonic(), 5.0))
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join(timeout=10)
+    return got
+
+
+def probe_nccl() -> str:
+    """Whether NCCL takes two ranks on one card (it is expected to
+    refuse a duplicate GPU); runs apart from the phase, which uses
+    RANK_BACKEND whatever this says."""
+    port = free_port()
+    got = _spawn(nccl_probe_main, lambda i: (i, port), 2, 120.0)
+    if len(got) < 2:
+        return f"no answer from {2 - len(got)} of 2 ranks within 120 s"
+    return "; ".join(f"rank {r}: {msg}" for r, msg in sorted(got))
+
+
+def run_ranks_phase(device) -> dict:
+    """The process-group path on one card: RANKS client ranks, each with
+    its own client's update at full width, one compress_tree per case.
+    Checks: every rank's output bitwise equal to rank 0's; each kernel of
+    the case launched once per leaf on every rank and no other; for the
+    fused cases, the summed words equal the sum of the four clients'
+    words computed in this process by the codec (bitwise, by digest);
+    the error law on a 2^20 subsample (KS against N(0, sigma^2); for
+    irwin_hall its support and std)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import dither, prng
+    from repro_torch.dist import compress as dcompress
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    nccl = probe_nccl()
+    log(f"NCCL with 2 ranks on one card: {nccl}")
+    port = free_port()
+    t0 = time.perf_counter()
+    got = _spawn(rank_main, lambda r: (r, RANKS, port, str(device)), RANKS,
+                 RANK_TIMEOUT)
+    spawn_wall = time.perf_counter() - t0
+    errors = [g["error"] for g in got if "error" in g]
+    check(not errors, "rank failed:\n" + "\n".join(errors))
+    check(len(got) == RANKS, f"{RANKS - len(got)} ranks gave no result "
+                             f"within {RANK_TIMEOUT} s")
+    by_rank = {g["rank"]: g for g in got}
+    backend = by_rank[0]["backend"]
+    check(backend == RANK_BACKEND, f"backend {backend}")
+    out = {"ranks": RANKS, "backend": backend, "nccl_probe": nccl,
+           "spawn_to_exit_s": spawn_wall, "cases": {}}
+    for mech, sigma, fused in RANK_CASES:
+        rows = [by_rank[r]["cases"][mech] for r in range(RANKS)]
+        leaves = rows[0]["leaves"]
+        kernels = (("fused_encode", "fused_decode") if fused
+                   else ("layered_encode", "layered_decode"))
+        for r, row in enumerate(rows):
+            check(row["finite"], f"{mech} rank {r}: non-finite output")
+            check(row["y_digest"] == rows[0]["y_digest"],
+                  f"{mech}: rank {r}'s output differs from rank 0's")
+            for k, v in row["launches"].items():
+                want = leaves if k in kernels else 0
+                check(v == want, f"{mech} rank {r}: {v} {k} launches, "
+                                 f"expected {want}")
+        res = {"wall_s": [row["wall"] for row in rows],
+               "peak_gib": [row["peak_bytes"] / 2**30 for row in rows],
+               "launches_per_rank": rows[0]["launches"], "leaves": leaves}
+        err = rows[0]["err"]
+        if mech == "irwin_hall":
+            half = sigma * math.sqrt(3 * RANKS)
+            emax, estd = float(np.abs(err).max()), float(err.std())
+            check(emax <= half + 1e-6, f"{mech}: max |err| {emax} > {half}")
+            check(abs(estd - sigma) <= 0.1 * sigma, f"{mech}: std {estd}")
+            res.update(max_abs_err=emax, support=half, std=estd)
+        else:
+            ks = ks_stat(err, sigma)
+            thr = 1.95 / math.sqrt(len(err))
+            check(ks < thr, f"{mech}: KS {ks} >= {thr}")
+            res.update(ks=ks, ks_threshold=thr, std=float(err.std()))
+        if fused:  # the sum of the clients' words, in this one process
+            comp = _comp(mech, sigma, fused)
+            xs = [client_flat(c, device) for c in range(RANKS)]
+            trees = [_leaves(tree_of(x)) for x in xs]
+            sums = []
+            for i in range(leaves):
+                kt, ks_ = prng.split(prng.fold_in(prng.PRNGKey(RANK_KEY), i))
+                shape = tuple(trees[0][i].shape)
+                step, _, geom = dcompress._leaf_params(comp, RANKS, kt, shape,
+                                                       device)
+                total = None
+                for c in range(RANKS):
+                    x32 = torch.clamp(trees[c][i], -CLIP, CLIP)
+                    s_c = dither.dither_noise(prng.fold_in(ks_, c), shape,
+                                              device=device)
+                    w = dcompress.encode_leaf(x32, comp, step, s_c, geom)
+                    total = w if total is None else total + w
+                    del x32, s_c, w
+                sums.append(total.cpu())
+                del step, total
+            digest = _digest(sums)
+            check(digest == rows[0]["sum_digest"],
+                  f"{mech}: summed words differ from the one-process sum")
+            res["summed_words_bitwise"] = True
+            del xs, trees, sums
+            torch.cuda.empty_cache()
+        out["cases"][mech] = res
+        log(f"{RANKS} ranks ({backend}), {mech}: round walls "
+            f"{[round(w, 3) for w in res['wall_s']]} s, peak "
+            f"{[round(p, 2) for p in res['peak_gib']]} GiB per rank, "
+            f"launches per rank {res['launches_per_rank']} ({leaves} "
+            f"leaves), outputs bitwise equal across ranks"
+            + (", summed words = one-process sum" if fused else "")
+            + (f", KS {res['ks']:.6f} (threshold {res['ks_threshold']:.6f})"
+               if "ks" in res else
+               f", max |err| {res['max_abs_err']:.6g} (support "
+               f"{res['support']:.6g}), std {res['std']:.6g}"))
+    return out
+
+
+# ------------------------------------------------------------ phase 3c
+D_ASYNC = 1 << 24
+ASYNC_ROUNDS = 3
+
+
+def run_async_phase(device) -> dict:
+    """At d = 2^24 on the card, QuadraticWorkload with 4 clients,
+    aggregate_gaussian on the packed wire (b = 8): 3 rounds of the async
+    runtime at staleness bound 0 bitwise equal to 3 rounds of the
+    synchronous loop; and FederatedAveraging.run checkpointed after
+    round 1 and resumed, bitwise equal to the run without the break."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from repro_torch.fl import federated
+    from repro_torch.runtime import (AsyncFederatedRuntime, QuadraticWorkload,
+                                     RuntimeConfig)
+
+    cfg = federated.FLConfig(
+        n_clients=N_CLIENTS, mechanism="aggregate_gaussian", sigma=0.25,
+        clip=CLIP, lr=0.5, seed=5,
+        mech_kwargs=(("packed", True), ("msg_bits", BITS)))
+    wl = QuadraticWorkload(N_CLIENTS, D_ASYNC, seed=5)
+    fa = federated.FederatedAveraging(cfg, wl.build(device), device=device)
+    reset_launches()
+    t0 = time.perf_counter()
+    p_sync = wl.init_params(device)
+    for rnd in range(ASYNC_ROUNDS):
+        p_sync, _ = fa.round(p_sync, rnd)
+    torch.cuda.synchronize()
+    sync_wall = time.perf_counter() - t0
+    sync_launches = read_launches()
+    rt = AsyncFederatedRuntime(RuntimeConfig(fl=cfg, round_timeout_s=120.0),
+                               wl, device=device)
+    reset_launches()
+    t0 = time.perf_counter()
+    p_async, summary, records = rt.run(wl.init_params(device), ASYNC_ROUNDS)
+    async_wall = time.perf_counter() - t0
+    async_launches = read_launches()
+    check(summary["rounds"] == ASYNC_ROUNDS
+          and summary["mean_cohort_occupancy"] == 1.0, f"async {summary}")
+    check(np.array_equal(p_async, p_sync.cpu().numpy()),
+          "async at staleness 0 differs from the synchronous loop")
+    for launches in (sync_launches, async_launches):
+        for k, v in launches.items():
+            want = {"fused_encode": ASYNC_ROUNDS * N_CLIENTS,
+                    "fused_decode": ASYNC_ROUNDS}.get(k, 0)
+            check(v == want, f"async phase: {v} {k} launches")
+    ck = ROOT / "build" / "chip_smoke_ckpt"
+    shutil.rmtree(ck, ignore_errors=True)
+    p0 = {"w": wl.init_params(device)}
+
+    def grad(params, c, rnd):
+        return {"w": fa.client_grad(params["w"], c, rnd)}
+
+    fa_tree = federated.FederatedAveraging(cfg, grad, device=device)
+    fa_tree.run(p0, 1, checkpoint_dir=str(ck))
+    resumed, info = fa_tree.run(p0, ASYNC_ROUNDS, checkpoint_dir=str(ck),
+                                resume=True)
+    check(info["start_round"] == 1, f"resumed at {info['start_round']}")
+    check(torch.equal(resumed["w"], p_sync),
+          "resumed run differs from the run without the break")
+    shutil.rmtree(ck, ignore_errors=True)
+    log(f"async runtime at d = 2^24: {ASYNC_ROUNDS} rounds at staleness 0 "
+        f"bitwise equal to the synchronous loop (sync {sync_wall:.3f} s, "
+        f"async {async_wall:.3f} s, round latencies "
+        f"{[round(r.latency_s, 3) for r in records]} s; launches "
+        f"{async_launches}); checkpoint after round 1 and resume: bitwise")
+    return {"sync_wall_s": sync_wall, "async_wall_s": async_wall,
+            "round_latency_s": [r.latency_s for r in records],
+            "launches": async_launches, "resume_bitwise": True,
+            "async_bitwise": True}
 
 
 SERVE_ARCH = "qwen1.5-0.5b"
@@ -1252,7 +1715,15 @@ def main() -> int:
             f"{[round(w, 3) for w in r['walls']]} s, last round split "
             f"{json.dumps({k: round(v, 4) for k, v in r['split'].items()})}"
             f" s, peak memory {r['peak_bytes'] / 2**30:.2f} GiB")
+    held("after the FL rounds")
+    ranks = run_ranks_phase(device)
+    log(f"phase 3b (client ranks) done at "
+        f"{time.perf_counter() - t_start:.1f} s")
+    held("after the client ranks")
+    async_res = run_async_phase(device)
+    held("after the async runtime")
     dpath = run_dither_pack(device, gen)
+    held("after the dither_pack path")
     cfg, model32 = serve_model(device)
     serve = run_serve(cfg, model32, device)
     serve_f32 = check_serve_f32(cfg, model32, device)
@@ -1271,6 +1742,9 @@ def main() -> int:
     rows += time_flash(device, gen, rates[0], rates[1], bf16_rate(name),
                        tf32_rate(name))
     launches = {k: sum(r["launches"][k] for r in res.values())
+                + RANKS * sum(c["launches_per_rank"][k]
+                              for c in ranks["cases"].values())
+                + async_res["launches"][k]
                 + dpath["launches"][k] + serve["launches"][k]
                 + serve_f32["launches"][k] for k in KERNELS}
     kernels = []
@@ -1292,6 +1766,7 @@ def main() -> int:
               "rounds": {m: {k: v for k, v in r.items() if k != "errs"}
                          for m, r in res.items()},
               "laws": laws, "flash_cases": flash["flash_cases"],
+              "client_ranks": ranks, "async": async_res,
               "serve": serve, "serve_f32": serve_f32,
               "serve_profile": serve_profile,
               "kernels": kernels, "seconds": total}

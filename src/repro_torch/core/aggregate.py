@@ -21,6 +21,7 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch import debug
 from repro_torch.core import dither, prng
 from repro_torch.core.f32 import rcp_mul
 from repro_torch.core.decompose import (
@@ -97,6 +98,15 @@ class AggregateGaussianMechanism:
         else:
             a, b = decompose_gaussian(tables, key.to(device)[None])
             A, B = a.reshape(()).expand(shape), b.reshape(()).expand(shape)
+        if debug.active():
+            # the exact-error claim degrades by P[A < a_min] in total
+            # variation; past this bound the geometry is mis-sized
+            debug.check(
+                torch.mean((A < a_min).to(torch.float32))
+                <= debug.A_CLAMP_MASS_BOUND,
+                "global_randomness: A-clamp mass exceeds "
+                f"{debug.A_CLAMP_MASS_BOUND} (geometry too narrow for "
+                "clip/sigma)")
         return AggGaussShared(torch.clamp_min(A, a_min), B)
 
     def a_min_for_range(self, t_range, *, msg_bits: int = 30):

@@ -17,6 +17,18 @@ uses it directly, client i's dither uses ``fold_in(key, i)``, and the
 decode recomputes the dither from the same key, so only integers cross
 between parties.
 
+``compress_tree(axis=group)`` runs across client ranks: ``group`` is a
+``torch.distributed`` process group of the ``n_clients`` clients (the JAX
+package's mesh axis), each rank holding its own client's update.  Every
+rank encodes with its group rank as the client index, an int32
+``all_reduce(SUM)`` sums the messages (the JAX package's integer
+``psum``), and every rank decodes the sum, recomputing the other
+clients' dithers from the shared key; the layered mechanisms and
+``none_`` average floats with an ``all_reduce(SUM)`` and a division (its
+``pmean``).  The result is the same on every rank.  The group's backend
+is the caller's choice (gloo on the CPU; on one card the ranks share a
+device, which NCCL refuses, so gloo carries the CUDA tensors there too).
+
 Two wire formats:
 
   * unfused (default): one signed ``msg_dtype`` word per coordinate;
@@ -26,9 +38,8 @@ Two wire formats:
     sum carries b-bit fields packed into int32 words.  Both clamp to the
     same ``PackGeometry``, so they encode identical messages.
 
-This module holds the codec and ``compress_tree`` with ``axis=None``
-(point-to-point); the process-group sum across client ranks is listed in
-ROADMAP.md.
+The sanitizer's checks (``repro_torch.debug``) sit where the JAX
+package has them; they run only under ``debug.checked``.
 """
 from __future__ import annotations
 
@@ -38,8 +49,9 @@ from typing import Any, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
-from repro_torch import resolve_device
+from repro_torch import debug, resolve_device
 from repro_torch.core import coding, dither, prng
 from repro_torch.core.aggregate import AggregateGaussianMechanism
 from repro_torch.core.distributions import Gaussian
@@ -68,11 +80,6 @@ _MSG_DTYPES = {"int32": torch.int32, "int16": torch.int16, "int8": torch.int8}
 # biased sums fit the dtype's signed range unfused and stay f32-exact
 # (<= 2^24) in the fused decode
 _DEFAULT_PACK_BITS = {"int32": 24, "int16": 15, "int8": 7}
-
-
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to repro_torch yet (see ROADMAP.md)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -169,6 +176,21 @@ def encode_leaf(x32, comp: CompressionConfig, step, s_i,
     """One client's integer message for a clipped f32 leaf: biased packed
     int32 words (R, 128) when fused, else the signed per-coordinate
     message (clamped to the shared geometry when one is active)."""
+    if debug.active():
+        debug.check(torch.all(torch.isfinite(x32)),
+                    "encode: non-finite input leaf")
+        if geom is not None and comp.mechanism != "irwin_hall":
+            # aggregate mechanisms size a_min so the natural (pre-clamp)
+            # message fits the b-bit field; a violation means the A clamp
+            # upstream is wrong and the clamped message silently biases
+            # the decoded mean (irwin_hall's cap clamps by design).  The
+            # message stays f32: past int32's range the cast would wrap
+            m_raw = dither.dither_encode(x32, step, s_i,
+                                         msg_dtype=torch.float32)
+            debug.check(
+                torch.all(torch.abs(m_raw) <= geom.m_max),
+                "encode: message overflows the b-bit field "
+                "(|m| > m_max={m_max})", m_max=geom.m_max)
     if comp.fused:
         return ops.fused_pack_encode(x32, s_i, step, geom.bits, geom.m_max)
     m = dither.dither_encode(x32, step, s_i)
@@ -200,11 +222,36 @@ def decode_leaf_sum(m_sum, comp: CompressionConfig, n, r_msgs,
     ``r_msgs`` the number of messages summed (their biases are removed)."""
     step_dec = _step_dec(step, n)
     if comp.fused:
+        if debug.active():
+            # each packed field carries sum_i (m_i + bias) over the r_msgs
+            # summed messages; anything above r_msgs * 2 * m_max is an
+            # overflowed or tampered lane that the bias-stripping decode
+            # would silently turn into a wrong mean
+            words = m_sum.to(torch.int64) & 0xFFFFFFFF
+            fmask = (1 << geom.bits) - 1
+            fields = torch.stack([(words >> (geom.bits * j)) & fmask
+                                  for j in range(geom.group)])
+            debug.check(
+                torch.all(fields <= float(r_msgs) * 2 * geom.m_max),
+                "decode: packed field sum exceeds r * 2 * m_max "
+                "(overflowed or tampered lane)")
         bias = float(np.float32(r_msgs) * np.float32(geom.bias))
         s_eff = s_sum + bias
-        return ops.fused_unpack_decode(m_sum, s_eff, step_dec, offset,
-                                       geom.bits, shape)
+        y = ops.fused_unpack_decode(m_sum, s_eff, step_dec, offset,
+                                    geom.bits, shape)
+        if debug.active():
+            debug.check(torch.all(torch.isfinite(y)),
+                        "decode: non-finite output (fused path)")
+        return y
+    if debug.active() and geom is not None:
+        debug.check(
+            torch.all(torch.abs(m_sum) <= float(r_msgs) * geom.m_max),
+            "decode: summed message exceeds r * m_max for the declared "
+            "geometry")
     y = (m_sum.to(torch.float32) - s_sum) * step_dec
+    if debug.active():
+        debug.check(torch.all(torch.isfinite(y)),
+                    "decode: non-finite output")
     return y if offset is None else y + offset
 
 
@@ -214,25 +261,77 @@ def _layered_q(comp: CompressionConfig, n: int) -> LayeredQuantizer:
                             shifted=comp.mechanism == "layered_shifted")
 
 
-def _compress_leaf(x, comp: CompressionConfig, key, n: int, device):
+def _client_index(group) -> int:
+    return 0 if group is None else dist.get_rank(group)
+
+
+def _dither_sum(ks, n: int, shape, device) -> torch.Tensor:
+    """sum_j S_j, j < n, recomputed from the shared key (every rank holds
+    the round key, so no float crosses ranks for the dither sum), added
+    in the order of the JAX package's compiled reduce: j = 0, 1, ...,
+    one f32 add each."""
+    total = torch.zeros(shape, dtype=torch.float32, device=device)
+    s_j = torch.empty_like(total)
+    for j in range(n):  # client j's own dither key
+        total += dither.dither_noise(prng.fold_in(ks, j), shape, out=s_j)
+    return total
+
+
+def _psum_msg(m, comp: CompressionConfig, group) -> torch.Tensor:
+    """The summed messages as int32.  Unfused messages are narrowed to
+    ``msg_dtype`` first and the sum narrowed again: that wraps exactly
+    as the JAX package's narrow ``psum`` does (a sum modulo 2^k), while
+    the collective itself adds int32, which every backend reduces."""
+    if not comp.fused:
+        m = m.to(_MSG_DTYPES[comp.msg_dtype]).to(torch.int32)
+    if group is None:
+        return m
+    m = m.contiguous()
+    dist.all_reduce(m, op=dist.ReduceOp.SUM, group=group)
+    if not comp.fused:
+        m = m.to(_MSG_DTYPES[comp.msg_dtype]).to(torch.int32)
+    return m
+
+
+def _pmean(y, group, n: int) -> torch.Tensor:
+    """The JAX package's ``pmean``: a float sum across ranks, divided by
+    the group's size, a constant, which XLA compiles as a multiply by its
+    f32 reciprocal."""
+    y = y.contiguous()
+    dist.all_reduce(y, op=dist.ReduceOp.SUM, group=group)
+    return rcp_mul(y, n)
+
+
+def _compress_leaf(x, comp: CompressionConfig, key, n: int, device,
+                   group=None):
     dtype = x.dtype
     x32 = torch.clamp(x.to(device=device, dtype=torch.float32),
                       -comp.clip, comp.clip)
     shape = tuple(x32.shape)
     if comp.mechanism == "none_":
-        return x32.to(dtype)
+        y = x32 if group is None else _pmean(x32, group, n)
+        return y.to(dtype)
     kt, ks = prng.split(key)
+    idx = _client_index(group)
     if comp.mechanism not in HOMOMORPHIC:
-        # point-to-point AINQ: encode and decode locally
+        # point-to-point AINQ per client, decoded locally; across ranks
+        # the decodes are averaged
         q = _layered_q(comp, n)
-        rand = q.randomness(prng.fold_in(ks, 0), shape, device=device)
-        return q.decode(q.encode(x32, rand), rand).to(dtype)
+        rand = q.randomness(prng.fold_in(ks, idx), shape, device=device)
+        y = q.decode(q.encode(x32, rand), rand)
+        del rand, x32
+        return (y if group is None else _pmean(y, group, n)).to(dtype)
     step, offset, geom = _leaf_params(comp, n, kt, shape, device)
-    s_i = dither.dither_noise(prng.fold_in(ks, 0), shape, device=device)
-    m = encode_leaf(x32, comp, step, s_i, geom)
-    if not comp.fused:  # the narrow payload dtype wraps as the wire does
-        m = m.to(_MSG_DTYPES[comp.msg_dtype]).to(torch.int32)
-    y = decode_leaf_sum(m, comp, n, 1, step, offset, s_i, geom, shape)
+    s_i = dither.dither_noise(prng.fold_in(ks, idx), shape, device=device)
+    m_sum = _psum_msg(encode_leaf(x32, comp, step, s_i, geom), comp, group)
+    del x32
+    if group is None:
+        s_sum, r_msgs = s_i, 1
+    else:
+        del s_i
+        s_sum, r_msgs = _dither_sum(ks, n, shape, device), n
+    y = decode_leaf_sum(m_sum, comp, n, r_msgs, step, offset, s_sum, geom,
+                        shape)
     return y.to(dtype)
 
 
@@ -265,18 +364,29 @@ def _flatten(tree):
 
 
 def compress_tree(grads: PyTree, comp: CompressionConfig, key,
-                  axis: Optional[str] = None, n_clients: int = 1,
-                  device=None) -> PyTree:
-    """Compress a tree of tensors point to point (``axis=None``): quantize
-    + exact noise, no sum across clients.  Runs on the card unless
-    ``device="cpu"``."""
-    if axis is not None:
-        raise _not_ported("the process-group sum across client ranks")
+                  axis=None, n_clients: int = 1, device=None) -> PyTree:
+    """Compress-aggregate a tree of tensors across ``axis``.
+
+    ``axis`` is a ``torch.distributed`` process group of ``n_clients``
+    client ranks, each calling with its own client's tree: the return
+    value is the across-clients mean plus the mechanism's exact noise,
+    the same on every rank.  With ``axis=None`` (n_clients=1) this is the
+    point-to-point mechanism: quantize + exact noise, no collective.
+    Runs on the card unless ``device="cpu"``."""
     device = resolve_device(device)
     n = max(int(n_clients), 1)
+    if axis is not None and not isinstance(axis, dist.ProcessGroup):
+        raise TypeError(
+            f"axis must be a torch.distributed ProcessGroup of the client "
+            f"ranks (the JAX package's mesh axis name has no counterpart), "
+            f"got {axis!r}")
+    if axis is not None and dist.get_world_size(axis) != n:
+        raise ValueError(
+            f"n_clients={n} but the process group has "
+            f"{dist.get_world_size(axis)} ranks")
     leaves, rebuild = _flatten(grads)
     return rebuild([
-        _compress_leaf(g, comp, prng.fold_in(key, i), n, device)
+        _compress_leaf(g, comp, prng.fold_in(key, i), n, device, axis)
         for i, g in enumerate(leaves)
     ])
 

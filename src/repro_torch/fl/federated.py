@@ -18,6 +18,7 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.checkpoint import checkpoint as ckpt_mod
 from repro_torch.core.mechanisms import get_mechanism
 from repro_torch.dist import compress as dcompress
 from repro_torch.runtime import protocol
@@ -53,6 +54,22 @@ class FLConfig:
     mech_kwargs: tuple = ()
 
 
+def round_protocol(cfg: FLConfig,
+                   device) -> Optional[protocol.RoundProtocol]:
+    """The integer-message codec of ``cfg`` on ``device`` (per_coord,
+    packed and msg_bits from ``mech_kwargs``), or None for the mechanisms
+    without a wire format ("none", "sigm")."""
+    mech = protocol.canonical_mechanism(cfg.mechanism)
+    if mech not in protocol.PROTOCOL_MECHANISMS:
+        return None
+    kw = dict(cfg.mech_kwargs)
+    return protocol.RoundProtocol(
+        mechanism=mech, sigma=cfg.sigma, clip=cfg.clip,
+        per_coord=bool(kw.get("per_coord", True)),
+        packed=bool(kw.get("packed", False)),
+        msg_bits=kw.get("msg_bits"), device=str(device))
+
+
 class FederatedAveraging:
     """FedAvg/FedSGD with compressed exact-noise aggregation.
 
@@ -65,16 +82,7 @@ class FederatedAveraging:
         self.cfg = cfg
         self.client_grad = client_grad
         self.device = resolve_device(device)
-        mech = protocol.canonical_mechanism(cfg.mechanism)
-        self.proto = None
-        if mech in protocol.PROTOCOL_MECHANISMS:
-            kw = dict(cfg.mech_kwargs)
-            self.proto = protocol.RoundProtocol(
-                mechanism=mech, sigma=cfg.sigma, clip=cfg.clip,
-                per_coord=bool(kw.get("per_coord", True)),
-                packed=bool(kw.get("packed", False)),
-                msg_bits=kw.get("msg_bits"), device=str(self.device),
-            )
+        self.proto = round_protocol(cfg, self.device)
 
     def _cohort(self, rnd: int) -> np.ndarray:
         cfg = self.cfg
@@ -132,15 +140,40 @@ class FederatedAveraging:
         return mech.run(key, xs)
 
     def run(self, params: PyTree, n_rounds: int, *,
-            checkpoint_dir: Optional[str] = None,
+            checkpoint_dir: Optional[str] = None, checkpoint_every: int = 1,
+            keep_last_k: Optional[int] = 3,
             resume: bool = False) -> Tuple[PyTree, Dict]:
-        """Drive ``n_rounds`` rounds; rounds are pure functions of
-        ``(seed, rnd, params)``.  Checkpoint-and-resume waits for the
-        port of ``checkpoint/``."""
-        if checkpoint_dir is not None or resume:
-            raise dcompress._not_ported("checkpoint-and-resume")
+        """Drive ``n_rounds`` rounds with optional checkpoint-and-resume.
+
+        Rounds are pure functions of ``(seed, rnd, params)``, so a run
+        resumed from the round-``k`` checkpoint reproduces rounds
+        ``k..n`` of the uninterrupted run bitwise.  Checkpoints go
+        through the async checkpointer (commit barrier + keep-last-k
+        retention) in the JAX package's format; a resumed run places the
+        restored params on the loop's device."""
+        start = 0
+        if resume and checkpoint_dir:
+            last = ckpt_mod.latest_step(checkpoint_dir)
+            if last is not None:
+                state = ckpt_mod.restore(
+                    checkpoint_dir, last,
+                    {"params": params, "round": np.int64(0)},
+                    device=self.device)
+                params, start = state["params"], int(state["round"])
+        ckpt = None
+        if checkpoint_dir:
+            ckpt = ckpt_mod.AsyncCheckpointer(checkpoint_dir,
+                                              keep_last_k=keep_last_k)
         info: Dict = {}
-        for rnd in range(n_rounds):
-            params, info = self.round(params, rnd)
-        info["start_round"] = 0
+        try:
+            for rnd in range(start, n_rounds):
+                params, info = self.round(params, rnd)
+                if ckpt is not None and (rnd + 1) % max(checkpoint_every,
+                                                        1) == 0:
+                    ckpt.save(rnd + 1,
+                              {"params": params, "round": np.int64(rnd + 1)})
+        finally:
+            if ckpt is not None:
+                ckpt.close()
+        info["start_round"] = start
         return params, info

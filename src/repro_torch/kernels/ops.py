@@ -186,7 +186,7 @@ def layered_decode(m: torch.Tensor, u: torch.Tensor, layer: torch.Tensor,
 
 # ------------------------------------------------------- flash attention
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    causal: bool = True) -> torch.Tensor:
+                    causal: bool = True, kv_tile=None) -> torch.Tensor:
     """q (B, T, H, D), k / v (B, S, HK, D) -> (B, T, H, D) in q's dtype;
     GQA (H % HK == 0), ragged T and S, D in {16, 32, 64, 128}, f32 or
     bf16.  The causal mask is the Pallas kernel's: query i sees keys
@@ -195,10 +195,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     scaled in bf16, P rounded to bf16; the sm90 kernel or
     ``ref.flash_attention_bf16_ref``), f32 the Pallas kernel's f32
     function (the f32 kernel or ``ref.flash_attention_ref``).  The same
-    shapes are refused on both devices."""
+    shapes are refused on both devices.  ``kv_tile`` sets the KV tile
+    that bf16 P is rounded against on the CPU (None: the kernel's 128);
+    the kernel keeps its own 128-key tile."""
     fa.check_shapes(q, k, v)
     if _on_cuda(q):
         return fa.flash_attention(q, k, v, causal)
     if q.dtype == torch.bfloat16:
-        return ref.flash_attention_bf16_ref(q, k, v, causal)
+        return ref.flash_attention_bf16_ref(q, k, v, causal, kv_tile)
     return ref.flash_attention_ref(q, k, v, causal)

@@ -153,7 +153,8 @@ def flash_attention_ref(q, k, v, causal: bool = True) -> torch.Tensor:
 
 # keys per tile of the bf16 kernel's online softmax (csrc/
 # flash_attention_sm90.cu): P is rounded to bf16 against the running max
-# of the tiles seen so far, so the tiling is part of the function
+# of the tiles seen so far, so the tiling is part of the function; the
+# plain version takes the tile as a parameter and defaults to this one
 BF16_KV_TILE = 128
 
 
@@ -169,16 +170,18 @@ def scale_q_bf16(q) -> torch.Tensor:
     return (q.to(torch.float32) * bf16_scale(q.shape[-1])).to(torch.bfloat16)
 
 
-def flash_attention_bf16_ref(q, k, v, causal: bool = True) -> torch.Tensor:
+def flash_attention_bf16_ref(q, k, v, causal: bool = True,
+                             kv_tile=None) -> torch.Tensor:
     """What the JAX model's attention (``repro.models.attention.
     flash_attention``) computes in bf16, written plainly: q (B, T, H, D),
     k/v (B, S, HK, D) bf16 with H % HK == 0 -> (B, T, H, D) bf16.  q is
     scaled by bf16(D^-1/2) and rounded to bf16; scores are f32 products of
     that and k (f32 einsums, no TF32), masked to -1e30 where ``col > row``
     (causal, aligned at the top left); an online softmax over tiles of
-    ``BF16_KV_TILE`` keys keeps m and l in f32, l summing the f32 p; P is
-    rounded to bf16 for P V (f32 sums); the output is acc / max(l, 1e-30)
-    rounded to bf16."""
+    ``kv_tile`` keys (None: the kernel's ``BF16_KV_TILE``; the JAX model's
+    ``kv_chunk``) keeps m and l in f32, l summing the f32 p; P is rounded
+    to bf16 for P V against the running max of the tiles seen so far (f32
+    sums); the output is acc / max(l, 1e-30) rounded to bf16."""
     B, T, H, D = q.shape
     HK = k.shape[2]
     g = H // HK
@@ -191,7 +194,7 @@ def flash_attention_bf16_ref(q, k, v, causal: bool = True) -> torch.Tensor:
     l = torch.zeros((B, H, T, 1), dtype=f32, device=q.device)
     acc = torch.zeros((B, H, T, D), dtype=f32, device=q.device)
     rows = torch.arange(T, device=q.device)[:, None]
-    kv_tile = BF16_KV_TILE
+    kv_tile = BF16_KV_TILE if kv_tile is None else int(kv_tile)
     for k0 in range(0, S, kv_tile):
         s = torch.einsum("bthd,bshd->bhts", qs, k32[:, k0:k0 + kv_tile])
         if causal:

@@ -5,14 +5,19 @@ goes to ``kernels.ops.flash_attention``: a hand-written kernel on the
 card, its plain version on the CPU, one function per dtype.  In bf16 it
 computes what the reference computes in bf16 (q scaled by bf16(D^-1/2)
 in bf16, scores summed in f32, P rounded to bf16 for P V against the
-running max of 128-key tiles: the wgmma kernel ``flash_attention_sm90``);
-in f32 the Pallas kernel's f32 function (``flash_attention_f32``).  It
+running max of the KV tiles seen so far): on the CPU at the caller's
+``kv_chunk``, as the JAX model tiles; on the card the wgmma kernel
+``flash_attention_sm90`` keeps its 128-key tile, whatever ``kv_chunk``
+says (its difference from the config's tiling is stated in ROADMAP.md).
+In f32 it is the Pallas kernel's f32 function (``flash_attention_f32``),
+which has no tiling in its result.  It
 takes the masks those kernels support, causal or none, with queries
 starting at position 0; a sliding window or a query offset raises on
 both devices (zamba2's window comes with its slice, see ROADMAP.md).
 
 ``decode_attention`` (one new token against a KV cache) is plain
-PyTorch, as the reference computes it outside any Pallas kernel.
+PyTorch, as the reference computes it outside any Pallas kernel; bf16 q
+is scaled by bf16(D^-1/2), as the JAX model's weakly typed scalar does.
 """
 from __future__ import annotations
 
@@ -20,19 +25,20 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import ops
+from repro_torch.kernels import ops, ref
 
 NEG_INF = -1e30
 
 
 def flash_attention(q, k, v, *, causal: bool = True, q_offset=0,
-                    window: Optional[int] = None):
+                    window: Optional[int] = None, kv_chunk=None):
     """q: (B, Tq, HQ, D); k, v: (B, S, HK, D) with HQ % HK == 0 ->
     (B, Tq, HQ, D) in v's dtype: bf16 the reference's bf16 function, f32
-    its f32 function (see the module's docstring).  The reference's
-    ``q_chunk`` / ``kv_chunk`` tiling has no counterpart: the kernels pick
-    their own, and in bf16 the KV tile (128 keys) sets the running max
-    that P is rounded against."""
+    its f32 function (see the module's docstring).  ``kv_chunk`` is the
+    reference's KV tiling, which sets the running max bf16 P is rounded
+    against: the plain version on the CPU takes it (None: 128 keys), the
+    card's kernel keeps its 128-key tile.  The reference's ``q_chunk``
+    has no counterpart: it does not change the result."""
     if window is not None:
         raise NotImplementedError(
             "sliding-window attention is not ported yet (it comes with "
@@ -41,7 +47,8 @@ def flash_attention(q, k, v, *, causal: bool = True, q_offset=0,
         raise NotImplementedError(
             "a query offset is not ported yet: the flash kernel's causal "
             "mask starts the queries at position 0 (see ROADMAP.md)")
-    return ops.flash_attention(q, k, v, causal=causal).to(v.dtype)
+    return ops.flash_attention(q, k, v, causal=causal,
+                               kv_tile=kv_chunk).to(v.dtype)
 
 
 def decode_attention(q, k_cache, v_cache, new_k, new_v, *,
@@ -64,7 +71,11 @@ def decode_attention(q, k_cache, v_cache, new_k, new_v, *,
     S, HK = k_cache.shape[1], k_cache.shape[2]
     G = HQ // HK
     f32 = torch.float32
-    qg = (q.reshape(B, HK, G, D) * D ** -0.5).to(k_cache.dtype)
+    qg = q.reshape(B, HK, G, D)
+    if qg.dtype == torch.bfloat16:  # the JAX model's bf16(D^-1/2)
+        qg = ref.scale_q_bf16(qg).to(k_cache.dtype)
+    else:
+        qg = (qg * D ** -0.5).to(k_cache.dtype)
     s_cache = torch.einsum("bkgd,bskd->bkgs", qg.to(f32), k_cache.to(f32))
     if q_pos is None and valid_len is not None:
         q_pos = valid_len

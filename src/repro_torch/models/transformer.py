@@ -181,7 +181,8 @@ def attn_block(cfg: ModelConfig, lp: DecoderLayer, x, rope, *, window=None):
     q = nn.apply_rope(q, cos, sin)
     k = nn.apply_rope(k, cos, sin)
     o = attention.flash_attention(q, k, v, causal=True,
-                                  window=window or cfg.window)
+                                  window=window or cfg.window,
+                                  kv_chunk=cfg.kv_chunk)
     B, T = x.shape[:2]
     out = nn.dense(o.reshape(B, T, -1), lp.attn["wo"])
     return out, (k, v)

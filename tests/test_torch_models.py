@@ -264,3 +264,49 @@ def test_serve_fn_matches_reference(one_device_mesh):
                                rtol=0)
     np.testing.assert_allclose(nkt.numpy(), np.asarray(nkj), atol=1e-5,
                                rtol=0)
+
+
+def test_bf16_head_dim_128_matches_reference(one_device_mesh):
+    """The model path in the dtype it serves in, at the head dim of three
+    of the four dense configs: qwen3-32b's smoke depth and widths with
+    head_dim 128, bf16, against the jitted JAX model.  Layer 0's prefill
+    caches are within 2^-8 max|reference| (equal, or a few values one
+    bf16 rounding apart: the CPU bf16 matmul's kernel varies between
+    processes; measured up to 8.1e-4 max|reference|);
+    deeper values differ by bf16 roundings that accumulate through the
+    layers (the bf16 attention's P and the residual stream), so the
+    logits, the caches and one decode step on the reference's cache are
+    held within 2^-4 max|reference| and to a relative RMS difference of
+    2^-5 (measured over 15 processes, varying between them as layer 0
+    does: max 0.0064-0.0198 max|reference|, RMS 0.0045-0.0119)."""
+    cfg_j = jconfigs.get_smoke_config("qwen3-32b").scaled(head_dim=128)
+    cfg = configs.get_smoke_config("qwen3-32b").scaled(head_dim=128)
+    assert cfg.compute_dtype == "bfloat16" and cfg.hd == 128
+    params = jnn.init_params(jregistry.param_specs(cfg_j),
+                             jax.random.PRNGKey(0))
+    model = transformer_from_numpy(cfg, jax.tree.map(np.asarray, params),
+                                   "cpu")
+    tokens = _rng(5).integers(0, cfg.vocab, size=(2, 24), dtype=np.int32)
+    nxt = _rng(6).integers(0, cfg.vocab, size=(2, 1), dtype=np.int32)
+    lj, (kj, vj) = jax.jit(lambda p, t: jtransformer.forward(cfg_j, p, t))(
+        params, jnp.asarray(tokens))
+    lt, (kt, vt) = transformer.forward(cfg, model, torch.from_numpy(tokens))
+
+    def f32(x):
+        return np.array(x.astype(jnp.float32))
+
+    for got, want in ((kt[0], kj[0]), (vt[0], vj[0])):
+        want = f32(want)
+        np.testing.assert_allclose(got.float().numpy(), want, rtol=0,
+                                   atol=2.0 ** -8 * np.abs(want).max())
+    sj, _ = jax.jit(lambda p, t, c: jregistry.serve_fn(cfg_j)(
+        p, {"tokens": t}, c))(params, jnp.asarray(nxt), {"k": kj, "v": vj})
+    cache = {"k": torch.from_numpy(f32(kj)).bfloat16(),
+             "v": torch.from_numpy(f32(vj)).bfloat16()}
+    st, _ = registry.serve_fn(cfg)(model, {"tokens": torch.from_numpy(nxt)},
+                                   cache)
+    for got, want in ((lt, lj), (kt, kj), (vt, vj), (st, sj)):
+        want = f32(want)
+        diff = got.float().numpy() - want
+        assert np.abs(diff).max() <= 2.0 ** -4 * np.abs(want).max()
+        assert np.linalg.norm(diff) <= 2.0 ** -5 * np.linalg.norm(want)

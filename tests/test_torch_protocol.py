@@ -278,20 +278,20 @@ def test_sample_cohort_matches():
 
 
 def test_unported_paths_raise():
-    """What is still unported raises, naming ROADMAP.md; a packed uplink
-    of a non-homomorphic mechanism raises the reference's ValueError."""
+    """What the port refuses raises: a packed uplink of a non-homomorphic
+    mechanism (the reference's ValueError), the JAX package's mesh axis
+    name where the port takes a process group of client ranks (the
+    process-group sum and checkpointing are ported, see
+    tests/test_torch_dist.py and tests/test_torch_checkpoint.py), and a
+    packed decode without the update dim."""
     with pytest.raises(ValueError, match="homomorphic"):
         tproto.RoundProtocol(mechanism="individual_shifted", packed=True,
                              device="cpu")
     with pytest.raises(ValueError):
         jproto.RoundProtocol(mechanism="individual_shifted", packed=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(TypeError, match="ProcessGroup"):
         tcomp.compress_tree(torch.zeros(8), tcomp.CompressionConfig(),
                             tproto.round_key(0, 0), axis="pod", device="cpu")
-    fa = tfl.FederatedAveraging(tfl.FLConfig(n_clients=2),
-                                lambda p, c, r: p, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        fa.run(torch.zeros(4), 1, checkpoint_dir="unused")
     with pytest.raises(ValueError, match="needs the update dim"):
         tproto.RoundProtocol(mechanism="irwin_hall", packed=True,
                              device="cpu").decode(
