@@ -17,6 +17,12 @@ every layer; its f32 checks go through the flash_attention_f32 kernel
 spawned on the card (``dist.compress.compress_tree(axis=group)``, gloo),
 each rank holding one client's update shaped as qwen1.5-0.5b's
 parameter tree, and through the async runtime and a checkpoint-resume.
+The train path trains qwen1.5-0.5b at full width through
+``train.steps.build_train_step`` (the train launcher's step): bf16,
+remat, kv_chunk 1024, its attention forward, remat forward and backward
+through flash_attention_sm90 and flash_attention_bwd, the gradients
+compressed by the fused_agg kernels; in one process and across 2 client
+ranks on the card.
 Phases, each fatal on failure:
 
   1. build every CUDA source of the port with nvcc (sm_90a), one nvcc
@@ -32,10 +38,16 @@ Phases, each fatal on failure:
      + 2e-5, the f32 flash kernel within 2e-5 of
      ``ref.flash_attention_ref``, at the serve path's shapes and at GQA
      (qwen3-32b's 64 / 8 heads of 128 among them), non-causal and ragged
-     ones; and the bf16 kernel (128-key tiles) against the plain version
-     at the model configs' kv_chunk 1024, at the shapes with more than
-     1024 keys: every output within one ulp + 2^-9 max|v|, at least 90%
-     within one ulp + 2e-5;
+     ones; the bf16 kernel at the model configs' kv_chunk 1024 against
+     the plain version at the same chunk, at the shapes with more than
+     1024 keys: every output within one ulp + 2^-9 max|v|, at least 99%
+     within one ulp + 2e-5; and the backward kernel
+     (flash_attention_bwd) against ``ref.flash_attention_bwd_ref`` in
+     bf16 and f32 at the train shape (4, 2048, 16, 64), (1, 8192, 16,
+     64), qwen3-32b's GQA heads, a ragged and a non-causal case (f32
+     within 2e-5 max|g|; bf16 every output within one ulp + 2e-5 max|g|,
+     dV also + 2^-9 max|dO| max_j sum_i P[i, j], and 99% within one ulp
+     + 2e-5 max|g|), bitwise equal over two runs;
   3. run each path with its kernels' launch counts set to 0 just before
      and read just after: FederatedAveraging for aggregate_gaussian
      (per-coordinate, sigma 0.25) and irwin_hall (sigma 5e-3), one packed
@@ -49,7 +61,16 @@ Phases, each fatal on failure:
      the summed words equal to the one-process sum of the clients'
      words, the error law); the async runtime at d = 2^24 (3c: 3 rounds
      at staleness 0 bitwise equal to the sync loop, a checkpoint-resume
-     from round 1 bitwise equal to the run without the break); and the
+     from round 1 bitwise equal to the run without the break); the train
+     path (3d: 3 steps of 8 x 2048 in 2 microbatches, AdamW,
+     aggregate_gaussian fused b = 8 per-tensor; per step 2 x 48
+     flash_attention_sm90, 2 x 24 flash_attention_bwd, 14 fused_encode
+     and 14 fused_decode launches, finite losses; and on 1 x 2048 the
+     loss and every gradient leaf on the kernels against the plain
+     versions, both measured against the f32 model; 3e: 2 gloo ranks on
+     the card, each with the full model and its AdamW state, 2 steps of a
+     global batch 4 x 2048 with irwin_hall fused b = 8, params bitwise
+     equal across ranks after each step); and the
      dither_pack entry point at full width; check the counts, the wire
      width or Elias-gamma bits, and the error law (KS against
      N(0, sigma^2) on a 2^20-coordinate subsample; IH support and std;
@@ -61,8 +82,10 @@ Phases, each fatal on failure:
      flash_attention_f32 launches per forward and no sm90 launch;
   4. time each kernel (CUDA events, median of 10) beside its bound and
      its plain version (the flash kernels also beside
-     ``scaled_dot_product_attention``, timed here only; the f32 kernel's
-     bound is its 3xTF32 work on the tensor cores), measure the
+     ``scaled_dot_product_attention``, and the backward beside its
+     backward, timed here only; the f32 kernels' bound is their 3xTF32
+     work on the tensor cores; the bf16 forward at kv_chunk 1024 beside
+     its 128-key tiling), measure the
      card's device-to-device copy rate, and split each round's wall time
      by phase.
 
@@ -114,6 +137,9 @@ KERNELS = {  # name: (source, replaced TPU kernel)
                              "src/repro/kernels/flash_attention.py:77"),
     "flash_attention_f32": ("flash_attention_f32_sm90.cu",
                             "src/repro/kernels/flash_attention.py:77"),
+    "flash_attention_bwd": ("flash_attention_bwd.cu",
+                            "none: the JAX package differentiates "
+                            "src/repro/models/attention.py:26 by autodiff"),
 }
 # device-memory rate (bytes/s) and f32 rate outside the tensor cores
 # (flop/s) by card name, from NVIDIA's data sheets
@@ -405,13 +431,18 @@ def compare_dither_pack(device, gen) -> dict:
 
 
 # flash attention cases: (B, T, S, H, HK, D, causal); the serve path's
-# prefill shapes first (qwen1.5-0.5b: 16 heads of 64), then GQA at
-# D = 128 (qwen3-32b's 64 query and 8 KV heads among them), non-causal
-# with S != T, a ragged causal size, and causal GQA with T > S (queries
-# past the last key see every key)
+# prefill shapes first (qwen1.5-0.5b: 16 heads of 64; the serve phase's
+# prompts run 256-2048 tokens: one 1024-key span below 1024, a ragged
+# second span above), the train path's microbatch (4 x 2048: two spans),
+# then GQA at D = 128 (qwen3-32b's 64 query and 8 KV heads among them),
+# non-causal with S != T, a ragged causal size, and causal GQA with T > S
+# (queries past the last key see every key)
 FLASH_CASES = (
     (1, 2048, 2048, 16, 16, 64, True),
     (1, 8192, 8192, 16, 16, 64, True),
+    (1, 1500, 1500, 16, 16, 64, True),
+    (1, 700, 700, 16, 16, 64, True),
+    (4, 2048, 2048, 16, 16, 64, True),
     (2, 1024, 1024, 16, 2, 128, True),
     (1, 4096, 4096, 64, 8, 128, True),
     (2, 64, 192, 4, 4, 16, False),
@@ -421,18 +452,18 @@ FLASH_CASES = (
 FLASH_ATOL = 2e-5  # the reference's own bar (tests/test_kernels.py)
 # bf16: a p that rounds to the other bf16 neighbour moves an output by at
 # most 2^-9 max|v|; the kernel and its plain version round P against the
-# same running max, so nearly all outputs agree to one ulp
+# same running max (both at the configs' kv_chunk), so nearly all outputs
+# agree to one ulp
 BF16_P_BAR = 2.0 ** -9
 BF16_SHARE = 0.99
-# the kernel's 128-key tile against the plain version at the model
-# configs' kv_chunk 1024 (the JAX model's tiling): P rounds against
-# another running max, so only the P bar holds for every output; the
-# share within one ulp + 2e-5 is the stated bar (measured on an H100
-# 92.97-95.76%; the CPU analog, the plain version at 128 against the JAX
-# model at 1024, 93.1%: tests/test_torch_flash_attention.py::
-# test_bf16_at_the_configs_kv_chunk)
+# the model configs' kv_chunk, which the serve and train paths pass: P
+# rounded against the running max of 1024-key spans (the JAX model's
+# tiling), two passes over each span's 128-key tiles; every bf16 case is
+# held at it
 CONFIG_KV_CHUNK = 1024
-CONFIG_CHUNK_SHARE = 0.90
+# the row statistic lse = m + log(l) (f32, both dtypes) against the plain
+# version's: within 2e-5 max(1, |lse|) (f32 sums of l in another order)
+LSE_REL = 2e-5
 
 
 def bf16_ulp(x):
@@ -452,93 +483,227 @@ def flash_inputs(case, dtype, gen, device):
                  for shape in ((B, T, H, D), (B, S, HK, D), (B, S, HK, D)))
 
 
+def check_bf16_flash(got, want, v, label: str) -> dict:
+    """The bf16 bars: every output within one ulp of the plain result +
+    BF16_P_BAR max|v|, at least BF16_SHARE within one ulp + FLASH_ATOL."""
+    diff = (got.float() - want.float()).abs()
+    vmax = float(v.float().abs().max())
+    over = int((diff > bf16_ulp(want) + BF16_P_BAR * vmax).sum())
+    share = float((diff <= bf16_ulp(want) + FLASH_ATOL).float().mean())
+    unequal = float((got != want).float().mean())
+    err = float(diff.max())
+    check(over == 0 and share >= BF16_SHARE,
+          f"{label}: {over} outputs over one ulp + 2^-9 max|v|, "
+          f"{share:.6f} within one ulp + 2e-5, max |diff| {err}")
+    log(f"{label}: max |diff| {err:.3g} (bar one ulp + 2^-9 * {vmax:.3g}), "
+        f"{100 * share:.4f}% within one ulp + 2e-5 (bar "
+        f"{100 * BF16_SHARE:.0f}%), {100 * unequal:.2f}% not equal")
+    return {"max_abs_err": err, "share_within_ulp": share, "vmax": vmax,
+            "unequal": unequal}
+
+
 def compare_flash(device, gen) -> dict:
     """Each flash kernel against its plain version at each FLASH_CASES
-    shape: bf16 (flash_attention_sm90) against ``flash_attention_bf16_ref``
-    within one bf16 ulp of the plain result + BF16_P_BAR max|v|, with at
-    least BF16_SHARE of the outputs within one ulp + FLASH_ATOL; f32
-    (flash_attention_f32) against ``flash_attention_ref`` within
-    FLASH_ATOL (not at T >= 4096, whose f32 plain version is slow)."""
+    shape, as the paths call it: bf16 (flash_attention_sm90, at
+    CONFIG_KV_CHUNK) against ``flash_attention_bf16_ref`` at the same
+    chunk under ``check_bf16_flash``'s bars; f32 (flash_attention_f32)
+    against ``flash_attention_ref`` within FLASH_ATOL (not at T >= 4096,
+    whose f32 plain version is slow).  Each kernel runs without lse (the
+    serve path's call) and with it (the train path's): the two outputs
+    are bitwise equal, and the lse is within LSE_REL of the plain
+    version's."""
     import torch
 
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref
 
     worst = {"flash_attention_sm90": 0.0, "flash_attention_f32": 0.0}
+    lse_worst = 0.0
     cases = []
     for case in FLASH_CASES:
         causal = case[6]
         for dtype in (torch.bfloat16, torch.float32):
             if case[1] >= 4096 and dtype == torch.float32:
                 continue
-            q, k, v = flash_inputs(case, dtype, gen, device)
-            got = fa.flash_attention(q, k, v, causal)
             bf16 = dtype == torch.bfloat16
-            want = (ref.flash_attention_bf16_ref if bf16
-                    else ref.flash_attention_ref)(q, k, v, causal)
-            torch.cuda.synchronize()
-            check(got.dtype == dtype and got.shape == q.shape,
-                  f"flash {case} {dtype}: {got.dtype} {tuple(got.shape)}")
-            check(bool(torch.isfinite(got).all()), f"flash {case}: non-finite")
-            diff = (got.float() - want.float()).abs()
-            err = float(diff.max())
-            name = "flash_attention_sm90" if bf16 else "flash_attention_f32"
-            row = {"case": list(case), "kernel": name, "max_abs_err": err}
+            q, k, v = flash_inputs(case, dtype, gen, device)
+            got = fa.flash_attention(q, k, v, causal, kv_tile=CONFIG_KV_CHUNK)
+            got_l, lse = fa.flash_attention(q, k, v, causal,
+                                            kv_tile=CONFIG_KV_CHUNK,
+                                            with_lse=True)
             if bf16:
-                ulp = bf16_ulp(want)
-                vmax = float(v.float().abs().max())
-                over = int((diff > ulp + BF16_P_BAR * vmax).sum())
-                share = float((diff <= ulp + FLASH_ATOL).float().mean())
-                row.update(share_within_ulp=share, vmax=vmax)
-                check(over == 0 and share >= BF16_SHARE,
-                      f"flash {case} bf16: {over} outputs over one ulp + "
-                      f"2^-9 max|v|, {share:.6f} within one ulp + 2e-5, "
-                      f"max |diff| {err}")
-                log(f"{name} {case}: max |diff| {err:.3g} (bar one ulp + "
-                    f"2^-9 * {vmax:.3g}), {100 * share:.4f}% within one ulp "
-                    f"+ 2e-5 (bar {100 * BF16_SHARE:.0f}%)")
+                want, want_lse = ref.flash_attention_bf16_ref(
+                    q, k, v, causal, kv_tile=CONFIG_KV_CHUNK,
+                    return_lse=True)
             else:
-                over = int((diff > FLASH_ATOL).sum())
-                check(over == 0, f"flash {case} f32: {over} outputs over "
-                      f"2e-5, max |diff| {err}")
-                log(f"{name} {case}: max |diff| {err:.3g} (bar 2e-5)")
-            worst[name] = max(worst[name], err)
-            if bf16 and case[2] > CONFIG_KV_CHUNK:
-                row["config_kv_chunk"] = config_chunk_row(q, k, v, got,
-                                                          case)
+                want, want_lse = ref.flash_attention_ref(q, k, v, causal,
+                                                         return_lse=True)
+            torch.cuda.synchronize()
+            name = "flash_attention_sm90" if bf16 else "flash_attention_f32"
+            label = (f"{name} {case}" + (f" kv_chunk {CONFIG_KV_CHUNK}"
+                                         if bf16 else ""))
+            check(got.dtype == dtype and got.shape == q.shape,
+                  f"{label}: {got.dtype} {tuple(got.shape)}")
+            check(bool(torch.isfinite(got).all()), f"{label}: non-finite")
+            check(torch.equal(got, got_l), f"{label}: the output with lse "
+                                           f"differs from the one without")
+            lse_err = float(((lse - want_lse).abs()
+                             / want_lse.abs().clamp_min(1.0)).max())
+            check(lse.shape == want_lse.shape and lse_err <= LSE_REL,
+                  f"{label}: lse {tuple(lse.shape)}, error {lse_err} "
+                  f"max(1, |lse|) > {LSE_REL}")
+            lse_worst = max(lse_worst, lse_err)
+            row = {"case": list(case), "kernel": name,
+                   "lse_rel_err": lse_err}
+            if bf16:
+                row.update(kv_chunk=CONFIG_KV_CHUNK,
+                           **check_bf16_flash(got, want, v, label))
+            else:
+                err = float((got - want).abs().max())
+                check(err <= FLASH_ATOL, f"{label}: max |diff| {err} > 2e-5")
+                log(f"{label}: max |diff| {err:.3g} (bar 2e-5)")
+                row["max_abs_err"] = err
+            log(f"{label}: lse within {lse_err:.3g} max(1, |lse|) (bar "
+                f"{LSE_REL:g}); the output with lse bitwise the one without")
+            worst[name] = max(worst[name], row["max_abs_err"])
             cases.append(row)
-            del q, k, v, got, want, diff
+            del q, k, v, got, got_l, lse, want, want_lse
     torch.cuda.empty_cache()
-    return {**worst, "flash_cases": cases}
+    return {**worst, "lse_rel_err": lse_worst, "flash_cases": cases}
 
 
-def config_chunk_row(q, k, v, got, case) -> dict:
-    """The bf16 kernel (128-key tile) against the plain version at the
-    configs' kv_chunk: every output within one ulp + 2^-9 max|v|, at
-    least CONFIG_CHUNK_SHARE within one ulp + 2e-5."""
+# flash-attention backward cases: (B, T, S, H, HK, D, causal): the train
+# path's microbatch (qwen1.5-0.5b's 16 heads of 64 over 4 x 2048
+# tokens), the longest serve prompt's shape, qwen3-32b's GQA heads of 128,
+# a ragged causal and a non-causal one
+BWD_CASES = (
+    (4, 2048, 2048, 16, 16, 64, True),
+    (1, 8192, 8192, 16, 16, 64, True),
+    (1, 4096, 4096, 64, 8, 128, True),
+    (2, 300, 130, 8, 2, 64, True),
+    (2, 64, 192, 4, 4, 16, False),
+)
+# f32: within 2e-5 max|g| (the forward's bar, scaled by the gradient).
+# bf16: dV sums bf16(P) dO, and a p that rounds to the other bf16
+# neighbour moves dV[j] by at most 2^-9 P[i, j] |dO[i]|, so every dV
+# output lies within one ulp + 2^-9 max|dO| max_j sum_i P[i, j]; dQ and dK
+# take the f32 P and are held within one ulp + 2e-5 max|g|; and at least
+# 99% of all outputs within one ulp + 2e-5 max|g|
+BWD_REL = 2e-5
+
+
+def bwd_inputs(case, dtype, gen, device):
+    """q, k, v, the kernel's output and lse (at the configs' kv_chunk, as
+    the train path calls it), and dO for ``case``."""
+    import torch
+
+    from repro_torch.kernels import flash_attention as fa
+
+    B, T, S, H, HK, D, causal = case
+    q, k, v = flash_inputs(case, dtype, gen, device)
+    do = torch.randn((B, T, H, D), generator=gen, device=device).to(dtype)
+    o, lse = fa.flash_attention(q, k, v, causal, kv_tile=CONFIG_KV_CHUNK,
+                                with_lse=True)
+    return q, k, v, o, lse, do
+
+
+def p_colsum_max(q, k, lse, causal) -> float:
+    """max over keys j of sum_i P[i, j] (P = exp(S - lse), as the plain
+    backward forms it), one tile of keys at a time."""
     import torch
 
     from repro_torch.kernels import ref
 
-    want = ref.flash_attention_bf16_ref(q, k, v, case[6],
-                                        kv_tile=CONFIG_KV_CHUNK)
-    diff = (got.float() - want.float()).abs()
-    ulp = bf16_ulp(want)
-    vmax = float(v.float().abs().max())
-    over = int((diff > ulp + BF16_P_BAR * vmax).sum())
-    share = float((diff <= ulp + FLASH_ATOL).float().mean())
-    unequal = float((got != want).float().mean())
-    err = float(diff.max())
-    check(over == 0 and share >= CONFIG_CHUNK_SHARE,
-          f"flash {case} bf16 at kv_chunk {CONFIG_KV_CHUNK}: {over} over "
-          f"the P bar, {share:.6f} within one ulp + 2e-5")
-    log(f"flash_attention_sm90 {case} against the plain version at "
-        f"kv_chunk {CONFIG_KV_CHUNK}: max |diff| {err:.3g}, "
-        f"{100 * share:.4f}% within one ulp + 2e-5 (bar "
-        f"{100 * CONFIG_CHUNK_SHARE:.0f}%), {100 * unequal:.2f}% not equal")
-    del want, diff
-    return {"kv_chunk": CONFIG_KV_CHUNK, "max_abs_err": err,
-            "share_within_ulp": share, "unequal": unequal}
+    B, T, H, D = q.shape
+    g = H // k.shape[2]
+    f32 = torch.float32
+    if q.dtype == torch.bfloat16:
+        qs = ref.scale_q_bf16(q).to(f32)
+    else:
+        qs = q.to(f32) * D ** -0.5
+    qs = qs.permute(0, 2, 1, 3)
+    kk = k.to(f32).repeat_interleave(g, dim=2).permute(0, 2, 1, 3)
+    rows = torch.arange(T, device=q.device)[:, None]
+    best = 0.0
+    for k0 in range(0, kk.shape[2], 256):
+        p = torch.exp(qs @ kk[:, :, k0:k0 + 256].transpose(-1, -2)
+                      - lse[..., None])
+        if causal:
+            cols = torch.arange(k0, k0 + p.shape[-1], device=q.device)
+            p = torch.where(cols[None, :] <= rows, p, 0.0)
+        best = max(best, float(p.sum(dim=2).max()))
+    return best
+
+
+def compare_flash_bwd(device, gen) -> dict:
+    """The backward kernel (flash_attention_bwd) against
+    ``ref.flash_attention_bwd_ref`` on the card, in bf16 and f32, at
+    BWD_CASES, from the forward kernel's output and lse (held against the
+    plain version's at the same shapes by ``compare_flash``); also run
+    twice for determinism (bitwise equal)."""
+    import torch
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+
+    worst = 0.0
+    rows = []
+    for case in BWD_CASES:
+        causal = case[6]
+        for dtype in (torch.bfloat16, torch.float32):
+            q, k, v, o, lse, do = bwd_inputs(case, dtype, gen, device)
+            got = fa.flash_attention_bwd(q, k, v, o, lse, do, causal)
+            again = fa.flash_attention_bwd(q, k, v, o, lse, do, causal)
+            want = ref.flash_attention_bwd_ref(q, k, v, o, lse, do, causal)
+            torch.cuda.synchronize()
+            bf16 = dtype == torch.bfloat16
+            row = {"case": list(case), "dtype": str(dtype)}
+            if bf16:
+                row["p_colsum_max"] = p_colsum_max(q, k, lse, causal)
+            shares = []
+            for name, a, b, c in zip(("dq", "dk", "dv"), got, want, again):
+                check(a.dtype == dtype and a.shape == b.shape,
+                      f"bwd {case} {name}: {a.dtype} {tuple(a.shape)}")
+                check(bool(torch.isfinite(a).all()),
+                      f"bwd {case} {name}: non-finite")
+                check(torch.equal(a, c), f"bwd {case} {name}: two runs "
+                                         f"differ")
+                diff = (a.float() - b.float()).abs()
+                gmax = float(b.float().abs().max())
+                err = float(diff.max())
+                row[f"{name}_max_abs_err"] = err
+                row[f"{name}_rel"] = err / max(gmax, 1e-30)
+                worst = max(worst, err)
+                if bf16:
+                    ulp = bf16_ulp(b)
+                    slack = BWD_REL * gmax
+                    if name == "dv":
+                        slack += (BF16_P_BAR * float(do.float().abs().max())
+                                  * row["p_colsum_max"])
+                    over = int((diff > ulp + slack).sum())
+                    share = float((diff <= ulp + BWD_REL * gmax).float()
+                                  .mean())
+                    shares.append(share)
+                    row[f"{name}_share_within_ulp"] = share
+                    check(over == 0, f"bwd {case} bf16 {name}: {over} "
+                                     f"outputs over the bar, max {err}")
+                else:
+                    check(err <= BWD_REL * gmax, f"bwd {case} f32 {name}: "
+                          f"{err} > 2e-5 * {gmax}")
+                del diff
+            if bf16:
+                check(min(shares) >= BF16_SHARE,
+                      f"bwd {case} bf16: shares {shares}")
+            log(f"flash_attention_bwd {case} {dtype}: " + ", ".join(
+                f"{n} max |diff| {row[n + '_max_abs_err']:.3g} "
+                f"({row[n + '_rel']:.3g} max|g|)"
+                + (f", {100 * row[n + '_share_within_ulp']:.4f}% within "
+                   f"one ulp" if bf16 else "")
+                for n in ("dq", "dk", "dv")) + "; two runs bitwise equal")
+            rows.append(row)
+            del q, k, v, o, lse, do, got, again, want
+    torch.cuda.empty_cache()
+    return {"flash_attention_bwd": worst, "bwd_cases": rows}
 
 
 # ------------------------------------------------------------- phase 3
@@ -1085,6 +1250,334 @@ def run_async_phase(device) -> dict:
             "async_bitwise": True}
 
 
+# ------------------------------------------------------------ phase 3d
+# the train step at full width: qwen1.5-0.5b as configured (bf16 compute,
+# f32 params, remat full, kv_chunk 1024), AdamW lr 3e-4, lm data, global
+# batch 8 x 2048 in 2 microbatches of 4 x 2048, compressed at n = 1 by
+# aggregate_gaussian with per-tensor randomness, fused b = 8
+TRAIN_ARCH = "qwen1.5-0.5b"
+TRAIN_SEQ = 2048
+TRAIN_BATCH = 8
+TRAIN_ACCUM = 2
+TRAIN_STEPS = 3
+TRAIN_SIGMA = 1e-4  # the train launcher's default
+TRAIN_SEED = 0      # the step's compression seed (fold_in(PRNGKey, step))
+TRAIN_CHECK_SEQ = 2048  # the kernels-vs-plain gradient check: 1 x 2048
+
+
+def _train_comp(mech: str, sigma: float):
+    from repro_torch.dist import compress as dcompress
+
+    return dcompress.CompressionConfig(mechanism=mech, sigma=sigma,
+                                       clip=CLIP, per_coord=False,
+                                       fused=True, msg_bits=BITS)
+
+
+def train_launches_expected(cfg, microbatches: int) -> dict:
+    """Launches of one compressed train step: per microbatch each layer's
+    forward, its remat forward and its backward through the flash
+    kernels; then one fused encode and decode per parameter leaf."""
+    from repro_torch.models import nn, registry
+
+    specs = []
+    nn.map_specs(lambda _, spec: specs.append(spec),
+                 registry.param_specs(cfg))
+    leaves = len(specs)
+    L = cfg.n_layers
+    return {"flash_attention_sm90": 2 * L * microbatches,
+            "flash_attention_bwd": L * microbatches,
+            "fused_encode": leaves, "fused_decode": leaves}
+
+
+class plain_attention:
+    """Within the block, the autograd function runs the plain forward and
+    backward on CUDA tensors too (the yardstick of the gradient check;
+    nothing is counted)."""
+
+    def __enter__(self):
+        from repro_torch.kernels import flash_attention as fa
+        from repro_torch.kernels import ref
+
+        self._saved = (fa.flash_attention, fa.flash_attention_bwd)
+        fa.flash_attention = fa._plain_forward
+        fa.flash_attention_bwd = ref.flash_attention_bwd_ref
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.kernels import flash_attention as fa
+
+        fa.flash_attention, fa.flash_attention_bwd = self._saved
+        return False
+
+
+def _rel_l2(a, b) -> float:
+    import torch
+
+    a, b = a.double(), b.double()
+    return float(torch.linalg.vector_norm(a - b)
+                 / torch.linalg.vector_norm(b).clamp_min(1e-300))
+
+
+def token_nll(cfg, params, batch):
+    """The per-token NLL whose mean is the train loss
+    (``registry.loss_fn``), without a gradient: (1, T - 1) f32."""
+    import torch
+
+    from repro_torch.models import nn, registry, transformer
+    from repro_torch.models.config import torch_dtype
+
+    with torch.no_grad():
+        model = transformer.TreeModel(cfg, nn.cast_tree(
+            params, torch_dtype(cfg.compute_dtype)))
+        logits = registry.logits_fn(cfg, model, batch)[:, :-1].float()
+        labels = batch["tokens"][:, 1:, None].long()
+        return (torch.logsumexp(logits, dim=-1)
+                - torch.gather(logits, -1, labels)[..., 0])
+
+
+def check_train_gradient(cfg, params, device) -> dict:
+    """One microbatch of 1 x TRAIN_CHECK_SEQ at full width: the loss and
+    every leaf's gradient of the bf16 model on the kernels against the
+    same model on the plain versions, each measured against the f32
+    model's (plain f32 attention) loss and gradient of the same params;
+    the bar is the bf16 gradient bar of tests/test_torch_train.py: the
+    kernels' relative L2 error at most twice the plain bf16 path's (which
+    computes the JAX model's bf16 function), for each gradient leaf and
+    for the loss's TRAIN_CHECK_SEQ - 1 per-token terms.  The scalar loss
+    is one mean of those terms, whose errors mostly cancel (a ratio of
+    two such draws says nothing), so it is logged, not held; its terms
+    are, after checking that their mean is the step's loss."""
+    from repro_torch.data import synthetic
+    from repro_torch.train import steps
+
+    dc = synthetic.DataConfig(vocab=cfg.vocab, seq_len=TRAIN_CHECK_SEQ,
+                              global_batch=1, kind="lm")
+    batch = synthetic.lm_batch(dc, 99, device=device)
+    cfg32 = cfg.scaled(compute_dtype="float32")
+    lk, gk = steps.value_and_grad(cfg, params, batch)
+    tk = token_nll(cfg, params, batch)
+    with plain_attention():
+        lp, gp = steps.value_and_grad(cfg, params, batch)
+        l32, g32 = steps.value_and_grad(cfg32, params, batch)
+        tp = token_nll(cfg, params, batch)
+        t32 = token_nll(cfg32, params, batch)
+    for name, t, l in (("kernels", tk, lk), ("plain", tp, lp),
+                       ("f32", t32, l32)):
+        mean = float(t.mean())
+        check(abs(mean - float(l)) <= 1e-6 * abs(float(l)),
+              f"train gradient check: the {name} per-token NLL's mean "
+              f"{mean} is not the step's loss {float(l)}")
+    gk, gp, g32 = _leaves(gk), _leaves(gp), _leaves(g32)
+    loss = (abs(float(lk) - float(l32)), abs(float(lp) - float(l32)))
+    tok = (_rel_l2(tk, t32), _rel_l2(tp, t32))
+    check(tok[0] <= 2 * tok[1], f"train gradient check: per-token NLL "
+                                f"kernels {tok[0]:.3e} > 2 x plain "
+                                f"{tok[1]:.3e}")
+    ratios = []
+    for i, (a, b, c) in enumerate(zip(gk, gp, g32)):
+        ek, ep = _rel_l2(a, c), _rel_l2(b, c)
+        check(ek <= 2 * ep, f"train gradient check leaf {i}: kernels "
+                            f"{ek:.3e} > 2 x plain {ep:.3e}")
+        ratios.append((ek, ep))
+    log(f"train gradient check (1 x {TRAIN_CHECK_SEQ}, bf16, against the "
+        f"f32 model): per-token NLL relative L2 error kernels "
+        f"{tok[0]:.3e}, plain {tok[1]:.3e} (bar 2x); loss error kernels "
+        f"{loss[0]:.3e}, plain {loss[1]:.3e} (logged); leaf relative L2 "
+        f"error kernels / plain {min(k / p for k, p in ratios):.3f}-"
+        f"{max(k / p for k, p in ratios):.3f} (bar 2)")
+    return {"loss_err_kernels": loss[0], "loss_err_plain": loss[1],
+            "token_nll_rel_l2": tok, "leaf_rel_l2": ratios}
+
+
+def run_train_phase(device) -> dict:
+    """The train path at full width: TRAIN_STEPS steps of
+    ``train.steps.build_train_step`` (the launcher's step), each timed on
+    the host clock after a synchronize, with the launch counts set to 0
+    just before the steps and read just after; then the gradient check
+    on one microbatch."""
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.data import synthetic
+    from repro_torch.train import steps
+
+    cfg = configs.get_config(TRAIN_ARCH)
+    check(cfg.remat == "full" and cfg.kv_chunk == CONFIG_KV_CHUNK
+          and cfg.compute_dtype == "bfloat16", f"train config {cfg}")
+    tc = steps.TrainConfig(optimizer="adamw", lr=3e-4,
+                           grad_accum=TRAIN_ACCUM,
+                           compression=_train_comp("aggregate_gaussian",
+                                                   TRAIN_SIGMA))
+    state = steps.init_train_state(cfg, tc, 0, device)
+    n = sum(p.numel() for p in _leaves(state["params"]))
+    check(n == D_FULL, f"train state holds {n} parameters")
+    dc = synthetic.DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                              global_batch=TRAIN_BATCH, kind="lm")
+    step_fn = steps.build_train_step(cfg, tc)
+    batches = [synthetic.lm_batch(dc, i, device=device)
+               for i in range(TRAIN_STEPS)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    walls, losses = [], []
+    for i in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        state, m = step_fn(state, batches[i], TRAIN_SEED)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        losses.append(float(m["loss"]))
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    per_step = train_launches_expected(cfg, TRAIN_ACCUM)
+    for k, v in launches.items():
+        want = TRAIN_STEPS * per_step.get(k, 0)
+        check(v == want, f"train: {v} {k} launches, expected {want}")
+    check(all(math.isfinite(x) for x in losses), f"train losses {losses}")
+    check(int(state["step"]) == TRAIN_STEPS, f"step {state['step']}")
+    check(all(bool(torch.isfinite(p).all())
+              for p in _leaves(state["params"])), "non-finite params")
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    log(f"train {TRAIN_ARCH} (bf16, remat full, kv_chunk {cfg.kv_chunk}), "
+        f"batch {TRAIN_BATCH} x {TRAIN_SEQ} in {TRAIN_ACCUM} microbatches, "
+        f"aggregate_gaussian fused b = {BITS} per-tensor: step walls "
+        f"{[round(w, 3) for w in walls]} s, tokens/s "
+        f"{[round(tokens / w, 1) for w in walls]}, losses {losses}, peak "
+        f"{peak / 2**30:.2f} GiB, launches {launches}")
+    params = state["params"]
+    del state, batches, m
+    torch.cuda.empty_cache()
+    grad_check = check_train_gradient(cfg, params, device)
+    del params
+    torch.cuda.empty_cache()
+    return {"walls_s": walls, "tokens_per_s": [tokens / w for w in walls],
+            "losses": losses, "peak_bytes": peak, "launches": launches,
+            "launches_per_step": per_step, "gradient_check": grad_check}
+
+
+# ------------------------------------------------------------ phase 3e
+# the train step across 2 client ranks on the one card (gloo), each rank
+# holding full-width qwen1.5-0.5b and its AdamW state: global batch
+# 4 x 2048 (2 per rank), irwin_hall fused b = 8, two steps
+TRAIN_RANKS = 2
+TRAIN_RANK_BATCH = 4
+TRAIN_RANK_STEPS = 2
+TRAIN_RANK_SIGMA = 5e-3
+TRAIN_RANK_TIMEOUT = 420.0
+
+
+def train_rank_main(rank: int, n: int, port: int, device: str,
+                    results) -> None:
+    """One client rank of the train step: the same initial state on every
+    rank (seed 0), its slice of each global batch, ``compress_tree(axis=
+    group)`` inside ``build_train_step(group=)``; reports per step the
+    wall (between two barriers), the loss, a digest of the params, and
+    the launches and peak memory of the steps."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch import configs
+    from repro_torch.data import synthetic
+    from repro_torch.train import steps
+
+    try:
+        device = torch.device(device)
+        torch.cuda.set_device(device)
+        dist.init_process_group(RANK_BACKEND,
+                                init_method=f"tcp://localhost:{port}",
+                                rank=rank, world_size=n)
+        group = dist.group.WORLD
+        cfg = configs.get_config(TRAIN_ARCH)
+        tc = steps.TrainConfig(optimizer="adamw", lr=3e-4,
+                               compression=_train_comp("irwin_hall",
+                                                       TRAIN_RANK_SIGMA))
+        state = steps.init_train_state(cfg, tc, 0, device)
+        dc = synthetic.DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                                  global_batch=TRAIN_RANK_BATCH, kind="lm")
+        step_fn = steps.build_train_step(cfg, tc, group)
+        out = {"rank": rank, "backend": dist.get_backend(group),
+               "init_digest": _digest(_leaves(state["params"])),
+               "walls": [], "losses": [], "digests": []}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        for i in range(TRAIN_RANK_STEPS):
+            batch = synthetic.lm_batch(dc, i, device=device)
+            dist.barrier()
+            t0 = time.perf_counter()
+            state, m = step_fn(state, batch, TRAIN_SEED)
+            torch.cuda.synchronize()
+            dist.barrier()
+            out["walls"].append(time.perf_counter() - t0)
+            out["losses"].append(float(m["loss"]))
+            out["digests"].append(_digest(_leaves(state["params"])))
+            out["cohort"] = int(m["cohort"])
+        out["launches"] = read_launches()
+        out["peak_bytes"] = torch.cuda.max_memory_allocated()
+        results.put(out)
+    except BaseException:  # reported to the parent, then re-raised
+        import traceback
+
+        results.put({"rank": rank, "error": traceback.format_exc()})
+        raise
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def run_train_ranks_phase(device) -> dict:
+    """TRAIN_RANKS client ranks on the card, TRAIN_RANK_STEPS steps each.
+    Checks: every rank's params bitwise equal to rank 0's after each step
+    (and at the start), finite losses, the cohort, each rank's launches
+    (one microbatch a step: per layer forward, remat forward and backward
+    flash launches; one fused encode and decode per leaf)."""
+    import torch
+
+    from repro_torch import configs
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    port = free_port()
+    t0 = time.perf_counter()
+    got = _spawn(train_rank_main,
+                 lambda r: (r, TRAIN_RANKS, port, str(device)), TRAIN_RANKS,
+                 TRAIN_RANK_TIMEOUT)
+    spawn_wall = time.perf_counter() - t0
+    errors = [g["error"] for g in got if "error" in g]
+    check(not errors, "train rank failed:\n" + "\n".join(errors))
+    check(len(got) == TRAIN_RANKS, f"{TRAIN_RANKS - len(got)} train ranks "
+                                   f"gave no result")
+    by_rank = {g["rank"]: g for g in got}
+    per_step = train_launches_expected(configs.get_config(TRAIN_ARCH), 1)
+    for r, g in by_rank.items():
+        check(g["backend"] == RANK_BACKEND, f"backend {g['backend']}")
+        check(g["init_digest"] == by_rank[0]["init_digest"],
+              f"train rank {r}: initial params differ from rank 0's")
+        check(g["digests"] == by_rank[0]["digests"],
+              f"train rank {r}: params differ from rank 0's")
+        check(g["losses"] == by_rank[0]["losses"]
+              and all(math.isfinite(x) for x in g["losses"]),
+              f"train rank {r}: losses {g['losses']}")
+        check(g["cohort"] == TRAIN_RANKS, f"cohort {g['cohort']}")
+        for k, v in g["launches"].items():
+            want = TRAIN_RANK_STEPS * per_step.get(k, 0)
+            check(v == want, f"train rank {r}: {v} {k} launches, expected "
+                             f"{want}")
+    res = {"ranks": TRAIN_RANKS, "backend": RANK_BACKEND,
+           "walls_s": {r: by_rank[r]["walls"] for r in by_rank},
+           "losses": by_rank[0]["losses"],
+           "peak_gib": {r: by_rank[r]["peak_bytes"] / 2**30 for r in by_rank},
+           "launches_per_rank": by_rank[0]["launches"],
+           "spawn_to_exit_s": spawn_wall}
+    log(f"train across {TRAIN_RANKS} ranks ({RANK_BACKEND}), irwin_hall "
+        f"fused b = {BITS}, batch {TRAIN_RANK_BATCH} x {TRAIN_SEQ}: step "
+        f"walls per rank {json.dumps({r: [round(w, 3) for w in ws] for r, ws in res['walls_s'].items()})} s, "
+        f"losses {res['losses']}, peak "
+        f"{json.dumps({r: round(p, 2) for r, p in res['peak_gib'].items()})}"
+        f" GiB per rank, launches per rank {res['launches_per_rank']}; "
+        f"params bitwise equal across ranks after every step")
+    return res
+
+
 SERVE_ARCH = "qwen1.5-0.5b"
 SERVE_REQUESTS = 16
 SERVE_SLOTS = 8
@@ -1536,8 +2029,9 @@ def batched_ms(fn, n: int = 20, reps: int = 5) -> float:
 
 def time_flash(device, gen, mem_rate: float, f32_rate: float,
                bf16_tc: float, tf32_tc: float) -> list:
-    """Each flash kernel at the FLASH_TIMED shapes (``batched_ms``), beside
-    its bound — the larger of the bytes (q, k, v read once, out written
+    """Each flash kernel at the FLASH_TIMED shapes (``batched_ms``; bf16 at
+    the configs' kv_chunk, whose second pass over each span is the
+    kernel's own cost, not counted in the bound), beside its bound — the larger of the bytes (q, k, v read once, out written
     once) over the memory rate and the least operations the card needs
     for the causal FLOPs (4 B H T S D / 2) at its inputs' accuracy: once
     at the bf16 tensor-core rate for bf16, three times at the TF32
@@ -1562,10 +2056,14 @@ def time_flash(device, gen, mem_rate: float, f32_rate: float,
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
         bf16 = dtype == torch.bfloat16
         name = "flash_attention_sm90" if bf16 else "flash_attention_f32"
+        # bf16 at the configs' kv_chunk, as the serve and train paths call
+        # it (the f32 function has no chunking)
+        kv = {"kv_tile": CONFIG_KV_CHUNK} if bf16 else {}
         plain = (ref.flash_attention_bf16_ref if bf16
                  else ref.flash_attention_ref)
-        ms = batched_ms(lambda: fa.flash_attention(q, k, v, True))
-        plain_ms = cuda_ms(lambda: plain(q, k, v, True), reps=3)
+        ms = batched_ms(lambda: fa.flash_attention(
+            q, k, v, True, kv_tile=CONFIG_KV_CHUNK))
+        plain_ms = cuda_ms(lambda: plain(q, k, v, True, **kv), reps=3)
         lib_ms = batched_ms(lambda: F.scaled_dot_product_attention(
             qt, kt, vt, is_causal=True, enable_gqa=HK < H))
         lib_x_ms = None
@@ -1580,7 +2078,8 @@ def time_flash(device, gen, mem_rate: float, f32_rate: float,
         ops_ms = (flops / bf16_tc if bf16 else 3 * flops / tf32_tc) * 1e3
         bound = max(bytes_ms, ops_ms)
         by = "bytes" if bytes_ms >= ops_ms else "operations"
-        shape = f"({B}, {T}, {H} / {HK} heads, {D}) {dt} causal"
+        shape = (f"({B}, {T}, {H} / {HK} heads, {D}) {dt} causal"
+                 + (f" kv_chunk {CONFIG_KV_CHUNK}" if bf16 else ""))
         rate = (f"{flops / 1e9:.2f} GFLOP at {bf16_tc / 1e12:.0f} TFLOP/s"
                 if bf16 else f"3 x {flops / 1e9:.2f} GFLOP at "
                 f"{tf32_tc / 1e12:.1f} TFLOP/s TF32")
@@ -1604,6 +2103,124 @@ def time_flash(device, gen, mem_rate: float, f32_rate: float,
             f"{lib_ms:.4f} ms (kernel / SDPA {ms / lib_ms:.2f}){lib_x}")
         rows.append(row)
         del q, k, v, qt, kt, vt
+    torch.cuda.empty_cache()
+    return rows
+
+
+# timed backward shapes, causal: (B, T, S, H, HK, D, dtype): the train
+# path's microbatch first (its row in the kernels line), then the longest
+# serve prompt's shape and qwen3-32b's GQA heads in bf16, and the train
+# shape in f32
+BWD_TIMED = (
+    (4, 2048, 2048, 16, 16, 64, "bfloat16"),
+    (1, 8192, 8192, 16, 16, 64, "bfloat16"),
+    (1, 4096, 4096, 64, 8, 128, "bfloat16"),
+    (4, 2048, 2048, 16, 16, 64, "float32"),
+)
+
+
+def time_flash_bwd(device, gen, mem_rate: float, bf16_tc: float,
+                   tf32_tc: float) -> list:
+    """The backward kernel at BWD_TIMED (``batched_ms``, 5 calls a mean)
+    beside its bound — the larger of the bytes (q, k, v, o, dO and lse
+    read once, dq, dk, dv written once) over the memory rate and the
+    gradient's products, 2.5 times the forward's causal FLOPs (4 B H T S D
+    / 2), at the bf16 tensor-core rate for bf16 and three times at the
+    TF32 rate for f32 (f32 accuracy on the tensor cores, as the f32
+    forward's bound) — its plain version (``cuda_ms``, 3 runs) and the
+    library's: ``scaled_dot_product_attention``'s backward at the same
+    shape and dtype, timed as its autograd forward + backward minus its
+    forward (the library yardstick, timed only here)."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+
+    rows = []
+    for B, T, S, H, HK, D, dt in BWD_TIMED:
+        dtype = getattr(torch, dt)
+        case = (B, T, S, H, HK, D, True)
+        q, k, v, o, lse, do = bwd_inputs(case, dtype, gen, device)
+        ms = batched_ms(lambda: fa.flash_attention_bwd(q, k, v, o, lse, do,
+                                                       True), n=5, reps=3)
+        plain_ms = cuda_ms(lambda: ref.flash_attention_bwd_ref(
+            q, k, v, o, lse, do, True), reps=3)
+        qt, kt, vt = (x.detach().transpose(1, 2).requires_grad_()
+                      for x in (q, k, v))
+        dot = do.transpose(1, 2)
+        gqa = HK < H
+
+        def sdpa():
+            return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                  enable_gqa=gqa)
+
+        def sdpa_fwd_bwd():
+            torch.autograd.grad(sdpa(), (qt, kt, vt), dot)
+
+        with torch.no_grad():
+            fwd_ms = batched_ms(sdpa, n=5, reps=3)
+        lib_ms = batched_ms(sdpa_fwd_bwd, n=5, reps=3) - fwd_ms
+        bf16 = dtype == torch.bfloat16
+        flops = 2.5 * 4 * B * H * T * S * D / 2
+        # q, o, dO and dq (B T H D each), k, v, dk and dv (B S HK D each),
+        # lse (B H T, f32)
+        nbytes = (q.element_size() * 4 * (B * T * H * D + B * S * HK * D)
+                  + 4 * B * H * T)
+        bytes_ms = nbytes / mem_rate * 1e3
+        ops_ms = (flops / bf16_tc if bf16 else 3 * flops / tf32_tc) * 1e3
+        bound = max(bytes_ms, ops_ms)
+        by = "bytes" if bytes_ms >= ops_ms else "operations"
+        shape = f"({B}, {T}, {H} / {HK} heads, {D}) {dt} causal"
+        row = {"name": "flash_attention_bwd", "config": shape, "ms": ms,
+               "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+               "bytes": nbytes, "flops": flops, "library_ms": lib_ms,
+               "library_forward_ms": fwd_ms}
+        log(f"flash_attention_bwd {shape}: {ms:.4f} ms, bound {bound:.4f} ms "
+            f"by {by} ({flops / 1e9:.2f} GFLOP"
+            f"{'' if bf16 else ' x 3 (TF32)'}; bytes {bytes_ms:.4f} ms), "
+            f"{100 * bound / ms:.1f}% of it, {flops / ms / 1e9:.1f} TFLOP/s; "
+            f"plain {plain_ms:.4f} ms; scaled_dot_product_attention backward "
+            f"{lib_ms:.4f} ms (forward + backward {lib_ms + fwd_ms:.4f}, "
+            f"forward {fwd_ms:.4f}; kernel / SDPA {ms / lib_ms:.2f})")
+        rows.append(row)
+        del q, k, v, o, lse, do, qt, kt, vt, dot
+    torch.cuda.empty_cache()
+    return rows
+
+
+def time_flash_span(device, gen) -> list:
+    """The bf16 forward kernel at the configs' kv_chunk (two passes over
+    each 1024-key span) beside its single pass over 128-key tiles
+    (kv_chunk 128, the PR 14-16 function, held to the bf16 bars against
+    the plain version at 128 first), at the FLASH_TIMED bf16 shapes, in
+    turns (``batched_ms``)."""
+    import torch
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+
+    rows = []
+    for B, T, S, H, HK, D, dt in FLASH_TIMED:
+        if dt != "bfloat16":
+            continue
+        case = (B, T, S, H, HK, D, True)
+        q, k, v = flash_inputs(case, torch.bfloat16, gen, device)
+        check_bf16_flash(
+            fa.flash_attention(q, k, v, True, kv_tile=128),
+            ref.flash_attention_bf16_ref(q, k, v, True, kv_tile=128), v,
+            f"flash_attention_sm90 {case} kv_chunk 128")
+        tile = batched_ms(lambda: fa.flash_attention(q, k, v, True,
+                                                     kv_tile=128))
+        span = batched_ms(lambda: fa.flash_attention(
+            q, k, v, True, kv_tile=CONFIG_KV_CHUNK))
+        shape = f"({B}, {T}, {H} / {HK} heads, {D}) bf16 causal"
+        log(f"flash_attention_sm90 {shape} at kv_chunk {CONFIG_KV_CHUNK}: "
+            f"{span:.4f} ms (128-key tiling in the same call {tile:.4f} ms, "
+            f"x{span / tile:.2f})")
+        rows.append({"config": shape, "kv_chunk": CONFIG_KV_CHUNK,
+                     "ms": span, "tile_ms": tile})
+        del q, k, v
     torch.cuda.empty_cache()
     return rows
 
@@ -1672,6 +2289,8 @@ def main() -> int:
     flash = compare_flash(device, gen)
     worst.update({k: flash[k] for k in ("flash_attention_sm90",
                                         "flash_attention_f32")})
+    bwd = compare_flash_bwd(device, gen)
+    worst["flash_attention_bwd"] = bwd["flash_attention_bwd"]
     log(f"phase 2 done at {time.perf_counter() - t_start:.1f} s")
 
     # 3. the main path: each path with its launch counts
@@ -1722,6 +2341,13 @@ def main() -> int:
     held("after the client ranks")
     async_res = run_async_phase(device)
     held("after the async runtime")
+    train = run_train_phase(device)
+    log(f"phase 3d (train) done at {time.perf_counter() - t_start:.1f} s")
+    held("after the train phase")
+    train_ranks = run_train_ranks_phase(device)
+    log(f"phase 3e (train across ranks) done at "
+        f"{time.perf_counter() - t_start:.1f} s")
+    held("after the train ranks")
     dpath = run_dither_pack(device, gen)
     held("after the dither_pack path")
     cfg, model32 = serve_model(device)
@@ -1741,12 +2367,17 @@ def main() -> int:
                                                                rates)
     rows += time_flash(device, gen, rates[0], rates[1], bf16_rate(name),
                        tf32_rate(name))
+    rows += time_flash_bwd(device, gen, rates[0], bf16_rate(name),
+                           tf32_rate(name))
+    span_rows = time_flash_span(device, gen)
     launches = {k: sum(r["launches"][k] for r in res.values())
                 + RANKS * sum(c["launches_per_rank"][k]
                               for c in ranks["cases"].values())
                 + async_res["launches"][k]
                 + dpath["launches"][k] + serve["launches"][k]
-                + serve_f32["launches"][k] for k in KERNELS}
+                + serve_f32["launches"][k] + train["launches"][k]
+                + TRAIN_RANKS * train_ranks["launches_per_rank"][k]
+                for k in KERNELS}
     kernels = []
     for kname, (src, replaces) in KERNELS.items():
         main_row = next(r for r in rows if r["name"] == kname)
@@ -1766,6 +2397,8 @@ def main() -> int:
               "rounds": {m: {k: v for k, v in r.items() if k != "errs"}
                          for m, r in res.items()},
               "laws": laws, "flash_cases": flash["flash_cases"],
+              "bwd_cases": bwd["bwd_cases"], "flash_span": span_rows,
+              "train": train, "train_ranks": train_ranks,
               "client_ranks": ranks, "async": async_res,
               "serve": serve, "serve_f32": serve_f32,
               "serve_profile": serve_profile,

@@ -29,7 +29,7 @@ from repro_torch.core.f32 import fma
 
 __all__ = [
     "PRNGKey", "fold_in", "split", "random_bits", "uniform", "bernoulli",
-    "normal", "laplace", "erfinv", "CHUNK",
+    "randint", "normal", "laplace", "erfinv", "CHUNK",
 ]
 
 M32 = 0xFFFFFFFF
@@ -163,6 +163,39 @@ def uniform(key: Key, shape: Shape = (), minval: float = 0.0,
         bits = _bits_range(key, start + lo, count, flat.device)
         flat[lo:lo + count] = _scale(_bits_to_unit(bits), minval, maxval)
     return out
+
+
+def _mul32(a: torch.Tensor, b: int) -> torch.Tensor:
+    """a * b mod 2^32 for uint32 values a (int64 tensor) and b (int), as
+    uint32 arithmetic wraps, without leaving int64: a is split into
+    16-bit halves so no partial product reaches 2^63."""
+    hi = (((a >> 16) * b) & 0xFFFF) << 16
+    return (hi + (a & 0xFFFF) * b) & M32
+
+
+def randint(key: Key, shape: Shape, minval: int, maxval: int,
+            device=None) -> torch.Tensor:
+    """int32 draws in [minval, maxval), bitwise equal to
+    ``jax.random.randint`` with its default int32 dtype.  As jax does
+    (``_randint``): two 32-bit draws per value from ``split(key)``, the
+    span's multiplier m = (2^16 mod span)^2 mod span, and ((hi mod span) m
+    + lo mod span) mod span in wrapping uint32 arithmetic, added to
+    minval; span 1 where maxval <= minval.  (The square wraps too: for
+    spans past 2^16 jax's multiplier is 0, and so is this one.)"""
+    shape = _shape(shape)
+    info = np.iinfo(np.int32)
+    lo_v = min(max(int(minval), info.min), info.max)
+    hi_v = min(max(int(maxval), info.min), info.max)
+    span = (hi_v - lo_v) & M32 if hi_v > lo_v else 1
+    k1, k2 = split(key).unbind(0)
+    hi = random_bits(k1, shape, device)
+    lo = random_bits(k2, shape, device)
+    mult = (2 ** 16) % span
+    mult = ((mult * mult) & M32) % span  # wraps to 0 for span > 2^16
+    off = ((_mul32(hi % span, mult) + lo % span) & M32) % span
+    # int32 addition wraps as XLA's
+    out = ((off + lo_v + 2 ** 31) & M32) - 2 ** 31
+    return out.to(torch.int32)
 
 
 def bernoulli(key: Key, p: float = 0.5, shape: Shape = (),

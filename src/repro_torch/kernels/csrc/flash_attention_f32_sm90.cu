@@ -10,9 +10,10 @@
 //   online softmax over KV tiles: m, l, p in f32, p = exp(s - m)
 //   acc    += p . v                 (3xTF32: P kept at f32 accuracy)
 //   out     = acc / max(l, 1e-30)
+//   lse     = m + log(l)            (optional: the backward's row statistic)
 //
 // q (B, T, H, D), k and v (B, S, HK, D), out (B, T, H, D), all contiguous
-// f32, D in {16, 32, 64, 128}, H % HK == 0.  Within 2e-5 of the plain
+// f32, D in {16, 32, 64, 128}, H % HK == 0; lse (B, H, T) f32 or null.  Within 2e-5 of the plain
 // version, not bitwise: the f32 sums run in another order.
 //
 // 3xTF32.  The tensor cores multiply TF32 (10 stored mantissa bits).  Each
@@ -314,7 +315,8 @@ __global__ void __launch_bounds__(kThreads, 1)
                                const __grid_constant__ CUtensorMap tm_k,
                                const __grid_constant__ CUtensorMap tm_v,
                                const float* __restrict__ q,
-                               float* __restrict__ out, int t_len, int s_len,
+                               float* __restrict__ out,
+                               float* __restrict__ lse, int t_len, int s_len,
                                int heads, int kv_heads, int causal,
                                float scale) {
   using G = Tile<D>;
@@ -631,8 +633,13 @@ __global__ void __launch_bounds__(kThreads, 1)
     if (lane == 0) mbar_arrive(split_empty + 8 * st);  // the set is free
   }
 
-  // out = O / max(l, 1e-30); rows past T are not stored
+  // out = O / max(l, 1e-30), lse = m + log(l); rows past T are not stored
   const float d0 = fmaxf(l0, 1e-30f), d1 = fmaxf(l1, 1e-30f);
+  if (lse != nullptr && c == 0) {
+    float* lb = lse + ((size_t)b * heads + h) * t_len;
+    if (row0 < t_len) lb[row0] = __fadd_rn(m0, logf(l0));
+    if (row1 < t_len) lb[row1] = __fadd_rn(m1, logf(l1));
+  }
   const size_t row_stride = (size_t)heads * D;
   float* ob = out + ((size_t)b * t_len * heads + h) * D + c0;
   if (row0 < t_len) {
@@ -676,9 +683,9 @@ int encode(CUtensorMap* map, const void* ptr, int batch, int len, int heads,
 }
 
 template <int D>
-int launch(const void* q, const void* k, const void* v, void* o, int batch,
-           int t_len, int s_len, int heads, int kv_heads, int causal,
-           float scale, cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* o, void* lse,
+           int batch, int t_len, int s_len, int heads, int kv_heads,
+           int causal, float scale, cudaStream_t stream) {
   using G = Tile<D>;
   // set once per instance (thread-safe static initialisation)
   static const cudaError_t attr = cudaFuncSetAttribute(
@@ -699,7 +706,8 @@ int launch(const void* q, const void* k, const void* v, void* o, int batch,
   const dim3 grid(batch * heads, (t_len + kBM - 1) / kBM);
   flash_attention_f32_kernel<D><<<grid, kThreads, G::kSmem, stream>>>(
       tq, tk, tv, static_cast<const float*>(q), static_cast<float*>(o),
-      t_len, s_len, heads, kv_heads, causal, scale);
+      static_cast<float*>(lse), t_len, s_len, heads, kv_heads, causal,
+      scale);
   return (int)cudaGetLastError();
 }
 
@@ -710,28 +718,30 @@ extern "C" {
 // q, o: (batch, t_len, heads, head_dim); k, v: (batch, s_len, kv_heads,
 // head_dim); contiguous f32, 16-byte aligned; head_dim in {16, 32, 64,
 // 128}; heads % kv_heads == 0; t_len, s_len >= 1; batch * heads < 2^31 and
-// ceil(t_len / 128) <= 65535.  ``scale`` is f32(head_dim^-1/2).  Launches
+// ceil(t_len / 128) <= 65535.  ``lse`` is null or (batch, heads, t_len)
+// f32, written with each row's m + log(l).  ``scale`` is
+// f32(head_dim^-1/2).  Launches
 // on ``stream`` and returns its cudaGetLastError(), or
 // cudaErrorInvalidValue for an unsupported head_dim, -1 if the driver has
 // no cuTensorMapEncodeTiled, or -1000 - r if it returned CUresult r.
 int flash_attention_launch(const void* q, const void* k, const void* v,
-                           void* o, int batch, int t_len, int s_len,
-                           int heads, int kv_heads, int head_dim, int causal,
-                           float scale, void* stream) {
+                           void* o, void* lse, int batch, int t_len,
+                           int s_len, int heads, int kv_heads, int head_dim,
+                           int causal, float scale, void* stream) {
   const cudaStream_t st = (cudaStream_t)stream;
   switch (head_dim) {
     case 16:
-      return launch<16>(q, k, v, o, batch, t_len, s_len, heads, kv_heads,
-                        causal, scale, st);
+      return launch<16>(q, k, v, o, lse, batch, t_len, s_len, heads,
+                        kv_heads, causal, scale, st);
     case 32:
-      return launch<32>(q, k, v, o, batch, t_len, s_len, heads, kv_heads,
-                        causal, scale, st);
+      return launch<32>(q, k, v, o, lse, batch, t_len, s_len, heads,
+                        kv_heads, causal, scale, st);
     case 64:
-      return launch<64>(q, k, v, o, batch, t_len, s_len, heads, kv_heads,
-                        causal, scale, st);
+      return launch<64>(q, k, v, o, lse, batch, t_len, s_len, heads,
+                        kv_heads, causal, scale, st);
     case 128:
-      return launch<128>(q, k, v, o, batch, t_len, s_len, heads, kv_heads,
-                         causal, scale, st);
+      return launch<128>(q, k, v, o, lse, batch, t_len, s_len, heads,
+                         kv_heads, causal, scale, st);
     default:
       return (int)cudaErrorInvalidValue;
   }

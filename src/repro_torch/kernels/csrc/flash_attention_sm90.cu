@@ -8,13 +8,29 @@
 //   qs      = bf16(f32(q) * f32(bf16(D^-1/2)))      (attention.py:46)
 //   s[i, j] = qs[i] . k[j], summed in f32            (wgmma, f32 accumulators)
 //   s[i, j] = -1e30 where j >= S, or j > i when causal (aligned top left)
-//   online softmax over 128-key tiles: m and l in f32, l sums the f32 p
-//   acc    += bf16(p) . v, summed in f32             (wgmma, P from registers)
+//   online softmax over spans of the caller's kv_chunk keys (attention.py:
+//   84-93): m_span = max(m, row max over the span); p = exp(s - m_span);
+//   l = l exp(m - m_span) + sum p, in f32
+//   acc     = acc exp(m - m_span) + bf16(p) . v, summed in f32
+//                                                    (wgmma, P from registers)
 //   out     = bf16_rn(acc / max(l, 1e-30))
+//   lse     = m + log(l), f32 (optional: the backward's row statistic)
 //
 // f32 inputs go to flash_attention_f32_sm90.cu, which keeps the Pallas
 // kernel's f32 function.  q (B, T, H, D), k and v (B, S, HK, D), out
-// (B, T, H, D), all contiguous bf16, D in {16, 32, 64, 128}, H % HK == 0.
+// (B, T, H, D), all contiguous bf16, D in {16, 32, 64, 128}, H % HK == 0;
+// lse (B, H, T) f32 or null.
+//
+// The span.  P is rounded to bf16 against the running max, so the span
+// the max runs over is part of the function: the JAX model takes it from
+// the config's kv_chunk (1024 in every full config).  The kernel's KV tile
+// stays 128 keys; a span is span_tiles of them.  With one tile a span the
+// kernel makes one pass, as it always did.  With more, it makes two passes
+// over each span: the first runs only S = qs K^T over the span's tiles for
+// m_span (the producer loads K alone), the second recomputes S with the
+// same wgmma sequence (the same bits), forms p against m_span, and applies
+// the correction to O and l once, at the span's start.  That costs one
+// more Q K^T per span: up to 1.5x the forward's products.
 //
 // What bounds it on this card: operations.  Causal attention is
 // 4 B H T S D / 2 FLOPs (two products over the lower triangle): 137 GFLOP
@@ -228,6 +244,51 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
+// S = qs K^T of the KV tile at key k0 (K at k_st in shared memory), masked
+// to -1e30 past S and, when causal, above the diagonal: s[4n + 2i + e] is
+// (row i ? row1 : row0, column k0 + 8n + c0 + e).  ``first_row`` is the
+// warpgroup's first query row.
+template <int D>
+__device__ __forceinline__ void tile_scores(float (&s)[64], uint32_t q_wg,
+                                            uint32_t k_st, int k0, int s_len,
+                                            int causal, int first_row,
+                                            int row0, int row1, int c0) {
+  using G = Tile<D>;
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const uint32_t off = (kk / G::kStepsPerBox) * G::kBoxBytes +
+                         (kk % G::kStepsPerBox) * 32;
+    wgmma_ss_n128(s, desc_k_major<D>(q_wg + off),
+                  desc_k_major<D>(k_st + off), kk > 0);
+  }
+  wgmma_commit();
+  wgmma_wait_all();
+#pragma unroll
+  for (int i = 0; i < 64; ++i) fence_reg(s[i]);
+  if (k0 + kBN > s_len || (causal && k0 + kBN - 1 > first_row)) {
+#pragma unroll
+    for (int n = 0; n < 16; ++n)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int col = k0 + 8 * n + c0 + e;
+        const bool out_s = col >= s_len;
+        if (out_s || (causal && col > row0)) s[4 * n + e] = kNegInf;
+        if (out_s || (causal && col > row1)) s[4 * n + 2 + e] = kNegInf;
+      }
+  }
+}
+
+// the running row maxima of a thread's two rows over its columns of s
+__device__ __forceinline__ void row_max(const float (&s)[64], float& mx0,
+                                        float& mx1) {
+#pragma unroll
+  for (int n = 0; n < 16; ++n) {
+    mx0 = fmaxf(mx0, fmaxf(s[4 * n], s[4 * n + 1]));
+    mx1 = fmaxf(mx1, fmaxf(s[4 * n + 2], s[4 * n + 3]));
+  }
+}
+
 // ------------------------------------------------------------ kernel
 // Grid: (B * H, ceil(T / 128)); block: 384 threads.  blockIdx.y counts the
 // query tiles from the last, so that the causal tiles with the most KV
@@ -237,9 +298,10 @@ __global__ void __launch_bounds__(kThreads, 1)
     flash_attention_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
                                 const __grid_constant__ CUtensorMap tm_k,
                                 const __grid_constant__ CUtensorMap tm_v,
-                                __nv_bfloat16* __restrict__ out, int t_len,
+                                __nv_bfloat16* __restrict__ out,
+                                float* __restrict__ lse, int t_len,
                                 int s_len, int heads, int kv_heads,
-                                int causal, float scale) {
+                                int causal, float scale, int span_tiles) {
   using G = Tile<D>;
   extern __shared__ uint8_t smem_raw[];
   // the swizzle patterns repeat every 1024 bytes: align the tiles to it
@@ -280,16 +342,24 @@ __global__ void __launch_bounds__(kThreads, 1)
       mbar_expect_tx(q_full, G::kBytes);
       for (int x = 0; x < G::kBoxes; ++x)
         tma_load(sq + x * G::kBoxBytes, &tm_q, q_full, x * 64, h, q0, b);
-      for (int j = 0; j < n_kv; ++j) {
-        const int st = j & 1;
-        mbar_wait(kv_empty + 8 * st, ((j >> 1) & 1) ^ 1);
-        mbar_expect_tx(kv_full + 8 * st, 2 * G::kBytes);
-        for (int x = 0; x < G::kBoxes; ++x) {
-          tma_load(sk + st * G::kBytes + x * G::kBoxBytes, &tm_k,
-                   kv_full + 8 * st, x * 64, hk, j * kBN, b);
-          tma_load(sv + st * G::kBytes + x * G::kBoxBytes, &tm_v,
-                   kv_full + 8 * st, x * 64, hk, j * kBN, b);
-        }
+      // the consumers' schedule: for each span, its tiles' K alone (the
+      // max pass, when a span has more than one tile), then K and V
+      int it = 0;  // ring step
+      for (int j0 = 0; j0 < n_kv; j0 += span_tiles) {
+        const int j1 = min(j0 + span_tiles, n_kv);
+        for (int pass = span_tiles > 1 ? 0 : 1; pass < 2; ++pass)
+          for (int j = j0; j < j1; ++j, ++it) {
+            const int st = it & 1;
+            mbar_wait(kv_empty + 8 * st, ((it >> 1) & 1) ^ 1);
+            mbar_expect_tx(kv_full + 8 * st, (1 + pass) * G::kBytes);
+            for (int x = 0; x < G::kBoxes; ++x) {
+              tma_load(sk + st * G::kBytes + x * G::kBoxBytes, &tm_k,
+                       kv_full + 8 * st, x * 64, hk, j * kBN, b);
+              if (pass == 1)
+                tma_load(sv + st * G::kBytes + x * G::kBoxBytes, &tm_v,
+                         kv_full + 8 * st, x * 64, hk, j * kBN, b);
+            }
+          }
       }
     }
     return;
@@ -329,106 +399,110 @@ __global__ void __launch_bounds__(kThreads, 1)
   float m0 = kNegInf, m1 = kNegInf, l0 = 0.f, l1 = 0.f;
   const uint32_t q_wg = sq + cw * 64 * G::kRowBytes;
 
-  for (int j = 0; j < n_kv; ++j) {
-    const int st = j & 1;
-    const int k0 = j * kBN;
-    const uint32_t k_st = sk + st * G::kBytes;
-    const uint32_t v_st = sv + st * G::kBytes;
-    mbar_wait(kv_full + 8 * st, (j >> 1) & 1);
-
-    // S = qs K^T
-    float s[64];
-    wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      const uint32_t off = (kk / G::kStepsPerBox) * G::kBoxBytes +
-                           (kk % G::kStepsPerBox) * 32;
-      wgmma_ss_n128(s, desc_k_major<D>(q_wg + off),
-                    desc_k_major<D>(k_st + off), kk > 0);
+  int it = 0;  // ring step, as the producer counts it
+  for (int j0 = 0; j0 < n_kv; j0 += span_tiles) {
+    const int j1 = min(j0 + span_tiles, n_kv);
+    // the span's max: a pass of Q K^T alone when the span has more tiles
+    float mx0 = m0, mx1 = m1;
+    if (span_tiles > 1) {
+      for (int j = j0; j < j1; ++j, ++it) {
+        const int st = it & 1;
+        mbar_wait(kv_full + 8 * st, (it >> 1) & 1);
+        float s[64];
+        tile_scores<D>(s, q_wg, sk + st * G::kBytes, j * kBN, s_len, causal,
+                       q0 + cw * 64, row0, row1, c0);
+        if (lane == 0) mbar_arrive(kv_empty + 8 * st);
+        row_max(s, mx0, mx1);
+      }
+      mx0 = quad_max(mx0);
+      mx1 = quad_max(mx1);
     }
-    wgmma_commit();
-    wgmma_wait_all();
+    float ml0 = 0.f, ml1 = 0.f, corr0 = 1.f, corr1 = 1.f;
+    float ls0 = 0.f, ls1 = 0.f;  // the span's sum of p
+    for (int j = j0; j < j1; ++j, ++it) {
+      const int st = it & 1;
+      const uint32_t v_st = sv + st * G::kBytes;
+      mbar_wait(kv_full + 8 * st, (it >> 1) & 1);
+      float s[64];
+      tile_scores<D>(s, q_wg, sk + st * G::kBytes, j * kBN, s_len, causal,
+                     q0 + cw * 64, row0, row1, c0);
+      if (span_tiles == 1) {
+        row_max(s, mx0, mx1);
+        mx0 = quad_max(mx0);
+        mx1 = quad_max(mx1);
+      }
+      if (j == j0) {
+        // once a span: m_span = max(m, max s); O = O exp(m - m_span)
+        ml0 = __fmul_rn(mx0, kLog2e);
+        ml1 = __fmul_rn(mx1, kLog2e);
+        corr0 = exp2f(__fmaf_rn(m0, kLog2e, -ml0));
+        corr1 = exp2f(__fmaf_rn(m1, kLog2e, -ml1));
 #pragma unroll
-    for (int i = 0; i < 64; ++i) fence_reg(s[i]);
-
-    // s[4n + 2i + e] is (row i ? row1 : row0, column k0 + 8n + c0 + e)
-    if (k0 + kBN > s_len || (causal && k0 + kBN - 1 > q0 + cw * 64)) {
+        for (int n = 0; n < D / 8; ++n) {
+          o[4 * n] = __fmul_rn(o[4 * n], corr0);
+          o[4 * n + 1] = __fmul_rn(o[4 * n + 1], corr0);
+          o[4 * n + 2] = __fmul_rn(o[4 * n + 2], corr1);
+          o[4 * n + 3] = __fmul_rn(o[4 * n + 3], corr1);
+        }
+      }
+      // p = exp(s - m_span)
+      float sum0 = 0.f, sum1 = 0.f;
 #pragma unroll
       for (int n = 0; n < 16; ++n)
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
-          const int col = k0 + 8 * n + c0 + e;
-          const bool out_s = col >= s_len;
-          if (out_s || (causal && col > row0)) s[4 * n + e] = kNegInf;
-          if (out_s || (causal && col > row1)) s[4 * n + 2 + e] = kNegInf;
+          s[4 * n + e] = exp2f(__fmaf_rn(s[4 * n + e], kLog2e, -ml0));
+          s[4 * n + 2 + e] =
+              exp2f(__fmaf_rn(s[4 * n + 2 + e], kLog2e, -ml1));
+          sum0 = __fadd_rn(sum0, s[4 * n + e]);
+          sum1 = __fadd_rn(sum1, s[4 * n + 2 + e]);
         }
-    }
+      ls0 = __fadd_rn(ls0, quad_sum(sum0));
+      ls1 = __fadd_rn(ls1, quad_sum(sum1));
 
-    // online softmax: m_new = max(m, max s); p = exp(s - m_new);
-    // l = l corr + sum p; O = O corr
-    float mx0 = m0, mx1 = m1;
+      // P in bf16 as the A fragments of the 8 k16 steps over the tile's
+      // keys: step kk takes the accumulator columns of 8-groups 2 kk and
+      // 2 kk + 1
+      uint32_t p[8][4];
 #pragma unroll
-    for (int n = 0; n < 16; ++n) {
-      mx0 = fmaxf(mx0, fmaxf(s[4 * n], s[4 * n + 1]));
-      mx1 = fmaxf(mx1, fmaxf(s[4 * n + 2], s[4 * n + 3]));
+      for (int kk = 0; kk < 8; ++kk)
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+          p[kk][r] = pack_bf16(s[8 * kk + 2 * r], s[8 * kk + 2 * r + 1]);
+
+      // O += P V
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) fence_reg(o[i]);
+#pragma unroll
+      for (int kk = 0; kk < 8; ++kk)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) fence_reg(p[kk][r]);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 8; ++kk)
+        wgmma_pv<D>(o, p[kk],
+                    desc_mn_major<D>(v_st + kk * 16 * G::kRowBytes));
+      wgmma_commit();
+      wgmma_wait_all();
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) fence_reg(o[i]);
+      if (lane == 0) mbar_arrive(kv_empty + 8 * st);
     }
-    mx0 = quad_max(mx0);
-    mx1 = quad_max(mx1);
-    const float ml0 = __fmul_rn(mx0, kLog2e);
-    const float ml1 = __fmul_rn(mx1, kLog2e);
-    const float corr0 = exp2f(__fmaf_rn(m0, kLog2e, -ml0));
-    const float corr1 = exp2f(__fmaf_rn(m1, kLog2e, -ml1));
-    float sum0 = 0.f, sum1 = 0.f;
-#pragma unroll
-    for (int n = 0; n < 16; ++n)
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        s[4 * n + e] = exp2f(__fmaf_rn(s[4 * n + e], kLog2e, -ml0));
-        s[4 * n + 2 + e] = exp2f(__fmaf_rn(s[4 * n + 2 + e], kLog2e, -ml1));
-        sum0 = __fadd_rn(sum0, s[4 * n + e]);
-        sum1 = __fadd_rn(sum1, s[4 * n + 2 + e]);
-      }
-    l0 = __fmaf_rn(l0, corr0, quad_sum(sum0));
-    l1 = __fmaf_rn(l1, corr1, quad_sum(sum1));
+    // l = l exp(m - m_span) + the span's sum; m = m_span
+    l0 = __fmaf_rn(l0, corr0, ls0);
+    l1 = __fmaf_rn(l1, corr1, ls1);
     m0 = mx0;
     m1 = mx1;
-#pragma unroll
-    for (int n = 0; n < D / 8; ++n) {
-      o[4 * n] = __fmul_rn(o[4 * n], corr0);
-      o[4 * n + 1] = __fmul_rn(o[4 * n + 1], corr0);
-      o[4 * n + 2] = __fmul_rn(o[4 * n + 2], corr1);
-      o[4 * n + 3] = __fmul_rn(o[4 * n + 3], corr1);
-    }
-
-    // P in bf16 as the A fragments of the 8 k16 steps over the tile's keys:
-    // step kk takes the accumulator columns of 8-groups 2 kk and 2 kk + 1
-    uint32_t p[8][4];
-#pragma unroll
-    for (int kk = 0; kk < 8; ++kk)
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
-        p[kk][r] = pack_bf16(s[8 * kk + 2 * r], s[8 * kk + 2 * r + 1]);
-
-    // O += P V
-#pragma unroll
-    for (int i = 0; i < D / 2; ++i) fence_reg(o[i]);
-#pragma unroll
-    for (int kk = 0; kk < 8; ++kk)
-#pragma unroll
-      for (int r = 0; r < 4; ++r) fence_reg(p[kk][r]);
-    wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < 8; ++kk)
-      wgmma_pv<D>(o, p[kk], desc_mn_major<D>(v_st + kk * 16 * G::kRowBytes));
-    wgmma_commit();
-    wgmma_wait_all();
-#pragma unroll
-    for (int i = 0; i < D / 2; ++i) fence_reg(o[i]);
-    if (lane == 0) mbar_arrive(kv_empty + 8 * st);
   }
 
-  // out = bf16(O / max(l, 1e-30)); rows past T are not stored
+  // out = bf16(O / max(l, 1e-30)), lse = m + log(l); rows past T are not
+  // stored
   const float d0 = fmaxf(l0, 1e-30f), d1 = fmaxf(l1, 1e-30f);
+  if (lse != nullptr && (lane & 3) == 0) {
+    float* lb = lse + ((size_t)b * heads + h) * t_len;
+    if (row0 < t_len) lb[row0] = __fadd_rn(m0, logf(l0));
+    if (row1 < t_len) lb[row1] = __fadd_rn(m1, logf(l1));
+  }
   const size_t row_stride = (size_t)heads * D;
   __nv_bfloat16* ob = out + ((size_t)b * t_len * heads + h) * D + c0;
   if (row0 < t_len) {
@@ -476,9 +550,9 @@ int encode(CUtensorMap* map, const void* ptr, int batch, int len,
 }
 
 template <int D>
-int launch(const void* q, const void* k, const void* v, void* o, int batch,
-           int t_len, int s_len, int heads, int kv_heads, int causal,
-           float scale, cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* o, void* lse,
+           int batch, int t_len, int s_len, int heads, int kv_heads,
+           int causal, float scale, int span_tiles, cudaStream_t stream) {
   using G = Tile<D>;
   // set once per instance (thread-safe static initialisation)
   static const cudaError_t attr = cudaFuncSetAttribute(
@@ -492,8 +566,8 @@ int launch(const void* q, const void* k, const void* v, void* o, int batch,
   if (err != 0) return err;
   const dim3 grid(batch * heads, (t_len + kBM - 1) / kBM);
   flash_attention_sm90_kernel<D><<<grid, kThreads, G::kSmem, stream>>>(
-      tq, tk, tv, static_cast<__nv_bfloat16*>(o), t_len, s_len, heads,
-      kv_heads, causal, scale);
+      tq, tk, tv, static_cast<__nv_bfloat16*>(o), static_cast<float*>(lse),
+      t_len, s_len, heads, kv_heads, causal, scale, span_tiles);
   return (int)cudaGetLastError();
 }
 
@@ -504,28 +578,33 @@ extern "C" {
 // q, o: (batch, t_len, heads, head_dim); k, v: (batch, s_len, kv_heads,
 // head_dim); contiguous bf16, 16-byte aligned; head_dim in {16, 32, 64,
 // 128}; heads % kv_heads == 0; t_len, s_len >= 1; batch * heads < 2^31 and
-// ceil(t_len / 128) <= 65535.  ``scale`` is f32(bf16(head_dim^-1/2)).
-// Launches on ``stream`` and returns its cudaGetLastError(), or
-// cudaErrorInvalidValue for an unsupported head_dim, -1 if the driver has
-// no cuTensorMapEncodeTiled, or -1000 - r if it returned CUresult r.
+// ceil(t_len / 128) <= 65535.  ``lse`` is null or (batch, heads, t_len)
+// f32, written with each row's m + log(l).  ``scale`` is
+// f32(bf16(head_dim^-1/2)).  P is rounded against the running max of spans
+// of ``span_tiles`` 128-key tiles (>= 1).  Launches on ``stream`` and
+// returns its cudaGetLastError(), or cudaErrorInvalidValue for an
+// unsupported head_dim or span, -1 if libcuda has no
+// cuTensorMapEncodeTiled, or -1000 - r if it returned CUresult r.
 int flash_attention_sm90_launch(const void* q, const void* k, const void* v,
-                                void* o, int batch, int t_len, int s_len,
-                                int heads, int kv_heads, int head_dim,
-                                int causal, float scale, void* stream) {
+                                void* o, void* lse, int batch, int t_len,
+                                int s_len, int heads, int kv_heads,
+                                int head_dim, int causal, float scale,
+                                int span_tiles, void* stream) {
   const cudaStream_t st = (cudaStream_t)stream;
+  if (span_tiles < 1) return (int)cudaErrorInvalidValue;
   switch (head_dim) {
     case 16:
-      return launch<16>(q, k, v, o, batch, t_len, s_len, heads, kv_heads,
-                        causal, scale, st);
+      return launch<16>(q, k, v, o, lse, batch, t_len, s_len, heads,
+                        kv_heads, causal, scale, span_tiles, st);
     case 32:
-      return launch<32>(q, k, v, o, batch, t_len, s_len, heads, kv_heads,
-                        causal, scale, st);
+      return launch<32>(q, k, v, o, lse, batch, t_len, s_len, heads,
+                        kv_heads, causal, scale, span_tiles, st);
     case 64:
-      return launch<64>(q, k, v, o, batch, t_len, s_len, heads, kv_heads,
-                        causal, scale, st);
+      return launch<64>(q, k, v, o, lse, batch, t_len, s_len, heads,
+                        kv_heads, causal, scale, span_tiles, st);
     case 128:
-      return launch<128>(q, k, v, o, batch, t_len, s_len, heads, kv_heads,
-                         causal, scale, st);
+      return launch<128>(q, k, v, o, lse, batch, t_len, s_len, heads,
+                         kv_heads, causal, scale, span_tiles, st);
     default:
       return (int)cudaErrorInvalidValue;
   }

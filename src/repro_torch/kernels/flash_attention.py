@@ -13,14 +13,28 @@ replace the Pallas TPU kernel of the JAX package's
   three TF32 products of hi / lo splits (3xTF32, f32 accuracy), wgmma and
   TMA as the bf16 kernel.  Plain version: ``ref.flash_attention_ref``.
 
+The bf16 kernel rounds P against the running max of spans of the
+caller's ``kv_tile`` keys (the JAX model's ``kv_chunk``, which every
+caller passes): a multiple of its 128-key tile, or at least S for one
+span.  Both forward kernels can also write the row statistic
+lse = m + log(l), (B, H, T) f32, which the backward takes.
+
+* the gradient -> ``csrc/flash_attention_bwd.cu``
+  (``flash_attention_bwd``), one source for both dtypes: dq, dk, dv from
+  q, k, v, o, lse and dO with FlashAttention-2's formula, deterministic
+  (no atomics).  Plain version: ``ref.flash_attention_bwd_ref``.  The JAX
+  package has no Pallas counterpart: it differentiates its pure-JAX
+  attention by autodiff.
+
 q (B, T, H, D), k / v (B, S, HK, D), all contiguous on one CUDA device,
-one dtype, D in {16, 32, 64, 128}, H % HK == 0.  Returns (B, T, H, D) in
-q's dtype.  The kernels mask the ragged edges of T and S and index the
-KV head of each query head (GQA) themselves, so nothing is padded,
-repeated or copied.  The wrapper checks its inputs, allocates the
-output, launches on the current stream, raises if the launch failed, and
-adds one to the kernel's ``LAUNCHES`` entry.  ``ops.flash_attention``
-picks between kernel and plain version by device.
+one dtype, D in {16, 32, 64, 128}, H % HK == 0.  The kernels mask the
+ragged edges of T and S and index the KV head of each query head (GQA)
+themselves, so nothing is padded, repeated or copied.  Each wrapper
+checks its inputs, allocates the outputs, launches on the current
+stream, raises if the launch failed, and adds one to its kernel's
+``LAUNCHES`` entry.  ``FlashAttention`` is the autograd function over
+them: the kernels for CUDA tensors, the plain versions for CPU tensors,
+nothing in between; ``ops.flash_attention`` goes through it.
 """
 from __future__ import annotations
 
@@ -48,8 +62,11 @@ _TILE = 128
 # V^T's columns in the same order.
 TF32_KEY_ORDER = (0, 2, 4, 6, 1, 3, 5, 7)
 
+BWD_NAME = "flash_attention_bwd"
+
 # launches since the last reset (a plain dict of ints)
 LAUNCHES = {name: 0 for name, _, _ in KERNELS.values()}
+LAUNCHES[BWD_NAME] = 0
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -60,11 +77,42 @@ def _launcher(dtype: torch.dtype):
     _, lib_name, fn_name = KERNELS[dtype]
     fn = getattr(build.load(lib_name), fn_name)
     if id(fn) not in _TYPED:
-        fn.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                       ctypes.c_float, _P]
+        # q, k, v, o, lse, B, T, S, H, HK, D, causal, scale[, span], stream
+        span = [_I] if dtype == torch.bfloat16 else []
+        fn.argtypes = ([_P] * 5 + [_I] * 7 + [ctypes.c_float] + span
+                       + [_P])
         fn.restype = ctypes.c_int
         _TYPED.add(id(fn))
     return fn
+
+
+def _bwd_launcher():
+    fn = build.load(BWD_NAME).flash_attention_bwd_launch
+    if id(fn) not in _TYPED:
+        # q, k, v, o, lse, dout, dq, dk, dv, drow, B, T, S, H, HK, D,
+        # causal, scale, bf16, stream
+        fn.argtypes = ([_P] * 10 + [_I] * 7 + [ctypes.c_float, _I, _P])
+        fn.restype = ctypes.c_int
+        _TYPED.add(id(fn))
+    return fn
+
+
+def span_tiles(kv_tile: int, S: int) -> int:
+    """The bf16 kernel's span in 128-key tiles for a ``kv_tile`` (the
+    JAX model's ``kv_chunk``): a multiple of 128 is that many tiles (128
+    is the single pass over each tile); anything at least S is one span
+    over every key.  Other spans cannot be built from whole tiles and
+    raise."""
+    kv_tile = int(kv_tile)
+    if kv_tile >= 1 and kv_tile % _TILE == 0:
+        return kv_tile // _TILE
+    if kv_tile >= S:
+        return -(-S // _TILE)
+    raise ValueError(
+        f"kv_chunk {kv_tile}: the bf16 kernel rounds P against the running "
+        f"max of spans of whole {_TILE}-key tiles, so the span must be a "
+        f"multiple of {_TILE} or at least S = {S} (small chunks run only "
+        f"on the CPU)")
 
 
 def check_shapes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
@@ -92,35 +140,48 @@ def check_shapes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
     return B, T, S, H, HK, D
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    causal: bool = True) -> torch.Tensor:
-    """Launch q's dtype's kernel: (B, T, H, D) attention output in q's
-    dtype."""
-    B, T, S, H, HK, D = check_shapes(q, k, v)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention launches on CUDA, got {q.device}")
-    for name, t in (("q", q), ("k", k), ("v", v)):
+def _check_cuda(q, named) -> None:
+    for name, t in named:
+        if t.device.type != "cuda":
+            raise ValueError(f"{name}: flash attention launches on CUDA, "
+                             f"got {t.device}")
         if t.device != q.device:
             raise ValueError(f"{name} is on {t.device}, expected {q.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    name = KERNELS[q.dtype][0]
-    for label, t in (("q", q), ("k", k), ("v", v)):
         if t.data_ptr() % 16:
-            raise ValueError(f"{label} must be 16-byte aligned for TMA")
+            raise ValueError(f"{name} must be 16-byte aligned")
+
+
+def _scale(dtype: torch.dtype, D: int) -> float:
+    """The forward's q scale: bf16(D^-1/2) for bf16, f32(D^-1/2) for
+    f32 (a Python float, rounded to f32 by ctypes)."""
+    return ref.bf16_scale(D) if dtype == torch.bfloat16 else D ** -0.5
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool = True, *, kv_tile: int,
+                    with_lse: bool = False):
+    """Launch q's dtype's kernel: the (B, T, H, D) attention output in q's
+    dtype, and with ``with_lse`` also the (B, H, T) f32 row statistic
+    lse = m + log(l).  ``kv_tile`` sets the bf16 kernel's span
+    (``span_tiles``); the f32 kernel's result has no tiling."""
+    B, T, S, H, HK, D = check_shapes(q, k, v)
+    _check_cuda(q, (("q", q), ("k", k), ("v", v)))
+    name = KERNELS[q.dtype][0]
     if B * H >= 2 ** 31 or -(-T // _TILE) > _MAX_Q_TILES:
         raise ValueError(f"B * H = {B * H} or T = {T} exceeds the grid's "
                          f"limits")
-    if q.dtype == torch.bfloat16:
-        scale = ref.bf16_scale(D)
-    else:
-        scale = float(D) ** -0.5
+    span = ([span_tiles(kv_tile, S)] if q.dtype == torch.bfloat16 else [])
     out = torch.empty_like(q)
+    lse = (torch.empty((B, H, T), dtype=torch.float32, device=q.device)
+           if with_lse else None)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = _launcher(q.dtype)(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, T,
-            S, H, HK, D, int(causal), scale, stream)
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            None if lse is None else lse.data_ptr(), B, T, S, H, HK, D,
+            int(causal), _scale(q.dtype, D), *span, stream)
     if err == -1:
         raise RuntimeError(f"{name}: the CUDA driver has no "
                            f"cuTensorMapEncodeTiled")
@@ -130,4 +191,75 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if err != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")
     LAUNCHES[name] += 1
-    return out
+    return (out, lse) if with_lse else out
+
+
+def flash_attention_bwd(q, k, v, o, lse, dout, causal: bool = True):
+    """Launch the backward kernel: (dq, dk, dv) in q's dtype, shaped as
+    q, k, v, from the forward's inputs, output ``o``, row statistic
+    ``lse`` (B, H, T) f32 and the output's gradient ``dout``."""
+    B, T, S, H, HK, D = check_shapes(q, k, v)
+    _check_cuda(q, (("q", q), ("k", k), ("v", v), ("o", o), ("lse", lse),
+                    ("dout", dout)))
+    for name, t, shape, dtype in (("o", o, q.shape, q.dtype),
+                                  ("dout", dout, q.shape, q.dtype),
+                                  ("lse", lse, (B, H, T), torch.float32)):
+        if tuple(t.shape) != tuple(shape) or t.dtype != dtype:
+            raise ValueError(f"{name} is {tuple(t.shape)} {t.dtype}, "
+                             f"expected {tuple(shape)} {dtype}")
+    if B * H >= 2 ** 31 or max(-(-T // 64), -(-S // 64)) > _MAX_Q_TILES:
+        raise ValueError(f"B * H = {B * H}, T = {T} or S = {S} exceeds the "
+                         f"grid's limits")
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    drow = torch.empty((B, H, T), dtype=torch.float32, device=q.device)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = _bwd_launcher()(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            lse.data_ptr(), dout.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+            dv.data_ptr(), drow.data_ptr(), B, T, S, H, HK, D, int(causal),
+            _scale(q.dtype, D), int(q.dtype == torch.bfloat16), stream)
+    if err != 0:
+        raise RuntimeError(f"{BWD_NAME} launch failed: CUDA error {err}")
+    LAUNCHES[BWD_NAME] += 1
+    return dq, dk, dv
+
+
+def _plain_forward(q, k, v, causal, *, kv_tile, with_lse):
+    if q.dtype == torch.bfloat16:
+        return ref.flash_attention_bf16_ref(q, k, v, causal, kv_tile=kv_tile,
+                                            return_lse=with_lse)
+    return ref.flash_attention_ref(q, k, v, causal, return_lse=with_lse)
+
+
+def _on_cuda(t: torch.Tensor) -> bool:
+    if t.device.type in ("cuda", "cpu"):
+        return t.device.type == "cuda"
+    raise ValueError(f"no kernel for device {t.device}")
+
+
+class FlashAttention(torch.autograd.Function):
+    """Attention with its gradient: forward through q's dtype's kernel
+    (writing lse when a gradient is wanted), backward through
+    ``flash_attention_bwd``, on a CUDA tensor; the plain versions
+    (``ref``) on a CPU tensor.  Nothing falls back from one to the other.
+    ``apply(q, k, v, causal, kv_tile)`` -> (B, T, H, D)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, kv_tile):
+        need = any(ctx.needs_input_grad[:3])
+        run = flash_attention if _on_cuda(q) else _plain_forward
+        res = run(q, k, v, causal, kv_tile=kv_tile, with_lse=need)
+        if not need:
+            return res
+        out, lse = res
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal = causal
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, o, lse = ctx.saved_tensors
+        run = flash_attention_bwd if _on_cuda(q) else ref.flash_attention_bwd_ref
+        dq, dk, dv = run(q, k, v, o, lse, dout.contiguous(), ctx.causal)
+        return dq, dk, dv, None, None

@@ -186,21 +186,21 @@ def layered_decode(m: torch.Tensor, u: torch.Tensor, layer: torch.Tensor,
 
 # ------------------------------------------------------- flash attention
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    causal: bool = True, kv_tile=None) -> torch.Tensor:
+                    causal: bool = True, *, kv_tile: int) -> torch.Tensor:
     """q (B, T, H, D), k / v (B, S, HK, D) -> (B, T, H, D) in q's dtype;
     GQA (H % HK == 0), ragged T and S, D in {16, 32, 64, 128}, f32 or
-    bf16.  The causal mask is the Pallas kernel's: query i sees keys
-    0..i (aligned at the top left, whatever S is).  Each dtype computes
-    one function on both devices: bf16 the JAX model's bf16 attention (q
-    scaled in bf16, P rounded to bf16; the sm90 kernel or
-    ``ref.flash_attention_bf16_ref``), f32 the Pallas kernel's f32
-    function (the f32 kernel or ``ref.flash_attention_ref``).  The same
-    shapes are refused on both devices.  ``kv_tile`` sets the KV tile
-    that bf16 P is rounded against on the CPU (None: the kernel's 128);
-    the kernel keeps its own 128-key tile."""
+    bf16, differentiable.  The causal mask is the Pallas kernel's: query
+    i sees keys 0..i (aligned at the top left, whatever S is).  Each dtype
+    computes one function on both devices: bf16 the JAX model's bf16
+    attention (q scaled in bf16, P rounded to bf16 against the running
+    max of spans of ``kv_tile`` keys, the model's ``kv_chunk``; the sm90
+    kernel or ``ref.flash_attention_bf16_ref``), f32 the Pallas kernel's
+    f32 function (the f32 kernel or ``ref.flash_attention_ref``), which
+    has no tiling and ignores ``kv_tile``.
+    On the card a bf16 span must be a multiple of 128 keys or cover S.
+    The gradient is the backward kernel's (``ref.flash_attention_bwd_ref``
+    on the CPU), through ``flash_attention.FlashAttention``.  The same
+    shapes are refused on both devices."""
     fa.check_shapes(q, k, v)
-    if _on_cuda(q):
-        return fa.flash_attention(q, k, v, causal)
-    if q.dtype == torch.bfloat16:
-        return ref.flash_attention_bf16_ref(q, k, v, causal, kv_tile)
-    return ref.flash_attention_ref(q, k, v, causal)
+    _on_cuda(q)
+    return fa.FlashAttention.apply(q, k, v, causal, kv_tile)

@@ -124,13 +124,16 @@ def mha_ref(q, k, v, causal: bool = True) -> torch.Tensor:
     return torch.einsum("bhts,bshd->bthd", p.to(v.dtype), v)
 
 
-def flash_attention_ref(q, k, v, causal: bool = True) -> torch.Tensor:
+def flash_attention_ref(q, k, v, causal: bool = True,
+                        return_lse: bool = False):
     """What the Pallas flash kernel computes, written plainly: q
     (B, T, H, D), k/v (B, S, HK, D) with H % HK == 0 -> (B, T, H, D) in
     q's dtype.  f32 arithmetic: ``q * D^-1/2`` rounded to f32 before the
     product, scores masked to -1e30 (never -inf) where ``col > row``
     (causal, aligned at the top left: query i sees keys 0..i, whatever
-    S is), P kept in f32 for P V, and the sum clamped below by 1e-30."""
+    S is), P kept in f32 for P V, and the sum clamped below by 1e-30.
+    ``return_lse`` also returns the row statistic m + log(l), (B, H, T)
+    f32, as the kernels write it for the backward."""
     B, T, H, D = q.shape
     HK = k.shape[2]
     g = H // HK
@@ -147,15 +150,10 @@ def flash_attention_ref(q, k, v, causal: bool = True) -> torch.Tensor:
     p = torch.exp(s - m)
     l = p.sum(dim=-1, keepdim=True)
     o = torch.einsum("bhts,bshd->bthd", p, v32)
-    o = o / l.clamp_min(1e-30).permute(0, 2, 1, 3)
-    return o.to(q.dtype)
-
-
-# keys per tile of the bf16 kernel's online softmax (csrc/
-# flash_attention_sm90.cu): P is rounded to bf16 against the running max
-# of the tiles seen so far, so the tiling is part of the function; the
-# plain version takes the tile as a parameter and defaults to this one
-BF16_KV_TILE = 128
+    o = (o / l.clamp_min(1e-30).permute(0, 2, 1, 3)).to(q.dtype)
+    if return_lse:
+        return o, (m + torch.log(l))[..., 0]
+    return o
 
 
 def bf16_scale(D: int) -> float:
@@ -170,18 +168,20 @@ def scale_q_bf16(q) -> torch.Tensor:
     return (q.to(torch.float32) * bf16_scale(q.shape[-1])).to(torch.bfloat16)
 
 
-def flash_attention_bf16_ref(q, k, v, causal: bool = True,
-                             kv_tile=None) -> torch.Tensor:
+def flash_attention_bf16_ref(q, k, v, causal: bool = True, *,
+                             kv_tile: int, return_lse: bool = False):
     """What the JAX model's attention (``repro.models.attention.
     flash_attention``) computes in bf16, written plainly: q (B, T, H, D),
     k/v (B, S, HK, D) bf16 with H % HK == 0 -> (B, T, H, D) bf16.  q is
     scaled by bf16(D^-1/2) and rounded to bf16; scores are f32 products of
     that and k (f32 einsums, no TF32), masked to -1e30 where ``col > row``
     (causal, aligned at the top left); an online softmax over tiles of
-    ``kv_tile`` keys (None: the kernel's ``BF16_KV_TILE``; the JAX model's
-    ``kv_chunk``) keeps m and l in f32, l summing the f32 p; P is rounded
-    to bf16 for P V against the running max of the tiles seen so far (f32
-    sums); the output is acc / max(l, 1e-30) rounded to bf16."""
+    ``kv_tile`` keys (the JAX model's ``kv_chunk``; P is rounded against
+    the running max of the tiles seen so far, so the chunking is part of
+    the function) keeps m and l in f32, l summing the f32 p; P is rounded
+    to bf16 for P V (f32 sums); the output is acc / max(l, 1e-30)
+    rounded to bf16.
+    ``return_lse`` also returns m + log(l), (B, H, T) f32."""
     B, T, H, D = q.shape
     HK = k.shape[2]
     g = H // HK
@@ -194,7 +194,7 @@ def flash_attention_bf16_ref(q, k, v, causal: bool = True,
     l = torch.zeros((B, H, T, 1), dtype=f32, device=q.device)
     acc = torch.zeros((B, H, T, D), dtype=f32, device=q.device)
     rows = torch.arange(T, device=q.device)[:, None]
-    kv_tile = BF16_KV_TILE if kv_tile is None else int(kv_tile)
+    kv_tile = int(kv_tile)
     for k0 in range(0, S, kv_tile):
         s = torch.einsum("bthd,bshd->bhts", qs, k32[:, k0:k0 + kv_tile])
         if causal:
@@ -207,5 +207,61 @@ def flash_attention_bf16_ref(q, k, v, causal: bool = True,
         acc = acc * corr + torch.einsum("bhts,bshd->bhtd", p.to(bf16).to(f32),
                                         v32[:, k0:k0 + kv_tile])
         m = m_new
-    o = acc / l.clamp_min(1e-30)
-    return o.permute(0, 2, 1, 3).to(bf16)
+    o = (acc / l.clamp_min(1e-30)).permute(0, 2, 1, 3).to(bf16)
+    if return_lse:
+        return o, (m + torch.log(l))[..., 0]
+    return o
+
+
+# keys per tile of the plain backward's loop (its result has no tiling)
+BWD_KV_TILE = 128
+
+
+def flash_attention_bwd_ref(q, k, v, o, lse, do, causal: bool = True,
+                            kv_tile: int = BWD_KV_TILE):
+    """The gradient of the forward above (bf16 or f32 by q's dtype),
+    written plainly with FlashAttention-2's formula, one tile of keys at
+    a time: the kernel ``csrc/flash_attention_bwd.cu`` computes the same.
+    q, o, do (B, T, H, D), k, v (B, S, HK, D), lse (B, H, T) f32 (the
+    forward's m + log(l)) -> (dq, dk, dv) in the inputs' dtype.  In f32:
+    qs = q scaled as the forward scales it (bf16(q bf16(D^-1/2)) in bf16),
+    S = qs k^T masked as the forward masks, P = exp(S - lse) (0 where
+    masked), Drow = rowsum(do o), dV = P^T do (P rounded to bf16 in bf16,
+    as the forward's P V), dS = P (do v^T - Drow), dK = dS^T qs, dQ =
+    scale dS k; GQA sums dK and dV over each KV head's query heads."""
+    B, T, H, D = q.shape
+    S, HK = k.shape[1], k.shape[2]
+    g = H // HK
+    f32 = torch.float32
+    bf16 = q.dtype == torch.bfloat16
+    if bf16:
+        scale = bf16_scale(D)
+        qs = scale_q_bf16(q).to(f32)
+    else:
+        scale = D ** -0.5
+        qs = q.to(f32) * scale
+    qs = qs.permute(0, 2, 1, 3)                           # (B, H, T, D)
+    do32 = do.to(f32).permute(0, 2, 1, 3)
+    drow = (do32 * o.to(f32).permute(0, 2, 1, 3)).sum(-1, keepdim=True)
+    k32 = k.to(f32).repeat_interleave(g, dim=2).permute(0, 2, 1, 3)
+    v32 = v.to(f32).repeat_interleave(g, dim=2).permute(0, 2, 1, 3)
+    lse_ = lse.to(f32)[..., None]
+    dq = torch.zeros_like(qs)
+    dk = torch.zeros_like(k32)
+    dv = torch.zeros_like(v32)
+    rows = torch.arange(T, device=q.device)[:, None]
+    for k0 in range(0, S, kv_tile):
+        kt, vt = k32[:, :, k0:k0 + kv_tile], v32[:, :, k0:k0 + kv_tile]
+        p = torch.exp(qs @ kt.transpose(-1, -2) - lse_)
+        if causal:
+            cols = torch.arange(k0, k0 + kt.shape[2], device=q.device)
+            p = torch.where(cols[None, :] <= rows, p, 0.0)
+        ds = p * (do32 @ vt.transpose(-1, -2) - drow)
+        pv = p.to(torch.bfloat16).to(f32) if bf16 else p
+        dv[:, :, k0:k0 + kv_tile] = pv.transpose(-1, -2) @ do32
+        dk[:, :, k0:k0 + kv_tile] = ds.transpose(-1, -2) @ qs
+        dq += ds @ kt
+    dq = (dq * scale).permute(0, 2, 1, 3).to(q.dtype)
+    dk = dk.reshape(B, HK, g, S, D).sum(2).permute(0, 2, 1, 3).to(k.dtype)
+    dv = dv.reshape(B, HK, g, S, D).sum(2).permute(0, 2, 1, 3).to(v.dtype)
+    return dq.contiguous(), dk.contiguous(), dv.contiguous()

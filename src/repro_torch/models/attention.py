@@ -2,18 +2,19 @@
 
 ``flash_attention``, the full-sequence (prefill / training) attention,
 goes to ``kernels.ops.flash_attention``: a hand-written kernel on the
-card, its plain version on the CPU, one function per dtype.  In bf16 it
-computes what the reference computes in bf16 (q scaled by bf16(D^-1/2)
-in bf16, scores summed in f32, P rounded to bf16 for P V against the
-running max of the KV tiles seen so far): on the CPU at the caller's
-``kv_chunk``, as the JAX model tiles; on the card the wgmma kernel
-``flash_attention_sm90`` keeps its 128-key tile, whatever ``kv_chunk``
-says (its difference from the config's tiling is stated in ROADMAP.md).
-In f32 it is the Pallas kernel's f32 function (``flash_attention_f32``),
-which has no tiling in its result.  It
-takes the masks those kernels support, causal or none, with queries
-starting at position 0; a sliding window or a query offset raises on
-both devices (zamba2's window comes with its slice, see ROADMAP.md).
+card, its plain version on the CPU, one function per dtype, with its
+gradient (the backward kernel ``flash_attention_bwd`` on the card).  In
+bf16 it computes what the reference computes in bf16 (q scaled by
+bf16(D^-1/2) in bf16, scores summed in f32, P rounded to bf16 for P V
+against the running max of the ``kv_chunk``-key chunks seen so far), at
+the caller's ``kv_chunk`` on both devices; on the card the chunk must be
+a multiple of the kernel's 128-key tile or cover every key (the configs'
+1024 is; the smoke configs' 8 runs on the CPU only).  In f32 it is the
+Pallas kernel's f32 function (``flash_attention_f32``), which has no
+tiling in its result.  It takes the masks those kernels support, causal
+or none, with queries starting at position 0; a sliding window or a
+query offset raises on both devices (zamba2's window comes with its
+slice, see ROADMAP.md).
 
 ``decode_attention`` (one new token against a KV cache) is plain
 PyTorch, as the reference computes it outside any Pallas kernel; bf16 q
@@ -31,14 +32,14 @@ NEG_INF = -1e30
 
 
 def flash_attention(q, k, v, *, causal: bool = True, q_offset=0,
-                    window: Optional[int] = None, kv_chunk=None):
+                    window: Optional[int] = None, kv_chunk: int = 1024):
     """q: (B, Tq, HQ, D); k, v: (B, S, HK, D) with HQ % HK == 0 ->
     (B, Tq, HQ, D) in v's dtype: bf16 the reference's bf16 function, f32
     its f32 function (see the module's docstring).  ``kv_chunk`` is the
     reference's KV tiling, which sets the running max bf16 P is rounded
-    against: the plain version on the CPU takes it (None: 128 keys), the
-    card's kernel keeps its 128-key tile.  The reference's ``q_chunk``
-    has no counterpart: it does not change the result."""
+    against, on both devices (1024 by default, as the reference's).  The
+    reference's ``q_chunk`` has no counterpart: it does not change the
+    result."""
     if window is not None:
         raise NotImplementedError(
             "sliding-window attention is not ported yet (it comes with "

@@ -2,8 +2,9 @@
 package (a copy of ``repro.models.config``; the port imports no JAX).
 
 The dtype strings map to torch dtypes in one place: ``torch_dtype``.
-``q_chunk`` / ``kv_chunk`` stay as fields so the configs read the same
-as the reference's; the port's flash kernel picks its own tiles.
+``kv_chunk`` sets the running max bf16 P is rounded against, as in the
+reference; ``q_chunk`` stays as a field so the configs read the same as
+the reference's, and changes no result.
 """
 from __future__ import annotations
 
@@ -63,7 +64,8 @@ class ModelConfig:
     param_dtype: str = "float32"
     compute_dtype: str = "bfloat16"
     remat: str = "full"  # full | dots | none
-    # chunking (the reference's pure-JAX attention; unused by the port)
+    # chunking (the reference's pure-JAX attention; the port's bf16
+    # attention rounds P over kv_chunk, and q_chunk changes nothing)
     q_chunk: int = 1024
     kv_chunk: int = 1024
     ssm_chunk: int = 128

@@ -95,6 +95,29 @@ def spec_numel(specs: PyTree) -> int:
     return total
 
 
+def cast_tree(tree: PyTree, dtype: torch.dtype) -> PyTree:
+    """Floating leaves cast to ``dtype`` (a leaf already of that dtype is
+    returned as it is, so the gradient reaches it directly)."""
+    if isinstance(tree, dict):
+        return {k: cast_tree(v, dtype) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(cast_tree(v, dtype) for v in tree)
+    return tree.to(dtype) if tree.is_floating_point() else tree
+
+
+def cross_entropy_loss(logits, labels, mask=None):
+    """Mean token NLL: logits (..., V) cast to f32, logsumexp minus the
+    label's logit; labels int (...,)."""
+    logits = logits.to(torch.float32)
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    nll = lse - ll
+    if mask is None:
+        return torch.mean(nll)
+    mask = mask.to(torch.float32)
+    return torch.sum(nll * mask) / torch.clamp_min(torch.sum(mask), 1.0)
+
+
 # ---------------------------------------------------------------- layers
 def rms_norm(x, weight, eps: float = 1e-6):
     dt = x.dtype

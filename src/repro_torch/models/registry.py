@@ -3,13 +3,15 @@
 
   param_specs(cfg)                    -> ParamSpec tree
   logits_fn(cfg, model, batch)        -> (B, T, V) logits
+  loss_fn(cfg)(params, batch)         -> scalar NLL (training)
   prefill_fn(cfg)(model, batch)       -> (last-token logits, caches)
   serve_fn(cfg)(model, batch, cache)  -> (logits, new kv)
   decode_state_specs(cfg, B, S)       -> cache tree of meta tensors
   init_decode_state(cfg, B, S, device)-> zero cache tree
 
 ``batch`` is a dict with tokens (B, T) int.  ``model`` is a
-``transformer.Transformer``.  moe, llava, rwkv6, zamba2 and whisper are
+``transformer.Transformer`` (or a ``transformer.TreeModel``); ``params``
+is a parameter tree in the reference's layout.  moe, llava, rwkv6, zamba2 and whisper are
 not ported yet and raise NotImplementedError (see ROADMAP.md).
 """
 from __future__ import annotations
@@ -19,7 +21,7 @@ from typing import Any, Callable, Dict
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.models import transformer
+from repro_torch.models import nn, transformer
 from repro_torch.models.config import ModelConfig, torch_dtype
 
 # the reference's DENSE_KINDS minus moe and llava, which are not ported
@@ -40,8 +42,25 @@ def param_specs(cfg: ModelConfig):
 
 def logits_fn(cfg: ModelConfig, model, batch) -> torch.Tensor:
     _dense(cfg)
-    logits, _ = transformer.forward(cfg, model, batch["tokens"])
+    logits, _ = transformer.forward(cfg, model, batch["tokens"],
+                                    caches=False)
     return logits
+
+
+def loss_fn(cfg: ModelConfig) -> Callable:
+    """loss(params, batch): next-token NLL, ``logits[:, :-1]`` against
+    ``tokens[:, 1:]``; ``params`` is a parameter tree (a dict, seen
+    through ``transformer.TreeModel``) or a model."""
+    _dense(cfg)
+
+    def loss(params, batch):
+        model = (transformer.TreeModel(cfg, params)
+                 if isinstance(params, dict) else params)
+        logits = logits_fn(cfg, model, batch)
+        tokens = batch["tokens"]
+        return nn.cross_entropy_loss(logits[:, :-1], tokens[:, 1:])
+
+    return loss
 
 
 # ----------------------------------------------------------------- serving

@@ -8,18 +8,30 @@ layer under the reference's parameter names (``attn.wq`` ... ``attn.bv``,
 ``attn.q_norm``, ``mlp.w_gate``, ``norm1_w``, ...).  The functions take
 that module where the reference takes its parameter tree.
 
-Full-sequence attention (prefill) runs through the flash kernel
-(``attention.flash_attention``); single-token decode through the plain
+Full-sequence attention (prefill, training) runs through the flash
+kernel (``attention.flash_attention``, with its backward kernel under
+autograd); single-token decode through the plain
 ``attention.decode_attention``.  Weights are cast to the compute dtype
 at each use, as in the reference; a model already cast with
 ``Transformer.to(dtype)`` gives the same values without the casts.
+
+Training takes the parameter tree itself: ``TreeModel`` views a tree in
+the reference's layout (the compute copy the train step casts) with the
+module's attribute names, each layer's slices unbound from the stacks,
+so the gradient reaches the stacked leaves.  ``cfg.remat`` of ``full``
+or ``dots`` recomputes each layer's forward in the backward
+(``torch.utils.checkpoint``, non-reentrant), as the reference's
+``jax.checkpoint`` of the layer scan does; ``dots`` has no separate
+policy here and recomputes everything, as ``full`` does.
 """
 from __future__ import annotations
 
+from types import SimpleNamespace
 from typing import Any, Dict, List
 
 import torch
 from torch import nn as tnn
+from torch.utils import checkpoint
 
 from repro_torch.models import attention, nn
 from repro_torch.models.config import ModelConfig, torch_dtype
@@ -151,6 +163,37 @@ class Transformer(tnn.Module):
                 setattr(self, name, tnn.Parameter(t, requires_grad=False))
 
 
+class TreeModel:
+    """A parameter tree in the reference's layout, seen as a
+    ``Transformer``: ``embed``, ``final_w`` ... as attributes, and
+    ``layers``, one namespace a layer (``attn`` and ``mlp`` dicts, the
+    norms as attributes) of the stacks' slices (``unbind``, whose
+    backward stacks the layers' gradients in one op)."""
+
+    def __init__(self, cfg: ModelConfig, tree: Dict[str, Any]):
+        _dense_only(cfg)
+        L = cfg.n_layers
+
+        def unbind(node):
+            if isinstance(node, dict):
+                return {k: unbind(v) for k, v in node.items()}
+            if node.shape[0] != L:
+                raise ValueError(f"layer stack of {node.shape[0]}, "
+                                 f"expected {L}")
+            return node.unbind(0)
+
+        def layer(i, node):
+            if isinstance(node, dict):
+                return {k: layer(i, v) for k, v in node.items()}
+            return node[i]
+
+        stacks = unbind(tree["layers"])
+        self.layers = [SimpleNamespace(**layer(i, stacks)) for i in range(L)]
+        for name, t in tree.items():
+            if name != "layers":
+                setattr(self, name, t)
+
+
 # --------------------------------------------------------------- forward
 def _norm(cfg: ModelConfig, x, p, name: str):
     """``p``: a DecoderLayer (norm1 / norm2) or the Transformer (final)."""
@@ -217,18 +260,36 @@ def mlp_block(cfg: ModelConfig, lp: DecoderLayer, x):
     return nn.gelu_mlp(x, m["w_up"], m["b_up"], m["w_down"], m["b_down"])
 
 
-def decoder(cfg: ModelConfig, model: Transformer, x, rope):
+def _layer(cfg: ModelConfig, lp, h, rope):
+    a, kv = attn_block(cfg, lp, _norm(cfg, h, lp, "norm1"), rope)
+    h = h + a
+    h = h + mlp_block(cfg, lp, _norm(cfg, h, lp, "norm2"))
+    return h, kv
+
+
+def decoder(cfg: ModelConfig, model: Transformer, x, rope,
+            caches: bool = True):
     """Run the layers.  Returns (y, caches): caches is the (k, v) pair
-    stacked over layers, (L, B, T, HK, hd) each (for prefill)."""
+    stacked over layers, (L, B, T, HK, hd) each (for prefill), or None
+    without ``caches``.  Under autograd with ``cfg.remat`` other than
+    ``none`` each layer is checkpointed: its forward runs again in the
+    backward."""
     ks: List[torch.Tensor] = []
     vs: List[torch.Tensor] = []
+    remat = cfg.remat != "none" and torch.is_grad_enabled()
     h = x
     for lp in model.layers:
-        a, (k, v) = attn_block(cfg, lp, _norm(cfg, h, lp, "norm1"), rope)
-        h = h + a
-        h = h + mlp_block(cfg, lp, _norm(cfg, h, lp, "norm2"))
-        ks.append(k)
-        vs.append(v)
+        if remat and not caches:
+            h = checkpoint.checkpoint(
+                lambda hh, lp=lp: _layer(cfg, lp, hh, rope)[0], h,
+                use_reentrant=False)
+            continue
+        h, (k, v) = _layer(cfg, lp, h, rope)
+        if caches:
+            ks.append(k)
+            vs.append(v)
+    if not caches:
+        return h, None
     return h, (torch.stack(ks), torch.stack(vs))
 
 
@@ -293,14 +354,15 @@ def unembed(cfg: ModelConfig, model: Transformer, h):
 
 
 def forward(cfg: ModelConfig, model: Transformer, tokens, *,
-            last_only: bool = False):
+            last_only: bool = False, caches: bool = True):
     """Prefill / training forward -> (logits, caches).  ``last_only``
-    computes logits for the final position only."""
+    computes logits for the final position only; without ``caches`` the
+    KV caches are not kept (training) and None is returned for them."""
     dtype = torch_dtype(cfg.compute_dtype)
     x = embed_tokens(cfg, model, tokens, dtype)
     rope = nn.rope_freqs(cfg.hd, x.shape[1] + 1, cfg.rope_theta, dtype,
                          device=x.device)
-    y, caches = decoder(cfg, model, x, rope)
+    y, caches = decoder(cfg, model, x, rope, caches=caches)
     if last_only:
         y = y[:, -1:]
     y = _norm(cfg, y, model, "final")

@@ -5,8 +5,7 @@ Import order matters: ``protocol`` is imported by
 ``repro_torch.fl.federated`` (the synchronous loop shares the message
 codec), and ``actors`` imports ``repro_torch.fl.federated`` back for
 cohort sampling; loading protocol first keeps the cycle one-directional
-at package-init time.  ``ModelGradWorkload`` (the JAX package's model
-gradient workload) comes with the train step (ROADMAP.md).
+at package-init time.
 """
 from repro_torch.runtime import protocol  # noqa: F401  (must precede actors)
 from repro_torch.runtime.buffer import (  # noqa: F401
@@ -49,7 +48,10 @@ from repro_torch.runtime.runtime import (  # noqa: F401,E402
     RuntimeConfig,
     analytic_bits_per_coord,
 )
-from repro_torch.runtime.workloads import QuadraticWorkload  # noqa: F401,E402
+from repro_torch.runtime.workloads import (  # noqa: F401,E402
+    ModelGradWorkload,
+    QuadraticWorkload,
+)
 
 __all__ = [
     "protocol",
@@ -82,4 +84,5 @@ __all__ = [
     "AsyncFederatedRuntime",
     "analytic_bits_per_coord",
     "QuadraticWorkload",
+    "ModelGradWorkload",
 ]

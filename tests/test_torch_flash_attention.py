@@ -31,6 +31,10 @@ ATOL = 2e-5
 # at least 99% of outputs within one ulp + ATOL (measured 99.98-100%).
 BF16_P_BAR = 2.0 ** -9
 BF16_SHARE = 0.99
+# the bf16 kernel's key tile: a kv_chunk of one tile is its single pass
+TILE = 128
+# the full configs' kv_chunk, passed where the function (f32) has no tiling
+KV = 1024
 
 
 def _qkv(B, T, S, H, HK, D, seed=11):
@@ -109,7 +113,7 @@ def test_plain_matches_pallas_kernel(B, T, S, H, HK, D, causal):
     padding to 64-blocks) within 2e-5."""
     q, k, v = _qkv(B, T, S, H, HK, D)
     want = _pallas(q, k, v, causal)
-    got = ops.flash_attention(*_t(q, k, v), causal=causal)
+    got = ops.flash_attention(*_t(q, k, v), causal=causal, kv_tile=KV)
     assert got.dtype == torch.float32 and got.shape == (B, T, H, D)
     np.testing.assert_allclose(got.numpy(), want, atol=ATOL, rtol=0)
 
@@ -135,8 +139,8 @@ def test_causal_mask_is_aligned_top_left():
     over the first T keys alone (the Pallas kernel's convention, not
     mha_ref's bottom-right one)."""
     q, k, v = _qkv(1, 8, 20, 2, 2, 16, seed=4)
-    full = ops.flash_attention(*_t(q, k, v))
-    head = ops.flash_attention(*_t(q, k[:, :8], v[:, :8]))
+    full = ops.flash_attention(*_t(q, k, v), kv_tile=KV)
+    head = ops.flash_attention(*_t(q, k[:, :8], v[:, :8]), kv_tile=KV)
     np.testing.assert_allclose(full.numpy(), head.numpy(), atol=1e-6,
                                rtol=0)
 
@@ -151,19 +155,19 @@ def test_bf16_in_bf16_out(B, T, S, H, HK, D, causal, path):
     running max: every output within one ulp + 2^-9 max|v|, and 99%
     within one ulp + 2e-5 (measured 99.979-100%)."""
     (q, k, v), (jq, jk, jv) = _bf16(*_qkv(B, T, S, H, HK, D))
-    want = _jax_bf16(jq, jk, jv, causal, 32, ref.BF16_KV_TILE)
+    want = _jax_bf16(jq, jk, jv, causal, 32, TILE)
     if path == "ops":
-        got = ops.flash_attention(q, k, v, causal=causal)
+        got = ops.flash_attention(q, k, v, causal=causal, kv_tile=TILE)
     else:
-        got = attention.flash_attention(q, k, v, causal=causal)
+        got = attention.flash_attention(q, k, v, causal=causal,
+                                        kv_chunk=TILE)
     assert got.dtype == torch.bfloat16 and got.shape == (B, T, H, D)
     _bf16_check(got, want, v)
 
 
 @pytest.mark.parametrize("chunk", [8, 32])
 @pytest.mark.parametrize("B,T,S,H,HK,D,causal", PALLAS_CASES)
-def test_bf16_kv_tiling_rounds_p(B, T, S, H, HK, D, causal, chunk,
-                                 monkeypatch):
+def test_bf16_kv_tiling_rounds_p(B, T, S, H, HK, D, causal, chunk):
     """The KV tiling is part of the bf16 function: P is rounded against
     the running max of the tiles seen so far.  With the JAX model's small
     chunks (the shipped configs take 8), the plain version at the same
@@ -173,10 +177,9 @@ def test_bf16_kv_tiling_rounds_p(B, T, S, H, HK, D, causal, chunk,
     against another running max."""
     (q, k, v), (jq, jk, jv) = _bf16(*_qkv(B, T, S, H, HK, D, seed=13))
     want = _jax_bf16(jq, jk, jv, causal, chunk, chunk)
-    own = ref.flash_attention_bf16_ref(q, k, v, causal)
+    own = ref.flash_attention_bf16_ref(q, k, v, causal, kv_tile=TILE)
     _bf16_check(own, want, v, share_bar=0.0)
-    monkeypatch.setattr(ref, "BF16_KV_TILE", chunk)
-    same = ref.flash_attention_bf16_ref(q, k, v, causal)
+    same = ref.flash_attention_bf16_ref(q, k, v, causal, kv_tile=chunk)
     _bf16_check(same, want, v)
 
 
@@ -199,18 +202,19 @@ def test_bf16_scale_rounds_as_the_jax_model(monkeypatch):
 
     (q, k, v), (jq, jk, jv) = _bf16(*_qkv(2, 80, 80, 8, 2, 128))
     want = torch.from_numpy(_jax_bf16(jq, jk, jv, True, 32, 128))
-    got = ref.flash_attention_bf16_ref(q, k, v, True).float()
+    got = ref.flash_attention_bf16_ref(q, k, v, True, kv_tile=TILE).float()
     assert float((got == want).float().mean()) >= 0.99
     monkeypatch.setattr(ref, "scale_q_bf16", lambda x: (
         x.float() * (x.shape[-1] ** -0.5)).to(torch.bfloat16))
-    f32_scale = ref.flash_attention_bf16_ref(q, k, v, True).float()
+    f32_scale = ref.flash_attention_bf16_ref(q, k, v, True,
+                                             kv_tile=TILE).float()
     assert float((f32_scale == want).float().mean()) <= 0.9
 
 
 @pytest.mark.parametrize("B,T,S,H,HK,D,causal",
                          [c for c in PALLAS_CASES if c[5] < 128])
 def test_bf16_plain_differs_from_pallas_by_p_rounding(B, T, S, H, HK, D,
-                                                      causal, monkeypatch):
+                                                      causal):
     """Against the Pallas kernel in interpret mode, bf16 in: at D <= 64
     the scale is a power of two, so q scales exactly on both sides, and
     with the same 64-key tiles the only change of function is P rounded
@@ -221,8 +225,7 @@ def test_bf16_plain_differs_from_pallas_by_p_rounding(B, T, S, H, HK, D,
     want = np.array(jops.flash_attention(jq, jk, jv, causal=causal, bq=64,
                                          bk=64, interpret=True)
                     .astype(jnp.float32))
-    monkeypatch.setattr(ref, "BF16_KV_TILE", 64)
-    got = ref.flash_attention_bf16_ref(q, k, v, causal)
+    got = ref.flash_attention_bf16_ref(q, k, v, causal, kv_tile=64)
     _bf16_check(got, want, v, share_bar=0.0)
 
 
@@ -232,30 +235,31 @@ def test_cpu_dispatch_by_dtype():
     (``flash_attention_ref``), bf16 the JAX model's
     (``flash_attention_bf16_ref``)."""
     q, k, v = _t(*_qkv(1, 40, 40, 4, 2, 64, seed=5))
-    assert torch.equal(ops.flash_attention(q, k, v),
+    assert torch.equal(ops.flash_attention(q, k, v, kv_tile=KV),
                        ref.flash_attention_ref(q, k, v))
     qb, kb, vb = (x.to(torch.bfloat16) for x in (q, k, v))
-    got = ops.flash_attention(qb, kb, vb)
+    got = ops.flash_attention(qb, kb, vb, kv_tile=KV)
     assert got.dtype == torch.bfloat16
-    assert torch.equal(got, ref.flash_attention_bf16_ref(qb, kb, vb))
+    assert torch.equal(got, ref.flash_attention_bf16_ref(qb, kb, vb,
+                                                         kv_tile=KV))
 
 
 @pytest.mark.parametrize("D", [8, 48, 256])
 def test_unsupported_head_dim_raises(D):
     q, k, v = _t(*_qkv(1, 4, 4, 2, 2, D))
     with pytest.raises(ValueError, match="head dim"):
-        ops.flash_attention(q, k, v)
+        ops.flash_attention(q, k, v, kv_tile=KV)
 
 
 def test_unsupported_shapes_and_types_raise():
     q, k, v = _t(*_qkv(1, 4, 4, 3, 2, 16))
     with pytest.raises(ValueError, match="multiple"):
-        ops.flash_attention(q, k, v)
+        ops.flash_attention(q, k, v, kv_tile=KV)
     q, k, v = _t(*_qkv(1, 4, 4, 2, 2, 16))
-    with pytest.raises(TypeError):
-        ops.flash_attention(q.double(), k.double(), v.double())
+    with pytest.raises(TypeError, match="share one dtype"):
+        ops.flash_attention(q.double(), k.double(), v.double(), kv_tile=KV)
     with pytest.raises(ValueError, match="do not match"):
-        ops.flash_attention(q, k, v[:, :3])
+        ops.flash_attention(q, k, v[:, :3], kv_tile=KV)
 
 
 def test_model_attention_refuses_other_masks():
@@ -268,19 +272,24 @@ def test_model_attention_refuses_other_masks():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         attention.flash_attention(q, k, v, q_offset=3)
     out = attention.flash_attention(q, k, v)
-    np.testing.assert_array_equal(out.numpy(),
-                                  ops.flash_attention(q, k, v).numpy())
+    np.testing.assert_array_equal(
+        out.numpy(), ops.flash_attention(q, k, v, kv_tile=KV).numpy())
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_kernel_wrapper_never_falls_back(dtype):
-    """The CUDA wrapper refuses a CPU tensor of either dtype instead of
-    running the plain version, and counts nothing."""
+    """The CUDA wrappers, forward and backward, refuse a CPU tensor of
+    either dtype instead of running the plain version, and count
+    nothing."""
     q, k, v = (x.to(dtype) for x in _t(*_qkv(1, 4, 4, 2, 2, 16)))
     before = dict(fa.LAUNCHES)
-    assert set(before) == {"flash_attention_sm90", "flash_attention_f32"}
+    assert set(before) == {"flash_attention_sm90", "flash_attention_f32",
+                           "flash_attention_bwd"}
     with pytest.raises(ValueError, match="CUDA"):
-        fa.flash_attention(q, k, v)
+        fa.flash_attention(q, k, v, kv_tile=KV)
+    lse = torch.zeros((1, 2, 4))
+    with pytest.raises(ValueError, match="CUDA"):
+        fa.flash_attention_bwd(q, k, v, q, lse, q)
     assert fa.LAUNCHES == before
 
 
@@ -568,15 +577,165 @@ def test_bf16_at_the_configs_kv_chunk():
     config's own ``kv_chunk``: at 1024 (the full configs' default) and
     T = 2048 the plain version against the jitted JAX attention meets both
     bf16 bars (measured 99.997% within one ulp + 2e-5, 0.12% of outputs
-    not equal).  At its 128-key tile, the card's kernel's function, it
-    meets the P bar and the kernel's stated bar at the configs' tiling,
-    90% within one ulp + 2e-5 (``chip_smoke.CONFIG_CHUNK_SHARE``; here
-    measured 93.1%, 27.5% not equal; the kernel against the plain
-    version at 1024 on an H100, 92.97-95.76%)."""
+    not equal).  At the 128-key tile (the card's kernel's function before
+    it took the chunk) it meets only the P bar and 90% within one ulp +
+    2e-5 (here measured 93.1%, 27.5% not equal; that kernel against the
+    plain version at 1024 on an H100, 92.97-95.76%): the chunk is part of
+    the function, and every caller passes the model's."""
     (q, k, v), (jq, jk, jv) = _bf16(*_qkv(1, 2048, 2048, 4, 4, 64, seed=17))
     want = _jax_f32(jax.jit(lambda a, b, c: jattn.flash_attention(
         a, b, c, causal=True, q_chunk=1024, kv_chunk=1024))(jq, jk, jv))
     got = attention.flash_attention(q, k, v, causal=True, kv_chunk=1024)
     _bf16_check(got, want, v)
-    kernel_tile = attention.flash_attention(q, k, v, causal=True)
+    kernel_tile = attention.flash_attention(q, k, v, causal=True,
+                                            kv_chunk=TILE)
     _bf16_check(kernel_tile, want, v, share_bar=0.90)
+
+
+# ------------------------------------------------------------- gradient
+# The JAX package differentiates its pure-JAX chunked attention by
+# autodiff; the port's gradient is ``ref.flash_attention_bwd_ref`` on the
+# CPU (FlashAttention-2's formula from the forward's lse) and the CUDA
+# kernel ``csrc/flash_attention_bwd.cu`` on the card.
+GRAD_CASES = [(1, 64, 64, 4, 2, 16, True), (2, 40, 72, 4, 4, 16, False),
+              (1, 50, 30, 4, 1, 32, True)]
+# f32 bar: 2e-5 max|g| (the forward's 2e-5 bar, scaled by the gradient)
+GRAD_REL = 2e-5
+
+
+def _mha_f64(q, k, v, causal):
+    """Dense softmax attention in f64 with the Pallas kernel's top-left
+    causal mask (autograd gives the exact gradient to compare with)."""
+    T, S, D = q.shape[1], k.shape[1], q.shape[3]
+    g = q.shape[2] // k.shape[2]
+    s = torch.einsum("bthd,bshd->bhts", q * D ** -0.5,
+                     k.repeat_interleave(g, 2))
+    if causal:
+        s = s.masked_fill(torch.arange(S)[None, :] > torch.arange(T)[:, None],
+                          -1e30)
+    return torch.einsum("bhts,bshd->bthd", torch.softmax(s, -1),
+                        v.repeat_interleave(g, 2))
+
+
+def _grad_inputs(B, T, S, H, HK, D, seed=3):
+    q, k, v = _qkv(B, T, S, H, HK, D, seed=seed)
+    do = np.random.default_rng(seed + 1).standard_normal(
+        (B, T, H, D), dtype=np.float32)
+    return q, k, v, do
+
+
+def _max_rel(got, want):
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return float(np.abs(got - want).max() / np.abs(want).max())
+
+
+@pytest.mark.parametrize("B,T,S,H,HK,D,causal", GRAD_CASES)
+def test_plain_backward_matches_autograd_and_jax(B, T, S, H, HK, D, causal):
+    """f32: ``flash_attention_bwd_ref`` from the plain forward's output
+    and lse against autograd of dense attention in f64 and, where T == S
+    and causal, against ``jax.grad`` of the JAX model's attention
+    (``repro.models.attention.flash_attention``), within 2e-5 max|g|
+    (measured 2e-7-1.4e-6)."""
+    q, k, v, do = _grad_inputs(B, T, S, H, HK, D)
+    tq, tk, tv, tdo = _t(q, k, v, do)
+    o, lse = ref.flash_attention_ref(tq, tk, tv, causal, return_lse=True)
+    assert lse.shape == (B, H, T) and lse.dtype == torch.float32
+    got = ref.flash_attention_bwd_ref(tq, tk, tv, o, lse, tdo, causal,
+                                      kv_tile=16)
+    x64 = [torch.from_numpy(a).double().requires_grad_() for a in (q, k, v)]
+    _mha_f64(*x64, causal).backward(torch.from_numpy(do).double())
+    for g, x in zip(got, x64):
+        assert g.dtype == torch.float32
+        assert _max_rel(g.numpy(), x.grad.numpy()) <= GRAD_REL
+    if causal and T == S:
+        def fn(q, k, v):
+            return jattn.flash_attention(q, k, v, causal=True, q_chunk=16,
+                                         kv_chunk=16)
+
+        _, pull = jax.vjp(fn, *map(jnp.asarray, (q, k, v)))
+        for g, w in zip(got, pull(jnp.asarray(do))):
+            assert _max_rel(g.numpy(), w) <= GRAD_REL
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_autograd_function_matches_the_plain_backward(dtype):
+    """``ops.flash_attention`` under autograd (``fa.FlashAttention`` on
+    CPU tensors) gives the plain forward's output and exactly the plain
+    backward's gradients; without a gradient it asks for no lse."""
+    q, k, v, do = _grad_inputs(1, 48, 48, 4, 2, 32)
+    tq, tk, tv, tdo = (t.to(dtype) for t in _t(q, k, v, do))
+    xs = [t.clone().requires_grad_() for t in (tq, tk, tv)]
+    out = ops.flash_attention(*xs, True, kv_tile=32)
+    out.backward(tdo)
+    plain = (ref.flash_attention_bf16_ref if dtype == torch.bfloat16
+             else ref.flash_attention_ref)
+    o_args = {"kv_tile": 32} if dtype == torch.bfloat16 else {}
+    o, lse = plain(tq, tk, tv, True, **o_args, return_lse=True)
+    assert torch.equal(out.detach(), o)
+    for x, g in zip(xs, ref.flash_attention_bwd_ref(tq, tk, tv, o, lse, tdo,
+                                                    True)):
+        assert x.grad.dtype == dtype
+        assert torch.equal(x.grad, g)
+    with torch.no_grad():
+        assert torch.equal(ops.flash_attention(tq, tk, tv, True,
+                                               kv_tile=32), o)
+
+
+def _rel_l2(got, want):
+    return float(np.linalg.norm(got - want) / np.linalg.norm(want))
+
+
+@pytest.mark.parametrize("B,T,H,HK,D,chunk", [(1, 2048, 4, 4, 64, 1024),
+                                              (1, 512, 8, 2, 128, 128)])
+def test_bf16_gradient_error_at_most_twice_the_jax_models(B, T, H, HK, D,
+                                                          chunk):
+    """bf16, causal, at the configs' kv_chunk 1024 and at head_dim 128
+    GQA: the port's gradient (plain forward at ``kv_chunk``, plain
+    backward) and the JAX model's bf16 gradient (``jax.vjp`` of its
+    attention, jitted), each against the JAX model's f32 gradient of the
+    same bf16 values.  Bar: the port's relative L2 error is at most twice
+    the JAX model's, per input.  Measured: port 1.8e-3 / 1.8e-3 / 2.3e-3
+    against JAX 3.1e-3 / 3.4e-3 / 2.7e-3 (dq / dk / dv) at T = 2048, and
+    2.4e-3 / 2.9e-3 / 2.7e-3 against 3.9e-3 / 4.2e-3 / 3.1e-3 at D = 128."""
+    q, k, v, do = _grad_inputs(B, T, T, H, HK, D, seed=0)
+    tb = [torch.from_numpy(a).to(torch.bfloat16) for a in (q, k, v, do)]
+    f = [t.float().numpy() for t in tb]
+
+    def jax_grad(dt):
+        def fn(q, k, v):
+            return jattn.flash_attention(q, k, v, causal=True,
+                                         q_chunk=chunk, kv_chunk=chunk)
+
+        def vjp(q, k, v, do):
+            return jax.vjp(fn, q, k, v)[1](do)
+
+        out = jax.jit(vjp)(*(jnp.asarray(a).astype(dt) for a in f))
+        return [np.asarray(x.astype(jnp.float32)) for x in out]
+
+    g32, gbf = jax_grad(jnp.float32), jax_grad(jnp.bfloat16)
+    xs = [t.clone().requires_grad_() for t in tb[:3]]
+    attention.flash_attention(*xs, causal=True, kv_chunk=chunk).backward(
+        tb[3])
+    for x, jbf, j32 in zip(xs, gbf, g32):
+        assert x.grad.dtype == torch.bfloat16
+        port = _rel_l2(x.grad.float().numpy(), j32)
+        assert port <= 2 * _rel_l2(jbf, j32), (port, _rel_l2(jbf, j32))
+
+
+@pytest.mark.parametrize("kv_tile,S,want", [(256, 300, 2), (128, 300, 1),
+                                            (1024, 2048, 8), (1000, 300, 3),
+                                            (300, 300, 3)])
+def test_bf16_kernel_span_in_tiles(kv_tile, S, want):
+    """The bf16 kernel's span: whole 128-key tiles (one tile is the
+    single pass), or one span over every key when the chunk covers S."""
+    assert fa.span_tiles(kv_tile, S) == want
+
+
+def test_bf16_kernel_span_refuses_partial_tiles():
+    """A chunk that is neither a multiple of 128 keys nor at least S
+    (the smoke configs' 8) raises on the card's path, naming the rule;
+    the plain version takes it."""
+    with pytest.raises(ValueError, match="multiple of 128"):
+        fa.span_tiles(8, 300)
+    q, k, v = (t.bfloat16() for t in _t(*_qkv(1, 20, 20, 2, 2, 16)))
+    assert ops.flash_attention(q, k, v, True, kv_tile=8).shape == q.shape

@@ -34,7 +34,10 @@ def test_port_imports_neither_jax_nor_the_reference():
                    "serve/engine.py", "launch/serve.py",
                    "kernels/flash_attention.py", "configs/qwen15_05b.py",
                    "dist/compress.py", "debug.py",
-                   "checkpoint/checkpoint.py", "runtime/actors.py"):
+                   "checkpoint/checkpoint.py", "runtime/actors.py",
+                   "train/steps.py", "optim/optimizers.py",
+                   "data/synthetic.py", "launch/train.py",
+                   "runtime/workloads.py"):
         assert f"src/repro_torch/{module}" in scanned, module
     bad = [hit for f in files for hit in _forbidden_imports(f)]
     assert bad == []

@@ -93,3 +93,68 @@ def compress_cases(rank: int, n: int, group, cases, xs, seed: int) -> dict:
             tc._psum_msg = psum
         out[name] = (y.numpy(), sums[0].numpy() if sums else None)
     return out
+
+
+def train_client_step(rank: int, n: int, group, arch: str, params, grads,
+                      tokens, comp_kw: dict, seed: int) -> dict:
+    """Rank side of tests/test_torch_train.py's client path, on the CPU:
+
+    * ``aggregate``: this rank's client gradient (``grads[rank]``, the JAX
+      package's, numpy leaves in its order) through
+      ``compress_tree(axis=group)`` under ``fold_in(PRNGKey(seed), 0)``,
+      then AdamW's ``apply`` on ``params``;
+    * ``step``: one whole ``build_train_step(group=)`` step from
+      ``params`` on the global batch ``tokens``.
+    Returns numpy leaves of the aggregate, its summed words and both
+    steps' params, and the step's loss."""
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.core import prng
+    from repro_torch.dist import compress as tc
+    from repro_torch.optim.optimizers import get_optimizer
+    from repro_torch.train import steps
+
+    torch.set_num_threads(1)
+    cfg = configs.get_smoke_config(arch).scaled(compute_dtype="float32")
+    comp = tc.CompressionConfig(**comp_kw)
+    p = _tree(params)
+    _, rebuild = tc._flatten(p)
+    g = rebuild([torch.from_numpy(x.copy()) for x in grads[rank]])
+    words = []
+    psum = tc._psum_msg
+
+    def recording(m, comp, grp):
+        words.append(psum(m, comp, grp).clone())
+        return words[-1]
+
+    tc._psum_msg = recording
+    try:
+        agg = tc.compress_tree(g, comp, prng.fold_in(prng.PRNGKey(seed), 0),
+                               axis=group, n_clients=n, device="cpu")
+    finally:
+        tc._psum_msg = psum
+    opt = get_optimizer("adamw", 3e-4)
+    new, _ = opt.apply(agg, opt.init(p), p)
+    tcfg = steps.TrainConfig(optimizer="adamw", lr=3e-4, compression=comp)
+    state = {"params": p, "opt_state": opt.init(p),
+             "step": torch.zeros((), dtype=torch.int32)}
+    state, m = steps.build_train_step(cfg, tcfg, group)(
+        state, {"tokens": torch.from_numpy(tokens)}, seed)
+
+    def leaves(tree):
+        return [x.numpy() for x in tc._flatten(tree)[0]]
+
+    return {"aggregate": leaves(agg), "params": leaves(new),
+            "words": [w.numpy() for w in words],
+            "step_params": leaves(state["params"]),
+            "step_loss": float(m["loss"]), "cohort": m["cohort"]}
+
+
+def _tree(node):
+    """numpy tree -> torch tree (dicts only, as a parameter tree)."""
+    import torch
+
+    if isinstance(node, dict):
+        return {k: _tree(v) for k, v in node.items()}
+    return torch.from_numpy(node.copy())
