@@ -20,9 +20,10 @@ parameter tree, and through the async runtime and a checkpoint-resume.
 The train path trains qwen1.5-0.5b at full width through
 ``train.steps.build_train_step`` (the train launcher's step): bf16,
 remat, kv_chunk 1024, its attention forward, remat forward and backward
-through flash_attention_sm90 and flash_attention_bwd, the gradients
-compressed by the fused_agg kernels; in one process and across 2 client
-ranks on the card.
+through flash_attention_sm90 and flash_attention_bwd_sm90 (wgmma + TMA),
+the gradients compressed by the fused_agg kernels; in one process and
+across 2 client ranks on the card.  The f32 backward kernel
+(flash_attention_bwd, CUDA cores) runs in phases 2 and 4 only.
 Phases, each fatal on failure:
 
   1. build every CUDA source of the port with nvcc (sm_90a), one nvcc
@@ -41,13 +42,13 @@ Phases, each fatal on failure:
      ones; the bf16 kernel at the model configs' kv_chunk 1024 against
      the plain version at the same chunk, at the shapes with more than
      1024 keys: every output within one ulp + 2^-9 max|v|, at least 99%
-     within one ulp + 2e-5; and the backward kernel
-     (flash_attention_bwd) against ``ref.flash_attention_bwd_ref`` in
-     bf16 and f32 at the train shape (4, 2048, 16, 64), (1, 8192, 16,
-     64), qwen3-32b's GQA heads, a ragged and a non-causal case (f32
-     within 2e-5 max|g|; bf16 every output within one ulp + 2e-5 max|g|,
-     dV also + 2^-9 max|dO| max_j sum_i P[i, j], and 99% within one ulp
-     + 2e-5 max|g|), bitwise equal over two runs;
+     within one ulp + 2e-5; and the backward kernels (bf16:
+     flash_attention_bwd_sm90; f32: flash_attention_bwd) against
+     ``ref.flash_attention_bwd_ref`` at the train shape (4, 2048, 16,
+     64), (1, 8192, 16, 64), qwen3-32b's GQA heads, a ragged and a
+     non-causal case (f32 within 2e-5 max|g|; bf16 every output within
+     one ulp + 2e-5 max|g|, dV also + 2^-9 max|dO| max_j sum_i P[i, j],
+     and 99% within one ulp + 2e-5 max|g|), bitwise equal over two runs;
   3. run each path with its kernels' launch counts set to 0 just before
      and read just after: FederatedAveraging for aggregate_gaussian
      (per-coordinate, sigma 0.25) and irwin_hall (sigma 5e-3), one packed
@@ -64,9 +65,11 @@ Phases, each fatal on failure:
      from round 1 bitwise equal to the run without the break); the train
      path (3d: 3 steps of 8 x 2048 in 2 microbatches, AdamW,
      aggregate_gaussian fused b = 8 per-tensor; per step 2 x 48
-     flash_attention_sm90, 2 x 24 flash_attention_bwd, 14 fused_encode
-     and 14 fused_decode launches, finite losses; and on 1 x 2048 the
-     loss and every gradient leaf on the kernels against the plain
+     flash_attention_sm90, 2 x 24 flash_attention_bwd_sm90, no
+     flash_attention_bwd, 14 fused_encode and 14 fused_decode launches,
+     finite losses; a fourth step timed, then a fifth traced under
+     ``torch.profiler`` (device ms by kernel, idle share); and on 1 x
+     2048 the loss and every gradient leaf on the kernels against the plain
      versions, both measured against the f32 model; 3e: 2 gloo ranks on
      the card, each with the full model and its AdamW state, 2 steps of a
      global batch 4 x 2048 with irwin_hall fused b = 8, params bitwise
@@ -137,6 +140,10 @@ KERNELS = {  # name: (source, replaced TPU kernel)
                              "src/repro/kernels/flash_attention.py:77"),
     "flash_attention_f32": ("flash_attention_f32_sm90.cu",
                             "src/repro/kernels/flash_attention.py:77"),
+    "flash_attention_bwd_sm90": ("flash_attention_bwd_sm90.cu",
+                                 "none: the JAX package differentiates "
+                                 "src/repro/models/attention.py:26 by "
+                                 "autodiff"),
     "flash_attention_bwd": ("flash_attention_bwd.cu",
                             "none: the JAX package differentiates "
                             "src/repro/models/attention.py:26 by autodiff"),
@@ -636,28 +643,30 @@ def p_colsum_max(q, k, lse, causal) -> float:
 
 
 def compare_flash_bwd(device, gen) -> dict:
-    """The backward kernel (flash_attention_bwd) against
-    ``ref.flash_attention_bwd_ref`` on the card, in bf16 and f32, at
-    BWD_CASES, from the forward kernel's output and lse (held against the
-    plain version's at the same shapes by ``compare_flash``); also run
-    twice for determinism (bitwise equal)."""
+    """The backward kernels against ``ref.flash_attention_bwd_ref`` on
+    the card at BWD_CASES, bf16 (flash_attention_bwd_sm90) and f32
+    (flash_attention_bwd), from the forward kernel's output and lse (held
+    against the plain version's at the same shapes by ``compare_flash``);
+    also run twice for determinism (bitwise equal)."""
     import torch
 
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref
 
-    worst = 0.0
+    worst = {name: 0.0 for name in fa.BWD_KERNELS.values()}
     rows = []
     for case in BWD_CASES:
         causal = case[6]
         for dtype in (torch.bfloat16, torch.float32):
+            kname = fa.BWD_KERNELS[dtype]
             q, k, v, o, lse, do = bwd_inputs(case, dtype, gen, device)
             got = fa.flash_attention_bwd(q, k, v, o, lse, do, causal)
             again = fa.flash_attention_bwd(q, k, v, o, lse, do, causal)
             want = ref.flash_attention_bwd_ref(q, k, v, o, lse, do, causal)
             torch.cuda.synchronize()
             bf16 = dtype == torch.bfloat16
-            row = {"case": list(case), "dtype": str(dtype)}
+            row = {"case": list(case), "dtype": str(dtype),
+                   "kernel": kname}
             if bf16:
                 row["p_colsum_max"] = p_colsum_max(q, k, lse, causal)
             shares = []
@@ -673,7 +682,7 @@ def compare_flash_bwd(device, gen) -> dict:
                 err = float(diff.max())
                 row[f"{name}_max_abs_err"] = err
                 row[f"{name}_rel"] = err / max(gmax, 1e-30)
-                worst = max(worst, err)
+                worst[kname] = max(worst[kname], err)
                 if bf16:
                     ulp = bf16_ulp(b)
                     slack = BWD_REL * gmax
@@ -694,7 +703,7 @@ def compare_flash_bwd(device, gen) -> dict:
             if bf16:
                 check(min(shares) >= BF16_SHARE,
                       f"bwd {case} bf16: shares {shares}")
-            log(f"flash_attention_bwd {case} {dtype}: " + ", ".join(
+            log(f"{kname} {case} {dtype}: " + ", ".join(
                 f"{n} max |diff| {row[n + '_max_abs_err']:.3g} "
                 f"({row[n + '_rel']:.3g} max|g|)"
                 + (f", {100 * row[n + '_share_within_ulp']:.4f}% within "
@@ -703,7 +712,7 @@ def compare_flash_bwd(device, gen) -> dict:
             rows.append(row)
             del q, k, v, o, lse, do, got, again, want
     torch.cuda.empty_cache()
-    return {"flash_attention_bwd": worst, "bwd_cases": rows}
+    return {**worst, "bwd_cases": rows}
 
 
 # ------------------------------------------------------------- phase 3
@@ -1275,8 +1284,9 @@ def _train_comp(mech: str, sigma: float):
 
 def train_launches_expected(cfg, microbatches: int) -> dict:
     """Launches of one compressed train step: per microbatch each layer's
-    forward, its remat forward and its backward through the flash
-    kernels; then one fused encode and decode per parameter leaf."""
+    forward, its remat forward and its backward through the bf16 flash
+    kernels (none of the f32 backward); then one fused encode and decode
+    per parameter leaf."""
     from repro_torch.models import nn, registry
 
     specs = []
@@ -1285,7 +1295,8 @@ def train_launches_expected(cfg, microbatches: int) -> dict:
     leaves = len(specs)
     L = cfg.n_layers
     return {"flash_attention_sm90": 2 * L * microbatches,
-            "flash_attention_bwd": L * microbatches,
+            "flash_attention_bwd_sm90": L * microbatches,
+            "flash_attention_bwd": 0,
             "fused_encode": leaves, "fused_decode": leaves}
 
 
@@ -1389,12 +1400,80 @@ def check_train_gradient(cfg, params, device) -> dict:
             "token_nll_rel_l2": tok, "leaf_rel_l2": ratios}
 
 
+GEMM_TAGS = ("gemm", "nvjet", "xmma", "cutlass")  # cuBLAS kernel names
+
+
+def profile_train_step(cfg, step_fn, state, batch, seed: int) -> tuple:
+    """Where a steady train step's time goes: one step timed on the host
+    clock (ended by a synchronize), then one more under ``torch.profiler``
+    (CPU + CUDA, shapes recorded).  Reports the device's busy ms (the sum
+    of the device-side rows, each kernel once), its idle share against
+    the untraced step's wall, the ms of the bf16 backward kernels
+    (fa_bwd_sm90_*: the preprocess, dQ and dK / dV), of the flash
+    forward, of every cuBLAS GEMM and of the logits' GEMMs (``aten::mm`` or
+    ``bmm`` with an operand as wide as the vocabulary: the output
+    projection and its two gradients), the ten largest device rows, and
+    the ten aten ops whose own launches hold the most device time.  A
+    trace with no device time fails the run.  Returns (state, report)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, _ = step_fn(state, batch, seed)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
+        t0 = time.perf_counter()
+        state, _ = step_fn(state, batch, seed)
+        torch.cuda.synchronize()
+        wall_prof = (time.perf_counter() - t0) * 1e3
+    dev = _kernel_ms(prof.key_averages(), 1)
+    check(bool(dev), "train profile: the trace holds no device time")
+    busy = sum(ms for _, ms in dev)
+
+    def total(pred) -> float:
+        return sum(ms for k, ms in dev if pred(k))
+
+    logits = sum(float(e.device_time_total) / 1e3
+                 for e in prof.key_averages(group_by_input_shape=True)
+                 if e.key in ("aten::mm", "aten::bmm") and any(
+                     cfg.vocab in shape for shape in e.input_shapes))
+    # the aten ops by the device time of the kernels they launched
+    # themselves (each kernel once: self time), largest first
+    ops = sorted(((e.key, float(e.self_device_time_total) / 1e3)
+                  for e in prof.key_averages()
+                  if e.device_type == DeviceType.CPU
+                  and e.self_device_time_total > 0), key=lambda kv: -kv[1])
+    out = {"wall_ms": wall, "wall_profiled_ms": wall_prof,
+           "device_ms": busy, "idle_share": 1.0 - busy / wall,
+           "bwd_sm90_ms": total(lambda k: "fa_bwd_sm90" in k),
+           "bwd_sm90_by_kernel": {k: ms for k, ms in dev
+                                  if "fa_bwd_sm90" in k},
+           "flash_fwd_ms": total(lambda k: "flash_attention_sm90" in k),
+           "gemm_ms": total(lambda k: any(t in k.lower()
+                                          for t in GEMM_TAGS)),
+           "logits_gemm_ms": logits, "top": dev[:10], "top_ops": ops[:10]}
+    log(f"train profile (one steady step): wall {wall:.3f} ms (profiled "
+        f"{wall_prof:.3f} ms), device busy {busy:.3f} ms (idle share "
+        f"{out['idle_share']:.3f}); the bf16 backward kernels "
+        f"{out['bwd_sm90_ms']:.3f} ms ({100 * out['bwd_sm90_ms'] / busy:.1f}"
+        f"% of busy), flash forward {out['flash_fwd_ms']:.3f} ms, GEMMs "
+        f"{out['gemm_ms']:.3f} ms, of them the logits' "
+        f"{logits:.3f} ms; the ops that launch most device time: "
+        + "; ".join(f"{k} {ms:.3f}" for k, ms in ops[:10]))
+    return state, out
+
+
 def run_train_phase(device) -> dict:
     """The train path at full width: TRAIN_STEPS steps of
     ``train.steps.build_train_step`` (the launcher's step), each timed on
     the host clock after a synchronize, with the launch counts set to 0
-    just before the steps and read just after; then the gradient check
-    on one microbatch."""
+    just before the steps and read just after; then two more steps, the
+    second traced (``profile_train_step``), and the gradient check on one
+    microbatch."""
     import torch
 
     from repro_torch import configs
@@ -1436,6 +1515,9 @@ def run_train_phase(device) -> dict:
     check(int(state["step"]) == TRAIN_STEPS, f"step {state['step']}")
     check(all(bool(torch.isfinite(p).all())
               for p in _leaves(state["params"])), "non-finite params")
+    # after the counted run: these launches are not the path's
+    state, prof = profile_train_step(cfg, step_fn, state, batches[-1],
+                                     TRAIN_SEED)
     tokens = TRAIN_BATCH * TRAIN_SEQ
     log(f"train {TRAIN_ARCH} (bf16, remat full, kv_chunk {cfg.kv_chunk}), "
         f"batch {TRAIN_BATCH} x {TRAIN_SEQ} in {TRAIN_ACCUM} microbatches, "
@@ -1451,7 +1533,8 @@ def run_train_phase(device) -> dict:
     torch.cuda.empty_cache()
     return {"walls_s": walls, "tokens_per_s": [tokens / w for w in walls],
             "losses": losses, "peak_bytes": peak, "launches": launches,
-            "launches_per_step": per_step, "gradient_check": grad_check}
+            "launches_per_step": per_step, "profile": prof,
+            "gradient_check": grad_check}
 
 
 # ------------------------------------------------------------ phase 3e
@@ -2108,9 +2191,9 @@ def time_flash(device, gen, mem_rate: float, f32_rate: float,
 
 
 # timed backward shapes, causal: (B, T, S, H, HK, D, dtype): the train
-# path's microbatch first (its row in the kernels line), then the longest
-# serve prompt's shape and qwen3-32b's GQA heads in bf16, and the train
-# shape in f32
+# path's microbatch first (the bf16 kernel's row in the kernels line),
+# then the longest serve prompt's shape and qwen3-32b's GQA heads in bf16,
+# and the train shape in f32 (the f32 kernel's row)
 BWD_TIMED = (
     (4, 2048, 2048, 16, 16, 64, "bfloat16"),
     (1, 8192, 8192, 16, 16, 64, "bfloat16"),
@@ -2121,8 +2204,9 @@ BWD_TIMED = (
 
 def time_flash_bwd(device, gen, mem_rate: float, bf16_tc: float,
                    tf32_tc: float) -> list:
-    """The backward kernel at BWD_TIMED (``batched_ms``, 5 calls a mean)
-    beside its bound — the larger of the bytes (q, k, v, o, dO and lse
+    """The backward kernels at BWD_TIMED (bf16: flash_attention_bwd_sm90,
+    f32: flash_attention_bwd; ``batched_ms``, 5 calls a mean) beside the
+    bound — the larger of the bytes (q, k, v, o, dO and lse
     read once, dq, dk, dv written once) over the memory rate and the
     gradient's products, 2.5 times the forward's causal FLOPs (4 B H T S D
     / 2), at the bf16 tensor-core rate for bf16 and three times at the
@@ -2162,6 +2246,7 @@ def time_flash_bwd(device, gen, mem_rate: float, bf16_tc: float,
             fwd_ms = batched_ms(sdpa, n=5, reps=3)
         lib_ms = batched_ms(sdpa_fwd_bwd, n=5, reps=3) - fwd_ms
         bf16 = dtype == torch.bfloat16
+        name = fa.BWD_KERNELS[dtype]
         flops = 2.5 * 4 * B * H * T * S * D / 2
         # q, o, dO and dq (B T H D each), k, v, dk and dv (B S HK D each),
         # lse (B H T, f32)
@@ -2172,13 +2257,13 @@ def time_flash_bwd(device, gen, mem_rate: float, bf16_tc: float,
         bound = max(bytes_ms, ops_ms)
         by = "bytes" if bytes_ms >= ops_ms else "operations"
         shape = f"({B}, {T}, {H} / {HK} heads, {D}) {dt} causal"
-        row = {"name": "flash_attention_bwd", "config": shape, "ms": ms,
+        row = {"name": name, "config": shape, "ms": ms,
                "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
                "bytes": nbytes, "flops": flops, "library_ms": lib_ms,
                "library_forward_ms": fwd_ms}
-        log(f"flash_attention_bwd {shape}: {ms:.4f} ms, bound {bound:.4f} ms "
-            f"by {by} ({flops / 1e9:.2f} GFLOP"
-            f"{'' if bf16 else ' x 3 (TF32)'}; bytes {bytes_ms:.4f} ms), "
+        log(f"{name} {shape}: {ms:.4f} ms, bound {bound:.4f} ms by {by} "
+            f"({flops / 1e9:.2f} GFLOP{'' if bf16 else ' x 3 (TF32)'}; "
+            f"bytes {bytes_ms:.4f} ms), "
             f"{100 * bound / ms:.1f}% of it, {flops / ms / 1e9:.1f} TFLOP/s; "
             f"plain {plain_ms:.4f} ms; scaled_dot_product_attention backward "
             f"{lib_ms:.4f} ms (forward + backward {lib_ms + fwd_ms:.4f}, "
@@ -2290,7 +2375,8 @@ def main() -> int:
     worst.update({k: flash[k] for k in ("flash_attention_sm90",
                                         "flash_attention_f32")})
     bwd = compare_flash_bwd(device, gen)
-    worst["flash_attention_bwd"] = bwd["flash_attention_bwd"]
+    worst.update({k: bwd[k] for k in ("flash_attention_bwd_sm90",
+                                      "flash_attention_bwd")})
     log(f"phase 2 done at {time.perf_counter() - t_start:.1f} s")
 
     # 3. the main path: each path with its launch counts

@@ -1,31 +1,29 @@
-// Flash-attention backward, bf16 and f32, on the CUDA cores.
+// Flash-attention backward, f32, on the CUDA cores.
 //
 // The JAX package has no Pallas counterpart: it trains through its
 // pure-JAX chunked attention (src/repro/models/attention.py:26,
-// flash_attention) and lets jax.grad differentiate it.  The port's
-// forward is a kernel (flash_attention_sm90.cu for bf16,
-// flash_attention_f32_sm90.cu for f32), so its gradient is one too: this
-// file computes the gradient of the function ops.flash_attention computes,
-// with FlashAttention-2's formula, from q, k, v, the forward's output o,
-// its row statistic lse = m + log(l) and the output's gradient dO:
+// flash_attention) and lets jax.grad differentiate it.  The port's f32
+// forward is a kernel (flash_attention_f32_sm90.cu), so its gradient is
+// one too: this file computes the gradient of the function
+// ops.flash_attention computes in f32, with FlashAttention-2's formula,
+// from q, k, v, the forward's output o, its row statistic lse = m +
+// log(l) and the output's gradient dO:
 //
-//   qs   = q scaled as the forward scales it: f32(q * D^-1/2) for f32,
-//          bf16(q * bf16(D^-1/2)) for bf16
+//   qs   = f32(q * D^-1/2)
 //   S    = qs k^T (f32), masked where key >= S_len or, causal, key > query
 //          (aligned at the top left)
 //   P    = exp(S - lse), 0 where masked
 //   Drow = rowsum(dO * O)
-//   dV   = P^T dO            (P rounded to bf16 in the bf16 instance, as
-//                             the forward feeds P V)
+//   dV   = P^T dO
 //   dP   = dO v^T
 //   dS   = P (dP - Drow)
 //   dK   = dS^T qs
 //   dQ   = scale * dS k
 //
 // q, o, dO, dq (B, T, H, D); k, v, dk, dv (B, S, HK, D); lse and Drow
-// (B, H, T) f32; one dtype for the tensors (bf16 or f32), D in {16, 32,
-// 64, 128}, H % HK == 0.  Every sum runs in f32 and each output is rounded
-// once.
+// (B, H, T) f32; all f32, D in {16, 32, 64, 128}, H % HK == 0.  Every sum
+// runs in f32.  The bf16 gradient is flash_attention_bwd_sm90.cu (wgmma +
+// TMA).
 //
 // Deterministic: two kernels, no atomics.  The first walks one block per
 // (b * h, 64 query rows) over its KV tiles: Drow, written for the second,
@@ -36,15 +34,15 @@
 //
 // What bounds it on this card: operations.  The gradient needs 2.5x the
 // forward's products (4 B H T S D / 2 FLOPs causal): 85.9 GFLOP at
-// (4, 2048, 16, 64), 0.087 ms at the bf16 tensor-core rate.  This is the
-// simple version: f32 FMAs on the CUDA cores (67 TFLOP/s at most), tiles
-// of 64 x 64 in shared memory as f32 (rows padded by one word, so both
-// the row and the column walks are free of bank conflicts), each of 256
-// threads owning a 4 x (N / 16) block of every product, strided by 16 so
-// that the 16 threads of a half warp read neighbouring words.  S and dP
-// are recomputed in both kernels.  Moving it onto wgmma and TMA is a
-// later step (ROADMAP.md, kernel follow-ups).
-#include <cuda_bf16.h>
+// (4, 2048, 16, 64), 0.52 ms as three TF32 products each (f32 accuracy)
+// at 495 TFLOP/s.  This is the simple version: f32 FMAs on the CUDA cores
+// (67 TFLOP/s at most), tiles of 64 x 64 in shared memory (rows padded by
+// one word, so both the row and the column walks are free of bank
+// conflicts), each of 256 threads owning a 4 x (N / 16) block of every
+// product, strided by 16 so that the 16 threads of a half warp read
+// neighbouring words.  S and dP are recomputed in both kernels.  Moving it
+// onto 3xTF32 wgmma and TMA is a later step (ROADMAP.md, kernel
+// follow-ups).
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -53,47 +51,6 @@ namespace {
 constexpr int kBM = 64;  // query rows per tile
 constexpr int kBN = 64;  // keys per tile
 constexpr int kThreads = 256;
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) {
-  return x;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
-
-// q scaled as the forward scales it
-template <typename T>
-__device__ __forceinline__ float scale_q(T x, float scale);
-template <>
-__device__ __forceinline__ float scale_q<float>(float x, float scale) {
-  return __fmul_rn(x, scale);
-}
-template <>
-__device__ __forceinline__ float scale_q<__nv_bfloat16>(__nv_bfloat16 x,
-                                                       float scale) {
-  return __bfloat162float(
-      __float2bfloat16_rn(__fmul_rn(__bfloat162float(x), scale)));
-}
-
-// P as P V uses it: bf16 in the bf16 instance
-template <typename T>
-__device__ __forceinline__ float p_for_pv(float p);
-template <>
-__device__ __forceinline__ float p_for_pv<float>(float p) {
-  return p;
-}
-template <>
-__device__ __forceinline__ float p_for_pv<__nv_bfloat16>(float p) {
-  return __bfloat162float(__float2bfloat16_rn(p));
-}
 
 // acc[i][j] += sum_k A(r_i, k) B(k, c_j) for this thread's rows r_i =
 // tr + 16 i (i < 4) and columns c_j = tc + 16 j (j < NJ); A(r, k) is
@@ -126,22 +83,24 @@ __device__ __forceinline__ void zero(float (&acc)[4][NJ]) {
 }
 
 // rows [r0, r0 + 64) of a (len, heads, D) slab at head h into a 64 x
-// (D + 1) f32 tile (rows past len read as 0), through ``f``
-template <int D, typename T, typename F>
-__device__ __forceinline__ void load_rows(float* dst, const T* src, int r0,
-                                          int len, int heads, int h, F f) {
+// (D + 1) tile, times ``mul`` (rows past len read as 0)
+template <int D>
+__device__ __forceinline__ void load_rows(float* dst, const float* src,
+                                          int r0, int len, int heads, int h,
+                                          float mul) {
   for (int i = threadIdx.x; i < 64 * D; i += kThreads) {
     const int r = i / D, d = i - (i / D) * D;
     const int row = r0 + r;
     dst[r * (D + 1) + d] =
-        row < len ? f(src[((size_t)row * heads + h) * D + d]) : 0.f;
+        row < len ? __fmul_rn(src[((size_t)row * heads + h) * D + d], mul)
+                  : 0.f;
   }
 }
 
 // The P and dS tile of query rows q0.. and keys k0..: with qs, dO (rows)
 // and K, V (keys) in shared memory, P (as P V takes it) to ``p_out`` when
 // given and dS to ``ds_out``, both 64 x (kBN + 1) row-major by query.
-template <typename T, int D>
+template <int D>
 __device__ __forceinline__ void p_and_ds(const float* qs, const float* dos,
                                          const float* ks, const float* vs,
                                          const float* lse_s,
@@ -163,7 +122,7 @@ __device__ __forceinline__ void p_and_ds(const float* qs, const float* dos,
       const bool valid =
           row < t_len && key < s_len && !(causal && key > row);
       const float p = valid ? expf(__fsub_rn(s[i][j], lse_s[r])) : 0.f;
-      if (p_out != nullptr) p_out[r * (kBN + 1) + c] = p_for_pv<T>(p);
+      if (p_out != nullptr) p_out[r * (kBN + 1) + c] = p;
       ds_out[r * (kBN + 1) + c] =
           __fmul_rn(p, __fsub_rn(dp[i][j], drow_s[r]));
     }
@@ -171,12 +130,13 @@ __device__ __forceinline__ void p_and_ds(const float* qs, const float* dos,
 
 // ------------------------------------------------------------ dQ, Drow
 // Grid: (B * H, ceil(T / 64)); block: 256 threads.
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads)
-    bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                  const T* __restrict__ v, const T* __restrict__ o,
-                  const float* __restrict__ lse, const T* __restrict__ dout,
-                  T* __restrict__ dq, float* __restrict__ drow, int t_len,
+    bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                  const float* __restrict__ v, const float* __restrict__ o,
+                  const float* __restrict__ lse,
+                  const float* __restrict__ dout, float* __restrict__ dq,
+                  float* __restrict__ drow, int t_len,
                   int s_len, int heads, int kv_heads, int causal,
                   float scale) {
   extern __shared__ float smem[];
@@ -196,18 +156,16 @@ __global__ void __launch_bounds__(kThreads)
   const int q0 = blockIdx.y * kBM;
   const int tid = threadIdx.x;
   const int tr = tid >> 4, tc = tid & 15;
-  const T* qb = q + (size_t)b * t_len * heads * D;
-  const T* ob = o + (size_t)b * t_len * heads * D;
-  const T* dob = dout + (size_t)b * t_len * heads * D;
-  const T* kb = k + (size_t)b * s_len * kv_heads * D;
-  const T* vb = v + (size_t)b * s_len * kv_heads * D;
+  const float* qb = q + (size_t)b * t_len * heads * D;
+  const float* ob = o + (size_t)b * t_len * heads * D;
+  const float* dob = dout + (size_t)b * t_len * heads * D;
+  const float* kb = k + (size_t)b * s_len * kv_heads * D;
+  const float* vb = v + (size_t)b * s_len * kv_heads * D;
   const float* lse_b = lse + (size_t)bh * t_len;
   float* drow_b = drow + (size_t)bh * t_len;
 
-  load_rows<D>(qs, qb, q0, t_len, heads, h,
-               [scale](T x) { return scale_q<T>(x, scale); });
-  load_rows<D>(dos, dob, q0, t_len, heads, h,
-               [](T x) { return to_f32(x); });
+  load_rows<D>(qs, qb, q0, t_len, heads, h, scale);
+  load_rows<D>(dos, dob, q0, t_len, heads, h, 1.f);
   __syncthreads();
   // Drow = rowsum(dO * O): four threads a row, each a quarter of D, then
   // summed in a fixed order
@@ -216,9 +174,9 @@ __global__ void __launch_bounds__(kThreads)
     const int row = q0 + r;
     float acc = 0.f;
     if (row < t_len) {
-      const T* orow = ob + ((size_t)row * heads + h) * D;
+      const float* orow = ob + ((size_t)row * heads + h) * D;
       for (int d = part * (D / 4); d < (part + 1) * (D / 4); ++d)
-        acc = __fmaf_rn(dos[r * (D + 1) + d], to_f32(orow[d]), acc);
+        acc = __fmaf_rn(dos[r * (D + 1) + d], orow[d], acc);
     }
     acc = __fadd_rn(acc, __shfl_xor_sync(0xffffffffu, acc, 1));
     acc = __fadd_rn(acc, __shfl_xor_sync(0xffffffffu, acc, 2));
@@ -237,13 +195,11 @@ __global__ void __launch_bounds__(kThreads)
   if (causal) n_kv = min(n_kv, (q0 + kBM - 1) / kBN + 1);
   for (int j = 0; j < n_kv; ++j) {
     const int k0 = j * kBN;
-    load_rows<D>(ks, kb, k0, s_len, kv_heads, hk,
-                 [](T x) { return to_f32(x); });
-    load_rows<D>(vs, vb, k0, s_len, kv_heads, hk,
-                 [](T x) { return to_f32(x); });
+    load_rows<D>(ks, kb, k0, s_len, kv_heads, hk, 1.f);
+    load_rows<D>(vs, vb, k0, s_len, kv_heads, hk, 1.f);
     __syncthreads();
-    p_and_ds<T, D>(qs, dos, ks, vs, lse_s, drow_s, nullptr, ds, q0, k0,
-                   t_len, s_len, causal, tr, tc);
+    p_and_ds<D>(qs, dos, ks, vs, lse_s, drow_s, nullptr, ds, q0, k0, t_len,
+                s_len, causal, tr, tc);
     __syncthreads();
     // dQ += dS K
     mm<kBN, NJ>(acc, ds, kBN + 1, 1, ks, D + 1, 1, tr, tc);
@@ -253,21 +209,22 @@ __global__ void __launch_bounds__(kThreads)
   for (int i = 0; i < 4; ++i) {
     const int row = q0 + tr + 16 * i;
     if (row >= t_len) continue;
-    T* dst = dq + (((size_t)b * t_len + row) * heads + h) * D;
+    float* dst = dq + (((size_t)b * t_len + row) * heads + h) * D;
 #pragma unroll
     for (int j = 0; j < NJ; ++j)
-      dst[tc + 16 * j] = from_f32<T>(__fmul_rn(scale, acc[i][j]));
+      dst[tc + 16 * j] = __fmul_rn(scale, acc[i][j]);
   }
 }
 
 // ------------------------------------------------------------- dK, dV
 // Grid: (B * HK, ceil(S / 64)); block: 256 threads.
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads)
-    bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                   const T* __restrict__ v, const float* __restrict__ lse,
-                   const float* __restrict__ drow, const T* __restrict__ dout,
-                   T* __restrict__ dk, T* __restrict__ dv, int t_len,
+    bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                   const float* __restrict__ v, const float* __restrict__ lse,
+                   const float* __restrict__ drow,
+                   const float* __restrict__ dout,
+                   float* __restrict__ dk, float* __restrict__ dv, int t_len,
                    int s_len, int heads, int kv_heads, int causal,
                    float scale) {
   extern __shared__ float smem[];
@@ -288,15 +245,13 @@ __global__ void __launch_bounds__(kThreads)
   const int k0 = blockIdx.y * kBN;
   const int tid = threadIdx.x;
   const int tr = tid >> 4, tc = tid & 15;
-  const T* qb = q + (size_t)b * t_len * heads * D;
-  const T* dob = dout + (size_t)b * t_len * heads * D;
-  const T* kb = k + (size_t)b * s_len * kv_heads * D;
-  const T* vb = v + (size_t)b * s_len * kv_heads * D;
+  const float* qb = q + (size_t)b * t_len * heads * D;
+  const float* dob = dout + (size_t)b * t_len * heads * D;
+  const float* kb = k + (size_t)b * s_len * kv_heads * D;
+  const float* vb = v + (size_t)b * s_len * kv_heads * D;
 
-  load_rows<D>(ks, kb, k0, s_len, kv_heads, hk,
-               [](T x) { return to_f32(x); });
-  load_rows<D>(vs, vb, k0, s_len, kv_heads, hk,
-               [](T x) { return to_f32(x); });
+  load_rows<D>(ks, kb, k0, s_len, kv_heads, hk, 1.f);
+  load_rows<D>(vs, vb, k0, s_len, kv_heads, hk, 1.f);
 
   constexpr int NJ = D / 16;
   float dk_acc[4][NJ], dv_acc[4][NJ];
@@ -312,18 +267,16 @@ __global__ void __launch_bounds__(kThreads)
     for (int i = i0; i < n_q; ++i) {
       const int q0 = i * kBM;
       __syncthreads();  // the previous tile's readers are done
-      load_rows<D>(qs, qb, q0, t_len, heads, h,
-                   [scale](T x) { return scale_q<T>(x, scale); });
-      load_rows<D>(dos, dob, q0, t_len, heads, h,
-                   [](T x) { return to_f32(x); });
+      load_rows<D>(qs, qb, q0, t_len, heads, h, scale);
+      load_rows<D>(dos, dob, q0, t_len, heads, h, 1.f);
       if (tid < kBM) {
         const int row = q0 + tid;
         lse_s[tid] = row < t_len ? lse_b[row] : 0.f;
         drow_s[tid] = row < t_len ? drow_b[row] : 0.f;
       }
       __syncthreads();
-      p_and_ds<T, D>(qs, dos, ks, vs, lse_s, drow_s, ps, ds, q0, k0, t_len,
-                     s_len, causal, tr, tc);
+      p_and_ds<D>(qs, dos, ks, vs, lse_s, drow_s, ps, ds, q0, k0, t_len,
+                  s_len, causal, tr, tc);
       __syncthreads();
       // dV += P^T dO, dK += dS^T qs: rows are keys, columns head dims
       mm<kBM, NJ>(dv_acc, ps, 1, kBN + 1, dos, D + 1, 1, tr, tc);
@@ -337,8 +290,8 @@ __global__ void __launch_bounds__(kThreads)
     const size_t off = (((size_t)b * s_len + key) * kv_heads + hk) * D;
 #pragma unroll
     for (int j = 0; j < NJ; ++j) {
-      dk[off + tc + 16 * j] = from_f32<T>(dk_acc[i][j]);
-      dv[off + tc + 16 * j] = from_f32<T>(dv_acc[i][j]);
+      dk[off + tc + 16 * j] = dk_acc[i][j];
+      dv[off + tc + 16 * j] = dv_acc[i][j];
     }
   }
 }
@@ -352,40 +305,40 @@ constexpr size_t dkv_smem() {
   return sizeof(float) * (4 * 64 * (D + 1) + 2 * kBM * (kBN + 1) + 2 * kBM);
 }
 
-template <typename T, int D>
+template <int D>
 int launch(const void* q, const void* k, const void* v, const void* o,
            const void* lse, const void* dout, void* dq, void* dk, void* dv,
            void* drow, int batch, int t_len, int s_len, int heads,
            int kv_heads, int causal, float scale, cudaStream_t stream) {
   // set once per instance (thread-safe static initialisation)
   static const cudaError_t attr_dq = cudaFuncSetAttribute(
-      bwd_dq_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      bwd_dq_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)dq_smem<D>());
   static const cudaError_t attr_dkv = cudaFuncSetAttribute(
-      bwd_dkv_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      bwd_dkv_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)dkv_smem<D>());
   if (attr_dq != cudaSuccess) return (int)attr_dq;
   if (attr_dkv != cudaSuccess) return (int)attr_dkv;
-  const T* tq = static_cast<const T*>(q);
-  const T* tk = static_cast<const T*>(k);
-  const T* tv = static_cast<const T*>(v);
-  const T* tdo = static_cast<const T*>(dout);
+  const float* tq = static_cast<const float*>(q);
+  const float* tk = static_cast<const float*>(k);
+  const float* tv = static_cast<const float*>(v);
+  const float* tdo = static_cast<const float*>(dout);
   const float* flse = static_cast<const float*>(lse);
   float* fdrow = static_cast<float*>(drow);
   const dim3 grid_q(batch * heads, (t_len + kBM - 1) / kBM);
-  bwd_dq_kernel<T, D><<<grid_q, kThreads, dq_smem<D>(), stream>>>(
-      tq, tk, tv, static_cast<const T*>(o), flse, tdo, static_cast<T*>(dq),
-      fdrow, t_len, s_len, heads, kv_heads, causal, scale);
+  bwd_dq_kernel<D><<<grid_q, kThreads, dq_smem<D>(), stream>>>(
+      tq, tk, tv, static_cast<const float*>(o), flse, tdo,
+      static_cast<float*>(dq), fdrow, t_len, s_len, heads, kv_heads, causal,
+      scale);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const dim3 grid_k(batch * kv_heads, (s_len + kBN - 1) / kBN);
-  bwd_dkv_kernel<T, D><<<grid_k, kThreads, dkv_smem<D>(), stream>>>(
-      tq, tk, tv, flse, fdrow, tdo, static_cast<T*>(dk), static_cast<T*>(dv),
-      t_len, s_len, heads, kv_heads, causal, scale);
+  bwd_dkv_kernel<D><<<grid_k, kThreads, dkv_smem<D>(), stream>>>(
+      tq, tk, tv, flse, fdrow, tdo, static_cast<float*>(dk),
+      static_cast<float*>(dv), t_len, s_len, heads, kv_heads, causal, scale);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
 int dispatch(int head_dim, const void* q, const void* k, const void* v,
              const void* o, const void* lse, const void* dout, void* dq,
              void* dk, void* dv, void* drow, int batch, int t_len,
@@ -393,18 +346,17 @@ int dispatch(int head_dim, const void* q, const void* k, const void* v,
              cudaStream_t st) {
   switch (head_dim) {
     case 16:
-      return launch<T, 16>(q, k, v, o, lse, dout, dq, dk, dv, drow, batch,
-                           t_len, s_len, heads, kv_heads, causal, scale, st);
+      return launch<16>(q, k, v, o, lse, dout, dq, dk, dv, drow, batch,
+                        t_len, s_len, heads, kv_heads, causal, scale, st);
     case 32:
-      return launch<T, 32>(q, k, v, o, lse, dout, dq, dk, dv, drow, batch,
-                           t_len, s_len, heads, kv_heads, causal, scale, st);
+      return launch<32>(q, k, v, o, lse, dout, dq, dk, dv, drow, batch,
+                        t_len, s_len, heads, kv_heads, causal, scale, st);
     case 64:
-      return launch<T, 64>(q, k, v, o, lse, dout, dq, dk, dv, drow, batch,
-                           t_len, s_len, heads, kv_heads, causal, scale, st);
+      return launch<64>(q, k, v, o, lse, dout, dq, dk, dv, drow, batch,
+                        t_len, s_len, heads, kv_heads, causal, scale, st);
     case 128:
-      return launch<T, 128>(q, k, v, o, lse, dout, dq, dk, dv, drow, batch,
-                            t_len, s_len, heads, kv_heads, causal, scale,
-                            st);
+      return launch<128>(q, k, v, o, lse, dout, dq, dk, dv, drow, batch,
+                         t_len, s_len, heads, kv_heads, causal, scale, st);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -415,30 +367,23 @@ int dispatch(int head_dim, const void* q, const void* k, const void* v,
 extern "C" {
 
 // q, o, dout, dq: (batch, t_len, heads, head_dim); k, v, dk, dv: (batch,
-// s_len, kv_heads, head_dim); all contiguous, one dtype: bf16 when
-// ``bf16`` is 1, else f32.  lse (the forward's m + log(l)) and drow
-// (scratch, written here) are (batch, heads, t_len) f32.  head_dim in {16,
-// 32, 64, 128}; heads % kv_heads == 0; t_len, s_len >= 1; batch * heads <
-// 2^31 and ceil(t_len / 64), ceil(s_len / 64) <= 65535.  ``scale`` is the
-// forward's: f32(bf16(head_dim^-1/2)) for bf16, f32(head_dim^-1/2) for
-// f32.  Launches both kernels on ``stream`` and returns the first nonzero
-// cudaGetLastError(), or cudaErrorInvalidValue for an unsupported
-// head_dim.
+// s_len, kv_heads, head_dim); all contiguous f32.  lse (the forward's m +
+// log(l)) and drow (scratch, written here) are (batch, heads, t_len) f32.
+// head_dim in {16, 32, 64, 128}; heads % kv_heads == 0; t_len, s_len >= 1;
+// batch * heads < 2^31 and ceil(t_len / 64), ceil(s_len / 64) <= 65535.
+// ``scale`` is the forward's f32(head_dim^-1/2).  Launches both kernels on
+// ``stream`` and returns the first nonzero cudaGetLastError(), or
+// cudaErrorInvalidValue for an unsupported head_dim.
 int flash_attention_bwd_launch(const void* q, const void* k, const void* v,
                                const void* o, const void* lse,
                                const void* dout, void* dq, void* dk,
                                void* dv, void* drow, int batch, int t_len,
                                int s_len, int heads, int kv_heads,
                                int head_dim, int causal, float scale,
-                               int bf16, void* stream) {
-  const cudaStream_t st = (cudaStream_t)stream;
-  if (bf16)
-    return dispatch<__nv_bfloat16>(head_dim, q, k, v, o, lse, dout, dq, dk,
-                                   dv, drow, batch, t_len, s_len, heads,
-                                   kv_heads, causal, scale, st);
-  return dispatch<float>(head_dim, q, k, v, o, lse, dout, dq, dk, dv, drow,
-                         batch, t_len, s_len, heads, kv_heads, causal, scale,
-                         st);
+                               void* stream) {
+  return dispatch(head_dim, q, k, v, o, lse, dout, dq, dk, dv, drow, batch,
+                  t_len, s_len, heads, kv_heads, causal, scale,
+                  (cudaStream_t)stream);
 }
 
 }  // extern "C"

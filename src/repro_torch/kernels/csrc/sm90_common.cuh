@@ -1,9 +1,11 @@
 // Helpers shared by the Hopper flash-attention kernels
-// (flash_attention_sm90.cu, bf16; flash_attention_f32_sm90.cu, f32):
-// mbarrier waits that trap instead of hanging, the 4-D TMA load, the wgmma
+// (flash_attention_sm90.cu, bf16; flash_attention_f32_sm90.cu, f32;
+// flash_attention_bwd_sm90.cu, the bf16 backward): mbarrier waits that
+// trap instead of hanging, the 4-D TMA load and the bulk copy, the wgmma
 // shared-memory descriptor and fences, quad reductions, and the driver's
 // cuTensorMapEncodeTiled found through the runtime.  kernels/build.py
-// hashes this header into every library's name, so an edit rebuilds both.
+// hashes every header into every library's name, so an edit rebuilds
+// them all.
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and the driver's enums; no -lcuda needed
@@ -68,6 +70,18 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
       "complete_tx::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
       "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// A contiguous copy of ``bytes`` (a multiple of 16; both addresses
+// 16-byte aligned) from device memory to shared memory, reported to the
+// barrier like a TMA load.
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(bar)
       : "memory");
 }
 

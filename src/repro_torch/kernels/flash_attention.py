@@ -1,6 +1,6 @@
-"""Wrappers of the two CUDA flash-attention kernels, one per dtype, which
-replace the Pallas TPU kernel of the JAX package's
-``kernels/flash_attention.py``:
+"""Wrappers of the CUDA flash-attention kernels, a forward and a backward
+for each dtype; the forwards replace the Pallas TPU kernel of the JAX
+package's ``kernels/flash_attention.py``:
 
 * bf16 -> ``csrc/flash_attention_sm90.cu`` (``flash_attention_sm90``):
   wgmma and TMA on the tensor cores, computing the JAX model's bf16
@@ -19,17 +19,21 @@ caller passes): a multiple of its 128-key tile, or at least S for one
 span.  Both forward kernels can also write the row statistic
 lse = m + log(l), (B, H, T) f32, which the backward takes.
 
-* the gradient -> ``csrc/flash_attention_bwd.cu``
-  (``flash_attention_bwd``), one source for both dtypes: dq, dk, dv from
-  q, k, v, o, lse and dO with FlashAttention-2's formula, deterministic
-  (no atomics).  Plain version: ``ref.flash_attention_bwd_ref``.  The JAX
-  package has no Pallas counterpart: it differentiates its pure-JAX
-  attention by autodiff.
+* the gradient, dq, dk, dv from q, k, v, o, lse and dO with
+  FlashAttention-2's formula, deterministic (no atomics); plain version:
+  ``ref.flash_attention_bwd_ref``.  bf16 -> ``csrc/
+  flash_attention_bwd_sm90.cu`` (``flash_attention_bwd_sm90``): a
+  preprocess pass (Drow, the scaled q), then dQ and dK / dV kernels on
+  wgmma and TMA, dS kept in f32 as a bf16 hi + lo pair on the tensor
+  cores.  f32 -> ``csrc/flash_attention_bwd.cu`` (``flash_attention_bwd``):
+  f32 FMAs on the CUDA cores.  The JAX package has no Pallas counterpart:
+  it differentiates its pure-JAX attention by autodiff.
 
 q (B, T, H, D), k / v (B, S, HK, D), all contiguous on one CUDA device,
 one dtype, D in {16, 32, 64, 128}, H % HK == 0.  The kernels mask the
 ragged edges of T and S and index the KV head of each query head (GQA)
-themselves, so nothing is padded, repeated or copied.  Each wrapper
+themselves, so nothing is padded or repeated (the bf16 backward writes
+the scaled q once, into its scratch).  Each wrapper
 checks its inputs, allocates the outputs, launches on the current
 stream, raises if the launch failed, and adds one to its kernel's
 ``LAUNCHES`` entry.  ``FlashAttention`` is the autograd function over
@@ -62,11 +66,14 @@ _TILE = 128
 # V^T's columns in the same order.
 TF32_KEY_ORDER = (0, 2, 4, 6, 1, 3, 5, 7)
 
-BWD_NAME = "flash_attention_bwd"
+# dtype -> the backward kernel's name, which is its C library's (csrc/
+# <name>.cu, launch function ``<name>_launch``, one signature for both)
+BWD_KERNELS = {torch.bfloat16: "flash_attention_bwd_sm90",
+               torch.float32: "flash_attention_bwd"}
 
 # launches since the last reset (a plain dict of ints)
 LAUNCHES = {name: 0 for name, _, _ in KERNELS.values()}
-LAUNCHES[BWD_NAME] = 0
+LAUNCHES.update({name: 0 for name in BWD_KERNELS.values()})
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -86,15 +93,31 @@ def _launcher(dtype: torch.dtype):
     return fn
 
 
-def _bwd_launcher():
-    fn = build.load(BWD_NAME).flash_attention_bwd_launch
+def _bwd_launcher(dtype: torch.dtype):
+    name = BWD_KERNELS[dtype]
+    fn = getattr(build.load(name), name + "_launch")
     if id(fn) not in _TYPED:
-        # q, k, v, o, lse, dout, dq, dk, dv, drow, B, T, S, H, HK, D,
-        # causal, scale, bf16, stream
-        fn.argtypes = ([_P] * 10 + [_I] * 7 + [ctypes.c_float, _I, _P])
+        # q, k, v, o, lse, dout, dq, dk, dv, scratch, B, T, S, H, HK, D,
+        # causal, scale, stream
+        fn.argtypes = [_P] * 10 + [_I] * 7 + [ctypes.c_float, _P]
         fn.restype = ctypes.c_int
         _TYPED.add(id(fn))
     return fn
+
+
+def _bwd_scratch(q: torch.Tensor, B: int, T: int, H: int,
+                 D: int) -> torch.Tensor:
+    """The backward kernel's scratch: Drow, (B, H, T) f32, for f32; for
+    bf16 the bytes ``flash_attention_bwd_sm90_work_bytes`` asks for (Drow
+    and lse, padded, and the scaled q)."""
+    if q.dtype == torch.float32:
+        return torch.empty((B, H, T), dtype=torch.float32, device=q.device)
+    fn = build.load(BWD_KERNELS[q.dtype]).flash_attention_bwd_sm90_work_bytes
+    if id(fn) not in _TYPED:
+        fn.argtypes = [_I] * 4
+        fn.restype = ctypes.c_size_t
+        _TYPED.add(id(fn))
+    return torch.empty(fn(B, T, H, D), dtype=torch.uint8, device=q.device)
 
 
 def span_tiles(kv_tile: int, S: int) -> int:
@@ -159,6 +182,20 @@ def _scale(dtype: torch.dtype, D: int) -> float:
     return ref.bf16_scale(D) if dtype == torch.bfloat16 else D ** -0.5
 
 
+def _check_launch(name: str, err: int) -> None:
+    """Raise for a launcher's nonzero return: -1 (the driver has no tensor
+    maps), -1000 - r (cuTensorMapEncodeTiled returned CUresult r), else a
+    CUDA error."""
+    if err == -1:
+        raise RuntimeError(f"{name}: the CUDA driver has no "
+                           f"cuTensorMapEncodeTiled")
+    if err <= -1000:
+        raise RuntimeError(f"{name}: cuTensorMapEncodeTiled failed with "
+                           f"CUresult {-1000 - err}")
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True, *, kv_tile: int,
                     with_lse: bool = False):
@@ -182,22 +219,15 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             None if lse is None else lse.data_ptr(), B, T, S, H, HK, D,
             int(causal), _scale(q.dtype, D), *span, stream)
-    if err == -1:
-        raise RuntimeError(f"{name}: the CUDA driver has no "
-                           f"cuTensorMapEncodeTiled")
-    if err <= -1000:
-        raise RuntimeError(f"{name}: cuTensorMapEncodeTiled failed with "
-                           f"CUresult {-1000 - err}")
-    if err != 0:
-        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
+    _check_launch(name, err)
     LAUNCHES[name] += 1
     return (out, lse) if with_lse else out
 
 
 def flash_attention_bwd(q, k, v, o, lse, dout, causal: bool = True):
-    """Launch the backward kernel: (dq, dk, dv) in q's dtype, shaped as
-    q, k, v, from the forward's inputs, output ``o``, row statistic
-    ``lse`` (B, H, T) f32 and the output's gradient ``dout``."""
+    """Launch q's dtype's backward kernel: (dq, dk, dv) in q's dtype,
+    shaped as q, k, v, from the forward's inputs, output ``o``, row
+    statistic ``lse`` (B, H, T) f32 and the output's gradient ``dout``."""
     B, T, S, H, HK, D = check_shapes(q, k, v)
     _check_cuda(q, (("q", q), ("k", k), ("v", v), ("o", o), ("lse", lse),
                     ("dout", dout)))
@@ -207,21 +237,23 @@ def flash_attention_bwd(q, k, v, o, lse, dout, causal: bool = True):
         if tuple(t.shape) != tuple(shape) or t.dtype != dtype:
             raise ValueError(f"{name} is {tuple(t.shape)} {t.dtype}, "
                              f"expected {tuple(shape)} {dtype}")
-    if B * H >= 2 ** 31 or max(-(-T // 64), -(-S // 64)) > _MAX_Q_TILES:
+    name = BWD_KERNELS[q.dtype]
+    # rows a block: 128 (bf16) or 64 (f32) queries or keys
+    rows = 128 if q.dtype == torch.bfloat16 else 64
+    if B * H >= 2 ** 31 or max(-(-T // rows), -(-S // rows)) > _MAX_Q_TILES:
         raise ValueError(f"B * H = {B * H}, T = {T} or S = {S} exceeds the "
                          f"grid's limits")
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
-    drow = torch.empty((B, H, T), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
+        scratch = _bwd_scratch(q, B, T, H, D)
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = _bwd_launcher()(
+        err = _bwd_launcher(q.dtype)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             lse.data_ptr(), dout.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-            dv.data_ptr(), drow.data_ptr(), B, T, S, H, HK, D, int(causal),
-            _scale(q.dtype, D), int(q.dtype == torch.bfloat16), stream)
-    if err != 0:
-        raise RuntimeError(f"{BWD_NAME} launch failed: CUDA error {err}")
-    LAUNCHES[BWD_NAME] += 1
+            dv.data_ptr(), scratch.data_ptr(), B, T, S, H, HK, D,
+            int(causal), _scale(q.dtype, D), stream)
+    _check_launch(name, err)
+    LAUNCHES[name] += 1
     return dq, dk, dv
 
 
@@ -240,9 +272,10 @@ def _on_cuda(t: torch.Tensor) -> bool:
 
 class FlashAttention(torch.autograd.Function):
     """Attention with its gradient: forward through q's dtype's kernel
-    (writing lse when a gradient is wanted), backward through
-    ``flash_attention_bwd``, on a CUDA tensor; the plain versions
-    (``ref``) on a CPU tensor.  Nothing falls back from one to the other.
+    (writing lse when a gradient is wanted), backward through q's dtype's
+    backward kernel (``flash_attention_bwd``), on a CUDA tensor; the plain
+    versions (``ref``) on a CPU tensor.  Nothing falls back from one to the
+    other.
     ``apply(q, k, v, causal, kv_tile)`` -> (B, T, H, D)."""
 
     @staticmethod

@@ -4,8 +4,9 @@ the CUDA kernels on the card) in f32 against the Pallas kernel in
 interpret mode and against ``mha_ref``, and in bf16 against the JAX
 model's attention (``repro.models.attention.flash_attention``) in bf16;
 ``decode_attention`` in its three mask modes; the dispatch by dtype; the
-shapes and masks the port refuses; and the error budget of the f32
-kernel's 3xTF32 design, by a CPU emulation of its arithmetic.  Inputs are made with numpy from
+shapes and masks the port refuses; and the error budgets of the f32
+kernel's 3xTF32 design and of the bf16 backward kernel's split dS, by CPU
+emulations of their arithmetic.  Inputs are made with numpy from
 a seed and handed to both."""
 import jax
 import jax.numpy as jnp
@@ -284,7 +285,8 @@ def test_kernel_wrapper_never_falls_back(dtype):
     q, k, v = (x.to(dtype) for x in _t(*_qkv(1, 4, 4, 2, 2, 16)))
     before = dict(fa.LAUNCHES)
     assert set(before) == {"flash_attention_sm90", "flash_attention_f32",
-                           "flash_attention_bwd"}
+                           "flash_attention_bwd", "flash_attention_bwd_sm90"}
+    assert fa.BWD_KERNELS[dtype] in before
     with pytest.raises(ValueError, match="CUDA"):
         fa.flash_attention(q, k, v, kv_tile=KV)
     lse = torch.zeros((1, 2, 4))
@@ -720,6 +722,131 @@ def test_bf16_gradient_error_at_most_twice_the_jax_models(B, T, H, HK, D,
         assert x.grad.dtype == torch.bfloat16
         port = _rel_l2(x.grad.float().numpy(), j32)
         assert port <= 2 * _rel_l2(jbf, j32), (port, _rel_l2(jbf, j32))
+
+
+# The bf16 backward kernel (csrc/flash_attention_bwd_sm90.cu) computes on
+# bf16 tensor cores with f32 sums: S, dP, P and dS in f32, dV from bf16(P),
+# dK and dQ from dS as a bf16 hi + lo pair (each half's product exact in
+# f32).  Its query tile in dK / dV (BQ) and its key tile in dQ (BK, by
+# head dim) set where the f32 sums round between tiles.
+BWD_BQ = 64
+BWD_BK = {16: 128, 32: 128, 64: 128, 128: 64}
+BWD_EMU_CASES = [(2, 64, 192, 4, 4, 16, False), (2, 300, 130, 8, 2, 64, True),
+                 (1, 130, 300, 4, 1, 32, True), (1, 256, 256, 4, 4, 64, True),
+                 (1, 256, 256, 8, 2, 128, True)]
+
+
+def _tile_mm(pairs, tile):
+    """sum over ``pairs`` of a @ b, contracting the last axis of a with the
+    first-but-one of b in tiles of ``tile``: each tile's products summed in
+    f64 and rounded once (the tensor core's sum inside a step is not
+    IEEE), the tiles added in f32 in order."""
+    acc = None
+    for t0 in range(0, pairs[0][0].shape[-1], tile):
+        part = sum(a[..., t0:t0 + tile].double()
+                   @ b[..., t0:t0 + tile, :].double() for a, b in pairs)
+        acc = part.float() if acc is None else acc + part.float()
+    return acc
+
+
+def _emulate_bf16_bwd(q, k, v, o, lse, do, causal, split=True):
+    """The bf16 backward kernel's arithmetic in plain PyTorch: (dq, dk, dv)
+    in bf16.  P = exp2(S log2(e) - f32(lse log2(e))) as the kernel forms
+    it; without ``split`` dS enters dK and dQ as one bf16 value."""
+    B, T, H, D = q.shape
+    S, HK = k.shape[1], k.shape[2]
+    g = H // HK
+    qs = ref.scale_q_bf16(q).float().permute(0, 2, 1, 3)
+    do32 = do.float().permute(0, 2, 1, 3)
+    kh = k.float().repeat_interleave(g, 2).permute(0, 2, 1, 3)
+    vh = v.float().repeat_interleave(g, 2).permute(0, 2, 1, 3)
+    drow = (do32.double() * o.double().permute(0, 2, 1, 3)).sum(
+        -1, keepdim=True).float()
+    s = (qs.double() @ kh.double().transpose(-1, -2)).float()
+    dp = (do32.double() @ vh.double().transpose(-1, -2)).float()
+    p = _exp_kernel(s, lse[..., None])
+    if causal:
+        p = torch.where(torch.arange(S)[None, :] <= torch.arange(T)[:, None],
+                        p, 0.0)
+    ds = p * (dp - drow)
+    hi = ds.to(torch.bfloat16).float()
+    lo = (ds - hi).to(torch.bfloat16).float() if split else 0 * hi
+    pt = p.to(torch.bfloat16).float().transpose(-1, -2)
+    dv = _tile_mm([(pt, do32)], BWD_BQ)
+    dk = _tile_mm([(hi.transpose(-1, -2), qs), (lo.transpose(-1, -2), qs)],
+                  BWD_BQ)
+    dq = _tile_mm([(hi, kh), (lo, kh)], BWD_BK[D]) * ref.bf16_scale(D)
+    dk, dv = (x.reshape(B, HK, g, S, D).sum(2) for x in (dk, dv))
+    return tuple(x.permute(0, 2, 1, 3).to(torch.bfloat16)
+                 for x in (dq, dk, dv))
+
+
+def _bf16_bwd_inputs(B, T, S, H, HK, D, causal):
+    """bf16 q, k, v, dO, the plain forward's output and lse at the
+    configs' kv_chunk, as the train path calls the kernels."""
+    q, k, v, do = (t.to(torch.bfloat16)
+                   for t in _t(*_grad_inputs(B, T, S, H, HK, D, seed=5)))
+    o, lse = ref.flash_attention_bf16_ref(q, k, v, causal, kv_tile=KV,
+                                          return_lse=True)
+    return q, k, v, o, lse, do
+
+
+def _bwd_bars(got, want, q, k, lse, do, causal):
+    """chip_smoke.py's bf16 backward bars: per output, the count over one
+    ulp + 2e-5 max|g| (dV also + 2^-9 max|dO| max_j sum_i P[i, j], for
+    the bf16 rounding of P) and the share within one ulp + 2e-5 max|g|."""
+    g = q.shape[2] // k.shape[2]
+    qs = ref.scale_q_bf16(q).float().permute(0, 2, 1, 3)
+    kh = k.float().repeat_interleave(g, 2).permute(0, 2, 1, 3)
+    p = torch.exp(qs @ kh.transpose(-1, -2) - lse[..., None])
+    if causal:
+        T, S = q.shape[1], k.shape[1]
+        p = torch.where(torch.arange(S)[None, :] <= torch.arange(T)[:, None],
+                        p, 0.0)
+    colsum = float(p.sum(2).max())
+    out = {}
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        diff = (a.float() - b.float()).abs()
+        gmax = float(b.float().abs().max())
+        ulp = _bf16_ulp(b)
+        slack = GRAD_REL * gmax
+        if name == "dv":
+            slack += BF16_P_BAR * float(do.float().abs().max()) * colsum
+        out[name] = (int((diff > ulp + slack).sum()),
+                     float((diff <= ulp + GRAD_REL * gmax).float().mean()))
+    return out
+
+
+@pytest.mark.parametrize("B,T,S,H,HK,D,causal", BWD_EMU_CASES)
+def test_bf16_backward_emulation_meets_the_bar(B, T, S, H, HK, D, causal):
+    """The bf16 backward kernel's arithmetic (dS as a bf16 hi + lo pair)
+    meets chip_smoke.py's bars against ``flash_attention_bwd_ref`` at D
+    16 / 32 / 64 / 128, GQA, ragged and non-causal: every output within
+    one ulp + 2e-5 max|g| (dV + the bf16-P slack), at least 99% within
+    one ulp + 2e-5 max|g| (measured 99.99-100%)."""
+    args = _bf16_bwd_inputs(B, T, S, H, HK, D, causal)
+    got = _emulate_bf16_bwd(*args, causal)
+    want = ref.flash_attention_bwd_ref(*args, causal)
+    q, k, _, _, lse, do = args
+    bars = _bwd_bars(got, want, q, k, lse, do, causal)
+    for name, (over, share) in bars.items():
+        assert over == 0, (name, bars)
+        assert share >= BF16_SHARE, (name, bars)
+
+
+@pytest.mark.parametrize("B,T,S,H,HK,D,causal", BWD_EMU_CASES)
+def test_one_bf16_ds_misses_the_bar(B, T, S, H, HK, D, causal):
+    """With dS rounded once to bf16 (FlashAttention-2's and -3's choice)
+    the same emulation misses both bars in dQ and dK (measured 87-96%
+    within one ulp + 2e-5 max|g|): the kernel needs the lo term."""
+    args = _bf16_bwd_inputs(B, T, S, H, HK, D, causal)
+    got = _emulate_bf16_bwd(*args, causal, split=False)
+    want = ref.flash_attention_bwd_ref(*args, causal)
+    q, k, _, _, lse, do = args
+    bars = _bwd_bars(got, want, q, k, lse, do, causal)
+    for name in ("dq", "dk"):
+        over, share = bars[name]
+        assert over > 0 and share < BF16_SHARE, (name, bars)
 
 
 @pytest.mark.parametrize("kv_tile,S,want", [(256, 300, 2), (128, 300, 1),
