@@ -22,8 +22,9 @@ The train path trains qwen1.5-0.5b at full width through
 remat, kv_chunk 1024, its attention forward, remat forward and backward
 through flash_attention_sm90 and flash_attention_bwd_sm90 (wgmma + TMA),
 the gradients compressed by the fused_agg kernels; in one process and
-across 2 client ranks on the card.  The f32 backward kernel
-(flash_attention_bwd, CUDA cores) runs in phases 2 and 4 only.
+across 2 client ranks on the card; and in f32 (the compute dtype the
+train launcher gives its smoke mode) through flash_attention_f32 and
+flash_attention_bwd_f32_sm90 (3xTF32 wgmma + TMA).
 Phases, each fatal on failure:
 
   1. build every CUDA source of the port with nvcc (sm_90a), one nvcc
@@ -43,7 +44,7 @@ Phases, each fatal on failure:
      the plain version at the same chunk, at the shapes with more than
      1024 keys: every output within one ulp + 2^-9 max|v|, at least 99%
      within one ulp + 2e-5; and the backward kernels (bf16:
-     flash_attention_bwd_sm90; f32: flash_attention_bwd) against
+     flash_attention_bwd_sm90; f32: flash_attention_bwd_f32_sm90) against
      ``ref.flash_attention_bwd_ref`` at the train shape (4, 2048, 16,
      64), (1, 8192, 16, 64), qwen3-32b's GQA heads, a ragged and a
      non-causal case (f32 within 2e-5 max|g|; bf16 every output within
@@ -65,16 +66,21 @@ Phases, each fatal on failure:
      from round 1 bitwise equal to the run without the break); the train
      path (3d: 3 steps of 8 x 2048 in 2 microbatches, AdamW,
      aggregate_gaussian fused b = 8 per-tensor; per step 2 x 48
-     flash_attention_sm90, 2 x 24 flash_attention_bwd_sm90, no
-     flash_attention_bwd, 14 fused_encode and 14 fused_decode launches,
+     flash_attention_sm90, 2 x 24 flash_attention_bwd_sm90, no f32
+     attention kernel, 14 fused_encode and 14 fused_decode launches,
      finite losses; a fourth step timed, then a fifth traced under
      ``torch.profiler`` (device ms by kernel, idle share); and on 1 x
      2048 the loss and every gradient leaf on the kernels against the plain
-     versions, both measured against the f32 model; 3e: 2 gloo ranks on
-     the card, each with the full model and its AdamW state, 2 steps of a
-     global batch 4 x 2048 with irwin_hall fused b = 8, params bitwise
-     equal across ranks after each step); and the
-     dither_pack entry point at full width; check the counts, the wire
+     versions, both measured against the f32 model; 3f: the same step in
+     f32, 2 steps of 4 x 2048 in 2 microbatches, per step 2 x 48
+     flash_attention_f32, 2 x 24 flash_attention_bwd_f32_sm90, no bf16
+     attention kernel, 14 + 14 fused, then a timed and a traced step, and
+     on 1 x 2048 the loss within 1e-6 relative and every gradient leaf
+     within 1e-4 max|g| of the same on the plain versions; 3e: 2 gloo
+     ranks on the card, each with the full model and its AdamW state, 2
+     steps of a global batch 4 x 2048 with irwin_hall fused b = 8, params
+     bitwise equal across ranks after each step); and the dither_pack
+     entry point at full width; check the counts, the wire
      width or Elias-gamma bits, and the error law (KS against
      N(0, sigma^2) on a 2^20-coordinate subsample; IH support and std;
      the dither error inside [-w/2, w/2]); then the serve path: 16
@@ -144,9 +150,10 @@ KERNELS = {  # name: (source, replaced TPU kernel)
                                  "none: the JAX package differentiates "
                                  "src/repro/models/attention.py:26 by "
                                  "autodiff"),
-    "flash_attention_bwd": ("flash_attention_bwd.cu",
-                            "none: the JAX package differentiates "
-                            "src/repro/models/attention.py:26 by autodiff"),
+    "flash_attention_bwd_f32_sm90": ("flash_attention_bwd_f32_sm90.cu",
+                                     "none: the JAX package differentiates "
+                                     "src/repro/models/attention.py:26 by "
+                                     "autodiff"),
 }
 # device-memory rate (bytes/s) and f32 rate outside the tensor cores
 # (flop/s) by card name, from NVIDIA's data sheets
@@ -645,9 +652,9 @@ def p_colsum_max(q, k, lse, causal) -> float:
 def compare_flash_bwd(device, gen) -> dict:
     """The backward kernels against ``ref.flash_attention_bwd_ref`` on
     the card at BWD_CASES, bf16 (flash_attention_bwd_sm90) and f32
-    (flash_attention_bwd), from the forward kernel's output and lse (held
-    against the plain version's at the same shapes by ``compare_flash``);
-    also run twice for determinism (bitwise equal)."""
+    (flash_attention_bwd_f32_sm90), from the forward kernel's output and
+    lse (held against the plain version's at the same shapes by
+    ``compare_flash``); also run twice for determinism (bitwise equal)."""
     import torch
 
     from repro_torch.kernels import flash_attention as fa
@@ -1284,9 +1291,13 @@ def _train_comp(mech: str, sigma: float):
 
 def train_launches_expected(cfg, microbatches: int) -> dict:
     """Launches of one compressed train step: per microbatch each layer's
-    forward, its remat forward and its backward through the bf16 flash
-    kernels (none of the f32 backward); then one fused encode and decode
-    per parameter leaf."""
+    forward, its remat forward and its backward through the flash kernels
+    of the compute dtype (bf16: flash_attention_sm90 and its backward; f32:
+    flash_attention_f32 and its backward), none of the other dtype's; then
+    one fused encode and decode per parameter leaf."""
+    import torch
+
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.models import nn, registry
 
     specs = []
@@ -1294,10 +1305,12 @@ def train_launches_expected(cfg, microbatches: int) -> dict:
                  registry.param_specs(cfg))
     leaves = len(specs)
     L = cfg.n_layers
-    return {"flash_attention_sm90": 2 * L * microbatches,
-            "flash_attention_bwd_sm90": L * microbatches,
-            "flash_attention_bwd": 0,
-            "fused_encode": leaves, "fused_decode": leaves}
+    dtype = getattr(torch, cfg.compute_dtype)
+    out = {name: 0 for name in fa.LAUNCHES}
+    out[fa.KERNELS[dtype][0]] = 2 * L * microbatches
+    out[fa.BWD_KERNELS[dtype]] = L * microbatches
+    out.update({"fused_encode": leaves, "fused_decode": leaves})
+    return out
 
 
 class plain_attention:
@@ -1401,6 +1414,12 @@ def check_train_gradient(cfg, params, device) -> dict:
 
 
 GEMM_TAGS = ("gemm", "nvjet", "xmma", "cutlass")  # cuBLAS kernel names
+# the device-side names of each compute dtype's attention kernels in a
+# profile: the backward's three launches (preprocess, dQ, dK / dV) and the
+# forward
+BWD_TAGS = {"bfloat16": "fa_bwd_sm90", "float32": "fa_bwd_f32"}
+FWD_TAGS = {"bfloat16": "flash_attention_sm90",
+            "float32": "flash_attention_f32"}
 
 
 def profile_train_step(cfg, step_fn, state, batch, seed: int) -> tuple:
@@ -1408,8 +1427,8 @@ def profile_train_step(cfg, step_fn, state, batch, seed: int) -> tuple:
     clock (ended by a synchronize), then one more under ``torch.profiler``
     (CPU + CUDA, shapes recorded).  Reports the device's busy ms (the sum
     of the device-side rows, each kernel once), its idle share against
-    the untraced step's wall, the ms of the bf16 backward kernels
-    (fa_bwd_sm90_*: the preprocess, dQ and dK / dV), of the flash
+    the untraced step's wall, the ms of the compute dtype's backward
+    kernels (``BWD_TAGS``: the preprocess, dQ and dK / dV), of its flash
     forward, of every cuBLAS GEMM and of the logits' GEMMs (``aten::mm`` or
     ``bmm`` with an operand as wide as the vocabulary: the output
     projection and its two gradients), the ten largest device rows, and
@@ -1433,6 +1452,8 @@ def profile_train_step(cfg, step_fn, state, batch, seed: int) -> tuple:
     dev = _kernel_ms(prof.key_averages(), 1)
     check(bool(dev), "train profile: the trace holds no device time")
     busy = sum(ms for _, ms in dev)
+    bwd_tag = BWD_TAGS[cfg.compute_dtype]
+    fwd_tag = FWD_TAGS[cfg.compute_dtype]
 
     def total(pred) -> float:
         return sum(ms for k, ms in dev if pred(k))
@@ -1449,40 +1470,40 @@ def profile_train_step(cfg, step_fn, state, batch, seed: int) -> tuple:
                   and e.self_device_time_total > 0), key=lambda kv: -kv[1])
     out = {"wall_ms": wall, "wall_profiled_ms": wall_prof,
            "device_ms": busy, "idle_share": 1.0 - busy / wall,
-           "bwd_sm90_ms": total(lambda k: "fa_bwd_sm90" in k),
-           "bwd_sm90_by_kernel": {k: ms for k, ms in dev
-                                  if "fa_bwd_sm90" in k},
-           "flash_fwd_ms": total(lambda k: "flash_attention_sm90" in k),
+           "bwd_ms": total(lambda k: bwd_tag in k),
+           "bwd_by_kernel": {k: ms for k, ms in dev if bwd_tag in k},
+           "flash_fwd_ms": total(lambda k: fwd_tag in k),
            "gemm_ms": total(lambda k: any(t in k.lower()
                                           for t in GEMM_TAGS)),
            "logits_gemm_ms": logits, "top": dev[:10], "top_ops": ops[:10]}
-    log(f"train profile (one steady step): wall {wall:.3f} ms (profiled "
-        f"{wall_prof:.3f} ms), device busy {busy:.3f} ms (idle share "
-        f"{out['idle_share']:.3f}); the bf16 backward kernels "
-        f"{out['bwd_sm90_ms']:.3f} ms ({100 * out['bwd_sm90_ms'] / busy:.1f}"
-        f"% of busy), flash forward {out['flash_fwd_ms']:.3f} ms, GEMMs "
+    log(f"train profile ({cfg.compute_dtype}, one steady step): wall "
+        f"{wall:.3f} ms (profiled {wall_prof:.3f} ms), device busy "
+        f"{busy:.3f} ms (idle share {out['idle_share']:.3f}); the backward "
+        f"kernels {out['bwd_ms']:.3f} ms ({100 * out['bwd_ms'] / busy:.1f}"
+        f"% of busy: "
+        + "; ".join(f"{k[:60]} {ms:.3f}"
+                    for k, ms in out["bwd_by_kernel"].items())
+        + f"), flash forward {out['flash_fwd_ms']:.3f} ms, GEMMs "
         f"{out['gemm_ms']:.3f} ms, of them the logits' "
         f"{logits:.3f} ms; the ops that launch most device time: "
         + "; ".join(f"{k} {ms:.3f}" for k, ms in ops[:10]))
     return state, out
 
 
-def run_train_phase(device) -> dict:
-    """The train path at full width: TRAIN_STEPS steps of
-    ``train.steps.build_train_step`` (the launcher's step), each timed on
-    the host clock after a synchronize, with the launch counts set to 0
-    just before the steps and read just after; then two more steps, the
-    second traced (``profile_train_step``), and the gradient check on one
-    microbatch."""
+def drive_train(cfg, global_batch: int, n_steps: int, device) -> tuple:
+    """``n_steps`` steps of ``train.steps.build_train_step`` (the
+    launcher's step) at full width, AdamW lr 3e-4, lm data, TRAIN_ACCUM
+    microbatches, compressed at n = 1 by aggregate_gaussian fused b = 8
+    per-tensor; each step timed on the host clock after a synchronize,
+    with the launch counts set to 0 just before the steps and read just
+    after, and checked against ``train_launches_expected``; then two more
+    steps, the second traced (``profile_train_step``).  Returns (params,
+    report)."""
     import torch
 
-    from repro_torch import configs
     from repro_torch.data import synthetic
     from repro_torch.train import steps
 
-    cfg = configs.get_config(TRAIN_ARCH)
-    check(cfg.remat == "full" and cfg.kv_chunk == CONFIG_KV_CHUNK
-          and cfg.compute_dtype == "bfloat16", f"train config {cfg}")
     tc = steps.TrainConfig(optimizer="adamw", lr=3e-4,
                            grad_accum=TRAIN_ACCUM,
                            compression=_train_comp("aggregate_gaussian",
@@ -1491,15 +1512,15 @@ def run_train_phase(device) -> dict:
     n = sum(p.numel() for p in _leaves(state["params"]))
     check(n == D_FULL, f"train state holds {n} parameters")
     dc = synthetic.DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
-                              global_batch=TRAIN_BATCH, kind="lm")
+                              global_batch=global_batch, kind="lm")
     step_fn = steps.build_train_step(cfg, tc)
     batches = [synthetic.lm_batch(dc, i, device=device)
-               for i in range(TRAIN_STEPS)]
+               for i in range(n_steps)]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
     walls, losses = [], []
-    for i in range(TRAIN_STEPS):
+    for i in range(n_steps):
         t0 = time.perf_counter()
         state, m = step_fn(state, batches[i], TRAIN_SEED)
         torch.cuda.synchronize()
@@ -1509,32 +1530,116 @@ def run_train_phase(device) -> dict:
     peak = torch.cuda.max_memory_allocated()
     per_step = train_launches_expected(cfg, TRAIN_ACCUM)
     for k, v in launches.items():
-        want = TRAIN_STEPS * per_step.get(k, 0)
-        check(v == want, f"train: {v} {k} launches, expected {want}")
+        want = n_steps * per_step.get(k, 0)
+        check(v == want, f"train {cfg.compute_dtype}: {v} {k} launches, "
+                         f"expected {want}")
     check(all(math.isfinite(x) for x in losses), f"train losses {losses}")
-    check(int(state["step"]) == TRAIN_STEPS, f"step {state['step']}")
+    check(int(state["step"]) == n_steps, f"step {state['step']}")
     check(all(bool(torch.isfinite(p).all())
               for p in _leaves(state["params"])), "non-finite params")
     # after the counted run: these launches are not the path's
     state, prof = profile_train_step(cfg, step_fn, state, batches[-1],
                                      TRAIN_SEED)
-    tokens = TRAIN_BATCH * TRAIN_SEQ
-    log(f"train {TRAIN_ARCH} (bf16, remat full, kv_chunk {cfg.kv_chunk}), "
-        f"batch {TRAIN_BATCH} x {TRAIN_SEQ} in {TRAIN_ACCUM} microbatches, "
-        f"aggregate_gaussian fused b = {BITS} per-tensor: step walls "
-        f"{[round(w, 3) for w in walls]} s, tokens/s "
+    tokens = global_batch * TRAIN_SEQ
+    log(f"train {TRAIN_ARCH} ({cfg.compute_dtype}, remat {cfg.remat}, "
+        f"kv_chunk {cfg.kv_chunk}), batch {global_batch} x {TRAIN_SEQ} in "
+        f"{TRAIN_ACCUM} microbatches, aggregate_gaussian fused b = {BITS} "
+        f"per-tensor: step walls {[round(w, 3) for w in walls]} s, tokens/s "
         f"{[round(tokens / w, 1) for w in walls]}, losses {losses}, peak "
         f"{peak / 2**30:.2f} GiB, launches {launches}")
     params = state["params"]
     del state, batches, m
     torch.cuda.empty_cache()
-    grad_check = check_train_gradient(cfg, params, device)
+    return params, {"walls_s": walls,
+                    "tokens_per_s": [tokens / w for w in walls],
+                    "losses": losses, "peak_bytes": peak,
+                    "launches": launches, "launches_per_step": per_step,
+                    "profile": prof}
+
+
+def run_train_phase(device) -> dict:
+    """The bf16 train path at full width: TRAIN_STEPS steps of global batch
+    TRAIN_BATCH (``drive_train``), then the gradient check on one
+    microbatch."""
+    import torch
+
+    from repro_torch import configs
+
+    cfg = configs.get_config(TRAIN_ARCH)
+    check(cfg.remat == "full" and cfg.kv_chunk == CONFIG_KV_CHUNK
+          and cfg.compute_dtype == "bfloat16", f"train config {cfg}")
+    params, out = drive_train(cfg, TRAIN_BATCH, TRAIN_STEPS, device)
+    out["gradient_check"] = check_train_gradient(cfg, params, device)
     del params
     torch.cuda.empty_cache()
-    return {"walls_s": walls, "tokens_per_s": [tokens / w for w in walls],
-            "losses": losses, "peak_bytes": peak, "launches": launches,
-            "launches_per_step": per_step, "profile": prof,
-            "gradient_check": grad_check}
+    return out
+
+
+# ------------------------------------------------------------ phase 3f
+# the train step in f32 at full width: qwen1.5-0.5b scaled to compute
+# dtype f32 (the dtype the train launcher gives its smoke mode; remat
+# full, kv_chunk 1024 as configured), global batch 4 x 2048 in 2
+# microbatches of 2 x 2048, 2 steps, compressed as phase 3d; its attention
+# runs through flash_attention_f32 and the f32 backward kernel
+TRAIN_F32_BATCH = 4
+TRAIN_F32_STEPS = 2
+# the port's f32 gradient bar: each leaf within 1e-4 max|g| of that leaf
+# of the plain path's gradient; the loss within 1e-6 relative
+TRAIN_F32_GRAD_REL = 1e-4
+TRAIN_F32_LOSS_REL = 1e-6
+
+
+def check_train_gradient_f32(cfg, params, device) -> dict:
+    """One microbatch of 1 x TRAIN_CHECK_SEQ at full width in f32: the
+    loss and every leaf's gradient on the kernels (flash_attention_f32 and
+    the f32 backward) against the same on the plain versions
+    (``plain_attention``): the loss within TRAIN_F32_LOSS_REL relative,
+    each leaf within TRAIN_F32_GRAD_REL max|g| of that leaf."""
+    from repro_torch.data import synthetic
+    from repro_torch.train import steps
+
+    dc = synthetic.DataConfig(vocab=cfg.vocab, seq_len=TRAIN_CHECK_SEQ,
+                              global_batch=1, kind="lm")
+    batch = synthetic.lm_batch(dc, 99, device=device)
+    lk, gk = steps.value_and_grad(cfg, params, batch)
+    with plain_attention():
+        lp, gp = steps.value_and_grad(cfg, params, batch)
+    lk, lp = float(lk), float(lp)
+    loss_rel = abs(lk - lp) / abs(lp)
+    check(math.isfinite(lk) and loss_rel <= TRAIN_F32_LOSS_REL,
+          f"train f32 gradient check: loss {lk} on the kernels, {lp} plain "
+          f"({loss_rel:.3e} relative)")
+    rels = []
+    for i, (a, b) in enumerate(zip(_leaves(gk), _leaves(gp))):
+        gmax = float(b.abs().max())
+        rel = float((a - b).abs().max()) / max(gmax, 1e-30)
+        check(rel <= TRAIN_F32_GRAD_REL, f"train f32 gradient check leaf "
+                                         f"{i}: {rel:.3e} max|g|")
+        rels.append(rel)
+    log(f"train gradient check (1 x {TRAIN_CHECK_SEQ}, f32, kernels against "
+        f"plain attention): loss {lk} / {lp} ({loss_rel:.3e} relative, bar "
+        f"{TRAIN_F32_LOSS_REL:g}); leaf max |diff| {min(rels):.3e}-"
+        f"{max(rels):.3e} max|g| (bar {TRAIN_F32_GRAD_REL:g})")
+    return {"loss_kernels": lk, "loss_plain": lp, "loss_rel": loss_rel,
+            "leaf_rel": rels}
+
+
+def run_train_f32_phase(device) -> dict:
+    """The f32 train path at full width: TRAIN_F32_STEPS steps of global
+    batch TRAIN_F32_BATCH (``drive_train``), then the f32 gradient check on
+    one microbatch."""
+    import torch
+
+    from repro_torch import configs
+
+    cfg = configs.get_config(TRAIN_ARCH).scaled(compute_dtype="float32")
+    check(cfg.remat == "full" and cfg.kv_chunk == CONFIG_KV_CHUNK,
+          f"train config {cfg}")
+    params, out = drive_train(cfg, TRAIN_F32_BATCH, TRAIN_F32_STEPS, device)
+    out["gradient_check"] = check_train_gradient_f32(cfg, params, device)
+    del params
+    torch.cuda.empty_cache()
+    return out
 
 
 # ------------------------------------------------------------ phase 3e
@@ -2190,23 +2295,25 @@ def time_flash(device, gen, mem_rate: float, f32_rate: float,
     return rows
 
 
-# timed backward shapes, causal: (B, T, S, H, HK, D, dtype): the train
-# path's microbatch first (the bf16 kernel's row in the kernels line),
-# then the longest serve prompt's shape and qwen3-32b's GQA heads in bf16,
-# and the train shape in f32 (the f32 kernel's row)
+# timed backward shapes, causal: (B, T, S, H, HK, D, dtype): the bf16
+# train path's microbatch first (the bf16 kernel's row in the kernels
+# line), then the longest serve prompt's shape and qwen3-32b's GQA heads,
+# in bf16 and then in f32 (the first f32 row the f32 kernel's)
 BWD_TIMED = (
     (4, 2048, 2048, 16, 16, 64, "bfloat16"),
     (1, 8192, 8192, 16, 16, 64, "bfloat16"),
     (1, 4096, 4096, 64, 8, 128, "bfloat16"),
     (4, 2048, 2048, 16, 16, 64, "float32"),
+    (1, 8192, 8192, 16, 16, 64, "float32"),
+    (1, 4096, 4096, 64, 8, 128, "float32"),
 )
 
 
 def time_flash_bwd(device, gen, mem_rate: float, bf16_tc: float,
                    tf32_tc: float) -> list:
     """The backward kernels at BWD_TIMED (bf16: flash_attention_bwd_sm90,
-    f32: flash_attention_bwd; ``batched_ms``, 5 calls a mean) beside the
-    bound — the larger of the bytes (q, k, v, o, dO and lse
+    f32: flash_attention_bwd_f32_sm90; ``batched_ms``, 5 calls a mean)
+    beside the bound — the larger of the bytes (q, k, v, o, dO and lse
     read once, dq, dk, dv written once) over the memory rate and the
     gradient's products, 2.5 times the forward's causal FLOPs (4 B H T S D
     / 2), at the bf16 tensor-core rate for bf16 and three times at the
@@ -2360,10 +2467,18 @@ def main() -> int:
                     or "Performance Loss" in line):
                 log(f"  ptxas {lib}: {line.strip()}")
     f32_lib = build.load("flash_attention_f32_sm90")
-    smem = {d: f32_lib.flash_attention_f32_smem_bytes(d)
-            for d in (16, 32, 64, 128)}
-    log(f"  flash_attention_f32_sm90 dynamic shared memory by head dim "
-        f"(bytes; ptxas does not report it): {json.dumps(smem)}")
+    bwd_lib = build.load("flash_attention_bwd_f32_sm90")
+    heads = (16, 32, 64, 128)
+    smem = {"flash_attention_f32_sm90": {
+        d: f32_lib.flash_attention_f32_smem_bytes(d) for d in heads},
+        "flash_attention_bwd_f32_sm90 dq": {
+        d: bwd_lib.flash_attention_bwd_f32_sm90_smem_bytes(d, 0)
+        for d in heads},
+        "flash_attention_bwd_f32_sm90 dkv": {
+        d: bwd_lib.flash_attention_bwd_f32_sm90_smem_bytes(d, 1)
+        for d in heads}}
+    log(f"  dynamic shared memory by head dim (bytes; ptxas does not "
+        f"report it): {json.dumps(smem)}")
 
     # 2. kernels against their plain versions
     gen = torch.Generator(device=device)
@@ -2376,7 +2491,7 @@ def main() -> int:
                                         "flash_attention_f32")})
     bwd = compare_flash_bwd(device, gen)
     worst.update({k: bwd[k] for k in ("flash_attention_bwd_sm90",
-                                      "flash_attention_bwd")})
+                                      "flash_attention_bwd_f32_sm90")})
     log(f"phase 2 done at {time.perf_counter() - t_start:.1f} s")
 
     # 3. the main path: each path with its launch counts
@@ -2430,6 +2545,10 @@ def main() -> int:
     train = run_train_phase(device)
     log(f"phase 3d (train) done at {time.perf_counter() - t_start:.1f} s")
     held("after the train phase")
+    train_f32 = run_train_f32_phase(device)
+    log(f"phase 3f (train in f32) done at "
+        f"{time.perf_counter() - t_start:.1f} s")
+    held("after the f32 train phase")
     train_ranks = run_train_ranks_phase(device)
     log(f"phase 3e (train across ranks) done at "
         f"{time.perf_counter() - t_start:.1f} s")
@@ -2462,6 +2581,7 @@ def main() -> int:
                 + async_res["launches"][k]
                 + dpath["launches"][k] + serve["launches"][k]
                 + serve_f32["launches"][k] + train["launches"][k]
+                + train_f32["launches"][k]
                 + TRAIN_RANKS * train_ranks["launches_per_rank"][k]
                 for k in KERNELS}
     kernels = []
@@ -2484,7 +2604,8 @@ def main() -> int:
                          for m, r in res.items()},
               "laws": laws, "flash_cases": flash["flash_cases"],
               "bwd_cases": bwd["bwd_cases"], "flash_span": span_rows,
-              "train": train, "train_ranks": train_ranks,
+              "train": train, "train_f32": train_f32,
+              "train_ranks": train_ranks,
               "client_ranks": ranks, "async": async_res,
               "serve": serve, "serve_f32": serve_f32,
               "serve_profile": serve_profile,

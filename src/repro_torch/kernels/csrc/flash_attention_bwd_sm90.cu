@@ -22,7 +22,8 @@
 // q, o, dO, dq (B, T, H, D); k, v, dk, dv (B, S, HK, D); all bf16; lse
 // (B, H, T) f32; D in {16, 32, 64, 128}, H % HK == 0, ragged T and S.
 // Every sum runs in f32 (wgmma's f32 accumulators) and each output is
-// rounded to bf16 once.  The f32 gradient is flash_attention_bwd.cu.
+// rounded to bf16 once.  The f32 gradient is
+// flash_attention_bwd_f32_sm90.cu.
 //
 // dS in f32 on bf16 tensor cores.  The products dS^T qs and dS k take
 // bf16 operands, and one bf16 dS (FlashAttention-2's and -3's choice)
@@ -711,8 +712,10 @@ extern "C" {
 // Bytes of the scratch ``work`` that flash_attention_bwd_sm90_launch takes
 // for these sizes: lse log2(e) and Drow, (batch, heads, T_pad) f32 each
 // (T_pad = t_len rounded up to 128), then qs, (batch, t_len, heads,
-// head_dim) bf16.
-size_t flash_attention_bwd_sm90_work_bytes(int batch, int t_len, int heads,
+// head_dim) bf16.  s_len and kv_heads are not needed (the f32 backward's
+// function takes the same arguments).
+size_t flash_attention_bwd_sm90_work_bytes(int batch, int t_len, int s_len,
+                                           int heads, int kv_heads,
                                            int head_dim) {
   const size_t rows = (size_t)batch * heads * t_pad_of(t_len);
   return 2 * rows * sizeof(float) +
@@ -722,10 +725,11 @@ size_t flash_attention_bwd_sm90_work_bytes(int batch, int t_len, int heads,
 // q, o, dout, dq: (batch, t_len, heads, head_dim); k, v, dk, dv: (batch,
 // s_len, kv_heads, head_dim); all contiguous bf16, 16-byte aligned.  lse
 // (the forward's m + log(l)) is (batch, heads, t_len) f32; ``work`` is
-// scratch of flash_attention_bwd_sm90_work_bytes(batch, t_len, heads,
-// head_dim) bytes, 16-byte aligned, written here.  head_dim in {16, 32,
-// 64, 128}; heads % kv_heads == 0; t_len, s_len >= 1; batch * heads <
-// 2^31 and ceil(t_len / 128), ceil(s_len / 128) <= 65535.  ``scale`` is
+// scratch of flash_attention_bwd_sm90_work_bytes(batch, t_len, s_len,
+// heads, kv_heads, head_dim) bytes, 16-byte aligned, written here.
+// head_dim in {16, 32, 64, 128}; heads % kv_heads == 0; t_len, s_len >=
+// 1; batch * heads < 2^31 and ceil(t_len / 128), ceil(s_len / 128) <=
+// 65535.  ``scale`` is
 // the forward's f32(bf16(head_dim^-1/2)).  Launches the three kernels on
 // ``stream`` and returns the first nonzero cudaGetLastError(),
 // cudaErrorInvalidValue for an unsupported head_dim, -1 if libcuda has no

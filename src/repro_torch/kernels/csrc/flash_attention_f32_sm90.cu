@@ -99,6 +99,7 @@
 // inside a consumer, and the two consumers are not ping-ponged.  The
 // build passes --fmad=false, so multiply-adds are written as fmaf.
 #include "sm90_common.cuh"
+#include "sm90_tf32.cuh"
 
 namespace {
 
@@ -136,28 +137,6 @@ struct Tile {
   static_assert(kSmem <= 232448, "over the block's shared memory");
 };
 
-// ------------------------------------------------------------- TF32
-__device__ __forceinline__ uint32_t to_tf32(float x) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
-  return r;
-}
-
-// x = hi + lo (within 2^-22 relative), both TF32; x - hi is exact
-__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
-                                           uint32_t& lo) {
-  hi = to_tf32(x);
-  lo = to_tf32(__fsub_rn(x, __uint_as_float(hi)));
-}
-
-__device__ __forceinline__ void split_tf32(const float4& x, uint4& hi,
-                                           uint4& lo) {
-  split_tf32(x.x, hi.x, lo.x);
-  split_tf32(x.y, hi.y, lo.y);
-  split_tf32(x.z, hi.z, lo.z);
-  split_tf32(x.w, hi.w, lo.w);
-}
-
 // ------------------------------------------------------------- wgmma
 // K (BN keys x D, K-major): swizzled rows of kRowBytes, 8-row groups
 // 8 * kRowBytes apart; the leading offset is unused.
@@ -171,138 +150,6 @@ __device__ __forceinline__ uint64_t desc_k(uint32_t addr) {
 // 1024 bytes apart.
 __device__ __forceinline__ uint64_t desc_vt(uint32_t addr) {
   return make_desc(addr, 16, 1024, 1);
-}
-
-// D (64 x N, f32) += A (64 x 8, TF32 fragments in registers) B (8 x N,
-// TF32 from shared memory, K-major); scale_d == 0 ignores D's old value.
-__device__ __forceinline__ void wgmma_tf32_n16(float (&d)[8],
-                                               const uint32_t (&a)[4],
-                                               uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7"
-      "}, {%8, %9, %10, %11}, %12, p, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
-}
-
-__device__ __forceinline__ void wgmma_tf32_n32(float (&d)[16],
-                                               const uint32_t (&a)[4],
-                                               uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15"
-      "}, {%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
-}
-
-__device__ __forceinline__ void wgmma_tf32_n64(float (&d)[32],
-                                               const uint32_t (&a)[4],
-                                               uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
-}
-
-__device__ __forceinline__ void wgmma_tf32_n128(float (&d)[64],
-                                                const uint32_t (&a)[4],
-                                                uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, "
-      "%56, %57, %58, %59, %60, %61, %62, %63"
-      "}, {%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
-}
-
-template <int N>
-__device__ __forceinline__ void wgmma_tf32(float (&d)[N / 2],
-                                           const uint32_t (&a)[4],
-                                           uint64_t db, int scale_d) {
-  if constexpr (N == 16) wgmma_tf32_n16(d, a, db, scale_d);
-  if constexpr (N == 32) wgmma_tf32_n32(d, a, db, scale_d);
-  if constexpr (N == 64) wgmma_tf32_n64(d, a, db, scale_d);
-  if constexpr (N == 128) wgmma_tf32_n128(d, a, db, scale_d);
-}
-
-// S (64 x 64, f32) += A (64 x 8) B (8 x 64), both TF32 from shared memory,
-// K-major.
-__device__ __forceinline__ void wgmma_tf32_ss_n64(float (&d)[32], uint64_t da,
-                                                  uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, %32, %33, p, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(scale_d));
-}
-
-// The three products of one k-step, small terms first.
-template <int N>
-__device__ __forceinline__ void wgmma_3xtf32(float (&d)[N / 2],
-                                             const uint32_t (&a_hi)[4],
-                                             const uint32_t (&a_lo)[4],
-                                             uint64_t b_hi, uint64_t b_lo,
-                                             int scale_d) {
-  wgmma_tf32<N>(d, a_lo, b_hi, scale_d);
-  wgmma_tf32<N>(d, a_hi, b_lo, 1);
-  wgmma_tf32<N>(d, a_hi, b_hi, 1);
 }
 
 // ------------------------------------------------------------ kernel
@@ -530,9 +377,9 @@ __global__ void __launch_bounds__(kThreads, 1)
       const uint64_t b_lo = desc_k<D>(k_lo + off);
       if constexpr (G::kQSmem) {
         const uint64_t a_hi = desc_k<D>(q_hi_at(cw) + off);
-        wgmma_tf32_ss_n64(s, desc_k<D>(q_lo_at(cw) + off), b_hi, kk > 0);
-        wgmma_tf32_ss_n64(s, a_hi, b_lo, 1);
-        wgmma_tf32_ss_n64(s, a_hi, b_hi, 1);
+        wgmma_tf32_ss<64>(s, desc_k<D>(q_lo_at(cw) + off), b_hi, kk > 0);
+        wgmma_tf32_ss<64>(s, a_hi, b_lo, 1);
+        wgmma_tf32_ss<64>(s, a_hi, b_hi, 1);
       } else {
         wgmma_3xtf32<kBN>(s, q_hi[kk], q_lo[kk], b_hi, b_lo, kk > 0);
       }

@@ -1,9 +1,10 @@
 // Helpers shared by the Hopper flash-attention kernels
 // (flash_attention_sm90.cu, bf16; flash_attention_f32_sm90.cu, f32;
-// flash_attention_bwd_sm90.cu, the bf16 backward): mbarrier waits that
-// trap instead of hanging, the 4-D TMA load and the bulk copy, the wgmma
-// shared-memory descriptor and fences, quad reductions, and the driver's
-// cuTensorMapEncodeTiled found through the runtime.  kernels/build.py
+// flash_attention_bwd_sm90.cu and flash_attention_bwd_f32_sm90.cu, the
+// backwards): mbarrier waits that trap instead of hanging, the 4-D TMA load
+// and the bulk copy, the wgmma shared-memory descriptor and fences, quad
+// reductions, and the driver's cuTensorMapEncodeTiled found through the
+// runtime.  kernels/build.py
 // hashes every header into every library's name, so an edit rebuilds
 // them all.
 #pragma once

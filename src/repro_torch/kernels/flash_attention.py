@@ -21,19 +21,21 @@ lse = m + log(l), (B, H, T) f32, which the backward takes.
 
 * the gradient, dq, dk, dv from q, k, v, o, lse and dO with
   FlashAttention-2's formula, deterministic (no atomics); plain version:
-  ``ref.flash_attention_bwd_ref``.  bf16 -> ``csrc/
-  flash_attention_bwd_sm90.cu`` (``flash_attention_bwd_sm90``): a
-  preprocess pass (Drow, the scaled q), then dQ and dK / dV kernels on
-  wgmma and TMA, dS kept in f32 as a bf16 hi + lo pair on the tensor
-  cores.  f32 -> ``csrc/flash_attention_bwd.cu`` (``flash_attention_bwd``):
-  f32 FMAs on the CUDA cores.  The JAX package has no Pallas counterpart:
-  it differentiates its pure-JAX attention by autodiff.
+  ``ref.flash_attention_bwd_ref``.  Each dtype's kernel is a preprocess
+  pass and dQ and dK / dV kernels on wgmma and TMA.  bf16 -> ``csrc/
+  flash_attention_bwd_sm90.cu`` (``flash_attention_bwd_sm90``): dS kept
+  in f32 as a bf16 hi + lo pair on the tensor cores.  f32 -> ``csrc/
+  flash_attention_bwd_f32_sm90.cu`` (``flash_attention_bwd_f32_sm90``):
+  3xTF32 as the f32 forward, its preprocess writing the operands split
+  and the transposed ones (qs^T, dO^T, k^T) in ``TF32_KEY_ORDER``.  The
+  JAX package has no Pallas counterpart: it differentiates its pure-JAX
+  attention by autodiff.
 
 q (B, T, H, D), k / v (B, S, HK, D), all contiguous on one CUDA device,
 one dtype, D in {16, 32, 64, 128}, H % HK == 0.  The kernels mask the
 ragged edges of T and S and index the KV head of each query head (GQA)
-themselves, so nothing is padded or repeated (the bf16 backward writes
-the scaled q once, into its scratch).  Each wrapper
+themselves, so nothing is padded or repeated (the backward kernels write
+the scaled q once, into their scratch).  Each wrapper
 checks its inputs, allocates the outputs, launches on the current
 stream, raises if the launch failed, and adds one to its kernel's
 ``LAUNCHES`` entry.  ``FlashAttention`` is the autograd function over
@@ -67,9 +69,13 @@ _TILE = 128
 TF32_KEY_ORDER = (0, 2, 4, 6, 1, 3, 5, 7)
 
 # dtype -> the backward kernel's name, which is its C library's (csrc/
-# <name>.cu, launch function ``<name>_launch``, one signature for both)
+# <name>.cu, launch function ``<name>_launch`` and scratch size
+# ``<name>_work_bytes``, one signature each for both)
 BWD_KERNELS = {torch.bfloat16: "flash_attention_bwd_sm90",
-               torch.float32: "flash_attention_bwd"}
+               torch.float32: "flash_attention_bwd_f32_sm90"}
+# rows of the backward's smallest grid tile (the bf16 kernels' 128; the f32
+# preprocess's 32), which bound T and S by the grid's 65535 tiles
+_BWD_ROWS = {torch.bfloat16: 128, torch.float32: 32}
 
 # launches since the last reset (a plain dict of ints)
 LAUNCHES = {name: 0 for name, _, _ in KERNELS.values()}
@@ -105,19 +111,19 @@ def _bwd_launcher(dtype: torch.dtype):
     return fn
 
 
-def _bwd_scratch(q: torch.Tensor, B: int, T: int, H: int,
+def _bwd_scratch(q: torch.Tensor, B: int, T: int, S: int, H: int, HK: int,
                  D: int) -> torch.Tensor:
-    """The backward kernel's scratch: Drow, (B, H, T) f32, for f32; for
-    bf16 the bytes ``flash_attention_bwd_sm90_work_bytes`` asks for (Drow
-    and lse, padded, and the scaled q)."""
-    if q.dtype == torch.float32:
-        return torch.empty((B, H, T), dtype=torch.float32, device=q.device)
-    fn = build.load(BWD_KERNELS[q.dtype]).flash_attention_bwd_sm90_work_bytes
+    """The backward kernel's scratch: the bytes its library's
+    ``<name>_work_bytes`` asks for (Drow and lse, padded, and the scaled q;
+    for f32 also the split and transposed operands)."""
+    name = BWD_KERNELS[q.dtype]
+    fn = getattr(build.load(name), name + "_work_bytes")
     if id(fn) not in _TYPED:
-        fn.argtypes = [_I] * 4
+        fn.argtypes = [_I] * 6
         fn.restype = ctypes.c_size_t
         _TYPED.add(id(fn))
-    return torch.empty(fn(B, T, H, D), dtype=torch.uint8, device=q.device)
+    return torch.empty(fn(B, T, S, H, HK, D), dtype=torch.uint8,
+                       device=q.device)
 
 
 def span_tiles(kv_tile: int, S: int) -> int:
@@ -238,14 +244,14 @@ def flash_attention_bwd(q, k, v, o, lse, dout, causal: bool = True):
             raise ValueError(f"{name} is {tuple(t.shape)} {t.dtype}, "
                              f"expected {tuple(shape)} {dtype}")
     name = BWD_KERNELS[q.dtype]
-    # rows a block: 128 (bf16) or 64 (f32) queries or keys
-    rows = 128 if q.dtype == torch.bfloat16 else 64
-    if B * H >= 2 ** 31 or max(-(-T // rows), -(-S // rows)) > _MAX_Q_TILES:
-        raise ValueError(f"B * H = {B * H}, T = {T} or S = {S} exceeds the "
-                         f"grid's limits")
+    rows = _BWD_ROWS[q.dtype]
+    if (B * (H + HK) >= 2 ** 31
+            or max(-(-T // rows), -(-S // rows)) > _MAX_Q_TILES):
+        raise ValueError(f"B * (H + HK) = {B * (H + HK)}, T = {T} or S = "
+                         f"{S} exceeds the grid's limits")
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     with torch.cuda.device(q.device):
-        scratch = _bwd_scratch(q, B, T, H, D)
+        scratch = _bwd_scratch(q, B, T, S, H, HK, D)
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = _bwd_launcher(q.dtype)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
@@ -273,9 +279,9 @@ def _on_cuda(t: torch.Tensor) -> bool:
 class FlashAttention(torch.autograd.Function):
     """Attention with its gradient: forward through q's dtype's kernel
     (writing lse when a gradient is wanted), backward through q's dtype's
-    backward kernel (``flash_attention_bwd``), on a CUDA tensor; the plain
-    versions (``ref``) on a CPU tensor.  Nothing falls back from one to the
-    other.
+    backward kernel (through ``flash_attention_bwd``), on a CUDA tensor;
+    the plain versions (``ref``) on a CPU tensor.  Nothing falls back from
+    one to the other.
     ``apply(q, k, v, causal, kv_tile)`` -> (B, T, H, D)."""
 
     @staticmethod

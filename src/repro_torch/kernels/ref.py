@@ -221,7 +221,8 @@ def flash_attention_bwd_ref(q, k, v, o, lse, do, causal: bool = True,
                             kv_tile: int = BWD_KV_TILE):
     """The gradient of the forward above (bf16 or f32 by q's dtype),
     written plainly with FlashAttention-2's formula, one tile of keys at
-    a time: the kernel ``csrc/flash_attention_bwd.cu`` computes the same.
+    a time: the kernels ``csrc/flash_attention_bwd_sm90.cu`` (bf16) and
+    ``csrc/flash_attention_bwd_f32_sm90.cu`` (f32) compute the same.
     q, o, do (B, T, H, D), k, v (B, S, HK, D), lse (B, H, T) f32 (the
     forward's m + log(l)) -> (dq, dk, dv) in the inputs' dtype.  In f32:
     qs = q scaled as the forward scales it (bf16(q bf16(D^-1/2)) in bf16),

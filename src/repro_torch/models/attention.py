@@ -3,7 +3,8 @@
 ``flash_attention``, the full-sequence (prefill / training) attention,
 goes to ``kernels.ops.flash_attention``: a hand-written kernel on the
 card, its plain version on the CPU, one function per dtype, with its
-gradient (the backward kernel ``flash_attention_bwd`` on the card).  In
+gradient (the dtype's backward kernel, ``flash_attention_bwd_sm90`` or
+``flash_attention_bwd_f32_sm90``, on the card).  In
 bf16 it computes what the reference computes in bf16 (q scaled by
 bf16(D^-1/2) in bf16, scores summed in f32, P rounded to bf16 for P V
 against the running max of the ``kv_chunk``-key chunks seen so far), at

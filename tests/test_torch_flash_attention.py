@@ -285,7 +285,8 @@ def test_kernel_wrapper_never_falls_back(dtype):
     q, k, v = (x.to(dtype) for x in _t(*_qkv(1, 4, 4, 2, 2, 16)))
     before = dict(fa.LAUNCHES)
     assert set(before) == {"flash_attention_sm90", "flash_attention_f32",
-                           "flash_attention_bwd", "flash_attention_bwd_sm90"}
+                           "flash_attention_bwd_f32_sm90",
+                           "flash_attention_bwd_sm90"}
     assert fa.BWD_KERNELS[dtype] in before
     with pytest.raises(ValueError, match="CUDA"):
         fa.flash_attention(q, k, v, kv_tile=KV)
@@ -598,7 +599,8 @@ def test_bf16_at_the_configs_kv_chunk():
 # The JAX package differentiates its pure-JAX chunked attention by
 # autodiff; the port's gradient is ``ref.flash_attention_bwd_ref`` on the
 # CPU (FlashAttention-2's formula from the forward's lse) and the CUDA
-# kernel ``csrc/flash_attention_bwd.cu`` on the card.
+# kernels ``csrc/flash_attention_bwd_sm90.cu`` (bf16) and
+# ``csrc/flash_attention_bwd_f32_sm90.cu`` (f32) on the card.
 GRAD_CASES = [(1, 64, 64, 4, 2, 16, True), (2, 40, 72, 4, 4, 16, False),
               (1, 50, 30, 4, 1, 32, True)]
 # f32 bar: 2e-5 max|g| (the forward's 2e-5 bar, scaled by the gradient)
@@ -847,6 +849,137 @@ def test_one_bf16_ds_misses_the_bar(B, T, S, H, HK, D, causal):
     for name in ("dq", "dk"):
         over, share = bars[name]
         assert over > 0 and share < BF16_SHARE, (name, bars)
+
+
+# The f32 backward kernel (csrc/flash_attention_bwd_f32_sm90.cu) computes
+# every product as three TF32 products per 8-deep k-step (lo.hi, hi.lo,
+# hi.hi).  S and dP sum over D in one f32 accumulator; dQ, dK and dV sum
+# each tile of keys (dQ: F32_BWD_BK by head dim) or queries (dK, dV:
+# F32_BWD_BQ) in a fresh accumulator and add it to the running sum in f32
+# (the tensor core does not round its adds to nearest: on the card, one
+# running wgmma accumulator over a thousand queries drifted past the bar).
+# The products that contract over queries (dV, dK) or keys (dQ) take the
+# accumulator (P^T, dS^T, dS) as the TF32 A fragment, whose column i is
+# the accumulator's column TF32_KEY_ORDER[i] in each 8-step, and the
+# transposed operand (dO^T, qs^T, k^T, written by the preprocess) in the
+# order ``order``.
+F32_BWD_BK = {16: 64, 32: 64, 64: 32, 128: 32}
+F32_BWD_BQ = {16: 64, 32: 64, 64: 32, 128: 16}
+F32_BWD_CASES = BWD_EMU_CASES + [(1, 96, 80, 4, 2, 32, False),
+                                 (1, 130, 200, 4, 1, 128, False)]
+
+
+def _perm8(x, dim, order):
+    """x zero-padded along ``dim`` to a multiple of 8, each 8-group
+    reordered: position i holds element ``order[i]``."""
+    pad = -x.shape[dim] % 8
+    if pad:
+        shape = list(x.shape)
+        shape[dim] = pad
+        x = torch.cat([x, x.new_zeros(shape)], dim)
+    n = x.shape[dim]
+    perm = (torch.arange(0, n, 8)[:, None]
+            + torch.tensor(order)[None, :]).reshape(-1)
+    return x.index_select(dim, perm)
+
+
+def _emulate_f32_bwd(q, k, v, o, lse, do, causal, terms=3,
+                     order=fa.TF32_KEY_ORDER):
+    """The f32 backward kernel's arithmetic in plain PyTorch: (dq, dk, dv).
+    S = qs k^T and dP = dO v^T as TF32 products over D; P = exp2(S log2(e)
+    - f32(lse log2(e))) as the kernel forms it, masked; dS = P (dP - Drow)
+    in f32; dV = P^T dO, dK = dS^T qs (summed over the query heads of each
+    KV head in order) and dQ = scale dS k as TF32 products over queries or
+    keys, tile by tile, A's columns in TF32_KEY_ORDER and the transposed
+    operand's rows in ``order``.  ``terms`` = 1 keeps only hi.hi."""
+    B, T, H, D = q.shape
+    S, HK = k.shape[1], k.shape[2]
+    g = H // HK
+    qs = (q * D ** -0.5).permute(0, 2, 1, 3)
+    do32 = do.permute(0, 2, 1, 3)
+    kh = k.repeat_interleave(g, 2).permute(0, 2, 1, 3)
+    vh = v.repeat_interleave(g, 2).permute(0, 2, 1, 3)
+    drow = (do32.double() * o.double().permute(0, 2, 1, 3)).sum(
+        -1, keepdim=True).float()
+    s = _mm_tf32(torch.zeros((B, H, T, S)), qs, kh.transpose(-1, -2), terms)
+    dp = _mm_tf32(torch.zeros((B, H, T, S)), do32, vh.transpose(-1, -2),
+                  terms)
+    p = _exp_kernel(s, lse[..., None])
+    if causal:
+        p = torch.where(torch.arange(S)[None, :] <= torch.arange(T)[:, None],
+                        p, 0.0)
+    ds = p * (dp - drow)
+    hw = fa.TF32_KEY_ORDER
+
+    def tiled(acc, a, b, tile):
+        for t0 in range(0, a.shape[-1], tile):
+            acc = acc + _mm_tf32(torch.zeros_like(acc), a[..., t0:t0 + tile],
+                                 b[..., t0:t0 + tile, :], terms)
+        return acc
+
+    dq = tiled(torch.zeros((B, H, T, D)), _perm8(ds, -1, hw),
+               _perm8(kh, -2, order), F32_BWD_BK[D]) * np.float32(D ** -0.5)
+    pt, dst = _perm8(p.transpose(-1, -2), -1, hw), _perm8(
+        ds.transpose(-1, -2), -1, hw)
+    dot, qst = _perm8(do32, -2, order), _perm8(qs, -2, order)
+    dk = torch.zeros((B, HK, S, D))
+    dv = torch.zeros((B, HK, S, D))
+    for i in range(g):
+        heads = torch.arange(HK) * g + i
+        dv = tiled(dv, pt[:, heads], dot[:, heads], F32_BWD_BQ[D])
+        dk = tiled(dk, dst[:, heads], qst[:, heads], F32_BWD_BQ[D])
+    return tuple(x.permute(0, 2, 1, 3) for x in (dq, dk, dv))
+
+
+def _f32_bwd_inputs(B, T, S, H, HK, D, causal):
+    """f32 q, k, v, dO, the plain forward's output and lse."""
+    q, k, v, do = _t(*_grad_inputs(B, T, S, H, HK, D, seed=7))
+    o, lse = ref.flash_attention_ref(q, k, v, causal, return_lse=True)
+    return q, k, v, o, lse, do
+
+
+def _f32_bwd_rel(got, want):
+    """max |got - want| / max |want| for dq, dk, dv."""
+    return [_max_rel(a.numpy(), b.numpy()) for a, b in zip(got, want)]
+
+
+@pytest.mark.parametrize("B,T,S,H,HK,D,causal", F32_BWD_CASES)
+def test_f32_backward_emulation_meets_the_bar(B, T, S, H, HK, D, causal):
+    """The f32 backward kernel's arithmetic (3xTF32, its term order and
+    its TF32_KEY_ORDER for the transposed operands) lands within 2e-5
+    max|g| of ``flash_attention_bwd_ref`` at D 16 / 32 / 64 / 128, GQA,
+    ragged and non-causal (chip_smoke.py's bar for the kernel; measured
+    1.4e-7-1.0e-6)."""
+    args = _f32_bwd_inputs(B, T, S, H, HK, D, causal)
+    rel = _f32_bwd_rel(_emulate_f32_bwd(*args, causal),
+                       ref.flash_attention_bwd_ref(*args, causal))
+    assert max(rel) <= GRAD_REL, rel
+
+
+@pytest.mark.parametrize("B,T,S,H,HK,D,causal", F32_BWD_CASES)
+def test_one_tf32_product_misses_the_backward_bar(B, T, S, H, HK, D,
+                                                  causal):
+    """With one TF32 product (hi.hi) per step the same emulation is more
+    than 2e-5 max|g| off (measured 3.4e-4-1.2e-3): the kernel needs all
+    three."""
+    args = _f32_bwd_inputs(B, T, S, H, HK, D, causal)
+    rel = _f32_bwd_rel(_emulate_f32_bwd(*args, causal, terms=1),
+                       ref.flash_attention_bwd_ref(*args, causal))
+    assert max(rel) > GRAD_REL, rel
+
+
+def test_backward_transposes_take_the_fragment_order():
+    """The transposed operands (dO^T, qs^T, k^T) written in identity order
+    instead of TF32_KEY_ORDER pair each A column with another row of B:
+    every output misses the bar by far (measured 0.54-1.75 max|g|); in
+    TF32_KEY_ORDER all meet it."""
+    args = _f32_bwd_inputs(1, 64, 64, 2, 2, 32, True)
+    want = ref.flash_attention_bwd_ref(*args, True)
+    good = _f32_bwd_rel(_emulate_f32_bwd(*args, True), want)
+    assert max(good) <= GRAD_REL, good
+    bad = _f32_bwd_rel(_emulate_f32_bwd(*args, True, order=tuple(range(8))),
+                       want)
+    assert min(bad) > 100 * GRAD_REL, bad
 
 
 @pytest.mark.parametrize("kv_tile,S,want", [(256, 300, 2), (128, 300, 1),
