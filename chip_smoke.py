@@ -28,7 +28,9 @@ flash_attention_bwd_f32_sm90 (3xTF32 wgmma + TMA).
 Phases, each fatal on failure:
 
   1. build every CUDA source of the port with nvcc (sm_90a), one nvcc
-     per source, all started together;
+     per source, all started together, and hold the f32 backward's
+     streamed tiles against the ones its CPU emulation takes
+     (``flash_attention.F32_BWD_TILES``);
   2. hold each kernel against its plain PyTorch version on the card at
      full width: fused_agg words bitwise and decode within 1e-6 for b in
      {8, 4, 16, 24}, scalar and array step, with and without offset;
@@ -45,9 +47,9 @@ Phases, each fatal on failure:
      1024 keys: every output within one ulp + 2^-9 max|v|, at least 99%
      within one ulp + 2e-5; and the backward kernels (bf16:
      flash_attention_bwd_sm90; f32: flash_attention_bwd_f32_sm90) against
-     ``ref.flash_attention_bwd_ref`` at the train shape (4, 2048, 16,
-     64), (1, 8192, 16, 64), qwen3-32b's GQA heads, a ragged and a
-     non-causal case (f32 within 2e-5 max|g|; bf16 every output within
+     ``ref.flash_attention_bwd_ref`` at the train shapes (4 and 2,
+     2048, 16, 64), (1, 8192, 16, 64), qwen3-32b's GQA heads, a ragged
+     and a non-causal case (f32 within 2e-5 max|g|; bf16 every output within
      one ulp + 2e-5 max|g|, dV also + 2^-9 max|dO| max_j sum_i P[i, j],
      and 99% within one ulp + 2e-5 max|g|), bitwise equal over two runs;
   3. run each path with its kernels' launch counts set to 0 just before
@@ -447,16 +449,17 @@ def compare_dither_pack(device, gen) -> dict:
 # flash attention cases: (B, T, S, H, HK, D, causal); the serve path's
 # prefill shapes first (qwen1.5-0.5b: 16 heads of 64; the serve phase's
 # prompts run 256-2048 tokens: one 1024-key span below 1024, a ragged
-# second span above), the train path's microbatch (4 x 2048: two spans),
-# then GQA at D = 128 (qwen3-32b's 64 query and 8 KV heads among them),
-# non-causal with S != T, a ragged causal size, and causal GQA with T > S
-# (queries past the last key see every key)
+# second span above), the train path's microbatches (bf16 4 x 2048, f32
+# 2 x 2048: two spans), then GQA at D = 128 (qwen3-32b's 64 query and 8
+# KV heads among them), non-causal with S != T, a ragged causal size, and
+# causal GQA with T > S (queries past the last key see every key)
 FLASH_CASES = (
     (1, 2048, 2048, 16, 16, 64, True),
     (1, 8192, 8192, 16, 16, 64, True),
     (1, 1500, 1500, 16, 16, 64, True),
     (1, 700, 700, 16, 16, 64, True),
     (4, 2048, 2048, 16, 16, 64, True),
+    (2, 2048, 2048, 16, 16, 64, True),
     (2, 1024, 1024, 16, 2, 128, True),
     (1, 4096, 4096, 64, 8, 128, True),
     (2, 64, 192, 4, 4, 16, False),
@@ -587,11 +590,12 @@ def compare_flash(device, gen) -> dict:
 
 
 # flash-attention backward cases: (B, T, S, H, HK, D, causal): the train
-# path's microbatch (qwen1.5-0.5b's 16 heads of 64 over 4 x 2048
-# tokens), the longest serve prompt's shape, qwen3-32b's GQA heads of 128,
-# a ragged causal and a non-causal one
+# path's microbatches (qwen1.5-0.5b's 16 heads of 64 over 4 x 2048 tokens
+# in bf16, 2 x 2048 in f32), the longest serve prompt's shape, qwen3-32b's
+# GQA heads of 128, a ragged causal and a non-causal one
 BWD_CASES = (
     (4, 2048, 2048, 16, 16, 64, True),
+    (2, 2048, 2048, 16, 16, 64, True),
     (1, 8192, 8192, 16, 16, 64, True),
     (1, 4096, 4096, 64, 8, 128, True),
     (2, 300, 130, 8, 2, 64, True),
@@ -2443,6 +2447,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     from repro_torch.kernels import build
+    from repro_torch.kernels import flash_attention as fa
 
     device = torch.device("cuda", 0)
     # the plain versions' f32 products in full f32 (PyTorch's default,
@@ -2479,6 +2484,14 @@ def main() -> int:
         for d in heads}}
     log(f"  dynamic shared memory by head dim (bytes; ptxas does not "
         f"report it): {json.dumps(smem)}")
+    # the f32 backward's streamed tiles, which its CPU emulation takes
+    tiles = {d: (bwd_lib.flash_attention_bwd_f32_sm90_tile(d, 0),
+                 bwd_lib.flash_attention_bwd_f32_sm90_tile(d, 1))
+             for d in heads}
+    check(tiles == fa.F32_BWD_TILES, f"flash_attention_bwd_f32_sm90 tiles "
+          f"{tiles}, F32_BWD_TILES {fa.F32_BWD_TILES}")
+    log(f"  flash_attention_bwd_f32_sm90 tiles (dQ keys, dK / dV queries) by "
+        f"head dim: {tiles}, as F32_BWD_TILES")
 
     # 2. kernels against their plain versions
     gen = torch.Generator(device=device)

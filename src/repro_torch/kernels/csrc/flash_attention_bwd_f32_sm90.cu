@@ -1051,4 +1051,18 @@ int flash_attention_bwd_f32_sm90_smem_bytes(int head_dim, int dkv) {
   }
 }
 
+// The streamed tile of ``head_dim``: keys a step of the dQ kernel (dkv 0,
+// DqCfg::BK) or queries a step of the dK / dV kernel (dkv 1, DkvCfg::BQ),
+// or 0 for an unsupported head_dim.  The CPU emulation of this kernel
+// takes the same tiles (flash_attention.py, F32_BWD_TILES).
+int flash_attention_bwd_f32_sm90_tile(int head_dim, int dkv) {
+  switch (head_dim) {
+    case 16: return dkv ? DkvCfg<16>::BQ : DqCfg<16>::BK;
+    case 32: return dkv ? DkvCfg<32>::BQ : DqCfg<32>::BK;
+    case 64: return dkv ? DkvCfg<64>::BQ : DqCfg<64>::BK;
+    case 128: return dkv ? DkvCfg<128>::BQ : DqCfg<128>::BK;
+    default: return 0;
+  }
+}
+
 }  // extern "C"

@@ -67,6 +67,12 @@ _TILE = 128
 # 2c + 1), so A column i is key TF32_KEY_ORDER[i], and the kernel writes
 # V^T's columns in the same order.
 TF32_KEY_ORDER = (0, 2, 4, 6, 1, 3, 5, 7)
+# The f32 backward kernel's streamed tiles by head dim: (keys a step of its
+# dQ kernel, queries a step of its dK / dV kernel), each a fresh wgmma
+# accumulator added to the running sum.  The library reports its own
+# (``flash_attention_bwd_f32_sm90_tile``), which chip_smoke.py holds
+# against these; the CPU emulation of the kernel takes these.
+F32_BWD_TILES = {16: (64, 64), 32: (64, 64), 64: (32, 32), 128: (32, 16)}
 
 # dtype -> the backward kernel's name, which is its C library's (csrc/
 # <name>.cu, launch function ``<name>_launch`` and scratch size

@@ -855,7 +855,8 @@ def test_one_bf16_ds_misses_the_bar(B, T, S, H, HK, D, causal):
 # every product as three TF32 products per 8-deep k-step (lo.hi, hi.lo,
 # hi.hi).  S and dP sum over D in one f32 accumulator; dQ, dK and dV sum
 # each tile of keys (dQ: F32_BWD_BK by head dim) or queries (dK, dV:
-# F32_BWD_BQ) in a fresh accumulator and add it to the running sum in f32
+# F32_BWD_BQ), the kernel's own (fa.F32_BWD_TILES, which chip_smoke.py holds
+# against the library's on the card), in a fresh accumulator and add it to the running sum in f32
 # (the tensor core does not round its adds to nearest: on the card, one
 # running wgmma accumulator over a thousand queries drifted past the bar).
 # The products that contract over queries (dV, dK) or keys (dQ) take the
@@ -863,8 +864,8 @@ def test_one_bf16_ds_misses_the_bar(B, T, S, H, HK, D, causal):
 # the accumulator's column TF32_KEY_ORDER[i] in each 8-step, and the
 # transposed operand (dO^T, qs^T, k^T, written by the preprocess) in the
 # order ``order``.
-F32_BWD_BK = {16: 64, 32: 64, 64: 32, 128: 32}
-F32_BWD_BQ = {16: 64, 32: 64, 64: 32, 128: 16}
+F32_BWD_BK = {d: bk for d, (bk, _) in fa.F32_BWD_TILES.items()}
+F32_BWD_BQ = {d: bq for d, (_, bq) in fa.F32_BWD_TILES.items()}
 F32_BWD_CASES = BWD_EMU_CASES + [(1, 96, 80, 4, 2, 32, False),
                                  (1, 130, 200, 4, 1, 128, False)]
 

@@ -1,6 +1,6 @@
 """The port stands alone: no module of src/repro_torch, nor
-chip_smoke.py or tools/chip_f32_train.py, imports jax or the JAX package
-(repro).  Only the tests import both."""
+chip_smoke.py, imports jax or the JAX package (repro).  Only the tests
+import both."""
 import ast
 import pathlib
 
@@ -24,11 +24,10 @@ def _forbidden_imports(path: pathlib.Path):
 
 
 def test_port_imports_neither_jax_nor_the_reference():
-    """An AST scan of src/repro_torch, chip_smoke.py and
-    tools/chip_f32_train.py: no import of jax or of the repro package
-    (repro_torch itself is allowed)."""
+    """An AST scan of src/repro_torch and chip_smoke.py: no import of
+    jax or of the repro package (repro_torch itself is allowed)."""
     files = sorted((REPO / "src" / "repro_torch").rglob("*.py"))
-    files += [REPO / "chip_smoke.py", REPO / "tools" / "chip_f32_train.py"]
+    files.append(REPO / "chip_smoke.py")
     assert len(files) > 10
     scanned = {f.relative_to(REPO).as_posix() for f in files}
     for module in ("models/transformer.py", "models/attention.py",
