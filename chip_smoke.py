@@ -24,7 +24,11 @@ through flash_attention_sm90 and flash_attention_bwd_sm90 (wgmma + TMA),
 the gradients compressed by the fused_agg kernels; in one process and
 across 2 client ranks on the card; and in f32 (the compute dtype the
 train launcher gives its smoke mode) through flash_attention_f32 and
-flash_attention_bwd_f32_sm90 (3xTF32 wgmma + TMA).
+flash_attention_bwd_f32_sm90 (3xTF32 wgmma + TMA).  The moe family runs
+at full width with its depth cut to what the card holds: phi3.5-moe (24
+of 32 layers) and dbrx (8 of 40) served in bf16 and checked in f32 (4
+layers), phi3.5-moe trained (1 layer); llava-next-mistral-7b, uncut,
+prefills prompts behind its 576 stub patches.
 Phases, each fatal on failure:
 
   1. build every CUDA source of the port with nvcc (sm_90a), one nvcc
@@ -42,13 +46,16 @@ Phases, each fatal on failure:
      + 2e-5, the f32 flash kernel within 2e-5 of
      ``ref.flash_attention_ref``, at the serve path's shapes and at GQA
      (qwen3-32b's 64 / 8 heads of 128 among them), non-causal and ragged
-     ones; the bf16 kernel at the model configs' kv_chunk 1024 against
+     ones (the moe and llava paths' 32 / 8 and 48 / 8 heads of 128
+     among them); the bf16 kernel at the model configs' kv_chunk 1024 against
      the plain version at the same chunk, at the shapes with more than
      1024 keys: every output within one ulp + 2^-9 max|v|, at least 99%
      within one ulp + 2e-5; and the backward kernels (bf16:
      flash_attention_bwd_sm90; f32: flash_attention_bwd_f32_sm90) against
      ``ref.flash_attention_bwd_ref`` at the train shapes (4 and 2,
-     2048, 16, 64), (1, 8192, 16, 64), qwen3-32b's GQA heads, a ragged
+     2048, 16, 64), (1, 8192, 16, 64), qwen3-32b's GQA heads, the moe
+     and llava paths' (1 and 2, 2048, 32 / 8, 128) and (1, 2048, 48 / 8,
+     128), a ragged
      and a non-causal case (f32 within 2e-5 max|g|; bf16 every output within
      one ulp + 2e-5 max|g|, dV also + 2^-9 max|dO| max_j sum_i P[i, j],
      and 99% within one ulp + 2e-5 max|g|), bitwise equal over two runs;
@@ -90,11 +97,26 @@ Phases, each fatal on failure:
      slots in bf16, with exactly 24 flash_attention_sm90 launches per
      prefill and no f32 flash launch, and in f32 the engine's tokens
      against the naive loop's and a teacher-forced full forward, with 24
-     flash_attention_f32 launches per forward and no sm90 launch;
+     flash_attention_f32 launches per forward and no sm90 launch; 3g: the
+     moe serve path, phi3.5-moe at 24 layers (16 requests, profiled) and
+     dbrx at 8 (4 requests) in bf16 through the same ``run_serve``, one
+     flash_attention_sm90 launch per layer per prefill, and each at 4
+     layers in f32, one request per call: the engine's tokens equal the
+     naive loop's, a teacher-forced forward's agreement reported beside
+     both sides' dropped-choice counts (held where neither dropped); 3h:
+     llava uncut, in f32 one prompt's last logits on the kernels within
+     1e-4 max|logit| of the plain versions, then 4 bf16 prefills of 576
+     patches plus 512-2048 tokens through ``registry.prefill_fn``, 32
+     flash_attention_sm90 launches each; 3i: the moe train step,
+     phi3.5-moe at 1 layer, 3 steps of 4 x 2048 in 2 microbatches as
+     phase 3d (launches per step from the spec tree), a timed and a
+     traced step, and on 1 x 2048 the bf16 gradient check against the f32
+     model and the f32 check of the kernels against the plain versions;
   4. time each kernel (CUDA events, median of 10) beside its bound and
      its plain version (the flash kernels also beside
      ``scaled_dot_product_attention``, and the backward beside its
-     backward, timed here only; the f32 kernels' bound is their 3xTF32
+     backward, timed here only, the moe and llava paths' shapes among
+     them; the f32 kernels' bound is their 3xTF32
      work on the tensor cores; the bf16 forward at kv_chunk 1024 beside
      its 128-key tiling), measure the
      card's device-to-device copy rate, and split each round's wall time
@@ -452,7 +474,10 @@ def compare_dither_pack(device, gen) -> dict:
 # second span above), the train path's microbatches (bf16 4 x 2048, f32
 # 2 x 2048: two spans), then GQA at D = 128 (qwen3-32b's 64 query and 8
 # KV heads among them), non-causal with S != T, a ragged causal size, and
-# causal GQA with T > S (queries past the last key see every key)
+# causal GQA with T > S (queries past the last key see every key); the
+# moe and llava paths' GQA heads of 128: phi3.5-moe's and llava's 32 / 8
+# (a prefill, and the moe train microbatch 2 x 2048) and dbrx's 48 / 8
+# (a group of 6 query heads)
 FLASH_CASES = (
     (1, 2048, 2048, 16, 16, 64, True),
     (1, 8192, 8192, 16, 16, 64, True),
@@ -462,6 +487,9 @@ FLASH_CASES = (
     (2, 2048, 2048, 16, 16, 64, True),
     (2, 1024, 1024, 16, 2, 128, True),
     (1, 4096, 4096, 64, 8, 128, True),
+    (1, 2048, 2048, 32, 8, 128, True),
+    (2, 2048, 2048, 32, 8, 128, True),
+    (1, 2048, 2048, 48, 8, 128, True),
     (2, 64, 192, 4, 4, 16, False),
     (1, 1000, 1000, 4, 4, 32, True),
     (2, 300, 130, 8, 2, 64, True),
@@ -592,12 +620,16 @@ def compare_flash(device, gen) -> dict:
 # flash-attention backward cases: (B, T, S, H, HK, D, causal): the train
 # path's microbatches (qwen1.5-0.5b's 16 heads of 64 over 4 x 2048 tokens
 # in bf16, 2 x 2048 in f32), the longest serve prompt's shape, qwen3-32b's
-# GQA heads of 128, a ragged causal and a non-causal one
+# GQA heads of 128, the moe and llava paths' (32 / 8 and 48 / 8 of 128;
+# 2 x 2048 the moe train microbatch), a ragged causal and a non-causal one
 BWD_CASES = (
     (4, 2048, 2048, 16, 16, 64, True),
     (2, 2048, 2048, 16, 16, 64, True),
     (1, 8192, 8192, 16, 16, 64, True),
     (1, 4096, 4096, 64, 8, 128, True),
+    (1, 2048, 2048, 32, 8, 128, True),
+    (2, 2048, 2048, 32, 8, 128, True),
+    (1, 2048, 2048, 48, 8, 128, True),
     (2, 300, 130, 8, 2, 64, True),
     (2, 64, 192, 4, 4, 16, False),
 )
@@ -1426,7 +1458,8 @@ FWD_TAGS = {"bfloat16": "flash_attention_sm90",
             "float32": "flash_attention_f32"}
 
 
-def profile_train_step(cfg, step_fn, state, batch, seed: int) -> tuple:
+def profile_train_step(cfg, step_fn, holder: list, batch,
+                       seed: int) -> dict:
     """Where a steady train step's time goes: one step timed on the host
     clock (ended by a synchronize), then one more under ``torch.profiler``
     (CPU + CUDA, shapes recorded).  Reports the device's busy ms (the sum
@@ -1434,23 +1467,25 @@ def profile_train_step(cfg, step_fn, state, batch, seed: int) -> tuple:
     the untraced step's wall, the ms of the compute dtype's backward
     kernels (``BWD_TAGS``: the preprocess, dQ and dK / dV), of its flash
     forward, of every cuBLAS GEMM and of the logits' GEMMs (``aten::mm`` or
-    ``bmm`` with an operand as wide as the vocabulary: the output
+    ``bmm`` with an operand as wide as the padded vocabulary: the output
     projection and its two gradients), the ten largest device rows, and
     the ten aten ops whose own launches hold the most device time.  A
-    trace with no device time fails the run.  Returns (state, report)."""
+    trace with no device time fails the run.  ``holder`` is a one-item
+    list holding the state, replaced by each step's (so no caller keeps
+    an older state alive beside the step's); returns the report."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    state, _ = step_fn(state, batch, seed)
+    holder[0], _ = step_fn(holder[0], batch, seed)
     torch.cuda.synchronize()
     wall = (time.perf_counter() - t0) * 1e3
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                  record_shapes=True) as prof:
         t0 = time.perf_counter()
-        state, _ = step_fn(state, batch, seed)
+        holder[0], _ = step_fn(holder[0], batch, seed)
         torch.cuda.synchronize()
         wall_prof = (time.perf_counter() - t0) * 1e3
     dev = _kernel_ms(prof.key_averages(), 1)
@@ -1465,7 +1500,7 @@ def profile_train_step(cfg, step_fn, state, batch, seed: int) -> tuple:
     logits = sum(float(e.device_time_total) / 1e3
                  for e in prof.key_averages(group_by_input_shape=True)
                  if e.key in ("aten::mm", "aten::bmm") and any(
-                     cfg.vocab in shape for shape in e.input_shapes))
+                     cfg.padded_vocab in shape for shape in e.input_shapes))
     # the aten ops by the device time of the kernels they launched
     # themselves (each kernel once: self time), largest first
     ops = sorted(((e.key, float(e.self_device_time_total) / 1e3)
@@ -1491,7 +1526,7 @@ def profile_train_step(cfg, step_fn, state, batch, seed: int) -> tuple:
         f"{out['gemm_ms']:.3f} ms, of them the logits' "
         f"{logits:.3f} ms; the ops that launch most device time: "
         + "; ".join(f"{k} {ms:.3f}" for k, ms in ops[:10]))
-    return state, out
+    return out
 
 
 def drive_train(cfg, global_batch: int, n_steps: int, device) -> tuple:
@@ -1506,6 +1541,7 @@ def drive_train(cfg, global_batch: int, n_steps: int, device) -> tuple:
     import torch
 
     from repro_torch.data import synthetic
+    from repro_torch.models import nn, registry
     from repro_torch.train import steps
 
     tc = steps.TrainConfig(optimizer="adamw", lr=3e-4,
@@ -1514,7 +1550,8 @@ def drive_train(cfg, global_batch: int, n_steps: int, device) -> tuple:
                                                    TRAIN_SIGMA))
     state = steps.init_train_state(cfg, tc, 0, device)
     n = sum(p.numel() for p in _leaves(state["params"]))
-    check(n == D_FULL, f"train state holds {n} parameters")
+    check(n == nn.spec_numel(registry.param_specs(cfg)),
+          f"train state holds {n} parameters")
     dc = synthetic.DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
                               global_batch=global_batch, kind="lm")
     step_fn = steps.build_train_step(cfg, tc)
@@ -1542,10 +1579,13 @@ def drive_train(cfg, global_batch: int, n_steps: int, device) -> tuple:
     check(all(bool(torch.isfinite(p).all())
               for p in _leaves(state["params"])), "non-finite params")
     # after the counted run: these launches are not the path's
-    state, prof = profile_train_step(cfg, step_fn, state, batches[-1],
-                                     TRAIN_SEED)
+    holder = [state]
+    del state
+    prof = profile_train_step(cfg, step_fn, holder, batches[-1], TRAIN_SEED)
+    state = holder.pop()
     tokens = global_batch * TRAIN_SEQ
-    log(f"train {TRAIN_ARCH} ({cfg.compute_dtype}, remat {cfg.remat}, "
+    log(f"train {cfg.name} ({cfg.n_layers} layers, {cfg.compute_dtype}, "
+        f"remat {cfg.remat}, "
         f"kv_chunk {cfg.kv_chunk}), batch {global_batch} x {TRAIN_SEQ} in "
         f"{TRAIN_ACCUM} microbatches, aggregate_gaussian fused b = {BITS} "
         f"per-tensor: step walls {[round(w, 3) for w in walls]} s, tokens/s "
@@ -1808,26 +1848,25 @@ def serve_requests(cfg, n: int, seed: int = 1) -> list:
              8 if r % 4 == 3 else SERVE_GEN) for r, p in enumerate(lengths)]
 
 
-def run_serve(cfg, model32, device) -> dict:
-    """The serve path in the config's compute dtype (bf16): 16 requests
-    through ``launch.serve.drive`` on 8 slots, with the launch counts set
-    to 0 just before and read just after (a 2-request warm-up first)."""
+def run_serve(cfg, model, device, n_requests: int = SERVE_REQUESTS) -> dict:
+    """The serve path in the config's compute dtype (bf16; ``model`` cast
+    to it, the values the reference's cast at use gives): ``n_requests``
+    requests through ``launch.serve.drive`` on 8 slots, with the launch
+    counts set to 0 just before and read just after (a 2-request warm-up
+    first)."""
     import statistics
 
     import torch
 
     from repro_torch.launch import serve as launch
-    from repro_torch.models.config import torch_dtype
     from repro_torch.serve import ServeEngine
 
-    dtype = torch_dtype(cfg.compute_dtype)
-    model = copy.deepcopy(model32).to(dtype)  # the reference casts at use
     engine = ServeEngine(cfg, max_slots=SERVE_SLOTS,
                          max_prefill_len=SERVE_PREFILL,
                          max_gen_len=SERVE_GEN, device=device)
     launch.drive(engine, model, [(r, toks[:256], 4) for r, toks, _ in
                                  serve_requests(cfg, 2, seed=9)])
-    requests = serve_requests(cfg, SERVE_REQUESTS)
+    requests = serve_requests(cfg, n_requests)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
@@ -1835,8 +1874,8 @@ def run_serve(cfg, model32, device) -> dict:
     torch.cuda.synchronize()
     launches = read_launches()
     peak = torch.cuda.max_memory_allocated()
-    check(stats["prefills"] == SERVE_REQUESTS, f"serve: {stats['prefills']} "
-          f"prefills for {SERVE_REQUESTS} requests")
+    check(stats["prefills"] == n_requests, f"serve: {stats['prefills']} "
+          f"prefills for {n_requests} requests")
     for k, v in launches.items():
         want = (cfg.n_layers * stats["prefills"]
                 if k == "flash_attention_sm90" else 0)
@@ -1855,15 +1894,15 @@ def run_serve(cfg, model32, device) -> dict:
         **{k: stats[k] for k in ("steps", "tokens_out", "wall_s",
                                  "mean_occupancy", "prefills",
                                  "prompt_tokens", "prefill_s")}}
-    log(f"serve {SERVE_ARCH} ({cfg.compute_dtype}): {SERVE_REQUESTS} "
-        f"requests, {stats['prompt_tokens']} prompt tokens, "
+    log(f"serve {cfg.name} ({cfg.n_layers} layers, {cfg.compute_dtype}): "
+        f"{n_requests} requests, {stats['prompt_tokens']} prompt tokens, "
         f"{stats['tokens_out']} tokens out in {stats['steps']} steps, "
         f"{stats['wall_s']:.3f} s: {stats['tokens_per_s']:.1f} tokens/s, "
         f"median decode step {res['step_ms_median']:.3f} ms, prefill "
         f"{res['prefill_s_per_1k']:.4f} s per 1k prompt tokens, mean "
         f"occupancy {stats['mean_occupancy']:.3f}, peak "
         f"{peak / 2**30:.2f} GiB; launches {launches}")
-    del model, engine
+    del engine
     torch.cuda.empty_cache()
     return res
 
@@ -1880,7 +1919,7 @@ def _kernel_ms(events, reps: int) -> list:
     return sorted(rows, key=lambda kv: -kv[1])
 
 
-def profile_serve(cfg, model32, device, n_prefills: int = 2,
+def profile_serve(cfg, model, device, n_prefills: int = 2,
                   n_steps: int = 4) -> dict:
     """Where the serve path's time goes: ``n_prefills`` prefills of 1024
     tokens and, with all 8 slots active, ``n_steps`` decode steps, each
@@ -1891,17 +1930,17 @@ def profile_serve(cfg, model32, device, n_prefills: int = 2,
     device's busy ms (the sum of the device-side rows of the trace:
     kernels and copies on one stream), its idle share against the
     unprofiled wall of the same work, the bf16 flash kernel's ms
-    (flash_attention_sm90) and the five largest kernels.  A failure here,
+    (flash_attention_sm90), of the cuBLAS GEMMs (``GEMM_TAGS``: the
+    projections, and for moe the expert products) and the five largest
+    kernels.  ``model`` is in the compute dtype.  A failure here,
     or a trace with no device time, fails the run.  After the counted
     run: the launches here are not the path's."""
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.models.config import torch_dtype
     from repro_torch.serve import ServeEngine
 
-    model = copy.deepcopy(model32).to(torch_dtype(cfg.compute_dtype))
     engine = ServeEngine(cfg, max_slots=SERVE_SLOTS,
                          max_prefill_len=SERVE_PREFILL,
                          max_gen_len=SERVE_GEN, device=device)
@@ -1932,9 +1971,12 @@ def profile_serve(cfg, model32, device, n_prefills: int = 2,
         check(bool(dev), "serve profile: the trace holds no device time")
         busy = sum(ms for _, ms in dev)
         flash = sum(ms for k, ms in dev if "flash_attention_sm90" in k)
+        gemm = sum(ms for k, ms in dev
+                   if any(t in k.lower() for t in GEMM_TAGS))
         return {"wall_ms": wall, "wall_profiled_ms": wall_prof,
                 "device_ms": busy, "idle_share": 1.0 - busy / wall,
-                "flash_attention_sm90_ms": flash, "top": dev[:5]}
+                "flash_attention_sm90_ms": flash, "gemm_ms": gemm,
+                "top": dev[:5]}
 
     out = {"prefill_1024": window(lambda: engine.prefill(model, prompts[0]),
                                   n_prefills)}
@@ -1945,13 +1987,13 @@ def profile_serve(cfg, model32, device, n_prefills: int = 2,
 
     out["decode_step"] = window(step, n_steps)
     for name, w in out.items():
-        log(f"serve profile {name}: wall {w['wall_ms']:.3f} ms (profiled "
-            f"{w['wall_profiled_ms']:.3f} ms), device busy "
+        log(f"serve profile {cfg.name} {name}: wall {w['wall_ms']:.3f} ms "
+            f"(profiled {w['wall_profiled_ms']:.3f} ms), device busy "
             f"{w['device_ms']:.3f} ms (idle share {w['idle_share']:.3f}), "
-            f"flash_attention_sm90 {w['flash_attention_sm90_ms']:.3f} ms; "
-            f"top "
+            f"flash_attention_sm90 {w['flash_attention_sm90_ms']:.3f} ms, "
+            f"GEMMs {w['gemm_ms']:.3f} ms; top "
             + "; ".join(f"{k[:60]} {ms:.3f}" for k, ms in w["top"]))
-    del model, engine, state, holder
+    del engine, state, holder
     torch.cuda.empty_cache()
     return out
 
@@ -2036,6 +2078,349 @@ def check_serve_f32(cfg, model32, device, n_prompt: int = 512,
     torch.cuda.empty_cache()
     return {"ties": ties, "min_margin": float(margin.min()),
             "tokens": naive_h.tolist(), "launches": launches}
+
+
+# ------------------------------------------------------------ phase 3g
+# the moe family served at full width (widths, heads, experts, top-k and
+# vocab as published), depth cut to what the card holds in bf16 beside
+# the KV cache: phi3.5-moe's layer is 1,300.3 M parameters (2.42 GiB),
+# its embedding and lm_head (vocab padded to 32,128) 0.49 GiB, so its 32
+# layers would be 78.0 GiB of weights alone; 24 are 58.6 GiB.  dbrx's
+# layer is 3,259.1 M (6.07 GiB), its embedding and lm_head 2.30 GiB: 8
+# of its 40 layers are 50.9 GiB.  (arch, layers, requests)
+MOE_SERVE = (("phi3.5-moe-42b-a6.6b", 24, SERVE_REQUESTS),
+             ("dbrx-132b", 8, 4))
+# the f32 checks: each model at full width and 4 layers, one request per
+# call (a B = 1 prefill routes the same tokens in the engine and the
+# naive loop; a decode step of 2 slots or 1 row cannot drop a choice:
+# C = 8 and an expert gets at most one choice a token)
+MOE_F32_LAYERS = 4
+MOE_F32_PROMPT = 512
+MOE_F32_GEN = 16
+
+
+def moe_config(arch: str, layers: int):
+    from repro_torch import configs
+
+    cfg = configs.get_config(arch)
+    check(cfg.kind == "moe" and cfg.compute_dtype == "bfloat16"
+          and cfg.kv_chunk == CONFIG_KV_CHUNK, f"{arch} config {cfg}")
+    return cfg.scaled(n_layers=layers)
+
+
+def build_checked(cfg, device):
+    """``launch.serve.build_model`` (seed 0, layer by layer in the compute
+    dtype), its parameter count checked against the specs'."""
+    from repro_torch.launch import serve as launch
+    from repro_torch.models import nn, registry
+
+    model = launch.build_model(cfg, 0, device)
+    n = sum(p.numel() for p in model.parameters())
+    want = nn.spec_numel(registry.param_specs(cfg))
+    check(n == want, f"{cfg.name} model holds {n} parameters, specs {want}")
+    held(f"with {cfg.name} at {cfg.n_layers} layers in {cfg.compute_dtype} "
+         f"({n:,} parameters)")
+    return model
+
+
+class count_drops:
+    """Within the block, every MoE block records its dropped-choice count
+    (``models.moe.DROPS``); ``total()`` reads their sum."""
+
+    def __enter__(self):
+        from repro_torch.models import moe
+
+        moe.DROPS = self.drops = []
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import moe
+
+        moe.DROPS = None
+        return False
+
+    def total(self) -> int:
+        return int(sum(int(d) for d in self.drops))
+
+
+def check_serve_moe_f32(arch: str, device) -> dict:
+    """In f32 at full width and MOE_F32_LAYERS layers, one request per
+    call: for 2 prompts of MOE_F32_PROMPT tokens, the naive loop (B = 1)
+    and the engine (2 slots) give the same MOE_F32_GEN tokens (a differing
+    token only at a top-2 margin below MARGIN, once in all, as the dense
+    check).  A teacher-forced full forward (B = 1, prompt plus the
+    generated prefix) routes another number of tokens, so another C and
+    other drops: its agreement with the naive loop is reported beside both
+    sides' dropped-choice counts and held only where neither side dropped
+    a choice.  Launches: six full forwards (2 naive prefills, 2 engine
+    prefills, 2 teacher-forced) of flash_attention_f32 per layer, nothing
+    else."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models import registry
+    from repro_torch.serve import ServeEngine, naive_generate
+
+    cfg = moe_config(arch, MOE_F32_LAYERS).scaled(compute_dtype="float32")
+    model = build_checked(cfg, device)
+    rng = np.random.default_rng(2)
+    prompts = torch.as_tensor(
+        rng.integers(0, cfg.vocab, size=(2, MOE_F32_PROMPT), dtype=np.int32),
+        device=device)
+    torch.cuda.synchronize()
+    reset_launches()
+    naive, naive_drops = [], []
+    for i in range(2):
+        with count_drops() as d:
+            naive.append(naive_generate(cfg, model,
+                                        {"tokens": prompts[i:i + 1]},
+                                        MOE_F32_GEN))
+        naive_drops.append(d.total())
+    naive = torch.cat(naive)
+    engine = ServeEngine(cfg, max_slots=2, max_prefill_len=MOE_F32_PROMPT,
+                         max_gen_len=MOE_F32_GEN, device=device)
+    state = engine.init_state()
+    with count_drops() as d:
+        for i in range(2):
+            _, prefix = engine.prefill(model, prompts[i])
+            state = engine.insert(state, prefix, i, max_gen=MOE_F32_GEN)
+        prefill_drops = d.total()
+        outs = [state["tokens"].clone()]
+        for _ in range(MOE_F32_GEN - 1):
+            state, tok, _ = engine.generate_step(model, state)
+            outs.append(tok)
+        step_drops = d.total() - prefill_drops
+    eng = torch.stack(outs, dim=1)
+    forced, forced_drops, margins = [], [], []
+    for i in range(2):
+        full = torch.cat([prompts[i:i + 1], naive[i:i + 1, :-1]], dim=1)
+        with torch.no_grad(), count_drops() as d:
+            tail = registry.logits_fn(cfg, model, {"tokens": full})[
+                :, MOE_F32_PROMPT - 1:]
+        forced_drops.append(d.total())
+        check(bool(torch.isfinite(tail).all()),
+              f"{arch} f32 forward: non-finite logits")
+        forced.append(torch.clamp(tail.argmax(dim=-1), 0, cfg.vocab - 1))
+        margins.append(_margins(tail).cpu())
+    torch.cuda.synchronize()
+    launches = read_launches()
+    for k, v in launches.items():
+        want = 6 * cfg.n_layers if k == "flash_attention_f32" else 0
+        check(v == want, f"{arch} serve f32 checks: {v} {k} launches, "
+                         f"expected {want}")
+    check(step_drops == 0, f"{arch}: an engine decode step dropped "
+                           f"{step_drops} choices")
+    check(prefill_drops == sum(naive_drops), f"{arch}: the engine's "
+          f"prefills dropped {prefill_drops} choices, the naive loop "
+          f"{naive_drops}")
+    naive_h, eng_h = naive.cpu().numpy(), eng.cpu().numpy()
+    ties, agree = [], []
+    for b in range(2):
+        diff = np.flatnonzero(eng_h[b] != naive_h[b])
+        if diff.size:
+            m = float(margins[b][0, diff[0]])
+            log(f"{arch} engine vs naive: row {b} token {diff[0]} differs; "
+                f"top-2 margin {m:.3g}")
+            check(m < MARGIN, f"{arch} engine vs naive: row {b} token "
+                              f"{diff[0]} differs with top-2 margin {m}")
+            ties.append({"row": b, "token": int(diff[0]), "margin": m})
+        same = forced[b][0].cpu().numpy() == naive_h[b]
+        agree.append(float(same.mean()))
+        if naive_drops[b] == 0 and forced_drops[b] == 0:
+            for t in np.flatnonzero(~same):
+                m = float(margins[b][0, t])
+                check(m < MARGIN, f"{arch} teacher-forced vs naive, no "
+                      f"drops: row {b} token {t} differs, margin {m}")
+                ties.append({"row": b, "token": int(t), "margin": m,
+                             "check": "teacher-forced"})
+    check(len(ties) <= 1, f"{arch}: {len(ties)} differing tokens; at most "
+                          f"1 allowed")
+    min_margin = float(min(float(m.min()) for m in margins))
+    log(f"serve {arch} f32 checks ({cfg.n_layers} layers, 2 x "
+        f"{MOE_F32_PROMPT} prompt tokens x {MOE_F32_GEN}, one request per "
+        f"call): engine == naive ({len(ties)} tie(s)); dropped choices: "
+        f"naive prefills {naive_drops}, engine prefills {prefill_drops}, "
+        f"engine decode steps {step_drops}, teacher-forced forwards "
+        f"{forced_drops}; teacher-forced agreement with naive {agree}; "
+        f"smallest top-2 margin {min_margin:.4g}; launches {launches}")
+    del model, engine, state, tail
+    torch.cuda.empty_cache()
+    return {"ties": ties, "min_margin": min_margin, "launches": launches,
+            "naive_drops": naive_drops, "engine_prefill_drops":
+            prefill_drops, "engine_step_drops": step_drops,
+            "forced_drops": forced_drops, "forced_agreement": agree,
+            "tokens": naive_h.tolist()}
+
+
+def run_serve_moe_phase(device) -> dict:
+    """Phase 3g: each MOE_SERVE model built in bf16 at its depth cut
+    (``build_checked``), ``run_serve`` with its requests (launches: one
+    flash_attention_sm90 per layer per prefill, nothing else), phi3.5-moe
+    also profiled (``profile_serve``); then each model's f32 checks."""
+    import torch
+
+    out = {}
+    for arch, layers, n_requests in MOE_SERVE:
+        cfg = moe_config(arch, layers)
+        model = build_checked(cfg, device)
+        res = run_serve(cfg, model, device, n_requests)
+        if arch == MOE_SERVE[0][0]:
+            res["profile"] = profile_serve(cfg, model, device)
+        del model
+        torch.cuda.empty_cache()
+        out[arch] = res
+    for arch, _, _ in MOE_SERVE:
+        out[arch]["f32"] = check_serve_moe_f32(arch, device)
+    return out
+
+
+# ------------------------------------------------------------ phase 3h
+# llava-next-mistral-7b uncut (32 layers, 7,258 M parameters, 13.5 GiB
+# in bf16): prompts of its 576 stub patches plus 512-2048 text tokens
+# through ``registry.prefill_fn``; in f32 one prompt's last-position
+# logits on the kernels against the plain versions
+LLAVA_ARCH = "llava-next-mistral-7b"
+LLAVA_PROMPTS = 4
+LLAVA_TEXT = (512, 2048)
+LLAVA_LOGIT_REL = 1e-4  # of max|logit|
+
+
+def llava_batches(cfg, device) -> list:
+    """LLAVA_PROMPTS batches of one prompt: text lengths uniform in
+    LLAVA_TEXT from ``numpy.random.default_rng(4)`` and the patch stub
+    (``data.synthetic.with_frontend_stubs``, its default key)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.data import synthetic
+
+    rng = np.random.default_rng(4)
+    lengths = rng.integers(LLAVA_TEXT[0], LLAVA_TEXT[1] + 1,
+                           size=LLAVA_PROMPTS)
+    return [synthetic.with_frontend_stubs({"tokens": torch.as_tensor(
+        rng.integers(0, cfg.vocab, size=(1, int(t)), dtype=np.int32),
+        device=device)}, cfg) for t in lengths]
+
+
+def run_llava_phase(device) -> dict:
+    """Phase 3h.  f32 first: the first prompt's last-position logits
+    through the kernels (flash_attention_f32 once per layer, counted)
+    within LLAVA_LOGIT_REL max|logit| of the same on the plain versions
+    (``plain_attention``).  Then the bf16 model (the same seed: the f32
+    weights rounded) prefills every prompt (launches: flash_attention_sm90
+    once per layer per prompt, nothing else), each timed on the host clock
+    after a synchronize, with finite logits and caches over patches and
+    text."""
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.models import registry
+
+    cfg = configs.get_config(LLAVA_ARCH)
+    check(cfg.kind == "llava" and cfg.n_patches == 576
+          and cfg.compute_dtype == "bfloat16", f"llava config {cfg}")
+    cfg32 = cfg.scaled(compute_dtype="float32")
+    model = build_checked(cfg32, device)
+    batches = llava_batches(cfg, device)
+    torch.cuda.synchronize()
+    reset_launches()
+    with torch.no_grad():
+        got, _ = registry.prefill_fn(cfg32)(model, batches[0])
+    torch.cuda.synchronize()
+    f32_launches = read_launches()
+    with torch.no_grad(), plain_attention():
+        want, _ = registry.prefill_fn(cfg32)(model, batches[0])
+    for k, v in f32_launches.items():
+        n = cfg.n_layers if k == "flash_attention_f32" else 0
+        check(v == n, f"llava f32 prefill: {v} {k} launches, expected {n}")
+    scale = float(want.abs().max())
+    err = float((got - want).abs().max()) / scale
+    check(bool(torch.isfinite(got).all()) and err <= LLAVA_LOGIT_REL,
+          f"llava f32 last logits: {err:.3e} max|logit| from the plain "
+          f"versions (bar {LLAVA_LOGIT_REL:g})")
+    log(f"llava f32 prefill ({cfg.n_patches} patches + "
+        f"{batches[0]['tokens'].shape[1]} tokens): last-position logits "
+        f"within {err:.3e} max|logit| ({scale:.4g}) of the plain versions "
+        f"(bar {LLAVA_LOGIT_REL:g}); launches {f32_launches}")
+    del model, got, want
+    torch.cuda.empty_cache()
+
+    model = build_checked(cfg, device)
+    prefill = registry.prefill_fn(cfg)
+    with torch.no_grad():
+        prefill(model, batches[-1])  # warm
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    walls, tokens = [], []
+    for batch in batches:
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            logits, (k, v) = prefill(model, batch)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        T = cfg.n_patches + batch["tokens"].shape[1]
+        tokens.append(T)
+        check(tuple(k.shape) == (cfg.n_layers, 1, T, cfg.n_kv_heads, cfg.hd)
+              and bool(torch.isfinite(logits).all()),
+              f"llava prefill of {T} positions: caches {tuple(k.shape)}")
+        del logits, k, v
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    for k, v in launches.items():
+        n = cfg.n_layers * LLAVA_PROMPTS if k == "flash_attention_sm90" else 0
+        check(v == n, f"llava prefill: {v} {k} launches, expected {n}")
+    per_1k = 1e3 * sum(walls) / sum(tokens)
+    log(f"llava prefill ({cfg.n_layers} layers, bf16): {LLAVA_PROMPTS} "
+        f"prompts of {tokens} positions ({cfg.n_patches} patches each) in "
+        f"{[round(w, 4) for w in walls]} s, {per_1k:.4f} s per 1k "
+        f"positions, peak {peak / 2**30:.2f} GiB; launches {launches}")
+    del model
+    torch.cuda.empty_cache()
+    return {"launches": launches, "walls_s": walls, "positions": tokens,
+            "prefill_s_per_1k": per_1k, "peak_bytes": peak,
+            "f32": {"launches": f32_launches, "logit_rel_err": err,
+                    "max_logit": scale}}
+
+
+# ------------------------------------------------------------ phase 3i
+# phi3.5-moe trained at full width, depth cut to 1 of its 32 layers
+# (1,563.5 M parameters, 23.3 GiB of f32 parameters, gradient and AdamW
+# state).  2 layers (2,863.8 M, 42.7 GiB) do not fit: the optimizer's
+# step is functional, so old and new parameters and moments (6 x 10.67
+# GiB) and the gradient (10.67 GiB) are live together, 74.7 GiB before
+# the transients of its f64 multiply-adds and of the codec's int64
+# threefry over the 838,860,800-coordinate expert leaves (6.25 GiB per
+# such tensor).  bf16, remat full, kv_chunk 1024, AdamW lr 3e-4, lm data
+# seed 0, global batch 4 x 2048 in 2 microbatches (C = 640 per layer and
+# call), aggregate_gaussian fused b = 8 per-tensor, TRAIN_STEPS steps
+TRAIN_MOE_ARCH = "phi3.5-moe-42b-a6.6b"
+TRAIN_MOE_LAYERS = 1
+TRAIN_MOE_BATCH = 4
+
+
+def run_train_moe_phase(device) -> dict:
+    """Phase 3i: ``drive_train`` on the moe config (launches per step from
+    the spec tree, finite losses, peak; a timed and a traced step), then
+    on 1 x TRAIN_CHECK_SEQ the bf16 gradient check against the f32 model
+    (``check_train_gradient``) and the f32 check of the kernels against
+    the plain versions (``check_train_gradient_f32``)."""
+    import torch
+
+    from repro_torch.models import moe
+
+    cfg = moe_config(TRAIN_MOE_ARCH, TRAIN_MOE_LAYERS)
+    check(cfg.remat == "full", f"train config {cfg}")
+    C = moe.capacity(TRAIN_MOE_BATCH // TRAIN_ACCUM * TRAIN_SEQ, cfg)
+    log(f"train {cfg.name}: capacity {C} slots per expert per layer and "
+        f"microbatch")
+    params, out = drive_train(cfg, TRAIN_MOE_BATCH, TRAIN_STEPS, device)
+    out["gradient_check"] = check_train_gradient(cfg, params, device)
+    out["gradient_check_f32"] = check_train_gradient_f32(
+        cfg.scaled(compute_dtype="float32"), params, device)
+    del params
+    torch.cuda.empty_cache()
+    return out
 
 
 def check_gaussian_law(mech: str, res: dict, sigma: float) -> dict:
@@ -2186,7 +2571,9 @@ def time_new_kernels(device, gen, rates: tuple) -> list:
 
 # timed flash shapes, causal: (B, T, S, H, HK, D, dtype): the serve
 # path's heads (qwen1.5-0.5b, 16 of 64) at T = 2048 and 8192 and
-# qwen3-32b's GQA heads (64 query, 8 KV, of 128) at 4096, in bf16 and f32
+# qwen3-32b's GQA heads (64 query, 8 KV, of 128) at 4096, in bf16 and f32;
+# then the moe and llava prefills' heads at 2048 (phi3.5-moe and llava
+# 32 / 8, dbrx 48 / 8, of 128)
 FLASH_TIMED = (
     (1, 2048, 2048, 16, 16, 64, "bfloat16"),
     (1, 8192, 8192, 16, 16, 64, "bfloat16"),
@@ -2194,6 +2581,10 @@ FLASH_TIMED = (
     (1, 2048, 2048, 16, 16, 64, "float32"),
     (1, 8192, 8192, 16, 16, 64, "float32"),
     (1, 4096, 4096, 64, 8, 128, "float32"),
+    (1, 2048, 2048, 32, 8, 128, "bfloat16"),
+    (1, 2048, 2048, 48, 8, 128, "bfloat16"),
+    (1, 2048, 2048, 32, 8, 128, "float32"),
+    (1, 2048, 2048, 48, 8, 128, "float32"),
 )
 
 
@@ -2302,7 +2693,8 @@ def time_flash(device, gen, mem_rate: float, f32_rate: float,
 # timed backward shapes, causal: (B, T, S, H, HK, D, dtype): the bf16
 # train path's microbatch first (the bf16 kernel's row in the kernels
 # line), then the longest serve prompt's shape and qwen3-32b's GQA heads,
-# in bf16 and then in f32 (the first f32 row the f32 kernel's)
+# in bf16 and then in f32 (the first f32 row the f32 kernel's); then the
+# moe train microbatch (2 x 2048, 32 / 8 heads of 128) in both
 BWD_TIMED = (
     (4, 2048, 2048, 16, 16, 64, "bfloat16"),
     (1, 8192, 8192, 16, 16, 64, "bfloat16"),
@@ -2310,6 +2702,8 @@ BWD_TIMED = (
     (4, 2048, 2048, 16, 16, 64, "float32"),
     (1, 8192, 8192, 16, 16, 64, "float32"),
     (1, 4096, 4096, 64, 8, 128, "float32"),
+    (2, 2048, 2048, 32, 8, 128, "bfloat16"),
+    (2, 2048, 2048, 32, 8, 128, "float32"),
 )
 
 
@@ -2569,18 +2963,32 @@ def main() -> int:
     dpath = run_dither_pack(device, gen)
     held("after the dither_pack path")
     cfg, model32 = serve_model(device)
-    serve = run_serve(cfg, model32, device)
+    # the reference casts at use; one cast copy gives the same values
+    model = copy.deepcopy(model32).to(getattr(torch, cfg.compute_dtype))
+    serve = run_serve(cfg, model, device)
     serve_f32 = check_serve_f32(cfg, model32, device)
-    serve_profile = profile_serve(cfg, model32, device)
-    del model32
+    serve_profile = profile_serve(cfg, model, device)
+    del model32, model
     torch.cuda.empty_cache()
+    held("after the serve path")
+    serve_moe = run_serve_moe_phase(device)
+    log(f"phase 3g (serve moe) done at {time.perf_counter() - t_start:.1f} s")
+    held("after the moe serve phase")
+    llava = run_llava_phase(device)
+    log(f"phase 3h (llava prefill) done at "
+        f"{time.perf_counter() - t_start:.1f} s")
+    held("after the llava phase")
+    train_moe = run_train_moe_phase(device)
+    log(f"phase 3i (train moe) done at {time.perf_counter() - t_start:.1f} s")
+    held("after the moe train phase")
     log(f"phase 3 done at {time.perf_counter() - t_start:.1f} s")
 
     # 4. times
-    copy = copy_rate(device)
-    log(f"copy rate {copy['rate'] / 1e12:.4f} TB/s beside the data sheet's "
+    copy_row = copy_rate(device)
+    log(f"copy rate {copy_row['rate'] / 1e12:.4f} TB/s beside the data "
+        f"sheet's "
         f"{rates[0] / 1e12:.2f} TB/s")
-    rates = rates + (copy["rate"],)
+    rates = rates + (copy_row["rate"],)
     rows = time_kernels(device, gen, rates) + time_new_kernels(device, gen,
                                                                rates)
     rows += time_flash(device, gen, rates[0], rates[1], bf16_rate(name),
@@ -2596,6 +3004,10 @@ def main() -> int:
                 + serve_f32["launches"][k] + train["launches"][k]
                 + train_f32["launches"][k]
                 + TRAIN_RANKS * train_ranks["launches_per_rank"][k]
+                + sum(r["launches"][k] + r["f32"]["launches"][k]
+                      for r in serve_moe.values())
+                + llava["launches"][k] + llava["f32"]["launches"][k]
+                + train_moe["launches"][k]
                 for k in KERNELS}
     kernels = []
     for kname, (src, replaces) in KERNELS.items():
@@ -2611,7 +3023,7 @@ def main() -> int:
     total = time.perf_counter() - t_start
     report = {"card": smi, "build_s": secs, "f32_flash_smem": smem,
               "kernel_rows": rows,
-              "copy": copy, "dither_pack_path": dpath,
+              "copy": copy_row, "dither_pack_path": dpath,
               "message_bits_layered_shifted": fixed,
               "rounds": {m: {k: v for k, v in r.items() if k != "errs"}
                          for m, r in res.items()},
@@ -2621,7 +3033,8 @@ def main() -> int:
               "train_ranks": train_ranks,
               "client_ranks": ranks, "async": async_res,
               "serve": serve, "serve_f32": serve_f32,
-              "serve_profile": serve_profile,
+              "serve_profile": serve_profile, "serve_moe": serve_moe,
+              "llava": llava, "train_moe": train_moe,
               "kernels": kernels, "seconds": total}
     out_dir = ROOT / "build"
     try:

@@ -1,7 +1,9 @@
 """Architecture configs, copied from the JAX package's ``repro.configs``.
 
-``ARCHS`` keeps all ten ids.  The port has the four dense families'
-configs (qwen1.5-0.5b, starcoder2-3b, qwen3-32b, minitron-4b);
+``ARCHS`` keeps all ten ids.  The port has the configs of the
+transformer's three kinds: dense (qwen1.5-0.5b, starcoder2-3b,
+qwen3-32b, minitron-4b), moe (dbrx-132b, phi3.5-moe-42b-a6.6b) and
+llava (llava-next-mistral-7b);
 ``get_config`` / ``get_smoke_config`` of another family raise
 NotImplementedError until its slice lands (see ROADMAP.md).
 """
@@ -27,10 +29,13 @@ ARCHS: List[str] = [
 
 # the ported configs; the other ids belong to families not ported yet
 _MODULES: Dict[str, str] = {
+    "dbrx-132b": "dbrx_132b",
+    "phi3.5-moe-42b-a6.6b": "phi35_moe",
     "starcoder2-3b": "starcoder2_3b",
     "qwen3-32b": "qwen3_32b",
     "qwen1.5-0.5b": "qwen15_05b",
     "minitron-4b": "minitron_4b",
+    "llava-next-mistral-7b": "llava_next_mistral_7b",
 }
 
 

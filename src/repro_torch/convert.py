@@ -34,7 +34,7 @@ def key_from_numpy(key_data) -> torch.Tensor:
 
 
 def transformer_from_numpy(cfg, tree: Any, device=None):
-    """The reference's dense-model parameter tree (numpy arrays, layer
-    stacks on a leading axis) -> the port's ``Transformer`` on
-    ``device`` (CUDA unless "cpu"), dtypes kept."""
+    """The reference's transformer parameter tree (dense, moe or llava;
+    numpy arrays, layer stacks on a leading axis) -> the port's
+    ``Transformer`` on ``device`` (CUDA unless "cpu"), dtypes kept."""
     return Transformer(cfg, params_from_numpy(tree, device))

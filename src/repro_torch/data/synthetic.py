@@ -74,12 +74,20 @@ def batch_fn(cfg: DataConfig):
 
 
 def with_frontend_stubs(batch: Dict, model_cfg, key=None) -> Dict:
-    """The JAX package attaches frame / patch embeddings for the audio
-    and vision stubs; the ported (dense) models take tokens alone, so
-    the batch is returned as it is.  whisper and llava raise until their
-    slice lands."""
-    if model_cfg.kind in ("whisper", "llava"):
+    """Attach the vision stub's deterministic patch embeddings for llava:
+    ``0.02 * normal(key, (B, n_patches, d_model))`` with ``key``
+    PRNGKey(13) by default, bitwise the JAX package's, on the tokens'
+    device.  Other ported kinds take tokens alone (the batch is returned
+    as it is); whisper's frame stub raises until its slice lands."""
+    if model_cfg.kind == "whisper":
         raise NotImplementedError(
-            f"kind={model_cfg.kind!r}: its front-end stub comes with its "
-            f"model family's slice (see ROADMAP.md, Queue 1)")
+            "kind='whisper': its front-end stub comes with its model "
+            "family's slice (see ROADMAP.md, Queue 1)")
+    if model_cfg.kind == "llava":
+        key = prng.PRNGKey(13) if key is None else key
+        tokens = batch["tokens"]
+        batch = dict(batch)
+        batch["patches"] = 0.02 * prng.normal(
+            key, (tokens.shape[0], model_cfg.n_patches, model_cfg.d_model),
+            device=tokens.device)
     return batch

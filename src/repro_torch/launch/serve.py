@@ -9,11 +9,14 @@ lockstep oracle loop (``repro_torch.serve.oracle``) instead.
   python -m repro_torch.launch.serve --arch qwen1.5-0.5b      # on the card
   python -m repro_torch.launch.serve --arch qwen3-32b --smoke --device cpu \\
       --requests 8 --slots 4 --prompt-len 16 --gen 8
+  python -m repro_torch.launch.serve --arch llava-next-mistral-7b --smoke \\
+      --device cpu --naive     # llava: the naive loop, with the patch stub
 
 Weights are random (the reference's init law, seed 0); prompts come
-from ``numpy.random.default_rng``.  The model is cast once to the
-config's compute dtype, which gives the values the reference's cast at
-every use gives.
+from ``numpy.random.default_rng``.  The model is built layer by layer in
+the config's compute dtype (``transformer.init_model``), which gives the
+values the reference's cast at every use gives and keeps the peak near
+the weights in that dtype (phi3.5-moe's 32 layers are 78 GiB in bf16).
 """
 from __future__ import annotations
 
@@ -25,8 +28,8 @@ import numpy as np
 import torch
 
 from repro_torch import configs, resolve_device
-from repro_torch.models import nn, registry, transformer
-from repro_torch.models.config import torch_dtype
+from repro_torch.data import synthetic
+from repro_torch.models import transformer
 from repro_torch.serve import ServeEngine, naive_generate
 
 
@@ -104,14 +107,12 @@ def drive(engine: ServeEngine, model, requests, *, log=lambda *_: None):
 
 
 def build_model(cfg, seed: int, device):
-    """Random weights with the reference's init law from a seeded
-    generator on ``device``, cast to the compute dtype."""
+    """Random weights with the reference's init law from a generator on
+    ``device`` seeded with ``seed``, in the compute dtype."""
     dev = resolve_device(device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
-    tree = nn.init_params(registry.param_specs(cfg), gen, dev)
-    model = transformer.Transformer(cfg, tree)
-    return model.to(torch_dtype(cfg.compute_dtype))
+    return transformer.init_model(cfg, gen, dev)
 
 
 def main(argv=None):
@@ -145,11 +146,11 @@ def main(argv=None):
 
     if args.naive:
         B = args.batch
-        prompts = torch.as_tensor(
+        prompts = synthetic.with_frontend_stubs({"tokens": torch.as_tensor(
             rng.integers(0, cfg.vocab, size=(B, P), dtype=np.int32),
-            device=device)
+            device=device)}, cfg)
         t0 = time.perf_counter()
-        toks = naive_generate(cfg, model, {"tokens": prompts}, args.gen)
+        toks = naive_generate(cfg, model, prompts, args.gen)
         toks = toks.cpu()
         dt = time.perf_counter() - t0
         print(f"[serve] naive {B}x{args.gen} tokens in {dt:.2f}s "

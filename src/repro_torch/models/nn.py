@@ -57,18 +57,21 @@ def map_specs(fn: Callable[[Tuple[str, ...], ParamSpec], Any], specs: PyTree):
     return rec((), specs)
 
 
-def _init_one(spec: ParamSpec, generator: torch.Generator,
-              device: torch.device) -> torch.Tensor:
+def init_leaf(spec: ParamSpec, generator: torch.Generator,
+              device: torch.device, shape=None) -> torch.Tensor:
+    """One leaf of ``spec``'s law, of ``shape`` (default the spec's; a
+    layer's slice of a stack keeps the stack's std)."""
+    shape = spec.shape if shape is None else shape
     if spec.init == "zeros":
-        return torch.zeros(spec.shape, dtype=spec.dtype, device=device)
+        return torch.zeros(shape, dtype=spec.dtype, device=device)
     if spec.init == "ones":
-        return torch.ones(spec.shape, dtype=spec.dtype, device=device)
+        return torch.ones(shape, dtype=spec.dtype, device=device)
     if spec.init in ("normal", "embed"):
         if spec.init == "embed" or len(spec.shape) < 2:
             std = spec.scale * 0.02
         else:
             std = spec.scale / math.sqrt(max(spec.shape[-2], 1))
-        x = torch.randn(spec.shape, generator=generator, dtype=spec.dtype,
+        x = torch.randn(shape, generator=generator, dtype=spec.dtype,
                         device=device)
         return x.mul_(std)
     raise ValueError(spec.init)
@@ -80,7 +83,7 @@ def init_params(specs: PyTree, generator: torch.Generator,
     every normal leaf from ``generator`` (which lives on that device) in
     the tree's order: one seed gives one set of weights."""
     dev = resolve_device(device)
-    return map_specs(lambda _, s: _init_one(s, generator, dev), specs)
+    return map_specs(lambda _, s: init_leaf(s, generator, dev), specs)
 
 
 def spec_numel(specs: PyTree) -> int:

@@ -1,5 +1,6 @@
 """Model API over the architecture families (the port of
-``repro.models.registry``), for the dense kind:
+``repro.models.registry``), for the transformer's kinds (dense, moe,
+llava):
 
   param_specs(cfg)                    -> ParamSpec tree
   logits_fn(cfg, model, batch)        -> (B, T, V) logits
@@ -9,10 +10,12 @@
   decode_state_specs(cfg, B, S)       -> cache tree of meta tensors
   init_decode_state(cfg, B, S, device)-> zero cache tree
 
-``batch`` is a dict with tokens (B, T) int.  ``model`` is a
-``transformer.Transformer`` (or a ``transformer.TreeModel``); ``params``
-is a parameter tree in the reference's layout.  moe, llava, rwkv6, zamba2 and whisper are
-not ported yet and raise NotImplementedError (see ROADMAP.md).
+``batch`` is a dict with tokens (B, T) int, and for llava patches
+(B, P, D) (``data.synthetic.with_frontend_stubs``): the logits are the
+text positions'.  ``model`` is a ``transformer.Transformer`` (or a
+``transformer.TreeModel``); ``params`` is a parameter tree in the
+reference's layout.  rwkv6, zamba2 and whisper are not ported yet and
+raise NotImplementedError (see ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -24,8 +27,7 @@ from repro_torch import resolve_device
 from repro_torch.models import nn, transformer
 from repro_torch.models.config import ModelConfig, torch_dtype
 
-# the reference's DENSE_KINDS minus moe and llava, which are not ported
-DENSE_KINDS = ("dense",)
+DENSE_KINDS = ("dense", "moe", "llava")
 
 
 def _dense(cfg: ModelConfig) -> None:
@@ -42,6 +44,11 @@ def param_specs(cfg: ModelConfig):
 
 def logits_fn(cfg: ModelConfig, model, batch) -> torch.Tensor:
     _dense(cfg)
+    if cfg.kind == "llava":
+        patches = batch["patches"]
+        logits, _ = transformer.forward(cfg, model, batch["tokens"],
+                                        patches=patches, caches=False)
+        return logits[:, patches.shape[1]:]  # text positions only
     logits, _ = transformer.forward(cfg, model, batch["tokens"],
                                     caches=False)
     return logits
@@ -99,11 +106,13 @@ def serve_fn(cfg: ModelConfig) -> Callable:
 
 
 def prefill_fn(cfg: ModelConfig) -> Callable:
-    """prefill(model, batch) -> (last-position logits, caches)."""
+    """prefill(model, batch) -> (last-position logits, caches); llava's
+    caches cover its patch positions too."""
     _dense(cfg)
 
     def prefill(model, batch) -> Any:
+        patches = batch["patches"] if cfg.kind == "llava" else None
         return transformer.forward(cfg, model, batch["tokens"],
-                                   last_only=True)
+                                   patches=patches, last_only=True)
 
     return prefill

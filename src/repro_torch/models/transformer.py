@@ -1,12 +1,16 @@
-"""Dense decoder-only transformer (GQA + RoPE), the backbone of
-qwen1.5 / starcoder2 / qwen3 / minitron (the port of
-``repro.models.transformer``, dense kind only: moe raises).
+"""Decoder-only transformer (GQA + RoPE), the backbone of qwen1.5 /
+starcoder2 / qwen3 / minitron (kind dense), dbrx / phi3.5-moe (kind moe:
+the FFN is ``models.moe``) and llava (kind llava: patch embeddings,
+projected by ``patch_proj``, precede the text); the port of
+``repro.models.transformer``.
 
 ``param_specs`` keeps the reference's tree, with layer stacks on a
 leading axis; ``Transformer`` holds one ``DecoderLayer`` module per
 layer under the reference's parameter names (``attn.wq`` ... ``attn.bv``,
-``attn.q_norm``, ``mlp.w_gate``, ``norm1_w``, ...).  The functions take
-that module where the reference takes its parameter tree.
+``attn.q_norm``, ``mlp.w_gate`` or ``moe.router`` ... ``moe.w_down``,
+``norm1_w``, ...).  The functions take that module where the reference
+takes its parameter tree.  ``init_model`` draws random weights layer by
+layer, each leaf cast to the compute dtype as it is made.
 
 Full-sequence attention (prefill, training) runs through the flash
 kernel (``attention.flash_attention``, with its backward kernel under
@@ -33,16 +37,19 @@ import torch
 from torch import nn as tnn
 from torch.utils import checkpoint
 
-from repro_torch.models import attention, nn
+from repro_torch import resolve_device
+from repro_torch.models import attention, moe, nn
 from repro_torch.models.config import ModelConfig, torch_dtype
 from repro_torch.models.nn import ParamSpec
 
+KINDS = ("dense", "moe", "llava")
 
-def _dense_only(cfg: ModelConfig) -> None:
-    if cfg.kind != "dense":
+
+def _check_kind(cfg: ModelConfig) -> None:
+    if cfg.kind not in KINDS:
         raise NotImplementedError(
-            f"kind={cfg.kind!r}: only the dense transformer is ported "
-            f"(see ROADMAP.md, Queue 1)")
+            f"kind={cfg.kind!r}: the transformer serves {KINDS}; the other "
+            f"families are not ported yet (see ROADMAP.md, Queue 1)")
 
 
 # ----------------------------------------------------------------- specs
@@ -94,8 +101,12 @@ def norm_specs(cfg: ModelConfig, name: str) -> Dict[str, ParamSpec]:
 
 
 def layer_specs(cfg: ModelConfig) -> Dict[str, Any]:
-    _dense_only(cfg)
-    s: Dict[str, Any] = {"attn": attn_specs(cfg), "mlp": mlp_specs(cfg)}
+    _check_kind(cfg)
+    s: Dict[str, Any] = {"attn": attn_specs(cfg)}
+    if cfg.kind == "moe":
+        s["moe"] = moe.moe_specs(cfg)
+    else:
+        s["mlp"] = mlp_specs(cfg)
     s.update(norm_specs(cfg, "norm1"))
     s.update(norm_specs(cfg, "norm2"))
     return s
@@ -113,6 +124,9 @@ def param_specs(cfg: ModelConfig) -> Dict[str, Any]:
     if not cfg.tie_embeddings:
         specs["lm_head"] = ParamSpec((cfg.d_model, cfg.padded_vocab),
                                      ("embed", "vocab"))
+    if cfg.kind == "llava":
+        specs["patch_proj"] = ParamSpec((cfg.d_model, cfg.d_model),
+                                        ("embed", "embed"))
     return specs
 
 
@@ -124,27 +138,29 @@ def _params(tree: Dict[str, torch.Tensor]) -> tnn.ParameterDict:
 
 class DecoderLayer(tnn.Module):
     """One decoder layer's parameters under the reference's names:
-    ``attn`` and ``mlp`` (ParameterDicts) and ``norm1_w`` / ``norm2_w``
-    (+ ``_b`` for LayerNorm)."""
+    ``attn`` and ``mlp`` or ``moe`` (ParameterDicts) and ``norm1_w`` /
+    ``norm2_w`` (+ ``_b`` for LayerNorm)."""
 
     def __init__(self, tree: Dict[str, Any]):
         super().__init__()
-        self.attn = _params(tree["attn"])
-        self.mlp = _params(tree["mlp"])
         for name, t in tree.items():
-            if name not in ("attn", "mlp"):
+            if isinstance(t, dict):
+                setattr(self, name, _params(t))
+            else:
                 setattr(self, name, tnn.Parameter(t, requires_grad=False))
 
 
 class Transformer(tnn.Module):
-    """The dense model: ``embed``, ``layers`` (one DecoderLayer each),
-    ``final_w`` (+ ``final_b``), ``lm_head`` when embeddings are untied.
-    Built from a parameter tree in the reference's layout (layer stacks
-    on a leading axis; each layer's slice is copied out)."""
+    """The model: ``embed``, ``layers`` (one DecoderLayer each),
+    ``final_w`` (+ ``final_b``), ``lm_head`` when embeddings are untied,
+    ``patch_proj`` for llava.  Built from a parameter tree in the
+    reference's layout (layer stacks on a leading axis; each layer's
+    slice is copied out), or with ``tree["layers"]`` a list of one tree
+    per layer, which is taken as it is."""
 
     def __init__(self, cfg: ModelConfig, tree: Dict[str, Any]):
         super().__init__()
-        _dense_only(cfg)
+        _check_kind(cfg)
         self.cfg = cfg
         L = cfg.n_layers
 
@@ -156,8 +172,12 @@ class Transformer(tnn.Module):
                                  f"expected {L}")
             return node[i].clone()
 
-        self.layers = tnn.ModuleList(
-            [DecoderLayer(layer(i, tree["layers"])) for i in range(L)])
+        layers = tree["layers"]
+        if not isinstance(layers, list):
+            layers = [layer(i, layers) for i in range(L)]
+        if len(layers) != L:
+            raise ValueError(f"{len(layers)} layers, expected {L}")
+        self.layers = tnn.ModuleList([DecoderLayer(t) for t in layers])
         for name, t in tree.items():
             if name != "layers":
                 setattr(self, name, tnn.Parameter(t, requires_grad=False))
@@ -166,12 +186,12 @@ class Transformer(tnn.Module):
 class TreeModel:
     """A parameter tree in the reference's layout, seen as a
     ``Transformer``: ``embed``, ``final_w`` ... as attributes, and
-    ``layers``, one namespace a layer (``attn`` and ``mlp`` dicts, the
-    norms as attributes) of the stacks' slices (``unbind``, whose
+    ``layers``, one namespace a layer (``attn`` and ``mlp`` or ``moe``
+    dicts, the norms as attributes) of the stacks' slices (``unbind``, whose
     backward stacks the layers' gradients in one op)."""
 
     def __init__(self, cfg: ModelConfig, tree: Dict[str, Any]):
-        _dense_only(cfg)
+        _check_kind(cfg)
         L = cfg.n_layers
 
         def unbind(node):
@@ -260,10 +280,16 @@ def mlp_block(cfg: ModelConfig, lp: DecoderLayer, x):
     return nn.gelu_mlp(x, m["w_up"], m["b_up"], m["w_down"], m["b_down"])
 
 
+def _ffn(cfg: ModelConfig, lp: DecoderLayer, x):
+    if cfg.kind == "moe":
+        return moe.moe_block(cfg, lp.moe, x)
+    return mlp_block(cfg, lp, x)
+
+
 def _layer(cfg: ModelConfig, lp, h, rope):
     a, kv = attn_block(cfg, lp, _norm(cfg, h, lp, "norm1"), rope)
     h = h + a
-    h = h + mlp_block(cfg, lp, _norm(cfg, h, lp, "norm2"))
+    h = h + _ffn(cfg, lp, _norm(cfg, h, lp, "norm2"))
     return h, kv
 
 
@@ -305,7 +331,7 @@ def decoder_decode(cfg: ModelConfig, model: Transformer, x, caches):
             cfg, lp, _norm(cfg, h, lp, "norm1"), (k_all[i], v_all[i]),
             window=cfg.window)
         h = h + a
-        h = h + mlp_block(cfg, lp, _norm(cfg, h, lp, "norm2"))
+        h = h + _ffn(cfg, lp, _norm(cfg, h, lp, "norm2"))
         nks.append(nk)
         nvs.append(nv)
     return h, (torch.stack(nks), torch.stack(nvs))
@@ -339,7 +365,7 @@ def decoder_decode_slots(cfg: ModelConfig, model: Transformer, x, caches,
             cache[rows, write] = torch.where(keep[:, None, None],
                                              new.to(cache.dtype), old)
         h = h + a
-        h = h + mlp_block(cfg, lp, _norm(cfg, h, lp, "norm2"))
+        h = h + _ffn(cfg, lp, _norm(cfg, h, lp, "norm2"))
     return h, caches
 
 
@@ -353,13 +379,18 @@ def unembed(cfg: ModelConfig, model: Transformer, h):
     return nn.dense(h, w)
 
 
-def forward(cfg: ModelConfig, model: Transformer, tokens, *,
+def forward(cfg: ModelConfig, model: Transformer, tokens, *, patches=None,
             last_only: bool = False, caches: bool = True):
-    """Prefill / training forward -> (logits, caches).  ``last_only``
+    """Prefill / training forward -> (logits, caches).  For llava,
+    ``patches`` (B, P, D) projected by ``patch_proj`` precede the text
+    (logits and caches then cover P + T positions).  ``last_only``
     computes logits for the final position only; without ``caches`` the
     KV caches are not kept (training) and None is returned for them."""
     dtype = torch_dtype(cfg.compute_dtype)
     x = embed_tokens(cfg, model, tokens, dtype)
+    if cfg.kind == "llava" and patches is not None:
+        proj = nn.dense(patches.to(dtype), model.patch_proj)
+        x = torch.cat([proj, x], dim=1)
     rope = nn.rope_freqs(cfg.hd, x.shape[1] + 1, cfg.rope_theta, dtype,
                          device=x.device)
     y, caches = decoder(cfg, model, x, rope, caches=caches)
@@ -367,3 +398,29 @@ def forward(cfg: ModelConfig, model: Transformer, tokens, *,
         y = y[:, -1:]
     y = _norm(cfg, y, model, "final")
     return unembed(cfg, model, y), caches
+
+
+def init_model(cfg: ModelConfig, generator: torch.Generator, device=None,
+               dtype=None) -> Transformer:
+    """Random weights with the reference's init law from ``generator``
+    (on ``device``, CUDA unless "cpu"), layer by layer: each leaf is
+    drawn in f32 (a layer's slice of a stack under the stack's law) and
+    cast to ``dtype`` (default the compute dtype) as it is made, so the
+    peak stays near the weights in ``dtype``.  Draw order: embed, each
+    layer's leaves, then the other top-level leaves."""
+    dev = resolve_device(device)
+    dt = torch_dtype(cfg.compute_dtype) if dtype is None else dtype
+    specs = param_specs(cfg)
+
+    def draw(spec, per_layer=False):
+        shape = spec.shape[1:] if per_layer else spec.shape
+        return nn.init_leaf(spec, generator, dev, shape).to(dt)
+
+    tree: Dict[str, Any] = {"embed": draw(specs["embed"])}
+    tree["layers"] = [nn.map_specs(lambda _, s: draw(s, True),
+                                   specs["layers"])
+                      for _ in range(cfg.n_layers)]
+    for name, spec in specs.items():
+        if name not in tree:
+            tree[name] = draw(spec)
+    return Transformer(cfg, tree)

@@ -19,11 +19,11 @@ bookkeeping into the given state, and ``generate_step`` writes each
 active slot's new KV row into the cache (``select``: an inactive slot's
 row is written back unchanged) and returns new bookkeeping tensors.
 
-Families: dense (slot-pool KV cache with ``valid_len`` masking: rows past
-a slot's length score -1e30 and contribute exactly 0).  moe, rwkv6 and
-zamba2 are not ported yet and raise NotImplementedError (see
-ROADMAP.md); whisper / llava need per-request side inputs and raise as
-in the reference.
+Families: dense and moe (slot-pool KV cache with ``valid_len`` masking:
+rows past a slot's length score -1e30 and contribute exactly 0; a moe
+decode step routes the slots' tokens as one call).  rwkv6 and zamba2 are
+not ported yet and raise NotImplementedError (see ROADMAP.md); whisper /
+llava need per-request side inputs and raise as in the reference.
 """
 from __future__ import annotations
 
@@ -61,7 +61,7 @@ class Prefix:
 
 # ------------------------------------------------------------- families
 class _DenseFamily:
-    """dense: preallocated (L, N, S_max, HK, hd) KV slot pool.
+    """dense and moe: preallocated (L, N, S_max, HK, hd) KV slot pool.
     ``decoder_decode_slots`` masks rows >= lengths[slot] with -1e30, so
     stale rows contribute exact-zero probability; per-slot RoPE comes
     from position-direct ``rope_at``."""
@@ -99,9 +99,9 @@ class _DenseFamily:
 
 
 def _make_family(cfg: ModelConfig, ecfg: EngineConfig, device):
-    if cfg.kind == "dense":
+    if cfg.kind in ("dense", "moe"):
         return _DenseFamily(cfg, ecfg, device)
-    if cfg.kind in ("moe", "rwkv6", "zamba2"):
+    if cfg.kind in ("rwkv6", "zamba2"):
         raise NotImplementedError(
             f"serve engine: kind={cfg.kind!r} is not ported to repro_torch "
             f"yet (see ROADMAP.md, Queue 1)")

@@ -1,5 +1,6 @@
 """Naive one-batch generation loop, kept as the engine's correctness
-oracle (the port of ``repro.serve.oracle``, dense kind).
+oracle (the port of ``repro.serve.oracle``, for the dense and moe
+kinds).
 
 Every request in one batch, decode steps in lockstep, the dense cache
 *grows* by one row per step and never drops a position.  ``ServeEngine``
@@ -27,7 +28,8 @@ def naive_generate(cfg: ModelConfig, model, prompts: Dict,
                    n_tokens: int) -> torch.Tensor:
     """Greedy-decode ``n_tokens`` per sequence (the prefill argmax plus
     n_tokens - 1 decode steps).  ``prompts``: batch dict with tokens
-    (B, P) on the model's device.  Returns (B, n_tokens) int32."""
+    (B, P) [+ patches for llava] on the model's device.  Returns
+    (B, n_tokens) int32."""
     if cfg.kind == "whisper":
         raise NotImplementedError(
             "whisper serving needs an encoder pass + cross-KV plumbing; "

@@ -44,12 +44,16 @@ def test_randint_bitwise(lo, hi):
 
 
 def test_frontend_stubs():
-    """The dense kind's batch passes through; whisper and llava raise
-    until their slice lands."""
+    """The dense and moe kinds' batch passes through; llava gets its
+    patch stub (bitwise the reference's: tests/test_torch_llava.py);
+    whisper raises until its slice lands."""
     cfg = ModelConfig(name="x", kind="dense", n_layers=1, d_model=8,
-                      n_heads=1, n_kv_heads=1, d_ff=8, vocab=16)
-    batch = {"tokens": object()}
-    assert tsyn.with_frontend_stubs(batch, cfg) is batch
-    for kind in ("whisper", "llava"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tsyn.with_frontend_stubs(batch, cfg.scaled(kind=kind))
+                      n_heads=1, n_kv_heads=1, d_ff=8, vocab=16, n_patches=3)
+    batch = {"tokens": torch.zeros((2, 5), dtype=torch.int32)}
+    for kind in ("dense", "moe"):
+        assert tsyn.with_frontend_stubs(batch, cfg.scaled(kind=kind)) is batch
+    out = tsyn.with_frontend_stubs(batch, cfg.scaled(kind="llava"))
+    assert out["tokens"] is batch["tokens"] and "patches" not in batch
+    assert out["patches"].shape == (2, 3, 8)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tsyn.with_frontend_stubs(batch, cfg.scaled(kind="whisper"))

@@ -23,6 +23,8 @@ from repro_torch.models import nn, registry, transformer
 from repro_torch.models.config import torch_dtype
 
 DENSE = ("qwen1.5-0.5b", "starcoder2-3b", "qwen3-32b", "minitron-4b")
+# the transformer's other kinds: moe and llava
+PORTED = DENSE + ("dbrx-132b", "phi3.5-moe-42b-a6.6b", "llava-next-mistral-7b")
 QWEN15_PARAMS = 463_987_712
 
 
@@ -112,7 +114,7 @@ def _shapes(tree, is_leaf):
     return {k: _shapes(v, is_leaf) for k, v in tree.items()}
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", PORTED)
 def test_param_specs_equal_reference(arch):
     """Full configs: the same tree of shapes, init laws and logical axes
     as the reference's, with nothing allocated."""
@@ -132,7 +134,7 @@ def test_qwen15_parameter_count():
 
 def test_configs_copy_the_reference():
     assert configs.ARCHS == jconfigs.ARCHS
-    for arch in DENSE:
+    for arch in PORTED:
         for get, jget in ((configs.get_config, jconfigs.get_config),
                           (configs.get_smoke_config,
                            jconfigs.get_smoke_config)):
@@ -145,7 +147,7 @@ def test_configs_copy_the_reference():
 
 
 @pytest.mark.parametrize("arch", [a for a in jconfigs.ARCHS
-                                  if a not in DENSE])
+                                  if a not in PORTED])
 def test_unported_families_raise(arch):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         configs.get_config(arch)

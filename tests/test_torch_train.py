@@ -547,3 +547,128 @@ def test_step_across_ranks_takes_a_process_group_and_compression():
         steps.build_train_step(cfg, tc, group="pod")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         steps.init_train_state(cfg, tc)
+
+
+# ------------------------------------------------- the moe and llava kinds
+KIND_ARCHS = ("phi3.5-moe-42b-a6.6b", "dbrx-132b", "llava-next-mistral-7b")
+
+
+def _kind_cfgs(arch):
+    kw = {"top_k": 4} if arch == "dbrx-132b" else {}
+    return _cfgs(arch, **kw)
+
+
+def _kind_batches(cfg_j, cfg, tokens):
+    """The reference's and the port's batch: tokens, and for llava the
+    patch stub each package attaches."""
+    from repro.data import synthetic as jsyn
+    from repro_torch.data import synthetic as tsyn
+
+    return (jsyn.with_frontend_stubs({"tokens": jnp.asarray(tokens)}, cfg_j),
+            tsyn.with_frontend_stubs({"tokens": torch.from_numpy(tokens)},
+                                     cfg))
+
+
+@pytest.mark.parametrize("arch", KIND_ARCHS)
+def test_kind_loss_and_gradients_match_reference(arch, one_device_mesh):
+    """moe (phi3.5-moe's smoke, dbrx's at top 4) and llava (with its patch
+    stub), f32, batch 4 x 32 in 2 microbatches: the loss within 1e-5
+    relative and every gradient leaf (the router, experts and
+    ``patch_proj`` among them) within 1e-4 max|g| of the jitted
+    reference's microbatch sum."""
+    cfg_j, cfg = _kind_cfgs(arch)
+    params = _params(cfg_j)
+    tokens = _tokens(cfg)
+    jb, tb = _kind_batches(cfg_j, cfg, tokens)
+    vg = jax.jit(jax.value_and_grad(jregistry.loss_fn(cfg_j)))
+    parts = [vg(params, {k: v[i:i + 2] for k, v in jb.items()})
+             for i in (0, 2)]
+    jl = sum(float(l) for l, _ in parts) / 2
+    jg = jax.tree.map(lambda *g: sum(g) / 2, *(g for _, g in parts))
+    tl, tg = steps.loss_and_grads(
+        cfg, steps.TrainConfig(grad_accum=2),
+        params_from_numpy(jax.tree.map(np.asarray, params), "cpu"), tb)
+    assert abs(float(tl) - jl) <= LOSS_RTOL * abs(jl)
+    got, want = _tleaves(tg), _jleaves(jg)
+    assert len(got) == len(want)
+    for a, b in zip(got, want):
+        assert a.shape == b.shape
+        assert _max_rel(a, b) <= GRAD_REL
+
+
+@pytest.mark.parametrize("arch", KIND_ARCHS)
+def test_kind_step_matches_the_jitted_reference(arch, one_device_mesh):
+    """One step of the launcher's configuration (AdamW, aggregate_gaussian
+    fused b = 8 per-tensor) for each new kind against ``jax.jit(steps.
+    build_train_step)``, as the dense test above: the loss within 1e-5
+    relative, every parameter within 2 B lr and 99.9% within the
+    optimizer bar."""
+    cfg_j, cfg = _kind_cfgs(arch)
+    kw = dict(mechanism="aggregate_gaussian", sigma=1e-3, fused=True,
+              msg_bits=8, per_coord=False)
+    jtc = jsteps.TrainConfig(lr=LR, compression=jcomp.CompressionConfig(**kw))
+    ttc = steps.TrainConfig(lr=LR, compression=tcomp.CompressionConfig(**kw))
+    mesh = jax.make_mesh((1, 1), ("data", "model"), devices=jax.devices()[:1])
+    params = _params(cfg_j)
+    jstate = {"params": params,
+              "opt_state": joptim.get_optimizer("adamw", LR).init(params),
+              "step": jnp.zeros((), jnp.int32)}
+    tstate = _state(jax.tree.map(np.asarray, params))
+    jb, tb = _kind_batches(cfg_j, cfg, _tokens(cfg, seed=21))
+    jstate, jm = jax.jit(jsteps.build_train_step(cfg_j, jtc, mesh))(
+        jstate, jb, jnp.int32(5))
+    tstate, tm = steps.build_train_step(cfg, ttc)(tstate, tb, 5)
+    assert abs(float(tm["loss"]) - float(jm["loss"])) <= (
+        LOSS_RTOL * abs(float(jm["loss"])))
+    diffs = [np.abs(a - b) for a, b in zip(_tleaves(tstate["params"]),
+                                           _jleaves(jstate["params"]))]
+    assert max(float(d.max()) for d in diffs) <= 2 * ADAM_BOUND * LR
+    _assert_mostly_within_optimizer_bar(tstate["params"], jstate["params"])
+
+
+@pytest.mark.parametrize("arch", ["phi3.5-moe-42b-a6.6b",
+                                  "llava-next-mistral-7b"])
+def test_kind_bf16_gradient_error_at_most_twice_the_jax_models(
+        arch, one_device_mesh):
+    """moe and llava in bf16 (smoke widths): each gradient leaf's relative
+    L2 error against the JAX model's f32 gradient at most twice the JAX
+    bf16 model's own (routing may flip on near ties in both); the loss
+    within one bf16 rounding of both."""
+    cfg_j, cfg = _kind_cfgs(arch)
+    cfg_j, cfg = (c.scaled(compute_dtype="bfloat16") for c in (cfg_j, cfg))
+    params = _params(cfg_j)
+    tokens = _tokens(cfg, shape=(2, 24), seed=5)
+    jb, tb = _kind_batches(cfg_j, cfg, tokens)
+
+    def jvg(c):
+        f = jax.jit(jax.value_and_grad(lambda p, b: jregistry.loss_fn(c)(
+            jnn.cast_tree(p, jnp.dtype(c.compute_dtype)), b)))
+        loss, g = f(params, jb)
+        return float(loss), _jleaves(g)
+
+    l32, g32 = jvg(cfg_j.scaled(compute_dtype="float32"))
+    lbf, gbf = jvg(cfg_j)
+    lp, gp = steps.value_and_grad(
+        cfg, params_from_numpy(jax.tree.map(np.asarray, params), "cpu"), tb)
+    assert abs(float(lp) - lbf) <= 2.0 ** -8 * abs(lbf)
+    assert abs(float(lp) - l32) <= 2.0 ** -8 * abs(l32)
+    for a, b, c in zip(_tleaves(gp), gbf, g32):
+        port = np.linalg.norm(a - c) / np.linalg.norm(c)
+        assert port <= 2 * np.linalg.norm(b - c) / np.linalg.norm(c)
+
+
+@pytest.mark.parametrize("arch", ["phi3.5-moe-42b-a6.6b",
+                                  "llava-next-mistral-7b"])
+def test_train_cli_runs_the_new_kinds(arch):
+    """The train launcher's smoke mode on the CPU for moe and for llava
+    (whose batches carry the patch stub)."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    run = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train", "--arch", arch,
+         "--smoke", "--device", "cpu", "--steps", "2", "--mechanism",
+         "aggregate_gaussian", "--no-per-coord", "--fused"],
+        capture_output=True, text=True, env=env, timeout=300)
+    assert run.returncode == 0, run.stderr
+    lines = [ln for ln in run.stdout.splitlines() if " loss " in ln]
+    assert len(lines) == 2
+    assert np.isfinite(float(lines[-1].split(" loss ")[1].split()[0]))
