@@ -2124,19 +2124,27 @@ def build_checked(cfg, device):
 
 
 class count_drops:
-    """Within the block, every MoE block records its dropped-choice count
-    (``models.moe.DROPS``); ``total()`` reads their sum."""
+    """Within the block, ``models.moe.route`` is wrapped so that every MoE
+    block's dropped-choice count is recorded (a 0-dim tensor on the
+    device, read only by ``total()``, which sums them)."""
 
     def __enter__(self):
         from repro_torch.models import moe
 
-        moe.DROPS = self.drops = []
+        self.drops, self._route = [], moe.route
+
+        def route(*args):
+            out = self._route(*args)
+            self.drops.append((~out[3]).sum())
+            return out
+
+        moe.route = route
         return self
 
     def __exit__(self, *exc):
         from repro_torch.models import moe
 
-        moe.DROPS = None
+        moe.route = self._route
         return False
 
     def total(self) -> int:

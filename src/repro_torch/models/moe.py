@@ -32,18 +32,13 @@ identically.
 from __future__ import annotations
 
 import math
-from typing import Dict, List, Optional
+from typing import Dict
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.nn import ParamSpec
-
-# when a list, every block appends its dropped-choice count (a 0-dim
-# int64 tensor on the device; nothing is read back to the host)
-DROPS: Optional[List[torch.Tensor]] = None
-
 
 def moe_specs(cfg: ModelConfig) -> Dict[str, ParamSpec]:
     d, f, e = cfg.d_model, cfg.d_ff, cfg.n_experts
@@ -76,9 +71,11 @@ def route(cfg: ModelConfig, tokens: torch.Tensor, router: torch.Tensor):
     top_w, top_e = vals[:, :K], idx[:, :K]
     top_w = top_w / torch.clamp_min(top_w.sum(-1, keepdim=True), 1e-9)
     flat_e = top_e.reshape(-1)
-    onehot = F.one_hot(flat_e, E)
-    pos = torch.cumsum(onehot, dim=0) - onehot  # exclusive, choice order
-    flat_pos = pos.gather(1, flat_e[:, None])[:, 0]
+    # the (E, N K) one-hot, so the scan runs along the inner dimension
+    onehot = (flat_e[None] == torch.arange(E, device=flat_e.device)[:, None]
+              ).long()
+    pos = torch.cumsum(onehot, dim=1) - onehot  # exclusive, choice order
+    flat_pos = pos.gather(0, flat_e[None])[0]
     return top_w, top_e, flat_pos, flat_pos < C, C
 
 
@@ -90,8 +87,6 @@ def local_moe(cfg: ModelConfig, x, router, w_gate, w_up, w_down):
     tokens = x.reshape(B * T, D)
     N = B * T
     top_w, top_e, flat_pos, keep, C = route(cfg, tokens, router)
-    if DROPS is not None:
-        DROPS.append((~keep).sum())
     # slot of each choice in the flattened (E C) buffer; dropped choices
     # point at one extra slot past the end, which stays empty
     slot = torch.where(keep, top_e.reshape(-1) * C + flat_pos, E * C)

@@ -27,7 +27,7 @@ from repro_torch import resolve_device
 from repro_torch.models import nn, transformer
 from repro_torch.models.config import ModelConfig, torch_dtype
 
-DENSE_KINDS = ("dense", "moe", "llava")
+DENSE_KINDS = transformer.KINDS
 
 
 def _dense(cfg: ModelConfig) -> None:

@@ -400,16 +400,16 @@ def forward(cfg: ModelConfig, model: Transformer, tokens, *, patches=None,
     return unembed(cfg, model, y), caches
 
 
-def init_model(cfg: ModelConfig, generator: torch.Generator, device=None,
-               dtype=None) -> Transformer:
+def init_model(cfg: ModelConfig, generator: torch.Generator,
+               device=None) -> Transformer:
     """Random weights with the reference's init law from ``generator``
     (on ``device``, CUDA unless "cpu"), layer by layer: each leaf is
     drawn in f32 (a layer's slice of a stack under the stack's law) and
-    cast to ``dtype`` (default the compute dtype) as it is made, so the
-    peak stays near the weights in ``dtype``.  Draw order: embed, each
+    cast to the compute dtype as it is made, so the peak stays near the
+    weights in that dtype.  Draw order: embed, each
     layer's leaves, then the other top-level leaves."""
     dev = resolve_device(device)
-    dt = torch_dtype(cfg.compute_dtype) if dtype is None else dtype
+    dt = torch_dtype(cfg.compute_dtype)
     specs = param_specs(cfg)
 
     def draw(spec, per_layer=False):

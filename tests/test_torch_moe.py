@@ -139,21 +139,24 @@ def test_ties_go_to_the_lower_expert():
 
 
 @pytest.mark.parametrize("case", sorted(CASES))
-def test_block_f32_matches_reference(case, one_device_mesh):
+def test_block_f32_matches_reference(case, one_device_mesh, monkeypatch):
     """The block's f32 output within 1e-5 max|y| of the jitted reference;
-    in the drops case the dropped-choice count (``moe.DROPS``) is the
-    reference routing's."""
+    in the drops case the dropped-choice count (read by wrapping
+    ``moe.route``) is the reference routing's."""
     cfg_j, cfg = _cfgs(case)
     w, x = _weights(cfg), _x(cfg, 2, 24)
     want = np.asarray(_jblock(cfg_j, {k: jnp.asarray(v) for k, v in
                                       w.items()}, jnp.asarray(x)))
-    moe.DROPS = []
-    try:
-        got = moe.moe_block(cfg, {k: torch.from_numpy(v) for k, v in
-                                  w.items()}, torch.from_numpy(x))
-        drops = [int(d) for d in moe.DROPS]
-    finally:
-        moe.DROPS = None
+    drops, route = [], moe.route
+
+    def counted(*args):
+        out = route(*args)
+        drops.append(int((~out[3]).sum()))
+        return out
+
+    monkeypatch.setattr(moe, "route", counted)
+    got = moe.moe_block(cfg, {k: torch.from_numpy(v) for k, v in
+                              w.items()}, torch.from_numpy(x))
     np.testing.assert_allclose(got.numpy(), want, rtol=0,
                                atol=1e-5 * np.abs(want).max())
     keep = _jroute(cfg_j, jnp.asarray(x.reshape(-1, cfg.d_model)),
