@@ -28,7 +28,14 @@ flash_attention_bwd_f32_sm90 (3xTF32 wgmma + TMA).  The moe family runs
 at full width with its depth cut to what the card holds: phi3.5-moe (24
 of 32 layers) and dbrx (8 of 40) served in bf16 and checked in f32 (4
 layers), phi3.5-moe trained (1 layer); llava-next-mistral-7b, uncut,
-prefills prompts behind its 576 stub patches.
+prefills prompts behind its 576 stub patches.  The other three dense
+configs (starcoder2-3b, minitron-4b, qwen3-32b) are served uncut in bf16
+and checked in f32.  rwkv6-1.6b, the first family outside the
+transformer, runs its time recurrence through the wkv6 kernels (a
+forward, and a reverse-time backward): served uncut in bf16 (the engine
+and the naive loop take the decode path, one kernel launch a layer per
+token; ``registry.prefill_fn`` the scan path) and checked in f32, and
+trained at 16 of its 24 layers.
 Phases, each fatal on failure:
 
   1. build every CUDA source of the port with nvcc (sm_90a), one nvcc
@@ -55,10 +62,17 @@ Phases, each fatal on failure:
      ``ref.flash_attention_bwd_ref`` at the train shapes (4 and 2,
      2048, 16, 64), (1, 8192, 16, 64), qwen3-32b's GQA heads, the moe
      and llava paths' (1 and 2, 2048, 32 / 8, 128) and (1, 2048, 48 / 8,
+     128), starcoder2-3b's and minitron-4b's (1, 2048, 24 / 2 and 24 / 8,
      128), a ragged
      and a non-causal case (f32 within 2e-5 max|g|; bf16 every output within
      one ulp + 2e-5 max|g|, dV also + 2^-9 max|dO| max_j sum_i P[i, j],
      and 99% within one ulp + 2e-5 max|g|), bitwise equal over two runs;
+     and the wkv6 kernels against ``ref.wkv6_ref`` / ``ref.wkv6_bwd_ref``
+     at rwkv6's (1 and 2, 2048, 32, 64) in bf16 and f32, a ragged T = 700
+     and the decode step (8, 1, 32, 64), with a nonzero first state and
+     u: each output (y, the final state, dr, dk, dv, dw, du, dS0) no
+     further from an f64 run than twice the plain f32 version, the states
+     bitwise the plain version's, both kernels bitwise over two runs;
   3. run each path with its kernels' launch counts set to 0 just before
      and read just after: FederatedAveraging for aggregate_gaussian
      (per-coordinate, sigma 0.25) and irwin_hall (sigma 5e-3), one packed
@@ -112,13 +126,29 @@ Phases, each fatal on failure:
      phase 3d (launches per step from the spec tree), a timed and a
      traced step, and on 1 x 2048 the bf16 gradient check against the f32
      model and the f32 check of the kernels against the plain versions;
+     3j: starcoder2-3b, minitron-4b and qwen3-32b uncut in bf16, 8
+     requests of 256-2048 prompt tokens and 64 out each through
+     ``run_serve`` (one flash_attention_sm90 launch per layer per
+     prefill), then the f32 token checks (qwen3-32b at 4 layers); 3k:
+     rwkv6 uncut in bf16, 8 requests of 64-256 prompt tokens through
+     ``run_serve`` (one wkv6_fwd launch per layer per decode call; each
+     prompt token is one), ``registry.prefill_fn`` over 4 prompts of
+     512-2048 tokens (one wkv6_fwd a layer), and in f32 the engine equal
+     to the naive loop one request per call, its prefill bitwise its own
+     decode chain, and the scan path's last logits within 1e-4
+     max|logit| of the plain versions; 3l: the rwkv6 train step at 16
+     layers as phase 3i (per step 2 x 16 x 2 wkv6_fwd and 16 x 2
+     wkv6_bwd), with its bf16 and f32 gradient checks on the trained
+     parameters' first 4 layers;
   4. time each kernel (CUDA events, median of 10) beside its bound and
      its plain version (the flash kernels also beside
      ``scaled_dot_product_attention``, and the backward beside its
      backward, timed here only, the moe and llava paths' shapes among
      them; the f32 kernels' bound is their 3xTF32
      work on the tensor cores; the bf16 forward at kv_chunk 1024 beside
-     its 128-key tiling), measure the
+     its 128-key tiling; the wkv6 kernels at rwkv6's train microbatch and
+     decode step beside their bound, no library call computing the
+     recurrence), measure the
      card's device-to-device copy rate, and split each round's wall time
      by phase.
 
@@ -178,6 +208,10 @@ KERNELS = {  # name: (source, replaced TPU kernel)
                                      "none: the JAX package differentiates "
                                      "src/repro/models/attention.py:26 by "
                                      "autodiff"),
+    "wkv6_fwd": ("wkv6.cu", "none: src/repro/models/rwkv6.py:54 _wkv_scan "
+                            "is compiled lax.scan"),
+    "wkv6_bwd": ("wkv6.cu", "none: src/repro/models/rwkv6.py:54 _wkv_scan "
+                            "is compiled lax.scan"),
 }
 # device-memory rate (bytes/s) and f32 rate outside the tensor cores
 # (flop/s) by card name, from NVIDIA's data sheets
@@ -477,7 +511,8 @@ def compare_dither_pack(device, gen) -> dict:
 # causal GQA with T > S (queries past the last key see every key); the
 # moe and llava paths' GQA heads of 128: phi3.5-moe's and llava's 32 / 8
 # (a prefill, and the moe train microbatch 2 x 2048) and dbrx's 48 / 8
-# (a group of 6 query heads)
+# (a group of 6 query heads); the dense serve prefills' GQA groups of 12
+# (starcoder2-3b: 24 / 2 heads of 128) and 3 (minitron-4b: 24 / 8)
 FLASH_CASES = (
     (1, 2048, 2048, 16, 16, 64, True),
     (1, 8192, 8192, 16, 16, 64, True),
@@ -490,6 +525,8 @@ FLASH_CASES = (
     (1, 2048, 2048, 32, 8, 128, True),
     (2, 2048, 2048, 32, 8, 128, True),
     (1, 2048, 2048, 48, 8, 128, True),
+    (1, 2048, 2048, 24, 2, 128, True),
+    (1, 2048, 2048, 24, 8, 128, True),
     (2, 64, 192, 4, 4, 16, False),
     (1, 1000, 1000, 4, 4, 32, True),
     (2, 300, 130, 8, 2, 64, True),
@@ -621,7 +658,8 @@ def compare_flash(device, gen) -> dict:
 # path's microbatches (qwen1.5-0.5b's 16 heads of 64 over 4 x 2048 tokens
 # in bf16, 2 x 2048 in f32), the longest serve prompt's shape, qwen3-32b's
 # GQA heads of 128, the moe and llava paths' (32 / 8 and 48 / 8 of 128;
-# 2 x 2048 the moe train microbatch), a ragged causal and a non-causal one
+# 2 x 2048 the moe train microbatch), starcoder2-3b's 24 / 2 and
+# minitron-4b's 24 / 8 of 128, a ragged causal and a non-causal one
 BWD_CASES = (
     (4, 2048, 2048, 16, 16, 64, True),
     (2, 2048, 2048, 16, 16, 64, True),
@@ -630,6 +668,8 @@ BWD_CASES = (
     (1, 2048, 2048, 32, 8, 128, True),
     (2, 2048, 2048, 32, 8, 128, True),
     (1, 2048, 2048, 48, 8, 128, True),
+    (1, 2048, 2048, 24, 2, 128, True),
+    (1, 2048, 2048, 24, 8, 128, True),
     (2, 300, 130, 8, 2, 64, True),
     (2, 64, 192, 4, 4, 16, False),
 )
@@ -758,14 +798,126 @@ def compare_flash_bwd(device, gen) -> dict:
     return {**worst, "bwd_cases": rows}
 
 
+# the wkv6 kernels' cases: (B, T, H, K, input dtype, decay dtype): rwkv6's
+# 32 heads of 64 over 2048 steps (the train microbatch is B = 2), a ragged
+# T = 700 (the last 128-step chunk partial), and the decode step (8 slots,
+# T = 1, bf16 r, k, v with the decode path's f32 decay, and all f32)
+WKV_CASES = (
+    (1, 2048, 32, 64, "bfloat16", "bfloat16"),
+    (1, 2048, 32, 64, "float32", "float32"),
+    (2, 2048, 32, 64, "bfloat16", "bfloat16"),
+    (2, 2048, 32, 64, "float32", "float32"),
+    (1, 700, 32, 64, "bfloat16", "bfloat16"),
+    (1, 700, 32, 64, "float32", "float32"),
+    (8, 1, 32, 64, "bfloat16", "float32"),
+    (8, 1, 32, 64, "float32", "float32"),
+)
+# the bar: each output's error against an f64 run of the same recurrence
+# (max |diff| over max |f64|) at most WKV_RATIO times the plain f32
+# version's (the kernel sums in another order)
+WKV_RATIO = 2.0
+
+
+def wkv_inputs(case, gen, device):
+    """r, k, v (input dtype), w (decay dtype) in (0, 1), u (H, K), a
+    nonzero first state, dy and the final state's gradient, all seeded."""
+    import torch
+
+    B, T, H, K, dt, wdt = case
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=device)
+
+    r, k, v = (randn(B, T, H, K).to(getattr(torch, dt)) for _ in range(3))
+    w = torch.exp(-torch.exp(0.5 * randn(B, T, H, K) - 0.5)).to(
+        getattr(torch, wdt))
+    u = 0.5 * randn(H, K)
+    s0 = 0.3 * randn(B, H, K, K)
+    dy = randn(B, T, H, K)
+    ds = 0.1 * randn(B, H, K, K)
+    return r, k, v, w, u, s0, dy, ds
+
+
+def _f64_err(a, want) -> float:
+    import torch
+
+    want = want.to(torch.float64)
+    return float((a.to(torch.float64) - want).abs().max()
+                 / want.abs().max().clamp_min(1e-300))
+
+
+def compare_wkv6(device, gen) -> dict:
+    """The wkv6 kernels against their plain versions at WKV_CASES, with a
+    nonzero first state, u and final-state gradient: each output (y, the
+    final state; dr, dk, dv, dw, du, dS0) no further from an f64 run of
+    ``ref.wkv6_ref`` / ``ref.wkv6_bwd_ref`` than WKV_RATIO times the plain
+    f32 version; the final and chunk states bitwise the plain version's
+    (the same rounded updates); each kernel bitwise equal over two
+    runs."""
+    import torch
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import wkv6 as wk
+
+    worst = {"wkv6_fwd": 0.0, "wkv6_bwd": 0.0}
+    rows = []
+    for case in WKV_CASES:
+        r, k, v, w, u, s0, dy, ds = wkv_inputs(case, gen, device)
+        y, st, cs = wk.wkv6_fwd(r, k, v, w, u, s0, chunks=True)
+        y2, st2, cs2 = wk.wkv6_fwd(r, k, v, w, u, s0, chunks=True)
+        yp, stp, csp = ref.wkv6_ref(r, k, v, w, u, s0, return_chunks=True)
+        y64, st64 = ref.wkv6_ref(r, k, v, w, u, s0, dtype=torch.float64)
+        g = wk.wkv6_bwd(r, k, v, w, u, dy, cs, ds, want_dstate=True)
+        g2 = wk.wkv6_bwd(r, k, v, w, u, dy, cs, ds, want_dstate=True)
+        gp = ref.wkv6_bwd_ref(r, k, v, w, u, dy, s0, ds)
+        g64 = ref.wkv6_bwd_ref(r, k, v, w, u, dy, s0, ds,
+                               dtype=torch.float64)
+        torch.cuda.synchronize()
+        label = f"wkv6 {case}"
+        check(torch.equal(y, y2) and torch.equal(st, st2)
+              and torch.equal(cs, cs2), f"{label}: wkv6_fwd two runs differ")
+        check(torch.equal(st, stp) and torch.equal(cs, csp),
+              f"{label}: the kernel's states are not the plain version's")
+        row = {"case": list(case)}
+        outs = (("wkv6_fwd", "y", y, yp, y64, None),
+                ("wkv6_fwd", "state", st, stp, st64, None))
+        outs += tuple(("wkv6_bwd", n, a, b, c, a2) for n, a, b, c, a2 in zip(
+            ("dr", "dk", "dv", "dw", "du", "dS0"), g, gp, g64, g2))
+        for kname, n, a, b, c, a2 in outs:
+            check(a.dtype == torch.float32 and a.shape == b.shape
+                  and bool(torch.isfinite(a).all()),
+                  f"{label} {n}: {a.dtype} {tuple(a.shape)}")
+            if a2 is not None:
+                check(torch.equal(a, a2), f"{label} {n}: wkv6_bwd two runs "
+                                          f"differ")
+            ek, ep = _f64_err(a, c), _f64_err(b, c)
+            check(ek <= WKV_RATIO * ep, f"{label} {n}: kernel {ek:.3e} from "
+                  f"f64, over {WKV_RATIO:g} x the plain f32 version's "
+                  f"{ep:.3e}")
+            row[n] = {"kernel": ek, "plain": ep,
+                      "max_abs_err": float((a - b).abs().max())}
+            worst[kname] = max(worst[kname], row[n]["max_abs_err"])
+        log(f"{label}: error from f64 (max|diff| / max|f64|) kernel / plain "
+            + ", ".join(f"{n} {row[n]['kernel']:.3e} / {row[n]['plain']:.3e}"
+                        for n in ("y", "state", "dr", "dk", "dv", "dw", "du",
+                                  "dS0"))
+            + f" (bar {WKV_RATIO:g}x); states bitwise the plain version's; "
+            f"two runs bitwise equal")
+        rows.append(row)
+        del r, k, v, w, u, s0, dy, ds, y, y2, yp, y64, g, g2, gp, g64
+    torch.cuda.empty_cache()
+    return {**worst, "wkv_cases": rows}
+
+
 # ------------------------------------------------------------- phase 3
 def _counters() -> tuple:
     from repro_torch.kernels import dither_pack as dp
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import fused_agg as fg
     from repro_torch.kernels import layered_encode as le
+    from repro_torch.kernels import wkv6 as wk
 
-    return fg.LAUNCHES, dp.LAUNCHES, le.LAUNCHES, fa.LAUNCHES
+    return fg.LAUNCHES, dp.LAUNCHES, le.LAUNCHES, fa.LAUNCHES, wk.LAUNCHES
 
 
 def reset_launches() -> None:
@@ -1327,10 +1479,12 @@ def _train_comp(mech: str, sigma: float):
 
 def train_launches_expected(cfg, microbatches: int) -> dict:
     """Launches of one compressed train step: per microbatch each layer's
-    forward, its remat forward and its backward through the flash kernels
-    of the compute dtype (bf16: flash_attention_sm90 and its backward; f32:
-    flash_attention_f32 and its backward), none of the other dtype's; then
-    one fused encode and decode per parameter leaf."""
+    forward, its remat forward and its backward through the kernels of
+    its family and compute dtype (the transformer's flash kernels, bf16:
+    flash_attention_sm90 and its backward, f32: flash_attention_f32 and
+    its backward, none of the other dtype's; rwkv6's wkv6_fwd and
+    wkv6_bwd in either dtype); then one fused encode and decode per
+    parameter leaf."""
     import torch
 
     from repro_torch.kernels import flash_attention as fa
@@ -1343,30 +1497,58 @@ def train_launches_expected(cfg, microbatches: int) -> dict:
     L = cfg.n_layers
     dtype = getattr(torch, cfg.compute_dtype)
     out = {name: 0 for name in fa.LAUNCHES}
-    out[fa.KERNELS[dtype][0]] = 2 * L * microbatches
-    out[fa.BWD_KERNELS[dtype]] = L * microbatches
+    if cfg.kind == "rwkv6":
+        out.update(wkv6_fwd=2 * L * microbatches,
+                   wkv6_bwd=L * microbatches)
+    else:
+        out[fa.KERNELS[dtype][0]] = 2 * L * microbatches
+        out[fa.BWD_KERNELS[dtype]] = L * microbatches
     out.update({"fused_encode": leaves, "fused_decode": leaves})
     return out
 
 
-class plain_attention:
-    """Within the block, the autograd function runs the plain forward and
-    backward on CUDA tensors too (the yardstick of the gradient check;
-    nothing is counted)."""
+def _plain_wkv6_fwd(r, k, v, w, u, state=None, *, chunks=False):
+    """``wkv6.wkv6_fwd``'s signature over ``ref.wkv6_ref``."""
+    from repro_torch.kernels import ref
+
+    out = ref.wkv6_ref(r, k, v, w, u, state, return_chunks=chunks)
+    return out if chunks else out[:2]
+
+
+def _plain_wkv6_bwd(r, k, v, w, u, dy, chunks, dstate=None, *,
+                    want_dstate=False):
+    """``wkv6.wkv6_bwd``'s signature over ``ref.wkv6_bwd_ref`` (the first
+    state is the forward's first chunk state)."""
+    from repro_torch.kernels import ref
+
+    out = ref.wkv6_bwd_ref(r, k, v, w, u, dy, chunks[:, :, 0], dstate)
+    return out if want_dstate else out[:5] + (None,)
+
+
+class plain_kernels:
+    """Within the block, the autograd functions of the models' kernels
+    (flash attention, the wkv6 recurrence) run their plain forward and
+    backward on CUDA tensors too (the yardstick of the gradient and logit
+    checks; nothing is counted)."""
 
     def __enter__(self):
         from repro_torch.kernels import flash_attention as fa
         from repro_torch.kernels import ref
+        from repro_torch.kernels import wkv6 as wk
 
-        self._saved = (fa.flash_attention, fa.flash_attention_bwd)
+        self._saved = (fa.flash_attention, fa.flash_attention_bwd,
+                       wk.wkv6_fwd, wk.wkv6_bwd)
         fa.flash_attention = fa._plain_forward
         fa.flash_attention_bwd = ref.flash_attention_bwd_ref
+        wk.wkv6_fwd, wk.wkv6_bwd = _plain_wkv6_fwd, _plain_wkv6_bwd
         return self
 
     def __exit__(self, *exc):
         from repro_torch.kernels import flash_attention as fa
+        from repro_torch.kernels import wkv6 as wk
 
-        fa.flash_attention, fa.flash_attention_bwd = self._saved
+        (fa.flash_attention, fa.flash_attention_bwd, wk.wkv6_fwd,
+         wk.wkv6_bwd) = self._saved
         return False
 
 
@@ -1383,11 +1565,11 @@ def token_nll(cfg, params, batch):
     (``registry.loss_fn``), without a gradient: (1, T - 1) f32."""
     import torch
 
-    from repro_torch.models import nn, registry, transformer
+    from repro_torch.models import nn, registry
     from repro_torch.models.config import torch_dtype
 
     with torch.no_grad():
-        model = transformer.TreeModel(cfg, nn.cast_tree(
+        model = registry.tree_model(cfg, nn.cast_tree(
             params, torch_dtype(cfg.compute_dtype)))
         logits = registry.logits_fn(cfg, model, batch)[:, :-1].float()
         labels = batch["tokens"][:, 1:, None].long()
@@ -1395,11 +1577,32 @@ def token_nll(cfg, params, batch):
                 - torch.gather(logits, -1, labels)[..., 0])
 
 
-def check_train_gradient(cfg, params, device) -> dict:
+def check_batch(cfg, device) -> dict:
+    """The gradient checks' microbatch: 1 x TRAIN_CHECK_SEQ lm tokens."""
+    from repro_torch.data import synthetic
+
+    dc = synthetic.DataConfig(vocab=cfg.vocab, seq_len=TRAIN_CHECK_SEQ,
+                              global_batch=1, kind="lm")
+    return synthetic.lm_batch(dc, 99, device=device)
+
+
+def plain_f32_gradient(cfg, params, device) -> tuple:
+    """(loss, gradient) of the f32 model on the plain versions at
+    ``check_batch``: the yardstick both gradient checks take, computed
+    once for them."""
+    from repro_torch.train import steps
+
+    with plain_kernels():
+        return steps.value_and_grad(cfg.scaled(compute_dtype="float32"),
+                                    params, check_batch(cfg, device))
+
+
+def check_train_gradient(cfg, params, device, plain32=None) -> dict:
     """One microbatch of 1 x TRAIN_CHECK_SEQ at full width: the loss and
     every leaf's gradient of the bf16 model on the kernels against the
     same model on the plain versions, each measured against the f32
-    model's (plain f32 attention) loss and gradient of the same params;
+    model's loss and gradient of the same params on the plain versions
+    (``plain32``, or ``plain_f32_gradient``'s here);
     the bar is the bf16 gradient bar of tests/test_torch_train.py: the
     kernels' relative L2 error at most twice the plain bf16 path's (which
     computes the JAX model's bf16 function), for each gradient leaf and
@@ -1407,18 +1610,16 @@ def check_train_gradient(cfg, params, device) -> dict:
     is one mean of those terms, whose errors mostly cancel (a ratio of
     two such draws says nothing), so it is logged, not held; its terms
     are, after checking that their mean is the step's loss."""
-    from repro_torch.data import synthetic
     from repro_torch.train import steps
 
-    dc = synthetic.DataConfig(vocab=cfg.vocab, seq_len=TRAIN_CHECK_SEQ,
-                              global_batch=1, kind="lm")
-    batch = synthetic.lm_batch(dc, 99, device=device)
+    batch = check_batch(cfg, device)
     cfg32 = cfg.scaled(compute_dtype="float32")
     lk, gk = steps.value_and_grad(cfg, params, batch)
     tk = token_nll(cfg, params, batch)
-    with plain_attention():
+    l32, g32 = (plain_f32_gradient(cfg, params, device) if plain32 is None
+                else plain32)
+    with plain_kernels():
         lp, gp = steps.value_and_grad(cfg, params, batch)
-        l32, g32 = steps.value_and_grad(cfg32, params, batch)
         tp = token_nll(cfg, params, batch)
         t32 = token_nll(cfg32, params, batch)
     for name, t, l in (("kernels", tk, lk), ("plain", tp, lp),
@@ -1456,6 +1657,8 @@ GEMM_TAGS = ("gemm", "nvjet", "xmma", "cutlass")  # cuBLAS kernel names
 BWD_TAGS = {"bfloat16": "fa_bwd_sm90", "float32": "fa_bwd_f32"}
 FWD_TAGS = {"bfloat16": "flash_attention_sm90",
             "float32": "flash_attention_f32"}
+# rwkv6's in either dtype: the backward's two kernels and the forward
+WKV_BWD_TAG, WKV_FWD_TAG = "wkv6_bwd", "wkv6_fwd"
 
 
 def profile_train_step(cfg, step_fn, holder: list, batch,
@@ -1491,8 +1694,11 @@ def profile_train_step(cfg, step_fn, holder: list, batch,
     dev = _kernel_ms(prof.key_averages(), 1)
     check(bool(dev), "train profile: the trace holds no device time")
     busy = sum(ms for _, ms in dev)
-    bwd_tag = BWD_TAGS[cfg.compute_dtype]
-    fwd_tag = FWD_TAGS[cfg.compute_dtype]
+    if cfg.kind == "rwkv6":
+        bwd_tag, fwd_tag = WKV_BWD_TAG, WKV_FWD_TAG
+    else:
+        bwd_tag = BWD_TAGS[cfg.compute_dtype]
+        fwd_tag = FWD_TAGS[cfg.compute_dtype]
 
     def total(pred) -> float:
         return sum(ms for k, ms in dev if pred(k))
@@ -1633,21 +1839,18 @@ TRAIN_F32_GRAD_REL = 1e-4
 TRAIN_F32_LOSS_REL = 1e-6
 
 
-def check_train_gradient_f32(cfg, params, device) -> dict:
+def check_train_gradient_f32(cfg, params, device, plain=None) -> dict:
     """One microbatch of 1 x TRAIN_CHECK_SEQ at full width in f32: the
-    loss and every leaf's gradient on the kernels (flash_attention_f32 and
-    the f32 backward) against the same on the plain versions
-    (``plain_attention``): the loss within TRAIN_F32_LOSS_REL relative,
-    each leaf within TRAIN_F32_GRAD_REL max|g| of that leaf."""
-    from repro_torch.data import synthetic
+    loss and every leaf's gradient on the kernels (the transformer's
+    flash_attention_f32 and the f32 backward; rwkv6's wkv6 pair) against
+    the same on the plain versions (``plain``, or ``plain_f32_gradient``'s
+    here): the loss within TRAIN_F32_LOSS_REL relative, each leaf within
+    TRAIN_F32_GRAD_REL max|g| of that leaf."""
     from repro_torch.train import steps
 
-    dc = synthetic.DataConfig(vocab=cfg.vocab, seq_len=TRAIN_CHECK_SEQ,
-                              global_batch=1, kind="lm")
-    batch = synthetic.lm_batch(dc, 99, device=device)
-    lk, gk = steps.value_and_grad(cfg, params, batch)
-    with plain_attention():
-        lp, gp = steps.value_and_grad(cfg, params, batch)
+    lk, gk = steps.value_and_grad(cfg, params, check_batch(cfg, device))
+    lp, gp = (plain_f32_gradient(cfg, params, device) if plain is None
+              else plain)
     lk, lp = float(lk), float(lp)
     loss_rel = abs(lk - lp) / abs(lp)
     check(math.isfinite(lk) and loss_rel <= TRAIN_F32_LOSS_REL,
@@ -1661,7 +1864,7 @@ def check_train_gradient_f32(cfg, params, device) -> dict:
                                          f"{i}: {rel:.3e} max|g|")
         rels.append(rel)
     log(f"train gradient check (1 x {TRAIN_CHECK_SEQ}, f32, kernels against "
-        f"plain attention): loss {lk} / {lp} ({loss_rel:.3e} relative, bar "
+        f"the plain versions): loss {lk} / {lp} ({loss_rel:.3e} relative, bar "
         f"{TRAIN_F32_LOSS_REL:g}); leaf max |diff| {min(rels):.3e}-"
         f"{max(rels):.3e} max|g| (bar {TRAIN_F32_GRAD_REL:g})")
     return {"loss_kernels": lk, "loss_plain": lp, "loss_rel": loss_rel,
@@ -1848,12 +2051,26 @@ def serve_requests(cfg, n: int, seed: int = 1) -> list:
              8 if r % 4 == 3 else SERVE_GEN) for r, p in enumerate(lengths)]
 
 
-def run_serve(cfg, model, device, n_requests: int = SERVE_REQUESTS) -> dict:
+def serve_launches_expected(cfg, stats: dict) -> dict:
+    """Launches of a ``drive`` run: the transformer's bf16 flash kernel
+    once per layer per prefill; rwkv6's wkv6_fwd once per layer per
+    decode call (each prompt token is one, and each engine step one over
+    the slots); nothing else."""
+    if cfg.kind == "rwkv6":
+        return {"wkv6_fwd": cfg.n_layers * (stats["prompt_tokens"]
+                                            + stats["steps"])}
+    return {"flash_attention_sm90": cfg.n_layers * stats["prefills"]}
+
+
+def run_serve(cfg, model, device, n_requests: int = SERVE_REQUESTS,
+              requests=None, warm_len: int = 256) -> dict:
     """The serve path in the config's compute dtype (bf16; ``model`` cast
     to it, the values the reference's cast at use gives): ``n_requests``
-    requests through ``launch.serve.drive`` on 8 slots, with the launch
-    counts set to 0 just before and read just after (a 2-request warm-up
-    first)."""
+    requests (``serve_requests``, or ``requests``) through
+    ``launch.serve.drive`` on 8 slots, with the launch counts set to 0
+    just before and read just after and checked against
+    ``serve_launches_expected`` (a warm-up of 2 requests of ``warm_len``
+    prompt tokens first)."""
     import statistics
 
     import torch
@@ -1864,9 +2081,11 @@ def run_serve(cfg, model, device, n_requests: int = SERVE_REQUESTS) -> dict:
     engine = ServeEngine(cfg, max_slots=SERVE_SLOTS,
                          max_prefill_len=SERVE_PREFILL,
                          max_gen_len=SERVE_GEN, device=device)
-    launch.drive(engine, model, [(r, toks[:256], 4) for r, toks, _ in
+    launch.drive(engine, model, [(r, toks[:warm_len], 4) for r, toks, _ in
                                  serve_requests(cfg, 2, seed=9)])
-    requests = serve_requests(cfg, n_requests)
+    if requests is None:
+        requests = serve_requests(cfg, n_requests)
+    n_requests = len(requests)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
@@ -1876,9 +2095,9 @@ def run_serve(cfg, model, device, n_requests: int = SERVE_REQUESTS) -> dict:
     peak = torch.cuda.max_memory_allocated()
     check(stats["prefills"] == n_requests, f"serve: {stats['prefills']} "
           f"prefills for {n_requests} requests")
+    expected = serve_launches_expected(cfg, stats)
     for k, v in launches.items():
-        want = (cfg.n_layers * stats["prefills"]
-                if k == "flash_attention_sm90" else 0)
+        want = expected.get(k, 0)
         check(v == want, f"serve path: {v} {k} launches, expected {want}")
     for rid, toks, max_gen in requests:
         out = outputs[rid]
@@ -2314,7 +2533,7 @@ def run_llava_phase(device) -> dict:
     """Phase 3h.  f32 first: the first prompt's last-position logits
     through the kernels (flash_attention_f32 once per layer, counted)
     within LLAVA_LOGIT_REL max|logit| of the same on the plain versions
-    (``plain_attention``).  Then the bf16 model (the same seed: the f32
+    (``plain_kernels``).  Then the bf16 model (the same seed: the f32
     weights rounded) prefills every prompt (launches: flash_attention_sm90
     once per layer per prompt, nothing else), each timed on the host clock
     after a synchronize, with finite logits and caches over patches and
@@ -2336,7 +2555,7 @@ def run_llava_phase(device) -> dict:
         got, _ = registry.prefill_fn(cfg32)(model, batches[0])
     torch.cuda.synchronize()
     f32_launches = read_launches()
-    with torch.no_grad(), plain_attention():
+    with torch.no_grad(), plain_kernels():
         want, _ = registry.prefill_fn(cfg32)(model, batches[0])
     for k, v in f32_launches.items():
         n = cfg.n_layers if k == "flash_attention_f32" else 0
@@ -2423,9 +2642,325 @@ def run_train_moe_phase(device) -> dict:
     log(f"train {cfg.name}: capacity {C} slots per expert per layer and "
         f"microbatch")
     params, out = drive_train(cfg, TRAIN_MOE_BATCH, TRAIN_STEPS, device)
-    out["gradient_check"] = check_train_gradient(cfg, params, device)
+    plain32 = plain_f32_gradient(cfg, params, device)
+    out["gradient_check"] = check_train_gradient(cfg, params, device, plain32)
     out["gradient_check_f32"] = check_train_gradient_f32(
-        cfg.scaled(compute_dtype="float32"), params, device)
+        cfg.scaled(compute_dtype="float32"), params, device, plain32)
+    del plain32
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
+# ------------------------------------------------------------ phase 3j
+# the three dense configs no earlier phase serves, in bf16 at full width
+# (seeded random weights, built layer by layer in bf16): starcoder2-3b
+# (LayerNorm, the GELU MLP with biases, tied embeddings, GQA 24 / 2 heads
+# of 128) and minitron-4b (24 / 8 of 128, a 256,000-entry vocab) uncut;
+# qwen3-32b (qk_norm, 64 / 8 of 128) uncut too: 64 layers of 487.6 M
+# parameters and 1,555.8 M of embedding and head are 61.0 GiB in bf16,
+# and 8 slots of 2,112 positions of KV cache 4.1 GiB.  Each serves
+# DENSE_REQUESTS requests of 256-2048 prompt tokens and SERVE_GEN out, then
+# its f32 token checks (``check_serve_f32``) at DENSE_F32_LAYERS layers
+# (None: uncut)
+DENSE_SERVE = ("starcoder2-3b", "minitron-4b", "qwen3-32b")
+DENSE_REQUESTS = 8
+DENSE_F32_LAYERS = {"starcoder2-3b": None, "minitron-4b": None,
+                    "qwen3-32b": 4}
+
+
+def dense_config(arch: str, layers=None, dtype=None):
+    from repro_torch import configs
+
+    cfg = configs.get_config(arch)
+    check(cfg.kind == "dense" and cfg.compute_dtype == "bfloat16"
+          and cfg.kv_chunk == CONFIG_KV_CHUNK, f"{arch} config {cfg}")
+    if layers is not None:
+        cfg = cfg.scaled(n_layers=layers)
+    return cfg if dtype is None else cfg.scaled(compute_dtype=dtype)
+
+
+def run_serve_dense_phase(device) -> dict:
+    """Phase 3j: each DENSE_SERVE config built in bf16 (``build_checked``)
+    and served (``run_serve``: DENSE_REQUESTS requests of 256-2048 prompt
+    tokens and SERVE_GEN out each; one flash_attention_sm90 launch per
+    layer per prefill, nothing else), then its f32 checks
+    (``check_serve_f32``: engine = naive loop = teacher-forced forward, a
+    differing token only at a top-2 margin below MARGIN)."""
+    import torch
+
+    out = {}
+    for arch in DENSE_SERVE:
+        cfg = dense_config(arch)
+        model = build_checked(cfg, device)
+        requests = [(r, toks, SERVE_GEN) for r, toks, _ in
+                    serve_requests(cfg, DENSE_REQUESTS, seed=6)]
+        res = run_serve(cfg, model, device, requests=requests)
+        del model
+        torch.cuda.empty_cache()
+        cfg32 = dense_config(arch, DENSE_F32_LAYERS[arch], "float32")
+        model32 = build_checked(cfg32, device)
+        res["f32"] = check_serve_f32(cfg32, model32, device)
+        res["f32"]["layers"] = cfg32.n_layers
+        del model32
+        torch.cuda.empty_cache()
+        held(f"after serving {arch}")
+        out[arch] = res
+    return out
+
+
+# ------------------------------------------------------------ phase 3k
+# rwkv6-1.6b served uncut in bf16 (24 layers, 1,678.3 M parameters, 3.13
+# GiB): every prompt token is one 24-layer decode step, so the prompts
+# are short: RWKV_REQUESTS of RWKV_PROMPT tokens and SERVE_GEN out; then
+# ``registry.prefill_fn`` (the scan path: one wkv6_fwd launch a layer)
+# over RWKV_PREFILLS prompts of RWKV_PREFILL_LEN tokens; and the f32
+# checks, uncut
+RWKV_ARCH = "rwkv6-1.6b"
+RWKV_REQUESTS = 8
+RWKV_PROMPT = (64, 256)
+RWKV_PREFILLS = 4
+RWKV_PREFILL_LEN = (512, 2048)
+RWKV_F32_PROMPT = 32
+RWKV_F32_GEN = 16
+RWKV_F32_SCAN = 512  # the f32 scan-path check's prompt
+RWKV_LOGIT_REL = 1e-4  # of max|logit|
+
+
+def rwkv6_config(layers=None, dtype=None):
+    from repro_torch import configs
+
+    cfg = configs.get_config(RWKV_ARCH)
+    check(cfg.kind == "rwkv6" and cfg.compute_dtype == "bfloat16"
+          and cfg.remat == "full", f"rwkv6 config {cfg}")
+    if layers is not None:
+        cfg = cfg.scaled(n_layers=layers)
+    return cfg if dtype is None else cfg.scaled(compute_dtype=dtype)
+
+
+def rwkv6_prompts(cfg, n: int, lengths: tuple, seed: int) -> list:
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    sizes = rng.integers(lengths[0], lengths[1] + 1, size=n)
+    return [rng.integers(0, cfg.vocab, size=(int(p),), dtype=np.int32)
+            for p in sizes]
+
+
+def run_rwkv6_prefill(cfg, model, device) -> dict:
+    """``registry.prefill_fn`` (the scan path) over RWKV_PREFILLS prompts
+    of RWKV_PREFILL_LEN tokens, each timed on the host clock after a
+    synchronize, launches counted (wkv6_fwd once per layer per prompt,
+    nothing else), finite last logits and no cache."""
+    import torch
+
+    from repro_torch.models import registry
+
+    prefill = registry.prefill_fn(cfg)
+    prompts = [torch.as_tensor(p[None], device=device) for p in
+               rwkv6_prompts(cfg, RWKV_PREFILLS, RWKV_PREFILL_LEN, seed=8)]
+    with torch.no_grad():
+        prefill(model, {"tokens": prompts[-1]})  # warm
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    walls = []
+    for tokens in prompts:
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            logits, cache = prefill(model, {"tokens": tokens})
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        check(cache is None and tuple(logits.shape) == (
+            1, 1, cfg.padded_vocab) and bool(torch.isfinite(logits).all()),
+            f"rwkv6 prefill of {tokens.shape[1]}: {tuple(logits.shape)}")
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    for k, v in launches.items():
+        n = cfg.n_layers * RWKV_PREFILLS if k == "wkv6_fwd" else 0
+        check(v == n, f"rwkv6 prefill: {v} {k} launches, expected {n}")
+    lengths = [int(t.shape[1]) for t in prompts]
+    per_1k = 1e3 * sum(walls) / sum(lengths)
+    log(f"rwkv6 prefill_fn ({cfg.n_layers} layers, {cfg.compute_dtype}, the "
+        f"scan path): prompts of {lengths} tokens in "
+        f"{[round(w, 4) for w in walls]} s, {per_1k:.4f} s per 1k tokens, "
+        f"peak {peak / 2**30:.2f} GiB; launches {launches}")
+    return {"launches": launches, "walls_s": walls, "tokens": lengths,
+            "prefill_s_per_1k": per_1k, "peak_bytes": peak}
+
+
+def check_serve_rwkv6_f32(device) -> dict:
+    """rwkv6 uncut in f32.  (1) For 2 prompts of RWKV_F32_PROMPT tokens the
+    engine (2 slots) and the naive loop, one request per call, give the
+    same RWKV_F32_GEN tokens (a differing token only at a top-2 margin
+    below MARGIN, once); (2) the engine's prefill of the first prompt is
+    bitwise its own chain of ``registry.serve_fn`` calls (logits and every
+    state leaf); (3) ``registry.prefill_fn`` (the scan path) on
+    RWKV_F32_SCAN tokens: the last logits on the kernels within
+    RWKV_LOGIT_REL max|logit| of the same on the plain versions.  Launches
+    over (1) and (2): wkv6_fwd once per layer per decode call; (3) once
+    per layer."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models import registry
+    from repro_torch.serve import ServeEngine, naive_generate
+
+    cfg = rwkv6_config(dtype="float32")
+    model = build_checked(cfg, device)
+    prompts = [torch.as_tensor(p, device=device) for p in rwkv6_prompts(
+        cfg, 2, (RWKV_F32_PROMPT, RWKV_F32_PROMPT), seed=2)]
+    torch.cuda.synchronize()
+    reset_launches()
+    naive = torch.cat([naive_generate(cfg, model, {"tokens": p[None]},
+                                      RWKV_F32_GEN) for p in prompts])
+    engine = ServeEngine(cfg, max_slots=2, max_prefill_len=RWKV_F32_PROMPT,
+                         max_gen_len=RWKV_F32_GEN, device=device)
+    state = engine.init_state()
+    prefixes = []
+    for i in range(2):
+        _, prefix = engine.prefill(model, prompts[i])
+        prefixes.append(prefix)
+        state = engine.insert(state, prefix, i, max_gen=RWKV_F32_GEN)
+    outs, margins = [state["tokens"].clone()], [
+        torch.stack([p.last_logits[0, 0] for p in prefixes])]
+    for _ in range(RWKV_F32_GEN - 1):
+        with torch.no_grad():  # the step's logits, for the margins
+            logits = engine.family.step(
+                model, state["tokens"][:, None],
+                {k: v.clone() for k, v in state["cache"].items()},
+                state["lengths"], state["active"])
+        margins.append(logits[:, 0])
+        state, tok, _ = engine.generate_step(model, state)
+        outs.append(tok)
+    eng = torch.stack(outs, dim=1)
+    serve = registry.serve_fn(cfg)
+    cache = registry.init_decode_state(cfg, 1, RWKV_F32_PROMPT, device)
+    with torch.no_grad():
+        for t in range(RWKV_F32_PROMPT):
+            chain, cache = serve(model, {"tokens": prompts[0][None, t:t + 1]},
+                                 cache)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    calls = 2 * (RWKV_F32_PROMPT + RWKV_F32_GEN - 1) + (
+        2 * RWKV_F32_PROMPT + 2 * (RWKV_F32_GEN - 1)) + RWKV_F32_PROMPT
+    for k, v in launches.items():
+        want = cfg.n_layers * calls if k == "wkv6_fwd" else 0
+        check(v == want, f"rwkv6 serve f32 checks: {v} {k} launches, "
+                         f"expected {want}")
+    check(torch.equal(chain, prefixes[0].last_logits)
+          and all(torch.equal(cache[k], prefixes[0].cache[k])
+                  for k in cache), "rwkv6: the engine's prefill is not "
+                                   "bitwise its own decode chain")
+    margin = _margins(torch.stack(margins, dim=1)).cpu()
+    naive_h, eng_h = naive.cpu().numpy(), eng.cpu().numpy()
+    ties = []
+    for b in range(2):
+        diff = np.flatnonzero(eng_h[b] != naive_h[b])
+        if diff.size:
+            m = float(margin[b, diff[0]])
+            log(f"rwkv6 engine vs naive: row {b} token {diff[0]} differs; "
+                f"top-2 margin {m:.3g}")
+            check(m < MARGIN, f"rwkv6 engine vs naive: row {b} token "
+                              f"{diff[0]} differs with top-2 margin {m}")
+            ties.append({"row": b, "token": int(diff[0]), "margin": m})
+    check(len(ties) <= 1, f"rwkv6: {len(ties)} differing tokens; at most 1 "
+                          f"allowed")
+    scan = torch.as_tensor(rwkv6_prompts(
+        cfg, 1, (RWKV_F32_SCAN, RWKV_F32_SCAN), seed=3)[0][None],
+        device=device)
+    prefill = registry.prefill_fn(cfg)
+    reset_launches()
+    with torch.no_grad():
+        got, _ = prefill(model, {"tokens": scan})
+    torch.cuda.synchronize()
+    scan_launches = read_launches()
+    with torch.no_grad(), plain_kernels():
+        want, _ = prefill(model, {"tokens": scan})
+    for k, v in scan_launches.items():
+        n = cfg.n_layers if k == "wkv6_fwd" else 0
+        check(v == n, f"rwkv6 f32 prefill: {v} {k} launches, expected {n}")
+    scale = float(want.abs().max())
+    err = float((got - want).abs().max()) / scale
+    check(bool(torch.isfinite(got).all()) and err <= RWKV_LOGIT_REL,
+          f"rwkv6 f32 last logits: {err:.3e} max|logit| from the plain "
+          f"versions (bar {RWKV_LOGIT_REL:g})")
+    log(f"serve rwkv6 f32 checks ({cfg.n_layers} layers, 2 x "
+        f"{RWKV_F32_PROMPT} prompt tokens x {RWKV_F32_GEN}, one request per "
+        f"call): engine == naive ({len(ties)} tie(s)), the engine's prefill "
+        f"bitwise its own decode chain; smallest top-2 margin "
+        f"{float(margin.min()):.4g}; launches {launches}; scan-path last "
+        f"logits ({RWKV_F32_SCAN} tokens) within {err:.3e} max|logit| "
+        f"({scale:.4g}) of the plain versions (bar {RWKV_LOGIT_REL:g}), "
+        f"launches {scan_launches}")
+    del model, engine, state
+    torch.cuda.empty_cache()
+    return {"ties": ties, "min_margin": float(margin.min()),
+            "launches": launches, "scan_launches": scan_launches,
+            "logit_rel_err": err, "max_logit": scale,
+            "tokens": naive_h.tolist()}
+
+
+def run_serve_rwkv6_phase(device) -> dict:
+    """Phase 3k: rwkv6 uncut in bf16 served by ``run_serve`` (its
+    RWKV_REQUESTS requests of RWKV_PROMPT tokens; wkv6_fwd once per layer
+    per decode call), prefilled by ``registry.prefill_fn``
+    (``run_rwkv6_prefill``), then the f32 checks
+    (``check_serve_rwkv6_f32``)."""
+    import torch
+
+    cfg = rwkv6_config()
+    model = build_checked(cfg, device)
+    requests = [(r, p, SERVE_GEN) for r, p in enumerate(
+        rwkv6_prompts(cfg, RWKV_REQUESTS, RWKV_PROMPT, seed=1))]
+    res = run_serve(cfg, model, device, requests=requests, warm_len=16)
+    res["prefill"] = run_rwkv6_prefill(cfg, model, device)
+    del model
+    torch.cuda.empty_cache()
+    res["f32"] = check_serve_rwkv6_f32(device)
+    return res
+
+
+# ------------------------------------------------------------ phase 3l
+# rwkv6 trained at full width, depth cut to TRAIN_RWKV_LAYERS of 24: 16
+# layers are 1,208.3 M parameters; at phi3.5-moe's measured 70.0 GiB for
+# 1,563.5 M (about 48 bytes a parameter: f32 parameters, gradient, AdamW
+# moments, the functional step's new copies and the codec's transients),
+# 24 layers (1,678.3 M) would need about 75 GiB before activations, 16
+# about 54 GiB.  bf16, remat full, AdamW lr 3e-4, lm data seed 0, global
+# batch 4 x 2048 in 2 microbatches, aggregate_gaussian fused b = 8
+# per-tensor, TRAIN_STEPS steps.  Its gradient checks take the trained
+# parameters' first RWKV_CHECK_LAYERS layers: their plain versions run the
+# recurrence a step at a time (about 1.5 s a layer for the forward, its
+# remat and the backward at 1 x 2048), which at 16 layers would hold the
+# run for minutes
+TRAIN_RWKV_LAYERS = 16
+TRAIN_RWKV_BATCH = 4
+RWKV_CHECK_LAYERS = 4
+
+
+def run_train_rwkv6_phase(device) -> dict:
+    """Phase 3l: ``drive_train`` on rwkv6 at TRAIN_RWKV_LAYERS layers
+    (launches per step: 2 x L x 2 wkv6_fwd, L x 2 wkv6_bwd, one fused
+    encode and decode per leaf), then, on the trained parameters' first
+    RWKV_CHECK_LAYERS layers and 1 x TRAIN_CHECK_SEQ, the bf16 gradient
+    check against the f32 model (``check_train_gradient``) and the f32
+    check of the kernels against the plain versions
+    (``check_train_gradient_f32``)."""
+    import torch
+
+    cfg = rwkv6_config(TRAIN_RWKV_LAYERS)
+    params, out = drive_train(cfg, TRAIN_RWKV_BATCH, TRAIN_STEPS, device)
+    ccfg = cfg.scaled(n_layers=RWKV_CHECK_LAYERS)
+    cparams = dict(params, layers={k: v[:RWKV_CHECK_LAYERS]
+                                   for k, v in params["layers"].items()})
+    plain32 = plain_f32_gradient(ccfg, cparams, device)
+    out["gradient_check"] = check_train_gradient(ccfg, cparams, device,
+                                                 plain32)
+    out["gradient_check_f32"] = check_train_gradient_f32(
+        ccfg.scaled(compute_dtype="float32"), cparams, device, plain32)
+    out["gradient_check_layers"] = RWKV_CHECK_LAYERS
+    del plain32, cparams
     del params
     torch.cuda.empty_cache()
     return out
@@ -2581,7 +3116,8 @@ def time_new_kernels(device, gen, rates: tuple) -> list:
 # path's heads (qwen1.5-0.5b, 16 of 64) at T = 2048 and 8192 and
 # qwen3-32b's GQA heads (64 query, 8 KV, of 128) at 4096, in bf16 and f32;
 # then the moe and llava prefills' heads at 2048 (phi3.5-moe and llava
-# 32 / 8, dbrx 48 / 8, of 128)
+# 32 / 8, dbrx 48 / 8, of 128), then starcoder2-3b's 24 / 2 and
+# minitron-4b's 24 / 8 of 128
 FLASH_TIMED = (
     (1, 2048, 2048, 16, 16, 64, "bfloat16"),
     (1, 8192, 8192, 16, 16, 64, "bfloat16"),
@@ -2593,6 +3129,10 @@ FLASH_TIMED = (
     (1, 2048, 2048, 48, 8, 128, "bfloat16"),
     (1, 2048, 2048, 32, 8, 128, "float32"),
     (1, 2048, 2048, 48, 8, 128, "float32"),
+    (1, 2048, 2048, 24, 2, 128, "bfloat16"),
+    (1, 2048, 2048, 24, 8, 128, "bfloat16"),
+    (1, 2048, 2048, 24, 2, 128, "float32"),
+    (1, 2048, 2048, 24, 8, 128, "float32"),
 )
 
 
@@ -2702,7 +3242,8 @@ def time_flash(device, gen, mem_rate: float, f32_rate: float,
 # train path's microbatch first (the bf16 kernel's row in the kernels
 # line), then the longest serve prompt's shape and qwen3-32b's GQA heads,
 # in bf16 and then in f32 (the first f32 row the f32 kernel's); then the
-# moe train microbatch (2 x 2048, 32 / 8 heads of 128) in both
+# moe train microbatch (2 x 2048, 32 / 8 heads of 128) in both; then
+# starcoder2-3b's and minitron-4b's heads (24 / 2 and 24 / 8 of 128) in both
 BWD_TIMED = (
     (4, 2048, 2048, 16, 16, 64, "bfloat16"),
     (1, 8192, 8192, 16, 16, 64, "bfloat16"),
@@ -2712,6 +3253,10 @@ BWD_TIMED = (
     (1, 4096, 4096, 64, 8, 128, "float32"),
     (2, 2048, 2048, 32, 8, 128, "bfloat16"),
     (2, 2048, 2048, 32, 8, 128, "float32"),
+    (1, 2048, 2048, 24, 2, 128, "bfloat16"),
+    (1, 2048, 2048, 24, 8, 128, "bfloat16"),
+    (1, 2048, 2048, 24, 2, 128, "float32"),
+    (1, 2048, 2048, 24, 8, 128, "float32"),
 )
 
 
@@ -2783,6 +3328,81 @@ def time_flash_bwd(device, gen, mem_rate: float, bf16_tc: float,
             f"forward {fwd_ms:.4f}; kernel / SDPA {ms / lib_ms:.2f})")
         rows.append(row)
         del q, k, v, o, lse, do, qt, kt, vt, dot
+    torch.cuda.empty_cache()
+    return rows
+
+
+# timed wkv6 shapes: (B, T, H, K, input dtype, decay dtype): the rwkv6
+# train microbatch (2 x 2048, 32 heads of 64) in bf16 (the kernels line's
+# rows) and f32, and the bf16 decode step of 8 slots (f32 decay and state;
+# the forward only)
+WKV_TIMED = (
+    (2, 2048, 32, 64, "bfloat16", "bfloat16"),
+    (2, 2048, 32, 64, "float32", "float32"),
+    (8, 1, 32, 64, "bfloat16", "float32"),
+)
+# f32 operations per state element and step, counted from csrc/wkv6.cu (a
+# multiply-add counts 2): the forward's kv, u kv, S + u kv, r (S + u kv),
+# S w, + kv; the backward's dv kernel (da, u da, + dS, dkv k, dS w, + da:
+# 7) and its dr / dk / dw kernel (the recomputed S w + k v: 3; kv, u kv,
+# + S, dy a, da, u da + dS, da kv, dkv v, dS S, dS w + da: 16)
+WKV_FLOPS = {"wkv6_fwd": 7, "wkv6_bwd": 26}
+
+
+def time_wkv6(device, gen, mem_rate: float, f32_rate: float) -> list:
+    """The wkv6 kernels at WKV_TIMED (``batched_ms``) beside their bound
+    -- the larger of the bytes (the forward: r, k, v, w, u and a first
+    state read, y, the final state and the chunk states written; the
+    backward: r, k, v, w, u, dy, the chunk states read, dr, dk, dv, dw and
+    du's partials written) over the memory rate and WKV_FLOPS K^2 per
+    (b, t, h) at the f32 rate -- and their plain versions (``cuda_ms``, 3
+    runs).  No PyTorch call computes the recurrence: no library time."""
+    import torch
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import wkv6 as wk
+
+    rows = []
+    for case in WKV_TIMED:
+        B, T, H, K, dt, wdt = case
+        r, k, v, w, u, s0, dy, _ = wkv_inputs(case, gen, device)
+        state = s0 if T == 1 else None
+        train = T > 1
+        n = B * T * H * K
+        es, wes = r.element_size(), w.element_size()
+        nc = wk.n_chunks(T) if train else 0
+        chunk_b = 4 * B * H * nc * K * K
+        y, _, *cs = wk.wkv6_fwd(r, k, v, w, u, state, chunks=train)
+        jobs = [("wkv6_fwd",
+                 lambda: wk.wkv6_fwd(r, k, v, w, u, state, chunks=train),
+                 lambda: ref.wkv6_ref(r, k, v, w, u, state),
+                 3 * es * n + wes * n + 4 * H * K + 4 * n + 4 * B * H * K * K
+                 * (2 if state is not None else 1) + chunk_b)]
+        if train:
+            jobs.append(("wkv6_bwd",
+                         lambda: wk.wkv6_bwd(r, k, v, w, u, dy, cs[0]),
+                         lambda: ref.wkv6_bwd_ref(r, k, v, w, u, dy),
+                         3 * es * n + wes * n + 4 * H * K + 4 * n + chunk_b
+                         + 16 * n + 4 * B * H * K))
+        for name, kern, plain, nbytes in jobs:
+            ms = batched_ms(kern, n=5, reps=3)
+            plain_ms = cuda_ms(plain, reps=3)
+            flops = WKV_FLOPS[name] * K * K * B * T * H
+            bytes_ms = nbytes / mem_rate * 1e3
+            ops_ms = flops / f32_rate * 1e3
+            bound = max(bytes_ms, ops_ms)
+            by = "bytes" if bytes_ms >= ops_ms else "operations"
+            shape = f"({B}, {T}, {H}, {K}) {dt} (decay {wdt})"
+            log(f"{name} {shape}: {ms:.4f} ms, bound {bound:.4f} ms by {by} "
+                f"({flops / 1e9:.3f} GFLOP at {f32_rate / 1e12:.0f} TFLOP/s "
+                f"f32; bytes {nbytes / 1e6:.1f} MB, {bytes_ms:.4f} ms), "
+                f"{100 * bound / ms:.1f}% of it; plain {plain_ms:.4f} ms; no "
+                f"library call")
+            rows.append({"name": name, "config": shape, "ms": ms,
+                         "plain_ms": plain_ms, "bound_ms": bound,
+                         "bound_by": by, "bytes": nbytes, "flops": flops,
+                         "library_ms": None})
+        del r, k, v, w, u, s0, dy, y, cs
     torch.cuda.empty_cache()
     return rows
 
@@ -2907,6 +3527,8 @@ def main() -> int:
     bwd = compare_flash_bwd(device, gen)
     worst.update({k: bwd[k] for k in ("flash_attention_bwd_sm90",
                                       "flash_attention_bwd_f32_sm90")})
+    wkv = compare_wkv6(device, gen)
+    worst.update({k: wkv[k] for k in ("wkv6_fwd", "wkv6_bwd")})
     log(f"phase 2 done at {time.perf_counter() - t_start:.1f} s")
 
     # 3. the main path: each path with its launch counts
@@ -2979,6 +3601,10 @@ def main() -> int:
     del model32, model
     torch.cuda.empty_cache()
     held("after the serve path")
+    serve_dense = run_serve_dense_phase(device)
+    log(f"phase 3j (serve the dense configs) done at "
+        f"{time.perf_counter() - t_start:.1f} s")
+    held("after the dense serve phase")
     serve_moe = run_serve_moe_phase(device)
     log(f"phase 3g (serve moe) done at {time.perf_counter() - t_start:.1f} s")
     held("after the moe serve phase")
@@ -2989,6 +3615,14 @@ def main() -> int:
     train_moe = run_train_moe_phase(device)
     log(f"phase 3i (train moe) done at {time.perf_counter() - t_start:.1f} s")
     held("after the moe train phase")
+    serve_rwkv = run_serve_rwkv6_phase(device)
+    log(f"phase 3k (serve rwkv6) done at "
+        f"{time.perf_counter() - t_start:.1f} s")
+    held("after the rwkv6 serve phase")
+    train_rwkv = run_train_rwkv6_phase(device)
+    log(f"phase 3l (train rwkv6) done at "
+        f"{time.perf_counter() - t_start:.1f} s")
+    held("after the rwkv6 train phase")
     log(f"phase 3 done at {time.perf_counter() - t_start:.1f} s")
 
     # 4. times
@@ -3003,6 +3637,7 @@ def main() -> int:
                        tf32_rate(name))
     rows += time_flash_bwd(device, gen, rates[0], bf16_rate(name),
                            tf32_rate(name))
+    rows += time_wkv6(device, gen, rates[0], rates[1])
     span_rows = time_flash_span(device, gen)
     launches = {k: sum(r["launches"][k] for r in res.values())
                 + RANKS * sum(c["launches_per_rank"][k]
@@ -3016,6 +3651,13 @@ def main() -> int:
                       for r in serve_moe.values())
                 + llava["launches"][k] + llava["f32"]["launches"][k]
                 + train_moe["launches"][k]
+                + sum(r["launches"][k] + r["f32"]["launches"][k]
+                      for r in serve_dense.values())
+                + serve_rwkv["launches"][k]
+                + serve_rwkv["prefill"]["launches"][k]
+                + serve_rwkv["f32"]["launches"][k]
+                + serve_rwkv["f32"]["scan_launches"][k]
+                + train_rwkv["launches"][k]
                 for k in KERNELS}
     kernels = []
     for kname, (src, replaces) in KERNELS.items():
@@ -3043,6 +3685,8 @@ def main() -> int:
               "serve": serve, "serve_f32": serve_f32,
               "serve_profile": serve_profile, "serve_moe": serve_moe,
               "llava": llava, "train_moe": train_moe,
+              "serve_dense": serve_dense, "wkv_cases": wkv["wkv_cases"],
+              "serve_rwkv6": serve_rwkv, "train_rwkv6": train_rwkv,
               "kernels": kernels, "seconds": total}
     out_dir = ROOT / "build"
     try:

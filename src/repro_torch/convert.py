@@ -8,9 +8,11 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.models.rwkv6 import Rwkv6
 from repro_torch.models.transformer import Transformer
 
-__all__ = ["params_from_numpy", "key_from_numpy", "transformer_from_numpy"]
+__all__ = ["params_from_numpy", "key_from_numpy", "transformer_from_numpy",
+           "rwkv6_from_numpy"]
 
 
 def params_from_numpy(tree: Any, device=None) -> Any:
@@ -38,3 +40,10 @@ def transformer_from_numpy(cfg, tree: Any, device=None):
     numpy arrays, layer stacks on a leading axis) -> the port's
     ``Transformer`` on ``device`` (CUDA unless "cpu"), dtypes kept."""
     return Transformer(cfg, params_from_numpy(tree, device))
+
+
+def rwkv6_from_numpy(cfg, tree: Any, device=None):
+    """The reference's rwkv6 parameter tree (numpy arrays, layer stacks on
+    a leading axis) -> the port's ``Rwkv6`` on ``device`` (CUDA unless
+    "cpu"), dtypes kept."""
+    return Rwkv6(cfg, params_from_numpy(tree, device))

@@ -8,7 +8,8 @@ pass natural shapes.
   * ``layered_encode`` / ``layered_decode``: the Gaussian shifted layered
     quantizer (``layered_encode``);
   * ``flash_attention``: block online-softmax attention
-    (``flash_attention``).
+    (``flash_attention``);
+  * ``wkv6``: the RWKV-6 time recurrence (``wkv6``).
 
 Dispatch follows the tensors' device: a CPU tensor runs the plain
 PyTorch version (``ref``), a CUDA tensor the hand-written kernel, which
@@ -25,6 +26,7 @@ from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import fused_agg as fg
 from repro_torch.kernels import layered_encode as le
 from repro_torch.kernels import ref
+from repro_torch.kernels import wkv6 as wk
 
 LANES = 128
 
@@ -204,3 +206,18 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     fa.check_shapes(q, k, v)
     _on_cuda(q)
     return fa.FlashAttention.apply(q, k, v, causal, kv_tile)
+
+
+# ------------------------------------------------------- rwkv6 recurrence
+def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
+         u: torch.Tensor, state=None):
+    """The RWKV-6 time recurrence (the JAX model's ``_wkv_scan``, and with
+    T = 1 and a state its decode step): r, k, v (B, T, H, K) in one dtype,
+    w (B, T, H, K) f32 or bf16 (as rounded by the caller's path), u (H, K),
+    ``state`` (B, H, K, K) f32 or None (zeros) -> (y (B, T, H, K) f32, the
+    final state (B, H, K, K) f32), differentiable.  The ``wkv6`` kernels on
+    a CUDA tensor, ``ref.wkv6_ref`` / ``ref.wkv6_bwd_ref`` on a CPU one,
+    through ``wkv6.Wkv6``.  The same shapes are refused on both devices."""
+    wk.check_shapes(r, k, v, w, u)
+    _on_cuda(r)
+    return wk.Wkv6.apply(r, k, v, w, u, state)

@@ -266,3 +266,82 @@ def flash_attention_bwd_ref(q, k, v, o, lse, do, causal: bool = True,
     dk = dk.reshape(B, HK, g, S, D).sum(2).permute(0, 2, 1, 3).to(k.dtype)
     dv = dv.reshape(B, HK, g, S, D).sum(2).permute(0, 2, 1, 3).to(v.dtype)
     return dq.contiguous(), dk.contiguous(), dv.contiguous()
+
+
+# ------------------------------------------------------ rwkv6 recurrence
+# steps between the states the forward keeps for the backward: the JAX
+# model's checkpointed chunk (``_wkv_scan``'s C)
+WKV_CHUNK = 128
+
+
+def wkv6_ref(r, k, v, w, u, state=None, *, dtype=torch.float32,
+             return_chunks: bool = False):
+    """The RWKV-6 time recurrence of the JAX model's ``_wkv_scan`` (and of
+    its one-token decode), one step at a time: r, k, v, w (B, T, H, K) in
+    any float dtype (cast to ``dtype``; the caller rounds w as its path
+    does), u (H, K), ``state`` (B, H, K, K) or None (zeros).  Per step,
+    with S[k, j] the state before it:
+
+        kv = k_t^T v_t;  y_t = r_t (S + diag(u) kv);  S = S diag_rows(w_t) + kv
+
+    each product and sum rounded on its own.  Returns (y (B, T, H, K),
+    S_T (B, H, K, K)) in ``dtype``, and with ``return_chunks`` also the
+    state before every WKV_CHUNK-th step, (B, H, ceil(T / WKV_CHUNK), K, K)
+    (the states the kernel keeps for the backward)."""
+    B, T, H, K = r.shape
+    r, k, v, w = (t.to(dtype) for t in (r, k, v, w))
+    u = u.to(dtype).reshape(1, H, K, 1)
+    S = (torch.zeros((B, H, K, K), dtype=dtype, device=r.device)
+         if state is None else state.to(dtype))
+    ys, chunks = [], []
+    for t in range(T):
+        if t % WKV_CHUNK == 0:
+            chunks.append(S)
+        kv = k[:, t, :, :, None] * v[:, t, :, None, :]
+        ys.append(torch.einsum("bhk,bhkj->bhj", r[:, t], S + u * kv))
+        S = S * w[:, t, :, :, None] + kv
+    y = torch.stack(ys, dim=1)
+    if return_chunks:
+        return y, S, torch.stack(chunks, dim=2)
+    return y, S
+
+
+def wkv6_bwd_ref(r, k, v, w, u, dy, state=None, dstate=None, *,
+                 dtype=torch.float32):
+    """The gradient of ``wkv6_ref``, walked in reverse time: from dy
+    (B, T, H, K) and the final state's gradient ``dstate`` (B, H, K, K)
+    or None (zeros) -> (dr, dk, dv, dw (B, T, H, K), du (H, K), dS0
+    (B, H, K, K)) in ``dtype``.  Per step, with S the state before it and
+    dS the gradient of the state after it:
+
+        a = S + diag(u) kv;  dr = a dy;  da = r^T dy;  dkv = diag(u) da + dS
+        dk = dkv v;  dv = dkv^T k;  dw = rowsum(dS * S);  du += rowsum(da * kv)
+        dS <- dS diag_rows(w) + da
+
+    (du summed over the batch and the steps).  The states are recomputed
+    from ``state`` first (all of them; the kernel recomputes one chunk at
+    a time from the forward's chunk states)."""
+    B, T, H, K = r.shape
+    r, k, v, w, dy = (t.to(dtype) for t in (r, k, v, w, dy))
+    u = u.to(dtype).reshape(1, H, K, 1)
+    S = (torch.zeros((B, H, K, K), dtype=dtype, device=r.device)
+         if state is None else state.to(dtype))
+    states = []
+    for t in range(T):
+        states.append(S)
+        S = S * w[:, t, :, :, None] + k[:, t, :, :, None] * v[:, t, :, None, :]
+    dS = torch.zeros_like(S) if dstate is None else dstate.to(dtype)
+    dr, dk, dv, dw = (torch.empty_like(r) for _ in range(4))
+    du = torch.zeros((B, H, K), dtype=dtype, device=r.device)
+    for t in range(T - 1, -1, -1):
+        Sp = states[t]
+        kv = k[:, t, :, :, None] * v[:, t, :, None, :]
+        dr[:, t] = torch.einsum("bhkj,bhj->bhk", Sp + u * kv, dy[:, t])
+        da = r[:, t, :, :, None] * dy[:, t, :, None, :]
+        dkv = u * da + dS
+        du = du + (da * kv).sum(-1)
+        dk[:, t] = torch.einsum("bhkj,bhj->bhk", dkv, v[:, t])
+        dv[:, t] = torch.einsum("bhkj,bhk->bhj", dkv, k[:, t])
+        dw[:, t] = (dS * Sp).sum(-1)
+        dS = dS * w[:, t, :, :, None] + da
+    return dr, dk, dv, dw, du.sum(0), dS

@@ -11,12 +11,15 @@ lockstep oracle loop (``repro_torch.serve.oracle``) instead.
       --requests 8 --slots 4 --prompt-len 16 --gen 8
   python -m repro_torch.launch.serve --arch llava-next-mistral-7b --smoke \\
       --device cpu --naive     # llava: the naive loop, with the patch stub
+  python -m repro_torch.launch.serve --arch rwkv6-1.6b --smoke --device cpu
 
 Weights are random (the reference's init law, seed 0); prompts come
 from ``numpy.random.default_rng``.  The model is built layer by layer in
-the config's compute dtype (``transformer.init_model``), which gives the
-values the reference's cast at every use gives and keeps the peak near
-the weights in that dtype (phi3.5-moe's 32 layers are 78 GiB in bf16).
+the config's compute dtype (``registry.init_model``), which gives the
+values the reference's cast at every use gives (rwkv6: the values it
+gives on parameters cast to that dtype, as its training casts them) and
+keeps the peak near the weights in that dtype (phi3.5-moe's 32 layers
+are 78 GiB in bf16).
 """
 from __future__ import annotations
 
@@ -29,7 +32,7 @@ import torch
 
 from repro_torch import configs, resolve_device
 from repro_torch.data import synthetic
-from repro_torch.models import transformer
+from repro_torch.models import registry
 from repro_torch.serve import ServeEngine, naive_generate
 
 
@@ -112,7 +115,7 @@ def build_model(cfg, seed: int, device):
     dev = resolve_device(device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
-    return transformer.init_model(cfg, gen, dev)
+    return registry.init_model(cfg, gen, dev)
 
 
 def main(argv=None):

@@ -1,6 +1,6 @@
 """Model API over the architecture families (the port of
 ``repro.models.registry``), for the transformer's kinds (dense, moe,
-llava):
+llava) and rwkv6:
 
   param_specs(cfg)                    -> ParamSpec tree
   logits_fn(cfg, model, batch)        -> (B, T, V) logits
@@ -8,14 +8,17 @@ llava):
   prefill_fn(cfg)(model, batch)       -> (last-token logits, caches)
   serve_fn(cfg)(model, batch, cache)  -> (logits, new kv)
   decode_state_specs(cfg, B, S)       -> cache tree of meta tensors
-  init_decode_state(cfg, B, S, device)-> zero cache tree
+  init_decode_state(cfg, B, S, device)-> fresh cache tree
+  init_model(cfg, generator, device)  -> random model in the compute dtype
 
 ``batch`` is a dict with tokens (B, T) int, and for llava patches
 (B, P, D) (``data.synthetic.with_frontend_stubs``): the logits are the
-text positions'.  ``model`` is a ``transformer.Transformer`` (or a
-``transformer.TreeModel``); ``params`` is a parameter tree in the
-reference's layout.  rwkv6, zamba2 and whisper are not ported yet and
-raise NotImplementedError (see ROADMAP.md).
+text positions'.  ``model`` is a ``transformer.Transformer`` or an
+``rwkv6.Rwkv6`` (or either's ``TreeModel``); ``params`` is a parameter
+tree in the reference's layout.  rwkv6's prefill is its scan path
+(``rwkv6.forward``), which returns ``(logits, None)``; its decode cache
+is the recurrent state (``rwkv6.init_state``).  zamba2 and whisper are
+not ported yet and raise NotImplementedError (see ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -24,26 +27,50 @@ from typing import Any, Callable, Dict
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.models import nn, transformer
+from repro_torch.models import nn, rwkv6, transformer
 from repro_torch.models.config import ModelConfig, torch_dtype
 
 DENSE_KINDS = transformer.KINDS
+KINDS = DENSE_KINDS + ("rwkv6",)
 
 
-def _dense(cfg: ModelConfig) -> None:
-    if cfg.kind not in DENSE_KINDS:
+def _ported(cfg: ModelConfig) -> None:
+    if cfg.kind not in KINDS:
         raise NotImplementedError(
             f"kind={cfg.kind!r} is not ported to repro_torch yet (see "
             f"ROADMAP.md, Queue 1)")
 
 
 def param_specs(cfg: ModelConfig):
-    _dense(cfg)
+    _ported(cfg)
+    if cfg.kind == "rwkv6":
+        return rwkv6.param_specs(cfg)
     return transformer.param_specs(cfg)
 
 
+def init_model(cfg: ModelConfig, generator: torch.Generator, device=None):
+    """Random weights with the reference's init law, layer by layer in
+    the compute dtype (``transformer.init_model`` / ``rwkv6.init_model``)."""
+    _ported(cfg)
+    if cfg.kind == "rwkv6":
+        return rwkv6.init_model(cfg, generator, device)
+    return transformer.init_model(cfg, generator, device)
+
+
+def tree_model(cfg: ModelConfig, params):
+    """A parameter tree seen as its family's model (a model is returned
+    as it is)."""
+    if not isinstance(params, dict):
+        return params
+    if cfg.kind == "rwkv6":
+        return rwkv6.TreeModel(cfg, params)
+    return transformer.TreeModel(cfg, params)
+
+
 def logits_fn(cfg: ModelConfig, model, batch) -> torch.Tensor:
-    _dense(cfg)
+    _ported(cfg)
+    if cfg.kind == "rwkv6":
+        return rwkv6.forward(cfg, model, batch["tokens"])
     if cfg.kind == "llava":
         patches = batch["patches"]
         logits, _ = transformer.forward(cfg, model, batch["tokens"],
@@ -57,12 +84,11 @@ def logits_fn(cfg: ModelConfig, model, batch) -> torch.Tensor:
 def loss_fn(cfg: ModelConfig) -> Callable:
     """loss(params, batch): next-token NLL, ``logits[:, :-1]`` against
     ``tokens[:, 1:]``; ``params`` is a parameter tree (a dict, seen
-    through ``transformer.TreeModel``) or a model."""
-    _dense(cfg)
+    through its family's ``TreeModel``) or a model."""
+    _ported(cfg)
 
     def loss(params, batch):
-        model = (transformer.TreeModel(cfg, params)
-                 if isinstance(params, dict) else params)
+        model = tree_model(cfg, params)
         logits = logits_fn(cfg, model, batch)
         tokens = batch["tokens"]
         return nn.cross_entropy_loss(logits[:, :-1], tokens[:, 1:])
@@ -74,8 +100,10 @@ def loss_fn(cfg: ModelConfig) -> Callable:
 def decode_state_specs(cfg: ModelConfig, batch: int,
                        seq_len: int) -> Dict[str, torch.Tensor]:
     """The decode cache tree as meta tensors (shape and dtype, no
-    allocation)."""
-    _dense(cfg)
+    allocation); rwkv6's is its recurrent state, whatever ``seq_len``."""
+    _ported(cfg)
+    if cfg.kind == "rwkv6":
+        return rwkv6.init_state(cfg, batch, "meta")
     shape = (cfg.n_layers, batch, seq_len, cfg.n_kv_heads, cfg.hd)
     dt = torch_dtype(cfg.compute_dtype)
     return {k: torch.empty(shape, dtype=dt, device="meta")
@@ -86,15 +114,20 @@ def init_decode_state(cfg: ModelConfig, batch: int, seq_len: int,
                       device=None) -> Dict[str, torch.Tensor]:
     """A fresh (zero) decode cache on ``device`` (CUDA unless "cpu")."""
     dev = resolve_device(device)
+    if cfg.kind == "rwkv6":
+        return rwkv6.init_state(cfg, batch, dev)
     return {k: torch.zeros(s.shape, dtype=s.dtype, device=dev)
             for k, s in decode_state_specs(cfg, batch, seq_len).items()}
 
 
 def serve_fn(cfg: ModelConfig) -> Callable:
-    """serve(model, batch{tokens (B, 1)}, cache) -> (logits, new kv)."""
-    _dense(cfg)
+    """serve(model, batch{tokens (B, 1)}, cache) -> (logits, new kv); for
+    rwkv6 (logits, new state)."""
+    _ported(cfg)
 
     def serve(model, batch, cache):
+        if cfg.kind == "rwkv6":
+            return rwkv6.decode(cfg, model, batch["tokens"], cache)
         dtype = torch_dtype(cfg.compute_dtype)
         x = transformer.embed_tokens(cfg, model, batch["tokens"], dtype)
         y, new_kv = transformer.decoder_decode(cfg, model, x,
@@ -107,10 +140,14 @@ def serve_fn(cfg: ModelConfig) -> Callable:
 
 def prefill_fn(cfg: ModelConfig) -> Callable:
     """prefill(model, batch) -> (last-position logits, caches); llava's
-    caches cover its patch positions too."""
-    _dense(cfg)
+    caches cover its patch positions too; rwkv6 runs its scan path and
+    returns (logits, None), as the reference."""
+    _ported(cfg)
 
     def prefill(model, batch) -> Any:
+        if cfg.kind == "rwkv6":
+            return rwkv6.forward(cfg, model, batch["tokens"],
+                                 last_only=True), None
         patches = batch["patches"] if cfg.kind == "llava" else None
         return transformer.forward(cfg, model, batch["tokens"],
                                    patches=patches, last_only=True)

@@ -21,8 +21,10 @@ row is written back unchanged) and returns new bookkeeping tensors.
 
 Families: dense and moe (slot-pool KV cache with ``valid_len`` masking:
 rows past a slot's length score -1e30 and contribute exactly 0; a moe
-decode step routes the slots' tokens as one call).  rwkv6 and zamba2 are
-not ported yet and raise NotImplementedError (see ROADMAP.md); whisper /
+decode step routes the slots' tokens as one call) and rwkv6 (a
+constant-size recurrent state per slot, no capacity limit; its prefill
+is ``rwkv6.prefill``, a loop of one-token decodes).  zamba2 is not
+ported yet and raises NotImplementedError (see ROADMAP.md); whisper /
 llava need per-request side inputs and raise as in the reference.
 """
 from __future__ import annotations
@@ -33,7 +35,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.models import registry, transformer
+from repro_torch.models import registry, rwkv6, transformer
 from repro_torch.models.config import ModelConfig, torch_dtype
 
 
@@ -98,10 +100,42 @@ class _DenseFamily:
         return transformer.unembed(cfg, model, y)
 
 
+class _Rwkv6Family:
+    """rwkv6: constant-size recurrent state per slot (the wkv matrices
+    and the two shift tokens, (L, N, ...) each); no capacity limit."""
+
+    def __init__(self, cfg: ModelConfig, ecfg: EngineConfig,
+                 device: torch.device):
+        self.cfg, self.ecfg, self.device = cfg, ecfg, device
+        self.capacity = None  # recurrent: no cache-length limit
+
+    def init_cache(self) -> Dict[str, torch.Tensor]:
+        return rwkv6.init_state(self.cfg, self.ecfg.max_slots, self.device)
+
+    def prefill(self, model, tokens):
+        return rwkv6.prefill(self.cfg, model, tokens)
+
+    def insert(self, cache, prefix_cache, slot: int) -> None:
+        for k, c in cache.items():
+            c[:, slot] = prefix_cache[k][:, 0]
+
+    def step(self, model, tokens, cache, lengths, keep):
+        """Logits of one decode step; each kept slot's new state is
+        written into ``cache``, the others' left as they were (the
+        reference's select along axis 1)."""
+        logits, new = rwkv6.decode(self.cfg, model, tokens, cache)
+        for k, c in cache.items():
+            sel = keep.reshape((1, -1) + (1,) * (c.dim() - 2))
+            c.copy_(torch.where(sel, new[k], c))
+        return logits
+
+
 def _make_family(cfg: ModelConfig, ecfg: EngineConfig, device):
     if cfg.kind in ("dense", "moe"):
         return _DenseFamily(cfg, ecfg, device)
-    if cfg.kind in ("rwkv6", "zamba2"):
+    if cfg.kind == "rwkv6":
+        return _Rwkv6Family(cfg, ecfg, device)
+    if cfg.kind == "zamba2":
         raise NotImplementedError(
             f"serve engine: kind={cfg.kind!r} is not ported to repro_torch "
             f"yet (see ROADMAP.md, Queue 1)")

@@ -1,9 +1,10 @@
 """Naive one-batch generation loop, kept as the engine's correctness
-oracle (the port of ``repro.serve.oracle``, for the dense and moe
-kinds).
+oracle (the port of ``repro.serve.oracle``, for the transformer's kinds
+and rwkv6).
 
 Every request in one batch, decode steps in lockstep, the dense cache
-*grows* by one row per step and never drops a position.  ``ServeEngine``
+*grows* by one row per step and never drops a position; rwkv6 runs one
+serve call per prompt token and carries its recurrent state.  ``ServeEngine``
 at full occupancy must be token-identical to this loop: same RoPE
 (``rope_at`` positions), same greedy argmax + clip, and the engine's
 padded cache rows contribute exact-zero probability.
@@ -35,13 +36,28 @@ def naive_generate(cfg: ModelConfig, model, prompts: Dict,
             "whisper serving needs an encoder pass + cross-KV plumbing; "
             "not covered by the naive oracle")
     serve = registry.serve_fn(cfg)
-    logits, (k, v) = registry.prefill_fn(cfg)(model, prompts)
+    if cfg.kind in registry.DENSE_KINDS:
+        logits, (k, v) = registry.prefill_fn(cfg)(model, prompts)
+        cache = {"k": k, "v": v}
+    else:  # recurrent: one serve call per prompt token
+        tokens = prompts["tokens"]
+        cache = registry.init_decode_state(cfg, tokens.shape[0],
+                                           tokens.shape[1] + n_tokens,
+                                           tokens.device)
+        logits = None
+        for t in range(tokens.shape[1]):
+            logits, cache = serve(model, {"tokens": tokens[:, t:t + 1]},
+                                  cache)
     tok = _greedy(cfg, logits)
     out = [tok]
     for _ in range(n_tokens - 1):
-        logits, (nk, nv) = serve(model, {"tokens": tok}, {"k": k, "v": v})
-        k = torch.cat([k, nk], dim=2)  # grow; never drop a position
-        v = torch.cat([v, nv], dim=2)
+        logits, new = serve(model, {"tokens": tok}, cache)
+        if cfg.kind in registry.DENSE_KINDS:
+            # grow; never drop a position
+            cache = {"k": torch.cat([cache["k"], new[0]], dim=2),
+                     "v": torch.cat([cache["v"], new[1]], dim=2)}
+        else:
+            cache = new
         tok = _greedy(cfg, logits)
         out.append(tok)
     return torch.cat(out, dim=1)
