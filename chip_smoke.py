@@ -69,7 +69,8 @@ Phases, each fatal on failure:
      and 99% within one ulp + 2e-5 max|g|), bitwise equal over two runs;
      and the wkv6 kernels against ``ref.wkv6_ref`` / ``ref.wkv6_bwd_ref``
      at rwkv6's (1 and 2, 2048, 32, 64) in bf16 and f32, a ragged T = 700
-     and the decode step (8, 1, 32, 64), with a nonzero first state and
+     and the decode step (8, 1, 32, 64), and the smoke config's heads of
+     16 (1, 300, 2, 16) in each dtype pair, with a nonzero first state and
      u: each output (y, the final state, dr, dk, dv, dw, du, dS0) no
      further from an f64 run than twice the plain f32 version, the states
      bitwise the plain version's, both kernels bitwise over two runs;
@@ -130,7 +131,7 @@ Phases, each fatal on failure:
      requests of 256-2048 prompt tokens and 64 out each through
      ``run_serve`` (one flash_attention_sm90 launch per layer per
      prefill), then the f32 token checks (qwen3-32b at 4 layers); 3k:
-     rwkv6 uncut in bf16, 8 requests of 64-256 prompt tokens through
+     rwkv6 uncut in bf16, 8 requests of 16-64 prompt tokens through
      ``run_serve`` (one wkv6_fwd launch per layer per decode call; each
      prompt token is one), ``registry.prefill_fn`` over 4 prompts of
      512-2048 tokens (one wkv6_fwd a layer), and in f32 the engine equal
@@ -139,7 +140,7 @@ Phases, each fatal on failure:
      max|logit| of the plain versions; 3l: the rwkv6 train step at 16
      layers as phase 3i (per step 2 x 16 x 2 wkv6_fwd and 16 x 2
      wkv6_bwd), with its bf16 and f32 gradient checks on the trained
-     parameters' first 4 layers;
+     parameters' first 2 layers;
   4. time each kernel (CUDA events, median of 10) beside its bound and
      its plain version (the flash kernels also beside
      ``scaled_dot_product_attention``, and the backward beside its
@@ -801,7 +802,8 @@ def compare_flash_bwd(device, gen) -> dict:
 # the wkv6 kernels' cases: (B, T, H, K, input dtype, decay dtype): rwkv6's
 # 32 heads of 64 over 2048 steps (the train microbatch is B = 2), a ragged
 # T = 700 (the last 128-step chunk partial), and the decode step (8 slots,
-# T = 1, bf16 r, k, v with the decode path's f32 decay, and all f32)
+# T = 1, bf16 r, k, v with the decode path's f32 decay, and all f32); then
+# the smoke config's heads of 16 in each of their three dtype pairs
 WKV_CASES = (
     (1, 2048, 32, 64, "bfloat16", "bfloat16"),
     (1, 2048, 32, 64, "float32", "float32"),
@@ -811,6 +813,9 @@ WKV_CASES = (
     (1, 700, 32, 64, "float32", "float32"),
     (8, 1, 32, 64, "bfloat16", "float32"),
     (8, 1, 32, 64, "float32", "float32"),
+    (1, 300, 2, 16, "bfloat16", "bfloat16"),
+    (1, 300, 2, 16, "bfloat16", "float32"),
+    (1, 300, 2, 16, "float32", "float32"),
 )
 # the bar: each output's error against an f64 run of the same recurrence
 # (max |diff| over max |f64|) at most WKV_RATIO times the plain f32
@@ -2711,18 +2716,19 @@ def run_serve_dense_phase(device) -> dict:
 
 # ------------------------------------------------------------ phase 3k
 # rwkv6-1.6b served uncut in bf16 (24 layers, 1,678.3 M parameters, 3.13
-# GiB): every prompt token is one 24-layer decode step, so the prompts
-# are short: RWKV_REQUESTS of RWKV_PROMPT tokens and SERVE_GEN out; then
+# GiB): every prompt token is one 24-layer decode step (35-56 ms on the
+# host's launches), so the prompts are short, to keep the whole run near
+# 800 s: RWKV_REQUESTS of RWKV_PROMPT tokens and SERVE_GEN out; then
 # ``registry.prefill_fn`` (the scan path: one wkv6_fwd launch a layer)
 # over RWKV_PREFILLS prompts of RWKV_PREFILL_LEN tokens; and the f32
 # checks, uncut
 RWKV_ARCH = "rwkv6-1.6b"
 RWKV_REQUESTS = 8
-RWKV_PROMPT = (64, 256)
+RWKV_PROMPT = (16, 64)
 RWKV_PREFILLS = 4
 RWKV_PREFILL_LEN = (512, 2048)
-RWKV_F32_PROMPT = 32
-RWKV_F32_GEN = 16
+RWKV_F32_PROMPT = 16
+RWKV_F32_GEN = 8
 RWKV_F32_SCAN = 512  # the f32 scan-path check's prompt
 RWKV_LOGIT_REL = 1e-4  # of max|logit|
 
@@ -2909,15 +2915,21 @@ def run_serve_rwkv6_phase(device) -> dict:
     (``check_serve_rwkv6_f32``)."""
     import torch
 
+    t0 = time.perf_counter()
     cfg = rwkv6_config()
     model = build_checked(cfg, device)
     requests = [(r, p, SERVE_GEN) for r, p in enumerate(
         rwkv6_prompts(cfg, RWKV_REQUESTS, RWKV_PROMPT, seed=1))]
     res = run_serve(cfg, model, device, requests=requests, warm_len=16)
+    t1 = time.perf_counter()
     res["prefill"] = run_rwkv6_prefill(cfg, model, device)
     del model
     torch.cuda.empty_cache()
+    t2 = time.perf_counter()
     res["f32"] = check_serve_rwkv6_f32(device)
+    res["split_s"] = {"serve": t1 - t0, "prefill_fn": t2 - t1,
+                      "f32_checks": time.perf_counter() - t2}
+    log(f"phase 3k split (s): {json.dumps(res['split_s'])}")
     return res
 
 
@@ -2936,7 +2948,7 @@ def run_serve_rwkv6_phase(device) -> dict:
 # run for minutes
 TRAIN_RWKV_LAYERS = 16
 TRAIN_RWKV_BATCH = 4
-RWKV_CHECK_LAYERS = 4
+RWKV_CHECK_LAYERS = 2
 
 
 def run_train_rwkv6_phase(device) -> dict:
@@ -2949,8 +2961,10 @@ def run_train_rwkv6_phase(device) -> dict:
     (``check_train_gradient_f32``)."""
     import torch
 
+    t0 = time.perf_counter()
     cfg = rwkv6_config(TRAIN_RWKV_LAYERS)
     params, out = drive_train(cfg, TRAIN_RWKV_BATCH, TRAIN_STEPS, device)
+    t1 = time.perf_counter()
     ccfg = cfg.scaled(n_layers=RWKV_CHECK_LAYERS)
     cparams = dict(params, layers={k: v[:RWKV_CHECK_LAYERS]
                                    for k, v in params["layers"].items()})
@@ -2963,6 +2977,9 @@ def run_train_rwkv6_phase(device) -> dict:
     del plain32, cparams
     del params
     torch.cuda.empty_cache()
+    out["split_s"] = {"train": t1 - t0,
+                      "gradient_checks": time.perf_counter() - t1}
+    log(f"phase 3l split (s): {json.dumps(out['split_s'])}")
     return out
 
 
@@ -3341,12 +3358,13 @@ WKV_TIMED = (
     (2, 2048, 32, 64, "float32", "float32"),
     (8, 1, 32, 64, "bfloat16", "float32"),
 )
-# f32 operations per state element and step, counted from csrc/wkv6.cu (a
-# multiply-add counts 2): the forward's kv, u kv, S + u kv, r (S + u kv),
-# S w, + kv; the backward's dv kernel (da, u da, + dS, dkv k, dS w, + da:
-# 7) and its dr / dk / dw kernel (the recomputed S w + k v: 3; kv, u kv,
-# + S, dy a, da, u da + dS, da kv, dkv v, dS S, dS w + da: 16)
-WKV_FLOPS = {"wkv6_fwd": 7, "wkv6_bwd": 26}
+# f32 operations per state element and step that the function needs, not
+# what the kernels do (a multiply-add counts 2; the O(K) terms left out).
+# The forward: y = r S + (r . (u k)) v, 2; S w + k^T v, 3.  The backward,
+# with the states recomputed from the saved chunks (S w + k^T v, 3): dS w
+# + r^T dy, 3; dr = S dy + u k (dy . v), 2; dk = dS v, 2; dv = k dS, 2;
+# dw = sum of dS * S, 2
+WKV_FLOPS = {"wkv6_fwd": 5, "wkv6_bwd": 14}
 
 
 def time_wkv6(device, gen, mem_rate: float, f32_rate: float) -> list:
@@ -3355,8 +3373,8 @@ def time_wkv6(device, gen, mem_rate: float, f32_rate: float) -> list:
     state read, y, the final state and the chunk states written; the
     backward: r, k, v, w, u, dy, the chunk states read, dr, dk, dv, dw and
     du's partials written) over the memory rate and WKV_FLOPS K^2 per
-    (b, t, h) at the f32 rate -- and their plain versions (``cuda_ms``, 3
-    runs).  No PyTorch call computes the recurrence: no library time."""
+    (b, t, h) at the f32 rate -- and their plain versions (``cuda_ms``, one
+    run after a warm-up).  No PyTorch call computes the recurrence: no library time."""
     import torch
 
     from repro_torch.kernels import ref
@@ -3386,7 +3404,7 @@ def time_wkv6(device, gen, mem_rate: float, f32_rate: float) -> list:
                          + 16 * n + 4 * B * H * K))
         for name, kern, plain, nbytes in jobs:
             ms = batched_ms(kern, n=5, reps=3)
-            plain_ms = cuda_ms(plain, reps=3)
+            plain_ms = cuda_ms(plain, reps=1)
             flops = WKV_FLOPS[name] * K * K * B * T * H
             bytes_ms = nbytes / mem_rate * 1e3
             ops_ms = flops / f32_rate * 1e3
@@ -3483,6 +3501,11 @@ def main() -> int:
     rates = card_rates(name)
     log(f"card: {name}; torch {torch.__version__}, CUDA {torch.version.cuda}")
     t_start = time.perf_counter()
+    phase_s = {}  # each phase's end, seconds from the start
+
+    def done(phase: str) -> None:
+        phase_s[phase] = time.perf_counter() - t_start
+        log(f"phase {phase} done at {phase_s[phase]:.1f} s")
 
     # 1. build
     secs = build.build_all()
@@ -3529,7 +3552,7 @@ def main() -> int:
                                       "flash_attention_bwd_f32_sm90")})
     wkv = compare_wkv6(device, gen)
     worst.update({k: wkv[k] for k in ("wkv6_fwd", "wkv6_bwd")})
-    log(f"phase 2 done at {time.perf_counter() - t_start:.1f} s")
+    done("2")
 
     # 3. the main path: each path with its launch counts
     from repro_torch.dist import compress as dcompress
@@ -3572,23 +3595,22 @@ def main() -> int:
             f"{[round(w, 3) for w in r['walls']]} s, last round split "
             f"{json.dumps({k: round(v, 4) for k, v in r['split'].items()})}"
             f" s, peak memory {r['peak_bytes'] / 2**30:.2f} GiB")
+    done("3 (FL rounds)")
     held("after the FL rounds")
     ranks = run_ranks_phase(device)
-    log(f"phase 3b (client ranks) done at "
-        f"{time.perf_counter() - t_start:.1f} s")
+    done("3b (client ranks)")
     held("after the client ranks")
     async_res = run_async_phase(device)
+    done("3c (async runtime)")
     held("after the async runtime")
     train = run_train_phase(device)
-    log(f"phase 3d (train) done at {time.perf_counter() - t_start:.1f} s")
+    done("3d (train)")
     held("after the train phase")
     train_f32 = run_train_f32_phase(device)
-    log(f"phase 3f (train in f32) done at "
-        f"{time.perf_counter() - t_start:.1f} s")
+    done("3f (train in f32)")
     held("after the f32 train phase")
     train_ranks = run_train_ranks_phase(device)
-    log(f"phase 3e (train across ranks) done at "
-        f"{time.perf_counter() - t_start:.1f} s")
+    done("3e (train across ranks)")
     held("after the train ranks")
     dpath = run_dither_pack(device, gen)
     held("after the dither_pack path")
@@ -3600,30 +3622,27 @@ def main() -> int:
     serve_profile = profile_serve(cfg, model, device)
     del model32, model
     torch.cuda.empty_cache()
+    done("3 (dither_pack, qwen1.5-0.5b serve)")
     held("after the serve path")
     serve_dense = run_serve_dense_phase(device)
-    log(f"phase 3j (serve the dense configs) done at "
-        f"{time.perf_counter() - t_start:.1f} s")
+    done("3j (serve the dense configs)")
     held("after the dense serve phase")
     serve_moe = run_serve_moe_phase(device)
-    log(f"phase 3g (serve moe) done at {time.perf_counter() - t_start:.1f} s")
+    done("3g (serve moe)")
     held("after the moe serve phase")
     llava = run_llava_phase(device)
-    log(f"phase 3h (llava prefill) done at "
-        f"{time.perf_counter() - t_start:.1f} s")
+    done("3h (llava prefill)")
     held("after the llava phase")
     train_moe = run_train_moe_phase(device)
-    log(f"phase 3i (train moe) done at {time.perf_counter() - t_start:.1f} s")
+    done("3i (train moe)")
     held("after the moe train phase")
     serve_rwkv = run_serve_rwkv6_phase(device)
-    log(f"phase 3k (serve rwkv6) done at "
-        f"{time.perf_counter() - t_start:.1f} s")
+    done("3k (serve rwkv6)")
     held("after the rwkv6 serve phase")
     train_rwkv = run_train_rwkv6_phase(device)
-    log(f"phase 3l (train rwkv6) done at "
-        f"{time.perf_counter() - t_start:.1f} s")
+    done("3l (train rwkv6)")
     held("after the rwkv6 train phase")
-    log(f"phase 3 done at {time.perf_counter() - t_start:.1f} s")
+    done("3")
 
     # 4. times
     copy_row = copy_rate(device)
@@ -3670,6 +3689,7 @@ def main() -> int:
             "bound_ms": main_row["bound_ms"],
             "bound_by": main_row["bound_by"],
             "library_ms": main_row.get("library_ms")})
+    done("4")
     total = time.perf_counter() - t_start
     report = {"card": smi, "build_s": secs, "f32_flash_smem": smem,
               "kernel_rows": rows,
@@ -3687,7 +3707,7 @@ def main() -> int:
               "llava": llava, "train_moe": train_moe,
               "serve_dense": serve_dense, "wkv_cases": wkv["wkv_cases"],
               "serve_rwkv6": serve_rwkv, "train_rwkv6": train_rwkv,
-              "kernels": kernels, "seconds": total}
+              "kernels": kernels, "phase_s": phase_s, "seconds": total}
     out_dir = ROOT / "build"
     try:
         out_dir.mkdir(exist_ok=True)

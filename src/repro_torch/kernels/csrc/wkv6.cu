@@ -336,15 +336,15 @@ int bwd(const void* r, const void* k, const void* v, const void* w,
 
 }  // namespace
 
-// dispatch on (K, input dtype, decay dtype); the bf16 flags are 0 or 1
+// dispatch on (K, input dtype, decay dtype); the bf16 flags are 0 or 1.
+// f32 inputs come with an f32 decay on both of the model's paths, so
+// (f32 inputs, bf16 decay) has no kernel
 #define WKV6_DISPATCH(CALL)                                                 \
   switch (K * 4 + in_bf16 * 2 + w_bf16) {                                   \
     case 16 * 4 + 0: return CALL(16, float, float);                         \
-    case 16 * 4 + 1: return CALL(16, float, __nv_bfloat16);                 \
     case 16 * 4 + 2: return CALL(16, __nv_bfloat16, float);                 \
     case 16 * 4 + 3: return CALL(16, __nv_bfloat16, __nv_bfloat16);         \
     case 64 * 4 + 0: return CALL(64, float, float);                         \
-    case 64 * 4 + 1: return CALL(64, float, __nv_bfloat16);                 \
     case 64 * 4 + 2: return CALL(64, __nv_bfloat16, float);                 \
     case 64 * 4 + 3: return CALL(64, __nv_bfloat16, __nv_bfloat16);         \
     default: return -2;                                                     \
@@ -360,11 +360,11 @@ size_t wkv6_scratch_bytes(int B, int H, int K) {
   return (size_t)B * H * kChunk * K * K * sizeof(float);
 }
 
-// r, k, v (B, T, H, K) f32 or bf16 (in_bf16); w the same shape, f32 or
-// bf16 (w_bf16); u (H, K) f32; s0 (B, H, K, K) f32 or null (zeros); y
+// r, k, v (B, T, H, K) f32 or bf16 (in_bf16); w the same shape, f32, or
+// bf16 (w_bf16) beside bf16 inputs; u (H, K) f32; s0 (B, H, K, K) f32 or null (zeros); y
 // (B, T, H, K) f32; s_out (B, H, K, K) f32; chunks (B, H, ceil(T / 128),
-// K, K) f32 or null.  K in {16, 64}.  Returns 0, -2 for another K, or
-// a CUDA error.
+// K, K) f32 or null.  K in {16, 64}.  Returns 0, -2 for another K or
+// dtype pair, or a CUDA error.
 int wkv6_fwd_launch(const void* r, const void* k, const void* v,
                     const void* w, const float* u, const float* s0,
                     float* y, float* s_out, float* chunks, int B, int T,

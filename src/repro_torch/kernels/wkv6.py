@@ -91,6 +91,8 @@ def check_shapes(r, k, v, w, u):
                         f"{r.dtype}, {k.dtype}, {v.dtype}")
     if w.dtype not in DTYPES:
         raise TypeError(f"w must be one of {DTYPES}, got {w.dtype}")
+    if r.dtype == torch.float32 and w.dtype != torch.float32:
+        raise TypeError(f"f32 r, k, v take an f32 decay w, got {w.dtype}")
     return B, T, H, K
 
 
@@ -121,7 +123,8 @@ def _ptr(t):
 
 def _check_launch(name: str, err: int) -> None:
     if err == -2:
-        raise ValueError(f"{name}: no kernel for this head dim")
+        raise ValueError(f"{name}: no kernel for this head dim and "
+                         f"dtypes")
     if err != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")
 

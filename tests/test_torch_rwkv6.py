@@ -221,6 +221,8 @@ def test_wkv6_op_gradients_in_the_inputs_dtypes():
                  torch.zeros((2, 8)))
     with pytest.raises(TypeError):
         ops.wkv6(r.half(), k.half(), v.half(), w, u)
+    with pytest.raises(TypeError, match="f32 decay"):
+        ops.wkv6(r, k, v, w.bfloat16(), u)
 
 
 # ---------------------------------------------------------------- model
