@@ -31,11 +31,12 @@ layers), phi3.5-moe trained (1 layer); llava-next-mistral-7b, uncut,
 prefills prompts behind its 576 stub patches.  The other three dense
 configs (starcoder2-3b, minitron-4b, qwen3-32b) are served uncut in bf16
 and checked in f32.  rwkv6-1.6b, the first family outside the
-transformer, runs its time recurrence through the wkv6 kernels (a
-forward, and a reverse-time backward): served uncut in bf16 (the engine
-and the naive loop take the decode path, one kernel launch a layer per
-token; ``registry.prefill_fn`` the scan path) and checked in f32, and
-trained at 16 of its 24 layers.
+transformer, runs its time recurrence through the wkv6 kernels (a serial
+step kernel for the decode step, a chunked forward and backward for every
+call of more than one step): served uncut in bf16 (the engine and the
+naive loop take the decode path, one wkv6_step launch a layer per token;
+``registry.prefill_fn`` the scan path, one chunked wkv6_fwd a layer) and
+checked in f32, and trained at 16 of its 24 layers.
 Phases, each fatal on failure:
 
   1. build every CUDA source of the port with nvcc (sm_90a), one nvcc
@@ -69,11 +70,15 @@ Phases, each fatal on failure:
      and 99% within one ulp + 2e-5 max|g|), bitwise equal over two runs;
      and the wkv6 kernels against ``ref.wkv6_ref`` / ``ref.wkv6_bwd_ref``
      at rwkv6's (1 and 2, 2048, 32, 64) in bf16 and f32, a ragged T = 700
-     and the decode step (8, 1, 32, 64), and the smoke config's heads of
-     16 (1, 300, 2, 16) in each dtype pair, with a nonzero first state and
-     u: each output (y, the final state, dr, dk, dv, dw, du, dS0) no
-     further from an f64 run than twice the plain f32 version, the states
-     bitwise the plain version's, both kernels bitwise over two runs;
+     and the decode step (8, 1, 32, 64), the smoke config's heads of 16
+     (1, 300, 2, 16) in each dtype pair, and two extreme decays (w = 0, w
+     = 1, a log decay summed past -88 within a chunk), with a nonzero
+     first state and u: each output (y, the final state, every saved
+     chunk state, dr, dk, dv, dw, du, dS0) finite and no further from an
+     f64 run than twice the plain f32 version (the chunked kernels at T >
+     1, the step kernel at T = 1, its states bitwise the plain version's),
+     every kernel bitwise over two runs, and each one's distance from the
+     chunked mirror (``ref.wkv6_chunked_ref``) logged;
   3. run each path with its kernels' launch counts set to 0 just before
      and read just after: FederatedAveraging for aggregate_gaussian
      (per-coordinate, sigma 0.25) and irwin_hall (sigma 5e-3), one packed
@@ -132,10 +137,10 @@ Phases, each fatal on failure:
      ``run_serve`` (one flash_attention_sm90 launch per layer per
      prefill), then the f32 token checks (qwen3-32b at 4 layers); 3k:
      rwkv6 uncut in bf16, 8 requests of 16-64 prompt tokens through
-     ``run_serve`` (one wkv6_fwd launch per layer per decode call; each
+     ``run_serve`` (one wkv6_step launch per layer per decode call; each
      prompt token is one), ``registry.prefill_fn`` over 4 prompts of
-     512-2048 tokens (one wkv6_fwd a layer), and in f32 the engine equal
-     to the naive loop one request per call, its prefill bitwise its own
+     512-2048 tokens (one chunked wkv6_fwd a layer), and in f32 the engine
+     equal to the naive loop one request per call, its prefill bitwise its own
      decode chain, and the scan path's last logits within 1e-4
      max|logit| of the plain versions; 3l: the rwkv6 train step at 16
      layers as phase 3i (per step 2 x 16 x 2 wkv6_fwd and 16 x 2
@@ -213,6 +218,8 @@ KERNELS = {  # name: (source, replaced TPU kernel)
                             "is compiled lax.scan"),
     "wkv6_bwd": ("wkv6.cu", "none: src/repro/models/rwkv6.py:54 _wkv_scan "
                             "is compiled lax.scan"),
+    "wkv6_step": ("wkv6.cu", "none: src/repro/models/rwkv6.py:113 the "
+                             "decode step is jnp code"),
 }
 # device-memory rate (bytes/s) and f32 rate outside the tensor cores
 # (flop/s) by card name, from NVIDIA's data sheets
@@ -799,11 +806,13 @@ def compare_flash_bwd(device, gen) -> dict:
     return {**worst, "bwd_cases": rows}
 
 
-# the wkv6 kernels' cases: (B, T, H, K, input dtype, decay dtype): rwkv6's
-# 32 heads of 64 over 2048 steps (the train microbatch is B = 2), a ragged
-# T = 700 (the last 128-step chunk partial), and the decode step (8 slots,
-# T = 1, bf16 r, k, v with the decode path's f32 decay, and all f32); then
-# the smoke config's heads of 16 in each of their three dtype pairs
+# the wkv6 kernels' cases: (B, T, H, K, input dtype, decay dtype[,
+# "extreme"]): rwkv6's 32 heads of 64 over 2048 steps (the train
+# microbatch is B = 2), a ragged T = 700 (the last 64-step chunk partial),
+# and the decode step (8 slots, T = 1, bf16 r, k, v with the decode path's
+# f32 decay, and all f32); the smoke config's heads of 16 in each of their
+# three dtype pairs; then two extreme decays (``wkv_inputs``).  T = 1 runs
+# the step kernel, every other T the chunked ones
 WKV_CASES = (
     (1, 2048, 32, 64, "bfloat16", "bfloat16"),
     (1, 2048, 32, 64, "float32", "float32"),
@@ -816,26 +825,37 @@ WKV_CASES = (
     (1, 300, 2, 16, "bfloat16", "bfloat16"),
     (1, 300, 2, 16, "bfloat16", "float32"),
     (1, 300, 2, 16, "float32", "float32"),
+    (1, 700, 32, 64, "bfloat16", "bfloat16", "extreme"),
+    (1, 300, 2, 16, "float32", "float32", "extreme"),
 )
 # the bar: each output's error against an f64 run of the same recurrence
 # (max |diff| over max |f64|) at most WKV_RATIO times the plain f32
-# version's (the kernel sums in another order)
+# version's (the kernels sum in another order)
 WKV_RATIO = 2.0
 
 
 def wkv_inputs(case, gen, device):
     """r, k, v (input dtype), w (decay dtype) in (0, 1), u (H, K), a
-    nonzero first state, dy and the final state's gradient, all seeded."""
+    nonzero first state, dy and the final state's gradient, all seeded.
+    An "extreme" case draws w = exp(-exp(2 z + 1)) (a log decay of -20 a
+    step on average, so a chunk's sums pass -88 and some w underflow to
+    0), then sets 5% of w to exactly 0 and 5% to exactly 1."""
     import torch
 
-    B, T, H, K, dt, wdt = case
+    B, T, H, K, dt, wdt = case[:6]
 
     def randn(*shape):
         return torch.randn(shape, generator=gen, device=device)
 
     r, k, v = (randn(B, T, H, K).to(getattr(torch, dt)) for _ in range(3))
-    w = torch.exp(-torch.exp(0.5 * randn(B, T, H, K) - 0.5)).to(
-        getattr(torch, wdt))
+    if case[6:] == ("extreme",):
+        w = torch.exp(-torch.exp(2.0 * randn(B, T, H, K) + 1.0))
+        m = torch.rand((B, T, H, K), generator=gen, device=device)
+        w = torch.where(m < 0.05, 0.0, torch.where(m > 0.95, 1.0, w))
+        w = w.to(getattr(torch, wdt))
+    else:
+        w = torch.exp(-torch.exp(0.5 * randn(B, T, H, K) - 0.5)).to(
+            getattr(torch, wdt))
     u = 0.5 * randn(H, K)
     s0 = 0.3 * randn(B, H, K, K)
     dy = randn(B, T, H, K)
@@ -853,42 +873,61 @@ def _f64_err(a, want) -> float:
 
 def compare_wkv6(device, gen) -> dict:
     """The wkv6 kernels against their plain versions at WKV_CASES, with a
-    nonzero first state, u and final-state gradient: each output (y, the
-    final state; dr, dk, dv, dw, du, dS0) no further from an f64 run of
-    ``ref.wkv6_ref`` / ``ref.wkv6_bwd_ref`` than WKV_RATIO times the plain
-    f32 version; the final and chunk states bitwise the plain version's
-    (the same rounded updates); each kernel bitwise equal over two
-    runs."""
+    nonzero first state, u and final-state gradient, each case through the
+    forward ``wkv6.uses_step`` picks (the step kernel at T = 1, the
+    chunked forward otherwise) and the chunked backward: each output (y,
+    the final state, every saved chunk state; dr, dk, dv, dw, du, dS0)
+    finite and no further from an f64 run of ``ref.wkv6_ref`` /
+    ``ref.wkv6_bwd_ref`` than WKV_RATIO times the plain f32 version; the
+    step kernel's states bitwise the plain version's (the same rounded
+    updates; the chunked kernels sum in another order by design, so the
+    f64 bar holds theirs); each kernel bitwise equal over two runs; each
+    one's max |diff| from the chunked mirror (``ref.wkv6_chunked_ref`` /
+    ``wkv6_chunked_bwd_ref``) logged."""
     import torch
 
     from repro_torch.kernels import ref
     from repro_torch.kernels import wkv6 as wk
 
-    worst = {"wkv6_fwd": 0.0, "wkv6_bwd": 0.0}
+    worst = {"wkv6_fwd": 0.0, "wkv6_bwd": 0.0, "wkv6_step": 0.0}
     rows = []
     for case in WKV_CASES:
         r, k, v, w, u, s0, dy, ds = wkv_inputs(case, gen, device)
-        y, st, cs = wk.wkv6_fwd(r, k, v, w, u, s0, chunks=True)
-        y2, st2, cs2 = wk.wkv6_fwd(r, k, v, w, u, s0, chunks=True)
+        T = case[1]
+        step = wk.uses_step(T, s0)
+        fname = "wkv6_step" if step else "wkv6_fwd"
+        fwd = wk.wkv6_step if step else wk.wkv6_fwd
+        y, st, cs = fwd(r, k, v, w, u, s0, chunks=True)
+        y2, st2, cs2 = fwd(r, k, v, w, u, s0, chunks=True)
         yp, stp, csp = ref.wkv6_ref(r, k, v, w, u, s0, return_chunks=True)
-        y64, st64 = ref.wkv6_ref(r, k, v, w, u, s0, dtype=torch.float64)
+        y64, st64, cs64 = ref.wkv6_ref(r, k, v, w, u, s0,
+                                       dtype=torch.float64,
+                                       return_chunks=True)
         g = wk.wkv6_bwd(r, k, v, w, u, dy, cs, ds, want_dstate=True)
         g2 = wk.wkv6_bwd(r, k, v, w, u, dy, cs, ds, want_dstate=True)
         gp = ref.wkv6_bwd_ref(r, k, v, w, u, dy, s0, ds)
         g64 = ref.wkv6_bwd_ref(r, k, v, w, u, dy, s0, ds,
                                dtype=torch.float64)
+        ym, stm, csm = ref.wkv6_chunked_ref(r, k, v, w, u, s0)
+        gm = ref.wkv6_chunked_bwd_ref(r, k, v, w, u, dy, csm, ds)
         torch.cuda.synchronize()
         label = f"wkv6 {case}"
         check(torch.equal(y, y2) and torch.equal(st, st2)
-              and torch.equal(cs, cs2), f"{label}: wkv6_fwd two runs differ")
-        check(torch.equal(st, stp) and torch.equal(cs, csp),
-              f"{label}: the kernel's states are not the plain version's")
-        row = {"case": list(case)}
-        outs = (("wkv6_fwd", "y", y, yp, y64, None),
-                ("wkv6_fwd", "state", st, stp, st64, None))
-        outs += tuple(("wkv6_bwd", n, a, b, c, a2) for n, a, b, c, a2 in zip(
-            ("dr", "dk", "dv", "dw", "du", "dS0"), g, gp, g64, g2))
-        for kname, n, a, b, c, a2 in outs:
+              and torch.equal(cs, cs2), f"{label}: {fname} two runs differ")
+        if step:
+            check(torch.equal(st, stp) and torch.equal(cs, csp),
+                  f"{label}: the step kernel's states are not the plain "
+                  f"version's")
+        row = {"case": list(case), "forward": fname}
+        outs = ((fname, "y", y, yp, y64, None, ym),
+                (fname, "state", st, stp, st64, None, stm))
+        outs += tuple((fname, f"chunk {c}", cs[:, :, c], csp[:, :, c],
+                       cs64[:, :, c], None, csm[:, :, c])
+                      for c in range(1, cs.shape[2]))
+        outs += tuple(("wkv6_bwd", n, a, b, c, a2, m) for n, a, b, c, a2, m
+                      in zip(("dr", "dk", "dv", "dw", "du", "dS0"), g, gp,
+                             g64, g2, gm))
+        for kname, n, a, b, c, a2, m in outs:
             check(a.dtype == torch.float32 and a.shape == b.shape
                   and bool(torch.isfinite(a).all()),
                   f"{label} {n}: {a.dtype} {tuple(a.shape)}")
@@ -900,16 +939,27 @@ def compare_wkv6(device, gen) -> dict:
                   f"f64, over {WKV_RATIO:g} x the plain f32 version's "
                   f"{ep:.3e}")
             row[n] = {"kernel": ek, "plain": ep,
-                      "max_abs_err": float((a - b).abs().max())}
+                      "max_abs_err": float((a - b).abs().max()),
+                      "mirror_max_abs": float((a - m).abs().max())}
             worst[kname] = max(worst[kname], row[n]["max_abs_err"])
-        log(f"{label}: error from f64 (max|diff| / max|f64|) kernel / plain "
+        chunk_ratio = max((row[n]["kernel"] / max(row[n]["plain"], 1e-300)
+                           for n in row if n.startswith("chunk ")),
+                          default=0.0)
+        log(f"{label} ({fname}, wkv6_bwd): error from f64 (max|diff| / "
+            f"max|f64|) kernel / plain "
             + ", ".join(f"{n} {row[n]['kernel']:.3e} / {row[n]['plain']:.3e}"
                         for n in ("y", "state", "dr", "dk", "dv", "dw", "du",
                                   "dS0"))
-            + f" (bar {WKV_RATIO:g}x); states bitwise the plain version's; "
-            f"two runs bitwise equal")
+            + f"; {cs.shape[2] - 1} chunk states at most {chunk_ratio:.2f}x "
+            f"(bar {WKV_RATIO:g}x); max|diff| from the chunked mirror "
+            + ", ".join(f"{n} {row[n]['mirror_max_abs']:.3e}"
+                        for n in ("y", "state", "dr", "dk", "dv", "dw", "du",
+                                  "dS0"))
+            + ("; states bitwise the plain version's" if step else "")
+            + "; two runs bitwise equal")
         rows.append(row)
         del r, k, v, w, u, s0, dy, ds, y, y2, yp, y64, g, g2, gp, g64
+        del cs, cs2, csp, cs64, ym, stm, csm, gm
     torch.cuda.empty_cache()
     return {**worst, "wkv_cases": rows}
 
@@ -1513,7 +1563,8 @@ def train_launches_expected(cfg, microbatches: int) -> dict:
 
 
 def _plain_wkv6_fwd(r, k, v, w, u, state=None, *, chunks=False):
-    """``wkv6.wkv6_fwd``'s signature over ``ref.wkv6_ref``."""
+    """``wkv6.wkv6_fwd``'s (and ``wkv6_step``'s) signature over
+    ``ref.wkv6_ref``."""
     from repro_torch.kernels import ref
 
     out = ref.wkv6_ref(r, k, v, w, u, state, return_chunks=chunks)
@@ -1542,10 +1593,11 @@ class plain_kernels:
         from repro_torch.kernels import wkv6 as wk
 
         self._saved = (fa.flash_attention, fa.flash_attention_bwd,
-                       wk.wkv6_fwd, wk.wkv6_bwd)
+                       wk.wkv6_fwd, wk.wkv6_bwd, wk.wkv6_step)
         fa.flash_attention = fa._plain_forward
         fa.flash_attention_bwd = ref.flash_attention_bwd_ref
         wk.wkv6_fwd, wk.wkv6_bwd = _plain_wkv6_fwd, _plain_wkv6_bwd
+        wk.wkv6_step = _plain_wkv6_fwd
         return self
 
     def __exit__(self, *exc):
@@ -1553,7 +1605,7 @@ class plain_kernels:
         from repro_torch.kernels import wkv6 as wk
 
         (fa.flash_attention, fa.flash_attention_bwd, wk.wkv6_fwd,
-         wk.wkv6_bwd) = self._saved
+         wk.wkv6_bwd, wk.wkv6_step) = self._saved
         return False
 
 
@@ -1662,7 +1714,9 @@ GEMM_TAGS = ("gemm", "nvjet", "xmma", "cutlass")  # cuBLAS kernel names
 BWD_TAGS = {"bfloat16": "fa_bwd_sm90", "float32": "fa_bwd_f32"}
 FWD_TAGS = {"bfloat16": "flash_attention_sm90",
             "float32": "flash_attention_f32"}
-# rwkv6's in either dtype: the backward's two kernels and the forward
+# rwkv6's in either dtype: the chunked backward's three kernels
+# (wkv6_bwd_sum, _pass, _grad) and the chunked forward's (wkv6_fwd_sum,
+# _pass, _out)
 WKV_BWD_TAG, WKV_FWD_TAG = "wkv6_bwd", "wkv6_fwd"
 
 
@@ -2058,12 +2112,12 @@ def serve_requests(cfg, n: int, seed: int = 1) -> list:
 
 def serve_launches_expected(cfg, stats: dict) -> dict:
     """Launches of a ``drive`` run: the transformer's bf16 flash kernel
-    once per layer per prefill; rwkv6's wkv6_fwd once per layer per
+    once per layer per prefill; rwkv6's wkv6_step once per layer per
     decode call (each prompt token is one, and each engine step one over
     the slots); nothing else."""
     if cfg.kind == "rwkv6":
-        return {"wkv6_fwd": cfg.n_layers * (stats["prompt_tokens"]
-                                            + stats["steps"])}
+        return {"wkv6_step": cfg.n_layers * (stats["prompt_tokens"]
+                                             + stats["steps"])}
     return {"flash_attention_sm90": cfg.n_layers * stats["prefills"]}
 
 
@@ -2757,8 +2811,12 @@ def run_rwkv6_prefill(cfg, model, device) -> dict:
     """``registry.prefill_fn`` (the scan path) over RWKV_PREFILLS prompts
     of RWKV_PREFILL_LEN tokens, each timed on the host clock after a
     synchronize, launches counted (wkv6_fwd once per layer per prompt,
-    nothing else), finite last logits and no cache."""
+    nothing else), finite last logits and no cache.  After the counted
+    run, the longest prompt once more under ``torch.profiler``: the
+    device's busy ms, the chunked forward's ms (its three kernels), and
+    the idle share against that prompt's unprofiled wall above."""
     import torch
+    from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.models import registry
 
@@ -2787,12 +2845,31 @@ def run_rwkv6_prefill(cfg, model, device) -> dict:
         check(v == n, f"rwkv6 prefill: {v} {k} launches, expected {n}")
     lengths = [int(t.shape[1]) for t in prompts]
     per_1k = 1e3 * sum(walls) / sum(lengths)
+    longest = max(range(len(prompts)), key=lambda i: lengths[i])
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        with torch.no_grad():
+            prefill(model, {"tokens": prompts[longest]})
+        torch.cuda.synchronize()
+    dev = _kernel_ms(prof.key_averages(), 1)
+    check(bool(dev), "rwkv6 prefill profile: the trace holds no device time")
+    wall_ms = 1e3 * walls[longest]
+    busy = sum(ms for _, ms in dev)
+    prof_row = {"tokens": lengths[longest], "wall_ms": wall_ms,
+                "device_ms": busy, "idle_share": 1.0 - busy / wall_ms,
+                "wkv_ms": sum(ms for k, ms in dev if WKV_FWD_TAG in k),
+                "top": dev[:5]}
     log(f"rwkv6 prefill_fn ({cfg.n_layers} layers, {cfg.compute_dtype}, the "
         f"scan path): prompts of {lengths} tokens in "
         f"{[round(w, 4) for w in walls]} s, {per_1k:.4f} s per 1k tokens, "
-        f"peak {peak / 2**30:.2f} GiB; launches {launches}")
+        f"peak {peak / 2**30:.2f} GiB; launches {launches}; the "
+        f"{lengths[longest]}-token prompt profiled: device busy "
+        f"{busy:.3f} ms of its {wall_ms:.3f} ms wall (idle share "
+        f"{prof_row['idle_share']:.3f}), wkv6_fwd {prof_row['wkv_ms']:.3f} "
+        f"ms")
     return {"launches": launches, "walls_s": walls, "tokens": lengths,
-            "prefill_s_per_1k": per_1k, "peak_bytes": peak}
+            "prefill_s_per_1k": per_1k, "peak_bytes": peak,
+            "profile": prof_row}
 
 
 def check_serve_rwkv6_f32(device) -> dict:
@@ -2804,7 +2881,7 @@ def check_serve_rwkv6_f32(device) -> dict:
     state leaf); (3) ``registry.prefill_fn`` (the scan path) on
     RWKV_F32_SCAN tokens: the last logits on the kernels within
     RWKV_LOGIT_REL max|logit| of the same on the plain versions.  Launches
-    over (1) and (2): wkv6_fwd once per layer per decode call; (3) once
+    over (1) and (2): wkv6_step once per layer per decode call; (3) once
     per layer."""
     import numpy as np
     import torch
@@ -2851,7 +2928,7 @@ def check_serve_rwkv6_f32(device) -> dict:
     calls = 2 * (RWKV_F32_PROMPT + RWKV_F32_GEN - 1) + (
         2 * RWKV_F32_PROMPT + 2 * (RWKV_F32_GEN - 1)) + RWKV_F32_PROMPT
     for k, v in launches.items():
-        want = cfg.n_layers * calls if k == "wkv6_fwd" else 0
+        want = cfg.n_layers * calls if k == "wkv6_step" else 0
         check(v == want, f"rwkv6 serve f32 checks: {v} {k} launches, "
                          f"expected {want}")
     check(torch.equal(chain, prefixes[0].last_logits)
@@ -2909,7 +2986,7 @@ def check_serve_rwkv6_f32(device) -> dict:
 
 def run_serve_rwkv6_phase(device) -> dict:
     """Phase 3k: rwkv6 uncut in bf16 served by ``run_serve`` (its
-    RWKV_REQUESTS requests of RWKV_PROMPT tokens; wkv6_fwd once per layer
+    RWKV_REQUESTS requests of RWKV_PROMPT tokens; wkv6_step once per layer
     per decode call), prefilled by ``registry.prefill_fn``
     (``run_rwkv6_prefill``), then the f32 checks
     (``check_serve_rwkv6_f32``)."""
@@ -3351,8 +3428,8 @@ def time_flash_bwd(device, gen, mem_rate: float, bf16_tc: float,
 
 # timed wkv6 shapes: (B, T, H, K, input dtype, decay dtype): the rwkv6
 # train microbatch (2 x 2048, 32 heads of 64) in bf16 (the kernels line's
-# rows) and f32, and the bf16 decode step of 8 slots (f32 decay and state;
-# the forward only)
+# rows) and f32, through the chunked kernels, and the bf16 decode step of
+# 8 slots (f32 decay and state) through the step kernel
 WKV_TIMED = (
     (2, 2048, 32, 64, "bfloat16", "bfloat16"),
     (2, 2048, 32, 64, "float32", "float32"),
@@ -3363,18 +3440,33 @@ WKV_TIMED = (
 # The forward: y = r S + (r . (u k)) v, 2; S w + k^T v, 3.  The backward,
 # with the states recomputed from the saved chunks (S w + k^T v, 3): dS w
 # + r^T dy, 3; dr = S dy + u k (dy . v), 2; dk = dS v, 2; dv = k dS, 2;
-# dw = sum of dS * S, 2
-WKV_FLOPS = {"wkv6_fwd": 5, "wkv6_bwd": 14}
+# dw = sum of dS * S, 2.  The step kernel's work is the forward's
+WKV_FLOPS = {"wkv6_fwd": 5, "wkv6_bwd": 14, "wkv6_step": 5}
+# the kept states the function needs for its backward: the reference's,
+# one every 128 steps (src/repro/models/rwkv6.py:77, its checkpointed
+# chunks), whatever interval the kernels keep them at
+WKV_KEPT_EVERY = 128
+# the row of the serial forward timed at the chunked kernels' shapes: a
+# side row, not the kernels line's (that takes the decode step's)
+WKV_SERIAL_ROW = "wkv6_step_serial_fwd"
 
 
-def time_wkv6(device, gen, mem_rate: float, f32_rate: float) -> list:
-    """The wkv6 kernels at WKV_TIMED (``batched_ms``) beside their bound
-    -- the larger of the bytes (the forward: r, k, v, w, u and a first
-    state read, y, the final state and the chunk states written; the
-    backward: r, k, v, w, u, dy, the chunk states read, dr, dk, dv, dw and
-    du's partials written) over the memory rate and WKV_FLOPS K^2 per
-    (b, t, h) at the f32 rate -- and their plain versions (``cuda_ms``, one
-    run after a warm-up).  No PyTorch call computes the recurrence: no library time."""
+def time_wkv6(device, gen, mem_rate: float, f32_rate: float,
+              tf32_rate: float) -> list:
+    """The wkv6 kernels at WKV_TIMED (``batched_ms``; the chunked forward
+    and backward at T > 1, the step kernel at T = 1, and the step kernel
+    at the T > 1 shapes too, the serial forward the chunked one replaced,
+    as the side row WKV_SERIAL_ROW) beside their bound -- the larger of
+    the bytes (the forward: r, k, v, w, u and a first state read, y, the
+    final state and the states kept for the backward, one every
+    WKV_KEPT_EVERY steps, written; the backward: r, k, v, w, u, dy and
+    those states read, dr, dk, dv, dw and du's per-(b, h) partials
+    written) over the memory rate
+    and WKV_FLOPS K^2 per (b, t, h) at the fastest rate that keeps f32
+    accuracy, 3xTF32 on the tensor cores (a third of the TF32 rate; the
+    bound at the f32 CUDA-core rate is logged beside it) -- and their
+    plain versions (``cuda_ms``, one run after a warm-up).  No PyTorch call
+    computes the recurrence: no library time."""
     import torch
 
     from repro_torch.kernels import ref
@@ -3388,37 +3480,52 @@ def time_wkv6(device, gen, mem_rate: float, f32_rate: float) -> list:
         train = T > 1
         n = B * T * H * K
         es, wes = r.element_size(), w.element_size()
-        nc = wk.n_chunks(T) if train else 0
-        chunk_b = 4 * B * H * nc * K * K
-        y, _, *cs = wk.wkv6_fwd(r, k, v, w, u, state, chunks=train)
-        jobs = [("wkv6_fwd",
-                 lambda: wk.wkv6_fwd(r, k, v, w, u, state, chunks=train),
-                 lambda: ref.wkv6_ref(r, k, v, w, u, state),
-                 3 * es * n + wes * n + 4 * H * K + 4 * n + 4 * B * H * K * K
-                 * (2 if state is not None else 1) + chunk_b)]
+        chunk_b = 4 * B * H * -(-T // WKV_KEPT_EVERY) * K * K
+        fwd_b = (3 * es * n + wes * n + 4 * H * K + 4 * n
+                 + 4 * B * H * K * K * (2 if state is not None else 1))
+        jobs = []
         if train:
-            jobs.append(("wkv6_bwd",
-                         lambda: wk.wkv6_bwd(r, k, v, w, u, dy, cs[0]),
-                         lambda: ref.wkv6_bwd_ref(r, k, v, w, u, dy),
-                         3 * es * n + wes * n + 4 * H * K + 4 * n + chunk_b
-                         + 16 * n + 4 * B * H * K))
+            y, _, cs = wk.wkv6_fwd(r, k, v, w, u, state, chunks=True)
+            jobs += [("wkv6_fwd",
+                      lambda: wk.wkv6_fwd(r, k, v, w, u, state, chunks=True),
+                      lambda: ref.wkv6_ref(r, k, v, w, u, state),
+                      fwd_b + chunk_b),
+                     ("wkv6_bwd",
+                      lambda: wk.wkv6_bwd(r, k, v, w, u, dy, cs),
+                      lambda: ref.wkv6_bwd_ref(r, k, v, w, u, dy),
+                      3 * es * n + wes * n + 4 * H * K + 4 * n + chunk_b
+                      + 16 * n + 4 * B * H * K)]
+        else:
+            y, cs = None, None
+        jobs.append((WKV_SERIAL_ROW if train else "wkv6_step",
+                     lambda: wk.wkv6_step(r, k, v, w, u, state),
+                     lambda: ref.wkv6_ref(r, k, v, w, u, state), fwd_b))
         for name, kern, plain, nbytes in jobs:
             ms = batched_ms(kern, n=5, reps=3)
-            plain_ms = cuda_ms(plain, reps=1)
-            flops = WKV_FLOPS[name] * K * K * B * T * H
+            plain_ms = (cuda_ms(plain, reps=1) if name != WKV_SERIAL_ROW
+                        else None)
+            flops = WKV_FLOPS[name if name != WKV_SERIAL_ROW
+                              else "wkv6_step"] * K * K * B * T * H
             bytes_ms = nbytes / mem_rate * 1e3
-            ops_ms = flops / f32_rate * 1e3
+            ops_ms = flops / (tf32_rate / 3) * 1e3
+            core_ms = flops / f32_rate * 1e3
             bound = max(bytes_ms, ops_ms)
             by = "bytes" if bytes_ms >= ops_ms else "operations"
             shape = f"({B}, {T}, {H}, {K}) {dt} (decay {wdt})"
             log(f"{name} {shape}: {ms:.4f} ms, bound {bound:.4f} ms by {by} "
-                f"({flops / 1e9:.3f} GFLOP at {f32_rate / 1e12:.0f} TFLOP/s "
-                f"f32; bytes {nbytes / 1e6:.1f} MB, {bytes_ms:.4f} ms), "
-                f"{100 * bound / ms:.1f}% of it; plain {plain_ms:.4f} ms; no "
-                f"library call")
-            rows.append({"name": name, "config": shape, "ms": ms,
+                f"({flops / 1e9:.3f} GFLOP at {tf32_rate / 3e12:.0f} TFLOP/s, "
+                f"3xTF32; bytes {nbytes / 1e6:.1f} MB, {bytes_ms:.4f} ms), "
+                f"{100 * bound / ms:.1f}% of it; at the {f32_rate / 1e12:.0f} "
+                f"TFLOP/s f32 CUDA-core rate {max(bytes_ms, core_ms):.4f} ms, "
+                f"{100 * max(bytes_ms, core_ms) / ms:.1f}%; plain "
+                + ("not timed (the serial forward beside the chunked one)"
+                   if plain_ms is None else f"{plain_ms:.4f} ms")
+                + "; no library call")
+            rows.append({"name": name, "config": shape, "T": T, "ms": ms,
                          "plain_ms": plain_ms, "bound_ms": bound,
-                         "bound_by": by, "bytes": nbytes, "flops": flops,
+                         "bound_by": by, "bound_f32_core_ms": max(bytes_ms,
+                                                                  core_ms),
+                         "bytes": nbytes, "flops": flops,
                          "library_ms": None})
         del r, k, v, w, u, s0, dy, y, cs
     torch.cuda.empty_cache()
@@ -3488,6 +3595,7 @@ def main() -> int:
         return 2
     from repro_torch.kernels import build
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import wkv6 as wk
 
     device = torch.device("cuda", 0)
     # the plain versions' f32 products in full f32 (PyTorch's default,
@@ -3526,7 +3634,9 @@ def main() -> int:
         for d in heads},
         "flash_attention_bwd_f32_sm90 dkv": {
         d: bwd_lib.flash_attention_bwd_f32_sm90_smem_bytes(d, 1)
-        for d in heads}}
+        for d in heads},
+        "wkv6 wkv6_bwd_grad": {d: wk._lib().wkv6_grad_smem_bytes(d)
+                               for d in wk.HEAD_DIMS}}
     log(f"  dynamic shared memory by head dim (bytes; ptxas does not "
         f"report it): {json.dumps(smem)}")
     # the f32 backward's streamed tiles, which its CPU emulation takes
@@ -3551,7 +3661,7 @@ def main() -> int:
     worst.update({k: bwd[k] for k in ("flash_attention_bwd_sm90",
                                       "flash_attention_bwd_f32_sm90")})
     wkv = compare_wkv6(device, gen)
-    worst.update({k: wkv[k] for k in ("wkv6_fwd", "wkv6_bwd")})
+    worst.update({k: wkv[k] for k in ("wkv6_fwd", "wkv6_bwd", "wkv6_step")})
     done("2")
 
     # 3. the main path: each path with its launch counts
@@ -3656,7 +3766,7 @@ def main() -> int:
                        tf32_rate(name))
     rows += time_flash_bwd(device, gen, rates[0], bf16_rate(name),
                            tf32_rate(name))
-    rows += time_wkv6(device, gen, rates[0], rates[1])
+    rows += time_wkv6(device, gen, rates[0], rates[1], tf32_rate(name))
     span_rows = time_flash_span(device, gen)
     launches = {k: sum(r["launches"][k] for r in res.values())
                 + RANKS * sum(c["launches_per_rank"][k]

@@ -269,9 +269,11 @@ def flash_attention_bwd_ref(q, k, v, o, lse, do, causal: bool = True,
 
 
 # ------------------------------------------------------ rwkv6 recurrence
-# steps between the states the forward keeps for the backward: the JAX
-# model's checkpointed chunk (``_wkv_scan``'s C)
-WKV_CHUNK = 128
+# steps per chunk of the chunked kernels (``csrc/wkv6.cu``), and between
+# the states the forward keeps for the backward
+WKV_CHUNK = 64
+# steps per sub-chunk: the chunked kernels' element-by-element block
+WKV_SUB = 16
 
 
 def wkv6_ref(r, k, v, w, u, state=None, *, dtype=torch.float32,
@@ -345,3 +347,245 @@ def wkv6_bwd_ref(r, k, v, w, u, dy, state=None, dstate=None, *,
         dw[:, t] = (dS * Sp).sum(-1)
         dS = dS * w[:, t, :, :, None] + da
     return dr, dk, dv, dw, du.sum(0), dS
+
+
+# The chunked form of the recurrence, the algorithm of the chunked kernels
+# (``csrc/wkv6.cu``), in plain PyTorch: the tests and chip_smoke.py hold
+# it against the serial form; no path runs it.  Per chunk of C =
+# WKV_CHUNK steps, split into sub-chunks of L = WKV_SUB, with the decay
+# factors as products of the w the caller passed (no log, no exp: every
+# factor is a product of values in [0, 1], so none overflows, and w = 0
+# resets the state as in the serial form):
+#   pre_i = prod_{a0 <= m < i} w_m,  suf_j = prod_{j < m <= a1} w_m,
+#   tot = prod over the sub-chunk,  D_ij = prod_{j < m < i} w_m (j < i),
+# with [a0, a1] the sub-chunk (or chunk) of i and j.  Every sum over
+# steps adds its terms from the most decayed to the least, as the serial
+# form does (the other order puts the error at 3-4x the serial form's);
+# the sums within a sub-chunk are Horner chains over w.  The chunk-level
+# stages (each chunk's contribution, its decay and the pass over chunks)
+# run in f64 and round each state they keep to f32 once, so the kept
+# states are near the correctly rounded ones (in f32 their error from f64
+# reached 2.2x the serial form's); the rest is f32, each step rounded as
+# the kernels round it: a fused multiply-add (``_fma``) where they take
+# one, and P, Q, Bm and rowsum(dS_a * S_a) of the backward summed in f64
+# and rounded once.  A ragged last chunk is padded with identity steps (r
+# = k = v = dy = 0, w = 1).
+def _fma(a, b, c):
+    """a b + c rounded once to f32 (the kernels' __fmaf_rn; the product
+    of two f32 is exact in f64)."""
+    return (a.double() * b.double() + c.double()).to(torch.float32)
+
+
+def _wkv_blocks(x, value: float):
+    """(B, T, H, K) -> (B, H, nc, C, K) f32, the last chunk padded to C
+    steps with ``value``."""
+    B, T, H, K = x.shape
+    C = WKV_CHUNK
+    nc = -(-T // C)
+    x = torch.nn.functional.pad(x.to(torch.float32),
+                                (0, 0, 0, 0, 0, nc * C - T), value=value)
+    return x.reshape(B, nc, C, H, K).permute(0, 3, 1, 2, 4)
+
+
+def _wkv_unblock(x, T: int):
+    """(B, H, nc, C, K) -> (B, T, H, K)."""
+    B, H, nc, C, K = x.shape
+    return x.permute(0, 2, 3, 1, 4).reshape(B, nc * C, H, K)[:, :T]
+
+
+def _wkv_decay(w):
+    """Products of w (..., n, K) along n, each a running product:
+    (pre, suf, tot), pre_i the product before i, suf_j after j."""
+    n = w.shape[-2]
+    pre, suf = [torch.ones_like(w[..., 0, :])], [torch.ones_like(
+        w[..., 0, :])]
+    for i in range(1, n):
+        pre.append(pre[-1] * w[..., i - 1, :])
+        suf.append(suf[-1] * w[..., n - i, :])
+    return (torch.stack(pre, -2), torch.stack(suf[::-1], -2),
+            pre[-1] * w[..., n - 1, :])
+
+
+def _outer_sum(acc, a, b, order):
+    """acc + sum_i a_i^T b_i (a, b (..., n, K)), a multiply-add each, in
+    ``order``."""
+    for i in order:
+        acc = _fma(a[..., i, :, None], b[..., i, None, :], acc)
+    return acc
+
+
+def _row_dot(x, M):
+    """x M (x (..., n, K), M (..., K, K)) as the kernels sum it: four
+    interleaved chains of multiply-adds over K (term k into chain k % 4),
+    added as ((c0 + c1) + (c2 + c3))."""
+    c = [torch.zeros_like(x) for _ in range(4)]
+    for kk in range(x.shape[-1]):
+        c[kk % 4] = _fma(x[..., kk, None], M[..., kk, None, :], c[kk % 4])
+    return (c[0] + c[1]) + (c[2] + c[3])
+
+
+def _wkv_A(r, k, w, u):
+    """A (..., L, L) of a sub-chunk: A_ij = sum_k r_i k_j D_ij (j < i, D
+    a running product from i - 1 down), the bonus A_ii = r_i . (u k_i),
+    0 above."""
+    L = r.shape[-2]
+    A = r.new_zeros(r.shape[:-1] + (L,))
+    for i in range(L):
+        A[..., i, i] = (r[..., i, :] * (u * k[..., i, :])).sum(-1)
+        d = torch.ones_like(w[..., 0, :])
+        for j in range(i - 1, -1, -1):
+            A[..., i, j] = (r[..., i, :] * k[..., j, :] * d).sum(-1)
+            d = d * w[..., j, :]
+    return A
+
+
+def _f64_mm(a, b):
+    """a b^T accumulated in f64 (exact products of f32), rounded once to
+    f32, as the chunked backward sums P, Q and Bm."""
+    return (a.double() @ b.double().transpose(-1, -2)).to(torch.float32)
+
+
+def wkv6_chunked_ref(r, k, v, w, u, state=None):
+    """``wkv6_ref`` in the chunked kernels' form, f32: (y (B, T, H, K),
+    the final state (B, H, K, K), the state entering every chunk (B, H,
+    nc, K, K)).  (i) per chunk, its contribution dS_c = (k * suf)^T v
+    and decay F_c = prod w over the chunk; (ii) the serial pass S_{c+1}
+    = F_c S_c + dS_c (both in f64); (iii) per chunk, sub-chunk by
+    sub-chunk from S_c:
+    y_i = (r_i * pre_i) S_a + sum_{j<=i} A_ij v_j, S_{a+1} = tot S_a +
+    (k * suf)^T v."""
+    B, T, H, K = r.shape
+    C, L = WKV_CHUNK, WKV_SUB
+    rb, kb, vb = (_wkv_blocks(t, 0.0) for t in (r, k, v))
+    wb = _wkv_blocks(w, 1.0)
+    nc = rb.shape[2]
+    u = u.to(torch.float32).reshape(1, H, 1, K)
+    # (i), (ii) in f64
+    _, sufc, F = _wkv_decay(wb.double())
+    dSc = (kb * sufc).transpose(-1, -2) @ vb.double()
+    S = (rb.new_zeros((B, H, K, K)) if state is None else state).double()
+    chunks = []
+    for c in range(nc):
+        chunks.append(S.to(torch.float32))
+        S = F[:, :, c, :, None] * S + dSc[:, :, c]
+    chunks, S = torch.stack(chunks, 2), S.to(torch.float32)
+    # (iii)
+    Sa, ys = chunks, []
+    for a0 in range(0, C, L):
+        r_, k_, v_, w_ = (t[..., a0:a0 + L, :] for t in (rb, kb, vb, wb))
+        pre, suf, tot = _wkv_decay(w_)
+        A = _wkv_A(r_, k_, w_, u)
+        y = _row_dot(r_ * pre, Sa)
+        for i in range(L):
+            for j in range(i + 1):
+                y[..., i, :] = _fma(A[..., i, j, None], v_[..., j, :],
+                                    y[..., i, :])
+        ys.append(y)
+        Sa = _outer_sum(tot[..., None] * Sa, k_ * suf, v_, range(L))
+    return _wkv_unblock(torch.cat(ys, 3), T), S, chunks
+
+
+def wkv6_chunked_bwd_ref(r, k, v, w, u, dy, chunks, dstate=None):
+    """``wkv6_bwd_ref`` in the chunked kernels' form, f32, from the
+    forward's chunk states: (dr, dk, dv, dw (B, T, H, K), du (H, K), dS0
+    (B, H, K, K)).  (i) per chunk dG_c = (r * pre)^T dy; (ii) the reverse
+    pass dS_{c-1} = F_c dS_c + dG_c from ``dstate`` (the gradient after
+    each chunk; dS0 at the end), both in f64; (iii) per chunk, the states
+    S_a entering
+    its sub-chunks and the gradients dS_a after them, then per sub-chunk,
+    with P = dy S_a^T, Q = v dS_a^T and Bm = dy v^T:
+
+        dr_i = pre_i P_i + sum_{j<i} D_ij k_j Bm_ij + u k_i Bm_ii
+        dk_j = suf_j Q_j + sum_{i>j} D_ij r_i Bm_ij + u r_j Bm_jj
+        dv_j = (k_j suf_j) dS_a + sum_{i>=j} A_ij dy_i
+        du = sum_i r_i k_i Bm_ii
+
+    and dw_m = sum_n dS_m S_{m-1} (the serial form's: no division by w,
+    finite at w = 0), split over the sub-chunk as
+
+        pre_m suf_m rowsum(dS_a * S_a) + suf_m sum_{j<m} D_mj k_j Q_j
+        + pre_m sum_{i>m} D_im r_i P_i + sum_{j<m<i} D_im D_mj r_i k_j Bm_ij.
+
+    P, Q, Bm and rowsum(dS_a * S_a) accumulate in f64 (P, Q and Bm round
+    once to f32), as the kernel's do (each output here combines several
+    such sums over K where the serial form has one; in f32 they put dr,
+    dk and dw at up to 3.3x the serial form's error from f64); dw's double
+    sum runs on the unrounded Bm in f64, and its four terms are added in
+    f64.
+    """
+    B, T, H, K = r.shape
+    C, L = WKV_CHUNK, WKV_SUB
+    rb, kb, vb, dyb = (_wkv_blocks(t, 0.0) for t in (r, k, v, dy))
+    wb = _wkv_blocks(w, 1.0)
+    nc = rb.shape[2]
+    u = u.to(torch.float32).reshape(1, H, 1, K)
+    # (i), (ii) in f64
+    prec, _, F = _wkv_decay(wb.double())
+    dGc = (rb * prec).transpose(-1, -2) @ dyb.double()
+    dS = (rb.new_zeros((B, H, K, K)) if dstate is None else dstate).double()
+    after = [None] * nc
+    for c in reversed(range(nc)):
+        after[c] = dS.to(torch.float32)
+        dS = F[:, :, c, :, None] * dS + dGc[:, :, c]
+    dS = dS.to(torch.float32)
+    # (iii)
+    subs = [tuple(t[..., a0:a0 + L, :] for t in (rb, kb, vb, wb, dyb))
+            for a0 in range(0, C, L)]
+    dec = [_wkv_decay(sub[3]) for sub in subs]
+    Ss = [chunks.to(torch.float32)]
+    for (r_, k_, v_, w_, dy_), (pre, suf, tot) in zip(subs[:-1], dec):
+        Ss.append(_outer_sum(tot[..., None] * Ss[-1], k_ * suf, v_,
+                             range(L)))
+    dSs = [torch.stack(after, 2)] * len(subs)
+    for a in range(len(subs) - 1, 0, -1):
+        r_, k_, v_, w_, dy_ = subs[a]
+        pre, suf, tot = dec[a]
+        dSs[a - 1] = _outer_sum(tot[..., None] * dSs[a], r_ * pre, dy_,
+                                reversed(range(L)))
+    outs = [[], [], [], []]
+    du = torch.zeros_like(rb[..., 0, :])
+    for (r_, k_, v_, w_, dy_), (pre, suf, tot), Sa, dSa in zip(subs, dec, Ss,
+                                                              dSs):
+        P, Q = (_f64_mm(a, b) for a, b in ((dy_, Sa), (v_, dSa)))
+        B64 = (dy_.double() @ v_.double().transpose(-1, -2))[..., None]
+        Bm = B64.to(torch.float32)
+        A = _wkv_A(r_, k_, w_, u)
+        rowdot = (dSa.double() * Sa.double()).sum(-1)
+        dr, dk, dw = (torch.empty_like(r_) for _ in range(3))
+        dv = _row_dot(k_ * suf, dSa)
+        for i in range(L):
+            x, y = (r_[..., i, :], k_[..., i, :])
+            bii = Bm[..., i, i, :]
+            h = torch.zeros_like(x)
+            for j in range(i):
+                h = _fma(k_[..., j, :], Bm[..., i, j, :], h * w_[..., j, :])
+            dr[..., i, :] = (pre[..., i, :] * P[..., i, :] + h
+                             + u * y * bii)
+            h = torch.zeros_like(x)
+            for m in range(L - 1, i, -1):
+                h = _fma(r_[..., m, :], Bm[..., m, i, :], h * w_[..., m, :])
+            dk[..., i, :] = (suf[..., i, :] * Q[..., i, :] + h
+                             + u * x * bii)
+            for m in range(L - 1, i - 1, -1):
+                dv[..., i, :] = _fma(A[..., m, i, None], dy_[..., m, :],
+                                     dv[..., i, :])
+            du = _fma(x * y, bii, du)
+            # dw: Horner chains over the sub-chunk; the double sum (tri)
+            # and the sum of the four terms in f64
+            fw, rv = torch.zeros_like(x), torch.zeros_like(x)
+            tri = torch.zeros_like(x, dtype=torch.float64)
+            for j in range(i):
+                fw = _fma(k_[..., j, :], Q[..., j, :], fw * w_[..., j, :])
+            for m in range(L - 1, i, -1):
+                rv = _fma(r_[..., m, :], P[..., m, :], rv * w_[..., m, :])
+                z = torch.zeros_like(tri)
+                for j in range(i):
+                    z = k_[..., j, :] * B64[..., m, j, :] + z * w_[..., j, :]
+                tri = r_[..., m, :] * z + tri * w_[..., m, :]
+            p64, s64 = pre[..., i, :].double(), suf[..., i, :].double()
+            dw[..., i, :] = ((p64 * s64 * rowdot + s64 * fw) + p64 * rv
+                             + tri).to(torch.float32)
+        for o, x in zip(outs, (dr, dk, dv, dw)):
+            o.append(x)
+    dr, dk, dv, dw = (_wkv_unblock(torch.cat(o, 3), T) for o in outs)
+    return dr, dk, dv, dw, du.sum((0, 2)), dS

@@ -126,13 +126,15 @@ def test_wkv6_ref_matches_the_reference_scan():
     assert y.dtype == s.dtype == torch.float32
     assert _rel(y.numpy().reshape(B, T, H * K), jy) <= 1e-6
     assert _rel(s.numpy(), js) <= 1e-6
-    # the kept states are the loop's own, every 128 steps
+    # the kept states are the loop's own, every ref.WKV_CHUNK (64) steps
     y2, s2, chunks = ref.wkv6_ref(t(r), t(k), t(v), t(w), t(u),
                                   return_chunks=True)
     assert torch.equal(y2, y) and torch.equal(s2, s)
-    assert chunks.shape == (B, H, 2, K, K) and not bool(chunks[:, :, 0].any())
-    _, s128 = ref.wkv6_ref(*(t(a[:, :128]) for a in (r, k, v, w)), t(u))
-    assert torch.equal(chunks[:, :, 1], s128)
+    C = ref.WKV_CHUNK
+    assert chunks.shape == (B, H, -(-T // C), K, K)
+    assert not bool(chunks[:, :, 0].any())
+    _, s64 = ref.wkv6_ref(*(t(a[:, :C]) for a in (r, k, v, w)), t(u))
+    assert torch.equal(chunks[:, :, 1], s64)
 
 
 def test_wkv6_ref_with_state_matches_the_reference_decode_chain(
