@@ -36,7 +36,12 @@ step kernel for the decode step, a chunked forward and backward for every
 call of more than one step): served uncut in bf16 (the engine and the
 naive loop take the decode path, one wkv6_step launch a layer per token;
 ``registry.prefill_fn`` the scan path, one chunked wkv6_fwd a layer) and
-checked in f32, and trained at 16 of its 24 layers.
+checked in f32, and trained at 16 of its 24 layers.  zamba2-7b (Mamba2
+blocks and one shared attention block with a sliding window of 4096 at
+head dim 112) is served uncut through the engine and the scan-path
+prefill, whose shared attention runs flash_attention_sm90 with the
+window, checked in f32 at 7 layers, and trained at 14 of its 81 layers
+on sequences of 8192 tokens, where both backwards mask by the window.
 Phases, each fatal on failure:
 
   1. build every CUDA source of the port with nvcc (sm_90a), one nvcc
@@ -52,7 +57,11 @@ Phases, each fatal on failure:
      kernel (flash_attention_sm90) within one bf16 ulp + 2^-9 max|v| of
      ``ref.flash_attention_bf16_ref`` with 99% of outputs within one ulp
      + 2e-5, the f32 flash kernel within 2e-5 of
-     ``ref.flash_attention_ref``, at the serve path's shapes and at GQA
+     ``ref.flash_attention_ref``, at the serve path's shapes, at zamba2's
+     windowed (1, 8192, 32 / 32, 112) (window 4096), a window of 1000, a
+     window >= T (bitwise the kernel without one, forward and backward), a
+     window at D = 64 with a GQA group of 4 and D = 112 without a window,
+     and at GQA
      (qwen3-32b's 64 / 8 heads of 128 among them), non-causal and ragged
      ones (the moe and llava paths' 32 / 8 and 48 / 8 heads of 128
      among them); the bf16 kernel at the model configs' kv_chunk 1024 against
@@ -65,7 +74,7 @@ Phases, each fatal on failure:
      and llava paths' (1 and 2, 2048, 32 / 8, 128) and (1, 2048, 48 / 8,
      128), starcoder2-3b's and minitron-4b's (1, 2048, 24 / 2 and 24 / 8,
      128), a ragged
-     and a non-causal case (f32 within 2e-5 max|g|; bf16 every output within
+     and a non-causal case, and the windowed cases (f32 within 2e-5 max|g|; bf16 every output within
      one ulp + 2e-5 max|g|, dV also + 2^-9 max|dO| max_j sum_i P[i, j],
      and 99% within one ulp + 2e-5 max|g|), bitwise equal over two runs;
      and the wkv6 kernels against ``ref.wkv6_ref`` / ``ref.wkv6_bwd_ref``
@@ -145,7 +154,21 @@ Phases, each fatal on failure:
      max|logit| of the plain versions; 3l: the rwkv6 train step at 16
      layers as phase 3i (per step 2 x 16 x 2 wkv6_fwd and 16 x 2
      wkv6_bwd), with its bf16 and f32 gradient checks on the trained
-     parameters' first 2 layers;
+     parameters' first 2 layers; 3m: zamba2 uncut in bf16, 8 requests of
+     16-64 prompt tokens through ``run_serve`` (no kernel launch: its
+     decode attention and Mamba2 steps are plain PyTorch, as the
+     reference's), one served decode step profiled, ``registry.
+     prefill_fn`` over 4 prompts of 4224-8192 tokens (one
+     flash_attention_sm90 with the window per group), and at 7 layers in
+     f32 the engine equal to the naive loop one request per call, its
+     prefill bitwise its own decode chain, and the scan path's last logits
+     past the window within 1e-4 max|logit| of the plain versions; 3n: the
+     zamba2 train step at 14 layers on 2 x 8192 tokens in 2 microbatches
+     (per step 2 x 2 x 2 flash_attention_sm90 and 2 x 2
+     flash_attention_bwd_sm90, both with the window), with its bf16 and
+     f32 gradient checks on the trained parameters' first group at 1 x
+     8192; rwkv6's served decode step is profiled too (3k: wkv6_step's
+     own device time);
   4. time each kernel (CUDA events, median of 10) beside its bound and
      its plain version (the flash kernels also beside
      ``scaled_dot_product_attention``, and the backward beside its
@@ -154,7 +177,9 @@ Phases, each fatal on failure:
      work on the tensor cores; the bf16 forward at kv_chunk 1024 beside
      its 128-key tiling; the wkv6 kernels at rwkv6's train microbatch and
      decode step beside their bound, no library call computing the
-     recurrence), measure the
+     recurrence; the flash kernels also at zamba2's windowed shape, the
+     bound counting the in-window causal pairs and SDPA given the band as
+     a boolean mask), measure the
      card's device-to-device copy rate, and split each round's wall time
      by phase.
 
@@ -539,6 +564,21 @@ FLASH_CASES = (
     (1, 1000, 1000, 4, 4, 32, True),
     (2, 300, 130, 8, 2, 64, True),
 )
+# the windowed and head-dim-112 cases, drawn from their own generator
+# (WINDOW_SEED) after the cases above, whose inputs stay what they were
+# before these cases were added: zamba2-7b's shared attention (32 / 32 heads of 112, window
+# 4096) over its 8192-token prefill; a window not a multiple of 128 and
+# smaller than the 1024-key span; a window >= T (the bits of no window,
+# held in compare_flash); a window at D = 64 with a GQA group of 4; D =
+# 112 without a window
+WINDOW_SEED = 23
+FLASH_WINDOW_CASES = (
+    (1, 8192, 8192, 32, 32, 112, True, 4096),
+    (1, 3000, 3000, 8, 8, 112, True, 1000),
+    (1, 2048, 2048, 8, 8, 112, True, 4096),
+    (1, 2048, 2048, 16, 4, 64, True, 700),
+    (1, 1024, 1024, 8, 8, 112, True),
+)
 FLASH_ATOL = 2e-5  # the reference's own bar (tests/test_kernels.py)
 # bf16: a p that rounds to the other bf16 neighbour moves an output by at
 # most 2^-9 max|v|; the kernel and its plain version round P against the
@@ -565,10 +605,16 @@ def bf16_ulp(x):
     return torch.ldexp(torch.ones_like(x, dtype=torch.float32), e - 8)
 
 
+def case_window(case) -> int:
+    """A flash case's sliding window: its eighth entry, 0 (none) if it
+    has none."""
+    return case[7] if len(case) > 7 else 0
+
+
 def flash_inputs(case, dtype, gen, device):
     import torch
 
-    B, T, S, H, HK, D, _ = case
+    B, T, S, H, HK, D = case[:6]
     return tuple(torch.randn(shape, generator=gen, device=device).to(dtype)
                  for shape in ((B, T, H, D), (B, S, HK, D), (B, S, HK, D)))
 
@@ -592,16 +638,17 @@ def check_bf16_flash(got, want, v, label: str) -> dict:
             "unequal": unequal}
 
 
-def compare_flash(device, gen) -> dict:
-    """Each flash kernel against its plain version at each FLASH_CASES
-    shape, as the paths call it: bf16 (flash_attention_sm90, at
-    CONFIG_KV_CHUNK) against ``flash_attention_bf16_ref`` at the same
+def compare_flash(device, gen, shapes=FLASH_CASES) -> dict:
+    """Each flash kernel against its plain version at each of ``shapes``
+    (FLASH_CASES; FLASH_WINDOW_CASES), as the paths call it: bf16
+    (flash_attention_sm90, at CONFIG_KV_CHUNK) against ``flash_attention_bf16_ref`` at the same
     chunk under ``check_bf16_flash``'s bars; f32 (flash_attention_f32)
-    against ``flash_attention_ref`` within FLASH_ATOL (not at T >= 4096,
-    whose f32 plain version is slow).  Each kernel runs without lse (the
-    serve path's call) and with it (the train path's): the two outputs
-    are bitwise equal, and the lse is within LSE_REL of the plain
-    version's."""
+    against ``flash_attention_ref`` within FLASH_ATOL (not at T >= 4096
+    without a window, whose f32 plain version is slow).  Each kernel runs
+    without lse (the serve path's call) and with it (the train path's): the
+    two outputs are bitwise equal, and the lse is within LSE_REL of the
+    plain version's.  A case's window (``case_window``) goes to both; a
+    window >= T gives the kernel's bits without one."""
     import torch
 
     from repro_torch.kernels import flash_attention as fa
@@ -610,28 +657,33 @@ def compare_flash(device, gen) -> dict:
     worst = {"flash_attention_sm90": 0.0, "flash_attention_f32": 0.0}
     lse_worst = 0.0
     cases = []
-    for case in FLASH_CASES:
-        causal = case[6]
+    for case in shapes:
+        causal, window = case[6], case_window(case)
         for dtype in (torch.bfloat16, torch.float32):
-            if case[1] >= 4096 and dtype == torch.float32:
+            if case[1] >= 4096 and dtype == torch.float32 and not window:
                 continue
             bf16 = dtype == torch.bfloat16
             q, k, v = flash_inputs(case, dtype, gen, device)
-            got = fa.flash_attention(q, k, v, causal, kv_tile=CONFIG_KV_CHUNK)
+            got = fa.flash_attention(q, k, v, causal, kv_tile=CONFIG_KV_CHUNK,
+                                     window=window)
             got_l, lse = fa.flash_attention(q, k, v, causal,
                                             kv_tile=CONFIG_KV_CHUNK,
-                                            with_lse=True)
+                                            with_lse=True, window=window)
             if bf16:
                 want, want_lse = ref.flash_attention_bf16_ref(
                     q, k, v, causal, kv_tile=CONFIG_KV_CHUNK,
-                    return_lse=True)
+                    return_lse=True, window=window)
             else:
-                want, want_lse = ref.flash_attention_ref(q, k, v, causal,
-                                                         return_lse=True)
+                want, want_lse = ref.flash_attention_ref(
+                    q, k, v, causal, return_lse=True, window=window)
             torch.cuda.synchronize()
             name = "flash_attention_sm90" if bf16 else "flash_attention_f32"
             label = (f"{name} {case}" + (f" kv_chunk {CONFIG_KV_CHUNK}"
                                          if bf16 else ""))
+            if window >= case[1]:
+                check(torch.equal(got, fa.flash_attention(
+                    q, k, v, causal, kv_tile=CONFIG_KV_CHUNK)),
+                    f"{label}: a window >= T changed the output")
             check(got.dtype == dtype and got.shape == q.shape,
                   f"{label}: {got.dtype} {tuple(got.shape)}")
             check(bool(torch.isfinite(got).all()), f"{label}: non-finite")
@@ -659,6 +711,9 @@ def compare_flash(device, gen) -> dict:
             cases.append(row)
             del q, k, v, got, got_l, lse, want, want_lse
     torch.cuda.empty_cache()
+    check(len(cases) == sum(2 - (c[1] >= 4096 and not case_window(c))
+                            for c in shapes),
+          f"compare_flash ran {len(cases)} cases of {len(shapes)} shapes")
     return {**worst, "lse_rel_err": lse_worst, "flash_cases": cases}
 
 
@@ -681,6 +736,17 @@ BWD_CASES = (
     (2, 300, 130, 8, 2, 64, True),
     (2, 64, 192, 4, 4, 16, False),
 )
+# the windowed cases of FLASH_WINDOW_CASES (their own generator):
+# zamba2-7b's train microbatch (1 x 8192, 32 / 32 heads of 112, window
+# 4096), a window of 1000, one >= T (the bits of no window), D = 64 GQA,
+# D = 112 without a window
+BWD_WINDOW_CASES = (
+    (1, 8192, 8192, 32, 32, 112, True, 4096),
+    (1, 3000, 3000, 8, 8, 112, True, 1000),
+    (1, 2048, 2048, 8, 8, 112, True, 4096),
+    (1, 2048, 2048, 16, 4, 64, True, 700),
+    (1, 1024, 1024, 8, 8, 112, True),
+)
 # f32: within 2e-5 max|g| (the forward's bar, scaled by the gradient).
 # bf16: dV sums bf16(P) dO, and a p that rounds to the other bf16
 # neighbour moves dV[j] by at most 2^-9 P[i, j] |dO[i]|, so every dV
@@ -697,15 +763,15 @@ def bwd_inputs(case, dtype, gen, device):
 
     from repro_torch.kernels import flash_attention as fa
 
-    B, T, S, H, HK, D, causal = case
+    B, T, S, H, HK, D, causal = case[:7]
     q, k, v = flash_inputs(case, dtype, gen, device)
     do = torch.randn((B, T, H, D), generator=gen, device=device).to(dtype)
     o, lse = fa.flash_attention(q, k, v, causal, kv_tile=CONFIG_KV_CHUNK,
-                                with_lse=True)
+                                with_lse=True, window=case_window(case))
     return q, k, v, o, lse, do
 
 
-def p_colsum_max(q, k, lse, causal) -> float:
+def p_colsum_max(q, k, lse, causal, window: int = 0) -> float:
     """max over keys j of sum_i P[i, j] (P = exp(S - lse), as the plain
     backward forms it), one tile of keys at a time."""
     import torch
@@ -721,24 +787,26 @@ def p_colsum_max(q, k, lse, causal) -> float:
         qs = q.to(f32) * D ** -0.5
     qs = qs.permute(0, 2, 1, 3)
     kk = k.to(f32).repeat_interleave(g, dim=2).permute(0, 2, 1, 3)
-    rows = torch.arange(T, device=q.device)[:, None]
     best = 0.0
     for k0 in range(0, kk.shape[2], 256):
         p = torch.exp(qs @ kk[:, :, k0:k0 + 256].transpose(-1, -2)
                       - lse[..., None])
-        if causal:
-            cols = torch.arange(k0, k0 + p.shape[-1], device=q.device)
-            p = torch.where(cols[None, :] <= rows, p, 0.0)
+        keep = ref._keep(T, kk.shape[2], k0, p.shape[-1], causal, window,
+                         q.device)
+        if keep is not None:
+            p = torch.where(keep, p, 0.0)
         best = max(best, float(p.sum(dim=2).max()))
     return best
 
 
-def compare_flash_bwd(device, gen) -> dict:
+def compare_flash_bwd(device, gen, shapes=BWD_CASES) -> dict:
     """The backward kernels against ``ref.flash_attention_bwd_ref`` on
-    the card at BWD_CASES, bf16 (flash_attention_bwd_sm90) and f32
+    the card at ``shapes`` (BWD_CASES; BWD_WINDOW_CASES), bf16 (flash_attention_bwd_sm90) and f32
     (flash_attention_bwd_f32_sm90), from the forward kernel's output and
     lse (held against the plain version's at the same shapes by
-    ``compare_flash``); also run twice for determinism (bitwise equal)."""
+    ``compare_flash``); also run twice for determinism (bitwise equal).
+    A case's window goes to the forward and both backwards; a window >= T
+    gives the bits of none."""
     import torch
 
     from repro_torch.kernels import flash_attention as fa
@@ -746,20 +814,30 @@ def compare_flash_bwd(device, gen) -> dict:
 
     worst = {name: 0.0 for name in fa.BWD_KERNELS.values()}
     rows = []
-    for case in BWD_CASES:
-        causal = case[6]
+    for case in shapes:
+        causal, window = case[6], case_window(case)
         for dtype in (torch.bfloat16, torch.float32):
             kname = fa.BWD_KERNELS[dtype]
             q, k, v, o, lse, do = bwd_inputs(case, dtype, gen, device)
-            got = fa.flash_attention_bwd(q, k, v, o, lse, do, causal)
-            again = fa.flash_attention_bwd(q, k, v, o, lse, do, causal)
-            want = ref.flash_attention_bwd_ref(q, k, v, o, lse, do, causal)
+            got = fa.flash_attention_bwd(q, k, v, o, lse, do, causal,
+                                         window=window)
+            again = fa.flash_attention_bwd(q, k, v, o, lse, do, causal,
+                                           window=window)
+            want = ref.flash_attention_bwd_ref(q, k, v, o, lse, do, causal,
+                                               window=window)
+            if window >= case[1]:
+                none = fa.flash_attention_bwd(q, k, v, o, lse, do, causal)
+                check(all(torch.equal(a, b) for a, b in zip(got, none)),
+                      f"bwd {case} {dtype}: a window >= T changed the "
+                      f"gradient")
+                del none
             torch.cuda.synchronize()
             bf16 = dtype == torch.bfloat16
             row = {"case": list(case), "dtype": str(dtype),
                    "kernel": kname}
             if bf16:
-                row["p_colsum_max"] = p_colsum_max(q, k, lse, causal)
+                row["p_colsum_max"] = p_colsum_max(q, k, lse, causal,
+                                                   window)
             shares = []
             for name, a, b, c in zip(("dq", "dk", "dv"), got, want, again):
                 check(a.dtype == dtype and a.shape == b.shape,
@@ -803,6 +881,8 @@ def compare_flash_bwd(device, gen) -> dict:
             rows.append(row)
             del q, k, v, o, lse, do, got, again, want
     torch.cuda.empty_cache()
+    check(len(rows) == 2 * len(shapes), f"compare_flash_bwd ran {len(rows)} "
+                                       f"cases of {len(shapes)} shapes")
     return {**worst, "bwd_cases": rows}
 
 
@@ -1538,18 +1618,20 @@ def train_launches_expected(cfg, microbatches: int) -> dict:
     its family and compute dtype (the transformer's flash kernels, bf16:
     flash_attention_sm90 and its backward, f32: flash_attention_f32 and
     its backward, none of the other dtype's; rwkv6's wkv6_fwd and
-    wkv6_bwd in either dtype); then one fused encode and decode per
-    parameter leaf."""
+    wkv6_bwd in either dtype; zamba2's flash kernels once per group, the
+    shared block's applications, its Mamba2 layers plain PyTorch); then
+    one fused encode and decode per parameter leaf."""
     import torch
 
     from repro_torch.kernels import flash_attention as fa
-    from repro_torch.models import nn, registry
+    from repro_torch.models import nn, registry, zamba2
 
     specs = []
     nn.map_specs(lambda _, spec: specs.append(spec),
                  registry.param_specs(cfg))
     leaves = len(specs)
-    L = cfg.n_layers
+    # the layers with attention
+    L = zamba2.layout(cfg)[0] if cfg.kind == "zamba2" else cfg.n_layers
     dtype = getattr(torch, cfg.compute_dtype)
     out = {name: 0 for name in fa.LAUNCHES}
     if cfg.kind == "rwkv6":
@@ -1634,16 +1716,17 @@ def token_nll(cfg, params, batch):
                 - torch.gather(logits, -1, labels)[..., 0])
 
 
-def check_batch(cfg, device) -> dict:
-    """The gradient checks' microbatch: 1 x TRAIN_CHECK_SEQ lm tokens."""
+def check_batch(cfg, device, seq: int = TRAIN_CHECK_SEQ) -> dict:
+    """The gradient checks' microbatch: 1 x ``seq`` lm tokens."""
     from repro_torch.data import synthetic
 
-    dc = synthetic.DataConfig(vocab=cfg.vocab, seq_len=TRAIN_CHECK_SEQ,
+    dc = synthetic.DataConfig(vocab=cfg.vocab, seq_len=seq,
                               global_batch=1, kind="lm")
     return synthetic.lm_batch(dc, 99, device=device)
 
 
-def plain_f32_gradient(cfg, params, device) -> tuple:
+def plain_f32_gradient(cfg, params, device,
+                       seq: int = TRAIN_CHECK_SEQ) -> tuple:
     """(loss, gradient) of the f32 model on the plain versions at
     ``check_batch``: the yardstick both gradient checks take, computed
     once for them."""
@@ -1651,11 +1734,12 @@ def plain_f32_gradient(cfg, params, device) -> tuple:
 
     with plain_kernels():
         return steps.value_and_grad(cfg.scaled(compute_dtype="float32"),
-                                    params, check_batch(cfg, device))
+                                    params, check_batch(cfg, device, seq))
 
 
-def check_train_gradient(cfg, params, device, plain32=None) -> dict:
-    """One microbatch of 1 x TRAIN_CHECK_SEQ at full width: the loss and
+def check_train_gradient(cfg, params, device, plain32=None,
+                         seq: int = TRAIN_CHECK_SEQ) -> dict:
+    """One microbatch of 1 x ``seq`` at full width: the loss and
     every leaf's gradient of the bf16 model on the kernels against the
     same model on the plain versions, each measured against the f32
     model's loss and gradient of the same params on the plain versions
@@ -1663,18 +1747,18 @@ def check_train_gradient(cfg, params, device, plain32=None) -> dict:
     the bar is the bf16 gradient bar of tests/test_torch_train.py: the
     kernels' relative L2 error at most twice the plain bf16 path's (which
     computes the JAX model's bf16 function), for each gradient leaf and
-    for the loss's TRAIN_CHECK_SEQ - 1 per-token terms.  The scalar loss
+    for the loss's ``seq`` - 1 per-token terms.  The scalar loss
     is one mean of those terms, whose errors mostly cancel (a ratio of
     two such draws says nothing), so it is logged, not held; its terms
     are, after checking that their mean is the step's loss."""
     from repro_torch.train import steps
 
-    batch = check_batch(cfg, device)
+    batch = check_batch(cfg, device, seq)
     cfg32 = cfg.scaled(compute_dtype="float32")
     lk, gk = steps.value_and_grad(cfg, params, batch)
     tk = token_nll(cfg, params, batch)
-    l32, g32 = (plain_f32_gradient(cfg, params, device) if plain32 is None
-                else plain32)
+    l32, g32 = (plain_f32_gradient(cfg, params, device, seq)
+                if plain32 is None else plain32)
     with plain_kernels():
         lp, gp = steps.value_and_grad(cfg, params, batch)
         tp = token_nll(cfg, params, batch)
@@ -1693,11 +1777,16 @@ def check_train_gradient(cfg, params, device, plain32=None) -> dict:
                                 f"{tok[1]:.3e}")
     ratios = []
     for i, (a, b, c) in enumerate(zip(gk, gp, g32)):
+        if not bool(c.any()):  # a leaf the loss does not read: all zeros
+            check(not bool(a.any()) and not bool(b.any()),
+                  f"train gradient check leaf {i}: a gradient where the f32 "
+                  f"model has none")
+            continue
         ek, ep = _rel_l2(a, c), _rel_l2(b, c)
         check(ek <= 2 * ep, f"train gradient check leaf {i}: kernels "
                             f"{ek:.3e} > 2 x plain {ep:.3e}")
         ratios.append((ek, ep))
-    log(f"train gradient check (1 x {TRAIN_CHECK_SEQ}, bf16, against the "
+    log(f"train gradient check (1 x {seq}, bf16, against the "
         f"f32 model): per-token NLL relative L2 error kernels "
         f"{tok[0]:.3e}, plain {tok[1]:.3e} (bar 2x); loss error kernels "
         f"{loss[0]:.3e}, plain {loss[1]:.3e} (logged); leaf relative L2 "
@@ -1736,7 +1825,6 @@ def profile_train_step(cfg, step_fn, holder: list, batch,
     list holding the state, replaced by each step's (so no caller keeps
     an older state alive beside the step's); returns the report."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -1750,7 +1838,7 @@ def profile_train_step(cfg, step_fn, holder: list, batch,
         holder[0], _ = step_fn(holder[0], batch, seed)
         torch.cuda.synchronize()
         wall_prof = (time.perf_counter() - t0) * 1e3
-    dev = _kernel_ms(prof.key_averages(), 1)
+    dev = _kernel_ms(prof, 1)
     check(bool(dev), "train profile: the trace holds no device time")
     busy = sum(ms for _, ms in dev)
     if cfg.kind == "rwkv6":
@@ -1762,16 +1850,17 @@ def profile_train_step(cfg, step_fn, holder: list, batch,
     def total(pred) -> float:
         return sum(ms for k, ms in dev if pred(k))
 
-    logits = sum(float(e.device_time_total) / 1e3
-                 for e in prof.key_averages(group_by_input_shape=True)
-                 if e.key in ("aten::mm", "aten::bmm") and any(
-                     cfg.padded_vocab in shape for shape in e.input_shapes))
-    # the aten ops by the device time of the kernels they launched
-    # themselves (each kernel once: self time), largest first
-    ops = sorted(((e.key, float(e.self_device_time_total) / 1e3)
-                  for e in prof.key_averages()
-                  if e.device_type == DeviceType.CPU
-                  and e.self_device_time_total > 0), key=lambda kv: -kv[1])
+    # the ops by the device time of the kernels they launched themselves
+    # (each kernel once: self time), largest first; the logits' GEMMs are
+    # the mm / bmm ops with an operand as wide as the padded vocabulary
+    own: dict = {}
+    logits = 0.0
+    for name, shapes, ms in _op_device_ms(prof):
+        own[name] = own.get(name, 0.0) + ms
+        if name in ("aten::mm", "aten::bmm") and any(
+                cfg.padded_vocab in shape for shape in shapes):
+            logits += ms
+    ops = sorted(own.items(), key=lambda kv: -kv[1])
     out = {"wall_ms": wall, "wall_profiled_ms": wall_prof,
            "device_ms": busy, "idle_share": 1.0 - busy / wall,
            "bwd_ms": total(lambda k: bwd_tag in k),
@@ -1794,10 +1883,11 @@ def profile_train_step(cfg, step_fn, holder: list, batch,
     return out
 
 
-def drive_train(cfg, global_batch: int, n_steps: int, device) -> tuple:
+def drive_train(cfg, global_batch: int, n_steps: int, device,
+                seq: int = TRAIN_SEQ) -> tuple:
     """``n_steps`` steps of ``train.steps.build_train_step`` (the
-    launcher's step) at full width, AdamW lr 3e-4, lm data, TRAIN_ACCUM
-    microbatches, compressed at n = 1 by aggregate_gaussian fused b = 8
+    launcher's step) at full width, AdamW lr 3e-4, lm data of ``seq``
+    tokens a sequence, TRAIN_ACCUM microbatches, compressed at n = 1 by aggregate_gaussian fused b = 8
     per-tensor; each step timed on the host clock after a synchronize,
     with the launch counts set to 0 just before the steps and read just
     after, and checked against ``train_launches_expected``; then two more
@@ -1817,7 +1907,7 @@ def drive_train(cfg, global_batch: int, n_steps: int, device) -> tuple:
     n = sum(p.numel() for p in _leaves(state["params"]))
     check(n == nn.spec_numel(registry.param_specs(cfg)),
           f"train state holds {n} parameters")
-    dc = synthetic.DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+    dc = synthetic.DataConfig(vocab=cfg.vocab, seq_len=seq,
                               global_batch=global_batch, kind="lm")
     step_fn = steps.build_train_step(cfg, tc)
     batches = [synthetic.lm_batch(dc, i, device=device)
@@ -1848,10 +1938,10 @@ def drive_train(cfg, global_batch: int, n_steps: int, device) -> tuple:
     del state
     prof = profile_train_step(cfg, step_fn, holder, batches[-1], TRAIN_SEED)
     state = holder.pop()
-    tokens = global_batch * TRAIN_SEQ
+    tokens = global_batch * seq
     log(f"train {cfg.name} ({cfg.n_layers} layers, {cfg.compute_dtype}, "
         f"remat {cfg.remat}, "
-        f"kv_chunk {cfg.kv_chunk}), batch {global_batch} x {TRAIN_SEQ} in "
+        f"kv_chunk {cfg.kv_chunk}), batch {global_batch} x {seq} in "
         f"{TRAIN_ACCUM} microbatches, aggregate_gaussian fused b = {BITS} "
         f"per-tensor: step walls {[round(w, 3) for w in walls]} s, tokens/s "
         f"{[round(tokens / w, 1) for w in walls]}, losses {losses}, peak "
@@ -1898,8 +1988,9 @@ TRAIN_F32_GRAD_REL = 1e-4
 TRAIN_F32_LOSS_REL = 1e-6
 
 
-def check_train_gradient_f32(cfg, params, device, plain=None) -> dict:
-    """One microbatch of 1 x TRAIN_CHECK_SEQ at full width in f32: the
+def check_train_gradient_f32(cfg, params, device, plain=None,
+                             seq: int = TRAIN_CHECK_SEQ) -> dict:
+    """One microbatch of 1 x ``seq`` at full width in f32: the
     loss and every leaf's gradient on the kernels (the transformer's
     flash_attention_f32 and the f32 backward; rwkv6's wkv6 pair) against
     the same on the plain versions (``plain``, or ``plain_f32_gradient``'s
@@ -1907,8 +1998,8 @@ def check_train_gradient_f32(cfg, params, device, plain=None) -> dict:
     TRAIN_F32_GRAD_REL max|g| of that leaf."""
     from repro_torch.train import steps
 
-    lk, gk = steps.value_and_grad(cfg, params, check_batch(cfg, device))
-    lp, gp = (plain_f32_gradient(cfg, params, device) if plain is None
+    lk, gk = steps.value_and_grad(cfg, params, check_batch(cfg, device, seq))
+    lp, gp = (plain_f32_gradient(cfg, params, device, seq) if plain is None
               else plain)
     lk, lp = float(lk), float(lp)
     loss_rel = abs(lk - lp) / abs(lp)
@@ -1922,7 +2013,7 @@ def check_train_gradient_f32(cfg, params, device, plain=None) -> dict:
         check(rel <= TRAIN_F32_GRAD_REL, f"train f32 gradient check leaf "
                                          f"{i}: {rel:.3e} max|g|")
         rels.append(rel)
-    log(f"train gradient check (1 x {TRAIN_CHECK_SEQ}, f32, kernels against "
+    log(f"train gradient check (1 x {seq}, f32, kernels against "
         f"the plain versions): loss {lk} / {lp} ({loss_rel:.3e} relative, bar "
         f"{TRAIN_F32_LOSS_REL:g}); leaf max |diff| {min(rels):.3e}-"
         f"{max(rels):.3e} max|g| (bar {TRAIN_F32_GRAD_REL:g})")
@@ -2114,7 +2205,10 @@ def serve_launches_expected(cfg, stats: dict) -> dict:
     """Launches of a ``drive`` run: the transformer's bf16 flash kernel
     once per layer per prefill; rwkv6's wkv6_step once per layer per
     decode call (each prompt token is one, and each engine step one over
-    the slots); nothing else."""
+    the slots); zamba2 none (its decode attention and Mamba2 steps are
+    plain PyTorch, as the reference's); nothing else."""
+    if cfg.kind == "zamba2":
+        return {}
     if cfg.kind == "rwkv6":
         return {"wkv6_step": cfg.n_layers * (stats["prompt_tokens"]
                                              + stats["steps"])}
@@ -2122,14 +2216,16 @@ def serve_launches_expected(cfg, stats: dict) -> dict:
 
 
 def run_serve(cfg, model, device, n_requests: int = SERVE_REQUESTS,
-              requests=None, warm_len: int = 256) -> dict:
+              requests=None, warm_len: int = 256,
+              max_prefill_len: int = SERVE_PREFILL) -> dict:
     """The serve path in the config's compute dtype (bf16; ``model`` cast
     to it, the values the reference's cast at use gives): ``n_requests``
     requests (``serve_requests``, or ``requests``) through
     ``launch.serve.drive`` on 8 slots, with the launch counts set to 0
     just before and read just after and checked against
     ``serve_launches_expected`` (a warm-up of 2 requests of ``warm_len``
-    prompt tokens first)."""
+    prompt tokens first); the engine takes prompts of up to
+    ``max_prefill_len``."""
     import statistics
 
     import torch
@@ -2138,7 +2234,7 @@ def run_serve(cfg, model, device, n_requests: int = SERVE_REQUESTS,
     from repro_torch.serve import ServeEngine
 
     engine = ServeEngine(cfg, max_slots=SERVE_SLOTS,
-                         max_prefill_len=SERVE_PREFILL,
+                         max_prefill_len=max_prefill_len,
                          max_gen_len=SERVE_GEN, device=device)
     launch.drive(engine, model, [(r, toks[:warm_len], 4) for r, toks, _ in
                                  serve_requests(cfg, 2, seed=9)])
@@ -2185,16 +2281,40 @@ def run_serve(cfg, model, device, n_requests: int = SERVE_REQUESTS,
     return res
 
 
-def _kernel_ms(events, reps: int) -> list:
-    """(name, ms per rep) of the device-side rows of a profile (kernels,
-    copies, sets), largest first.  The CPU-side rows (aten ops) carry the
-    device time of the kernels they launched too and are left out, so
-    each kernel counts once."""
+def _kernel_ms(prof, reps: int) -> list:
+    """(name, ms per rep) of the device-side events of a finished
+    ``torch.profiler`` trace (kernels, copies, sets), summed by name,
+    largest first.  Read from the trace's raw events: ``prof.events()`` and
+    ``key_averages()`` first turn every event into a Python object, which
+    took a minute for a traced train step."""
     from torch.autograd import DeviceType
 
-    rows = [(e.key, float(e.device_time_total) / 1e3 / reps) for e in events
-            if e.device_type != DeviceType.CPU and e.device_time_total > 0]
-    return sorted(rows, key=lambda kv: -kv[1])
+    totals: dict = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() != DeviceType.CPU and e.duration_ns() > 0:
+            totals[e.name()] = (totals.get(e.name(), 0.0)
+                                + e.duration_ns() / 1e6 / reps)
+    return sorted(totals.items(), key=lambda kv: -kv[1])
+
+
+def _op_device_ms(prof) -> list:
+    """(name, input shapes, device ms) of each op of a finished trace that
+    launched kernels itself: the device events linked to it by its
+    correlation id, as ``torch.profiler`` attaches kernels to the
+    launching op (its self device time), from the raw events."""
+    from torch.autograd import DeviceType
+
+    launched: dict = {}  # correlation id -> device ns of its kernels
+    ops = []
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() != DeviceType.CPU:
+            corr = e.linked_correlation_id()
+            if corr > 0:
+                launched[corr] = launched.get(corr, 0) + e.duration_ns()
+        elif e.linked_correlation_id() == 0 and not e.is_async():
+            ops.append(e)
+    return [(e.name(), e.shapes(), launched[e.correlation_id()] / 1e6)
+            for e in ops if e.correlation_id() in launched]
 
 
 def profile_serve(cfg, model, device, n_prefills: int = 2,
@@ -2245,7 +2365,7 @@ def profile_serve(cfg, model, device, n_prefills: int = 2,
                 fn()
             torch.cuda.synchronize()
             wall_prof = (time.perf_counter() - t0) * 1e3 / reps
-        dev = _kernel_ms(prof.key_averages(), reps)
+        dev = _kernel_ms(prof, reps)
         check(bool(dev), "serve profile: the trace holds no device time")
         busy = sum(ms for _, ms in dev)
         flash = sum(ms for k, ms in dev if "flash_attention_sm90" in k)
@@ -2851,7 +2971,7 @@ def run_rwkv6_prefill(cfg, model, device) -> dict:
         with torch.no_grad():
             prefill(model, {"tokens": prompts[longest]})
         torch.cuda.synchronize()
-    dev = _kernel_ms(prof.key_averages(), 1)
+    dev = _kernel_ms(prof, 1)
     check(bool(dev), "rwkv6 prefill profile: the trace holds no device time")
     wall_ms = 1e3 * walls[longest]
     busy = sum(ms for _, ms in dev)
@@ -2987,7 +3107,9 @@ def check_serve_rwkv6_f32(device) -> dict:
 def run_serve_rwkv6_phase(device) -> dict:
     """Phase 3k: rwkv6 uncut in bf16 served by ``run_serve`` (its
     RWKV_REQUESTS requests of RWKV_PROMPT tokens; wkv6_step once per layer
-    per decode call), prefilled by ``registry.prefill_fn``
+    per decode call), one served decode step profiled for wkv6_step's own
+    device time (``profile_decode_steps``), prefilled by
+    ``registry.prefill_fn``
     (``run_rwkv6_prefill``), then the f32 checks
     (``check_serve_rwkv6_f32``)."""
     import torch
@@ -2998,6 +3120,10 @@ def run_serve_rwkv6_phase(device) -> dict:
     requests = [(r, p, SERVE_GEN) for r, p in enumerate(
         rwkv6_prompts(cfg, RWKV_REQUESTS, RWKV_PROMPT, seed=1))]
     res = run_serve(cfg, model, device, requests=requests, warm_len=16)
+    # the step kernel's own device time in a served decode step (its
+    # wrapper's host cost left out)
+    res["decode_profile"] = profile_decode_steps(cfg, model, device,
+                                                 ("wkv6_step",), prompt_len=4)
     t1 = time.perf_counter()
     res["prefill"] = run_rwkv6_prefill(cfg, model, device)
     del model
@@ -3057,6 +3183,383 @@ def run_train_rwkv6_phase(device) -> dict:
     out["split_s"] = {"train": t1 - t0,
                       "gradient_checks": time.perf_counter() - t1}
     log(f"phase 3l split (s): {json.dumps(out['split_s'])}")
+    return out
+
+
+# ------------------------------------------------------------ decode step
+def profile_decode_steps(cfg, model, device, tags: tuple, n_steps: int = 4,
+                         prompt_len: int = 16) -> dict:
+    """One served decode step's device time: SERVE_SLOTS slots filled with
+    prompts of ``prompt_len`` tokens (engine prefills), one warm step,
+    then ``n_steps`` steps unprofiled (the wall per step, host clock
+    ended by a synchronize) and ``n_steps`` more under ``torch.profiler``:
+    the device's busy ms per step (each device-side row once), its idle
+    share against the unprofiled wall, the ms per step of the rows whose
+    name holds each of ``tags`` (a kernel's own device time, without its
+    wrapper's host cost), and the largest rows.  After the counted runs:
+    these launches are not the path's."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.serve import ServeEngine
+
+    engine = ServeEngine(cfg, max_slots=SERVE_SLOTS,
+                         max_prefill_len=prompt_len,
+                         max_gen_len=2 * n_steps + 3, device=device)
+    rng = np.random.default_rng(5)
+    state = engine.init_state()
+    for i in range(SERVE_SLOTS):
+        _, prefix = engine.prefill(model, rng.integers(
+            0, cfg.vocab, size=(prompt_len,), dtype=np.int32))
+        state = engine.insert(state, prefix, i)
+    holder = [engine.generate_step(model, state)[0]]  # warm
+    del state
+
+    def steps() -> None:
+        for _ in range(n_steps):
+            holder[0], _, _ = engine.generate_step(model, holder[0])
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    steps()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3 / n_steps
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        steps()
+        torch.cuda.synchronize()
+    dev = _kernel_ms(prof, n_steps)
+    check(bool(dev), f"{cfg.name} decode profile: the trace holds no "
+                     f"device time")
+    check(bool(holder[0]["active"].all()), f"{cfg.name} decode profile: "
+                                           f"a slot finished early")
+    busy = sum(ms for _, ms in dev)
+    out = {"wall_ms": wall, "device_ms": busy,
+           "idle_share": 1.0 - busy / wall,
+           "tag_ms": {t: sum(ms for k, ms in dev if t in k) for t in tags},
+           "top": dev[:8]}
+    log(f"decode profile {cfg.name} ({cfg.n_layers} layers, "
+        f"{cfg.compute_dtype}, {SERVE_SLOTS} slots): wall {wall:.3f} ms a "
+        f"step, device busy {busy:.3f} ms (idle share "
+        f"{out['idle_share']:.3f}); "
+        + "; ".join(f"{t} {ms:.4f} ms" for t, ms in out["tag_ms"].items())
+        + "; top " + "; ".join(f"{k[:50]} {ms:.4f}" for k, ms in dev[:8]))
+    del engine, holder
+    torch.cuda.empty_cache()
+    return out
+
+
+# ------------------------------------------------------------ phase 3m
+# zamba2-7b served uncut in bf16 (81 layers: 13 groups of 5 Mamba2 layers
+# and the shared attention block, a tail of 3; 5,735.2 M parameters, 10.68
+# GiB): the engine's prefill is a chain of one-token 81-layer decodes, so
+# the prompts are short (ZAMBA_REQUESTS of ZAMBA_PROMPT tokens, SERVE_GEN
+# out, the KV rings min(window, 128) rows); its decode attention and
+# Mamba2 steps are plain PyTorch, as the reference's (no kernel launches).
+# Then ``registry.prefill_fn`` (the scan path: the SSD blocks and the
+# shared attention through flash_attention_sm90 with the window 4096, once
+# per group) over ZAMBA_PREFILLS prompts of ZAMBA_PREFILL_LEN tokens, all
+# past the window and multiples of the SSD chunk (128); and the f32 checks
+# at ZAMBA_F32_LAYERS layers (one group and a tail of one)
+ZAMBA_ARCH = "zamba2-7b"
+ZAMBA_REQUESTS = 8
+ZAMBA_PROMPT = (16, 64)
+ZAMBA_PREFILLS = 4
+ZAMBA_PREFILL_LEN = (4224, 8192)
+ZAMBA_F32_LAYERS = 7
+ZAMBA_F32_PROMPT = 16
+ZAMBA_F32_GEN = 8
+ZAMBA_F32_SCAN = 4352  # past the window: flash_attention_f32 masks by it
+ZAMBA_LOGIT_REL = 1e-4  # of max|logit|
+
+
+def zamba2_config(layers=None, dtype=None):
+    from repro_torch import configs
+
+    cfg = configs.get_config(ZAMBA_ARCH)
+    check(cfg.kind == "zamba2" and cfg.compute_dtype == "bfloat16"
+          and cfg.remat == "full" and cfg.window == 4096 and cfg.hd == 112
+          and cfg.kv_chunk == CONFIG_KV_CHUNK, f"zamba2 config {cfg}")
+    if layers is not None:
+        cfg = cfg.scaled(n_layers=layers)
+    return cfg if dtype is None else cfg.scaled(compute_dtype=dtype)
+
+
+def zamba2_prefill_prompts(cfg, n: int, lengths: tuple, seed: int) -> list:
+    """``n`` prompts with lengths uniform in ``lengths``, cut down to a
+    multiple of the SSD chunk (the scan path's reshape needs one)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    sizes = rng.integers(lengths[0], lengths[1] + 1, size=n)
+    sizes = [max(int(p) // cfg.ssm_chunk * cfg.ssm_chunk, lengths[0])
+             for p in sizes]
+    return [rng.integers(0, cfg.vocab, size=(p,), dtype=np.int32)
+            for p in sizes]
+
+
+def run_zamba2_prefill(cfg, model, device) -> dict:
+    """``registry.prefill_fn`` (the scan path) over ZAMBA_PREFILLS prompts
+    of ZAMBA_PREFILL_LEN tokens, each timed on the host clock after a
+    synchronize, launches counted (flash_attention_sm90 once per group
+    per prompt, nothing else), finite last logits and no cache.  Then the
+    longest prompt once more under ``torch.profiler``: the device's busy
+    ms, the flash kernel's ms and the idle share against that prompt's
+    unprofiled wall."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models import registry, zamba2
+
+    G = zamba2.layout(cfg)[0]
+    prefill = registry.prefill_fn(cfg)
+    prompts = [torch.as_tensor(p[None], device=device) for p in
+               zamba2_prefill_prompts(cfg, ZAMBA_PREFILLS, ZAMBA_PREFILL_LEN,
+                                      seed=8)]
+    with torch.no_grad():
+        prefill(model, {"tokens": prompts[0]})  # warm
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    walls = []
+    for tokens in prompts:
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            logits, cache = prefill(model, {"tokens": tokens})
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        check(cache is None and tuple(logits.shape) == (
+            1, 1, cfg.padded_vocab) and bool(torch.isfinite(logits).all()),
+            f"zamba2 prefill of {tokens.shape[1]}: {tuple(logits.shape)}")
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    for k, v in launches.items():
+        n = G * ZAMBA_PREFILLS if k == "flash_attention_sm90" else 0
+        check(v == n, f"zamba2 prefill: {v} {k} launches, expected {n}")
+    lengths = [int(t.shape[1]) for t in prompts]
+    check(min(lengths) > cfg.window, f"zamba2 prefill prompts {lengths} "
+                                     f"not past the window")
+    per_1k = 1e3 * sum(walls) / sum(lengths)
+    longest = max(range(len(prompts)), key=lambda i: lengths[i])
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        with torch.no_grad():
+            prefill(model, {"tokens": prompts[longest]})
+        torch.cuda.synchronize()
+    dev = _kernel_ms(prof, 1)
+    check(bool(dev), "zamba2 prefill profile: the trace holds no device "
+                     "time")
+    wall_ms = 1e3 * walls[longest]
+    busy = sum(ms for _, ms in dev)
+    prof_row = {"tokens": lengths[longest], "wall_ms": wall_ms,
+                "device_ms": busy, "idle_share": 1.0 - busy / wall_ms,
+                "flash_ms": sum(ms for k, ms in dev
+                                if FWD_TAGS["bfloat16"] in k),
+                "gemm_ms": sum(ms for k, ms in dev
+                               if any(t in k.lower() for t in GEMM_TAGS)),
+                "top": dev[:8]}
+    log(f"zamba2 prefill_fn ({cfg.n_layers} layers, {cfg.compute_dtype}, "
+        f"the scan path, window {cfg.window}): prompts of {lengths} tokens "
+        f"in {[round(w, 4) for w in walls]} s, {per_1k:.4f} s per 1k "
+        f"tokens, peak {peak / 2**30:.2f} GiB; launches {launches}; the "
+        f"{lengths[longest]}-token prompt profiled: device busy "
+        f"{busy:.3f} ms of its {wall_ms:.3f} ms wall (idle share "
+        f"{prof_row['idle_share']:.3f}), flash_attention_sm90 "
+        f"{prof_row['flash_ms']:.3f} ms, GEMMs {prof_row['gemm_ms']:.3f} "
+        f"ms; top " + "; ".join(f"{k[:50]} {ms:.3f}" for k, ms in dev[:8]))
+    return {"launches": launches, "walls_s": walls, "tokens": lengths,
+            "prefill_s_per_1k": per_1k, "peak_bytes": peak,
+            "profile": prof_row}
+
+
+def check_serve_zamba2_f32(device) -> dict:
+    """zamba2 at ZAMBA_F32_LAYERS layers (one group and a tail) in f32.
+    (1) For 2 prompts of ZAMBA_F32_PROMPT tokens the engine (2 slots) and
+    the naive loop, one request per call, give the same ZAMBA_F32_GEN
+    tokens (a differing token only at a top-2 margin below MARGIN, once);
+    (2) the engine's prefill of the first prompt is bitwise its own chain
+    of ``registry.serve_fn`` calls (logits and every state leaf); no
+    kernel launches in (1) and (2); (3) ``registry.prefill_fn`` (the scan
+    path) on ZAMBA_F32_SCAN tokens, past the window: the last logits on
+    the kernels (flash_attention_f32 once per group) within
+    ZAMBA_LOGIT_REL max|logit| of the same on the plain versions."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models import registry, zamba2
+    from repro_torch.serve import ServeEngine, naive_generate
+
+    cfg = zamba2_config(ZAMBA_F32_LAYERS, "float32")
+    model = build_checked(cfg, device)
+    prompts = [torch.as_tensor(p, device=device) for p in rwkv6_prompts(
+        cfg, 2, (ZAMBA_F32_PROMPT, ZAMBA_F32_PROMPT), seed=2)]
+    torch.cuda.synchronize()
+    reset_launches()
+    naive = torch.cat([naive_generate(cfg, model, {"tokens": p[None]},
+                                      ZAMBA_F32_GEN) for p in prompts])
+    engine = ServeEngine(cfg, max_slots=2, max_prefill_len=ZAMBA_F32_PROMPT,
+                         max_gen_len=ZAMBA_F32_GEN, device=device)
+    state = engine.init_state()
+    prefixes = []
+    for i in range(2):
+        _, prefix = engine.prefill(model, prompts[i])
+        prefixes.append(prefix)
+        state = engine.insert(state, prefix, i, max_gen=ZAMBA_F32_GEN)
+    outs, margins = [state["tokens"].clone()], [
+        torch.stack([p.last_logits[0, 0] for p in prefixes])]
+    for _ in range(ZAMBA_F32_GEN - 1):
+        with torch.no_grad():  # the step's logits, for the margins
+            logits = engine.family.step(
+                model, state["tokens"][:, None],
+                {k: v.clone() for k, v in state["cache"].items()},
+                state["lengths"], state["active"])
+        margins.append(logits[:, 0])
+        state, tok, _ = engine.generate_step(model, state)
+        outs.append(tok)
+    eng = torch.stack(outs, dim=1)
+    serve = registry.serve_fn(cfg)
+    cache = registry.init_decode_state(
+        cfg, 1, ZAMBA_F32_PROMPT + ZAMBA_F32_GEN, device)
+    with torch.no_grad():
+        for t in range(ZAMBA_F32_PROMPT):
+            chain, cache = serve(model, {"tokens": prompts[0][None, t:t + 1]},
+                                 cache)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    check(not any(launches.values()), f"zamba2 serve f32 checks: launches "
+                                      f"{launches}, expected none")
+    check(torch.equal(chain, prefixes[0].last_logits)
+          and all(torch.equal(cache[k], prefixes[0].cache[k])
+                  for k in cache), "zamba2: the engine's prefill is not "
+                                   "bitwise its own decode chain")
+    margin = _margins(torch.stack(margins, dim=1)).cpu()
+    naive_h, eng_h = naive.cpu().numpy(), eng.cpu().numpy()
+    ties = []
+    for b in range(2):
+        diff = np.flatnonzero(eng_h[b] != naive_h[b])
+        if diff.size:
+            m = float(margin[b, diff[0]])
+            log(f"zamba2 engine vs naive: row {b} token {diff[0]} differs; "
+                f"top-2 margin {m:.3g}")
+            check(m < MARGIN, f"zamba2 engine vs naive: row {b} token "
+                              f"{diff[0]} differs with top-2 margin {m}")
+            ties.append({"row": b, "token": int(diff[0]), "margin": m})
+    check(len(ties) <= 1, f"zamba2: {len(ties)} differing tokens; at most 1 "
+                          f"allowed")
+    scan = torch.as_tensor(zamba2_prefill_prompts(
+        cfg, 1, (ZAMBA_F32_SCAN, ZAMBA_F32_SCAN), seed=3)[0][None],
+        device=device)
+    check(scan.shape[1] > cfg.window, "zamba2 f32 scan prompt not past the "
+                                      "window")
+    prefill = registry.prefill_fn(cfg)
+    reset_launches()
+    with torch.no_grad():
+        got, _ = prefill(model, {"tokens": scan})
+    torch.cuda.synchronize()
+    scan_launches = read_launches()
+    with torch.no_grad(), plain_kernels():
+        want, _ = prefill(model, {"tokens": scan})
+    G = zamba2.layout(cfg)[0]
+    for k, v in scan_launches.items():
+        n = G if k == "flash_attention_f32" else 0
+        check(v == n, f"zamba2 f32 prefill: {v} {k} launches, expected {n}")
+    scale = float(want.abs().max())
+    err = float((got - want).abs().max()) / scale
+    check(bool(torch.isfinite(got).all()) and err <= ZAMBA_LOGIT_REL,
+          f"zamba2 f32 last logits: {err:.3e} max|logit| from the plain "
+          f"versions (bar {ZAMBA_LOGIT_REL:g})")
+    log(f"serve zamba2 f32 checks ({cfg.n_layers} layers, 2 x "
+        f"{ZAMBA_F32_PROMPT} prompt tokens x {ZAMBA_F32_GEN}, one request "
+        f"per call): engine == naive ({len(ties)} tie(s)), the engine's "
+        f"prefill bitwise its own decode chain; smallest top-2 margin "
+        f"{float(margin.min()):.4g}; launches {launches}; scan-path last "
+        f"logits ({scan.shape[1]} tokens) within {err:.3e} max|logit| "
+        f"({scale:.4g}) of the plain versions (bar {ZAMBA_LOGIT_REL:g}), "
+        f"launches {scan_launches}")
+    del model, engine, state
+    torch.cuda.empty_cache()
+    return {"ties": ties, "min_margin": float(margin.min()),
+            "launches": launches, "scan_launches": scan_launches,
+            "logit_rel_err": err, "max_logit": scale,
+            "tokens": naive_h.tolist()}
+
+
+def run_serve_zamba2_phase(device) -> dict:
+    """Phase 3m: zamba2 uncut in bf16 served by ``run_serve`` (its
+    ZAMBA_REQUESTS requests of ZAMBA_PROMPT tokens, no kernel launches),
+    one served decode step profiled (``profile_decode_steps``), prefilled
+    by ``registry.prefill_fn`` (``run_zamba2_prefill``), then the f32
+    checks (``check_serve_zamba2_f32``)."""
+    import torch
+
+    t0 = time.perf_counter()
+    cfg = zamba2_config()
+    model = build_checked(cfg, device)
+    requests = [(r, p, SERVE_GEN) for r, p in enumerate(
+        rwkv6_prompts(cfg, ZAMBA_REQUESTS, ZAMBA_PROMPT, seed=1))]
+    res = run_serve(cfg, model, device, requests=requests,
+                    warm_len=ZAMBA_PROMPT[0], max_prefill_len=ZAMBA_PROMPT[1])
+    res["decode_profile"] = profile_decode_steps(cfg, model, device, (),
+                                                 prompt_len=4)
+    t1 = time.perf_counter()
+    res["prefill"] = run_zamba2_prefill(cfg, model, device)
+    del model
+    torch.cuda.empty_cache()
+    t2 = time.perf_counter()
+    res["f32"] = check_serve_zamba2_f32(device)
+    res["split_s"] = {"serve": t1 - t0, "prefill_fn": t2 - t1,
+                      "f32_checks": time.perf_counter() - t2}
+    log(f"phase 3m split (s): {json.dumps(res['split_s'])}")
+    return res
+
+
+# ------------------------------------------------------------ phase 3n
+# zamba2 trained at full width, depth cut to TRAIN_ZAMBA_LAYERS of 81: 14
+# layers (2 groups of 5 Mamba2 layers and the shared block, a tail of 2)
+# are 1,370.2 M parameters, near rwkv6's 1,208.3 M (48.7 GiB in phase 3l)
+# and phi3.5-moe's 1,563.5 M (70.0 GiB in 3i).  bf16, remat full, AdamW lr
+# 3e-4, lm data seed 0, global batch 2 x 8192 in 2 microbatches (both past
+# the window: the backward kernels mask by it), aggregate_gaussian fused
+# b = 8 per-tensor, TRAIN_STEPS steps.  The gradient checks take the
+# trained parameters' first group (ZAMBA_CHECK_LAYERS layers) at 1 x 8192
+TRAIN_ZAMBA_LAYERS = 14
+TRAIN_ZAMBA_BATCH = 2
+TRAIN_ZAMBA_SEQ = 8192
+ZAMBA_CHECK_LAYERS = 6
+
+
+def run_train_zamba2_phase(device) -> dict:
+    """Phase 3n: ``drive_train`` on zamba2 at TRAIN_ZAMBA_LAYERS layers and
+    TRAIN_ZAMBA_SEQ tokens a sequence (launches per step: 2 x G x 2
+    flash_attention_sm90, G x 2 flash_attention_bwd_sm90 for its G groups,
+    one fused encode and decode per leaf), then, on the trained
+    parameters' first group and 1 x TRAIN_ZAMBA_SEQ, the bf16 gradient
+    check against the f32 model (``check_train_gradient``) and the f32
+    check of the kernels against the plain versions
+    (``check_train_gradient_f32``)."""
+    import torch
+
+    t0 = time.perf_counter()
+    cfg = zamba2_config(TRAIN_ZAMBA_LAYERS)
+    params, out = drive_train(cfg, TRAIN_ZAMBA_BATCH, TRAIN_STEPS, device,
+                              seq=TRAIN_ZAMBA_SEQ)
+    t1 = time.perf_counter()
+    ccfg = cfg.scaled(n_layers=ZAMBA_CHECK_LAYERS)
+    cparams = {k: v for k, v in params.items() if k != "tail"}
+    cparams["groups"] = {k: v[:1] for k, v in params["groups"].items()}
+    plain32 = plain_f32_gradient(ccfg, cparams, device, TRAIN_ZAMBA_SEQ)
+    out["gradient_check"] = check_train_gradient(
+        ccfg, cparams, device, plain32, TRAIN_ZAMBA_SEQ)
+    out["gradient_check_f32"] = check_train_gradient_f32(
+        ccfg.scaled(compute_dtype="float32"), cparams, device, plain32,
+        TRAIN_ZAMBA_SEQ)
+    out["gradient_check_layers"] = ZAMBA_CHECK_LAYERS
+    del plain32, cparams, params
+    torch.cuda.empty_cache()
+    out["split_s"] = {"train": t1 - t0,
+                      "gradient_checks": time.perf_counter() - t1}
+    log(f"phase 3n split (s): {json.dumps(out['split_s'])}")
     return out
 
 
@@ -3227,7 +3730,31 @@ FLASH_TIMED = (
     (1, 2048, 2048, 24, 8, 128, "bfloat16"),
     (1, 2048, 2048, 24, 2, 128, "float32"),
     (1, 2048, 2048, 24, 8, 128, "float32"),
+    # zamba2-7b's shared attention over its 8192-token prefill: 32 / 32
+    # heads of 112, window 4096
+    (1, 8192, 8192, 32, 32, 112, "bfloat16", 4096),
+    (1, 8192, 8192, 32, 32, 112, "float32", 4096),
 )
+
+
+def causal_pairs(T: int, window: int = 0) -> float:
+    """The (query, key) pairs a causal attention over T tokens computes:
+    T^2 / 2 (the bound's count of full causal attention), or with a window
+    sum_i min(i + 1, window), the in-window pairs alone."""
+    if not window:
+        return T * T / 2
+    w = min(window, T)
+    return w * (w + 1) / 2 + (T - w) * w
+
+
+def band_mask(T: int, window: int, device):
+    """The causal sliding-window band as SDPA's boolean ``attn_mask``
+    (True where attended): key j for query i where i - window < j <= i."""
+    import torch
+
+    i = torch.arange(T, device=device)[:, None]
+    j = torch.arange(T, device=device)[None, :]
+    return (j <= i) & (j > i - window)
 
 
 def batched_ms(fn, n: int = 20, reps: int = 5) -> float:
@@ -3274,7 +3801,9 @@ def time_flash(device, gen, mem_rate: float, f32_rate: float,
     from repro_torch.kernels import ref
 
     rows = []
-    for B, T, S, H, HK, D, dt in FLASH_TIMED:
+    for row_case in FLASH_TIMED:
+        B, T, S, H, HK, D, dt = row_case[:7]
+        window = case_window(row_case)
         dtype = getattr(torch, dt)
         case = (B, T, S, H, HK, D, True)
         q, k, v = flash_inputs(case, dtype, gen, device)
@@ -3287,23 +3816,29 @@ def time_flash(device, gen, mem_rate: float, f32_rate: float,
         plain = (ref.flash_attention_bf16_ref if bf16
                  else ref.flash_attention_ref)
         ms = batched_ms(lambda: fa.flash_attention(
-            q, k, v, True, kv_tile=CONFIG_KV_CHUNK))
-        plain_ms = cuda_ms(lambda: plain(q, k, v, True, **kv), reps=3)
+            q, k, v, True, kv_tile=CONFIG_KV_CHUNK, window=window))
+        plain_ms = cuda_ms(lambda: plain(q, k, v, True, **kv,
+                                         window=window), reps=3)
+        # SDPA: causal, or the window's band as a boolean mask
+        mask = band_mask(T, window, device) if window else None
         lib_ms = batched_ms(lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True, enable_gqa=HK < H))
+            qt, kt, vt, attn_mask=mask, is_causal=mask is None,
+            enable_gqa=HK < H))
         lib_x_ms = None
         if HK < H:
             kx, vx = (x.repeat_interleave(H // HK, dim=1) for x in (kt, vt))
             lib_x_ms = batched_ms(lambda: F.scaled_dot_product_attention(
                 qt, kx, vx, is_causal=True))
             del kx, vx
-        flops = 4 * B * H * T * S * D / 2
+        flops = 4 * B * H * D * (causal_pairs(T, window) if window
+                                 else T * S / 2)
         nbytes = q.element_size() * (2 * B * T * H * D + 2 * B * S * HK * D)
         bytes_ms = nbytes / mem_rate * 1e3
         ops_ms = (flops / bf16_tc if bf16 else 3 * flops / tf32_tc) * 1e3
         bound = max(bytes_ms, ops_ms)
         by = "bytes" if bytes_ms >= ops_ms else "operations"
         shape = (f"({B}, {T}, {H} / {HK} heads, {D}) {dt} causal"
+                 + (f" window {window}" if window else "")
                  + (f" kv_chunk {CONFIG_KV_CHUNK}" if bf16 else ""))
         rate = (f"{flops / 1e9:.2f} GFLOP at {bf16_tc / 1e12:.0f} TFLOP/s"
                 if bf16 else f"3 x {flops / 1e9:.2f} GFLOP at "
@@ -3327,7 +3862,7 @@ def time_flash(device, gen, mem_rate: float, f32_rate: float,
             f"{plain_ms:.4f} ms; scaled_dot_product_attention "
             f"{lib_ms:.4f} ms (kernel / SDPA {ms / lib_ms:.2f}){lib_x}")
         rows.append(row)
-        del q, k, v, qt, kt, vt
+        del q, k, v, qt, kt, vt, mask
     torch.cuda.empty_cache()
     return rows
 
@@ -3351,6 +3886,10 @@ BWD_TIMED = (
     (1, 2048, 2048, 24, 8, 128, "bfloat16"),
     (1, 2048, 2048, 24, 2, 128, "float32"),
     (1, 2048, 2048, 24, 8, 128, "float32"),
+    # zamba2-7b's train microbatch (1 x 8192, 32 / 32 heads of 112, window
+    # 4096)
+    (1, 8192, 8192, 32, 32, 112, "bfloat16", 4096),
+    (1, 8192, 8192, 32, 32, 112, "float32", 4096),
 )
 
 
@@ -3374,22 +3913,26 @@ def time_flash_bwd(device, gen, mem_rate: float, bf16_tc: float,
     from repro_torch.kernels import ref
 
     rows = []
-    for B, T, S, H, HK, D, dt in BWD_TIMED:
+    for row_case in BWD_TIMED:
+        B, T, S, H, HK, D, dt = row_case[:7]
+        window = case_window(row_case)
         dtype = getattr(torch, dt)
-        case = (B, T, S, H, HK, D, True)
+        case = (B, T, S, H, HK, D, True, window)
         q, k, v, o, lse, do = bwd_inputs(case, dtype, gen, device)
-        ms = batched_ms(lambda: fa.flash_attention_bwd(q, k, v, o, lse, do,
-                                                       True), n=5, reps=3)
+        ms = batched_ms(lambda: fa.flash_attention_bwd(
+            q, k, v, o, lse, do, True, window=window), n=5, reps=3)
         plain_ms = cuda_ms(lambda: ref.flash_attention_bwd_ref(
-            q, k, v, o, lse, do, True), reps=3)
+            q, k, v, o, lse, do, True, window=window), reps=3)
+        mask = band_mask(T, window, device) if window else None
         qt, kt, vt = (x.detach().transpose(1, 2).requires_grad_()
                       for x in (q, k, v))
         dot = do.transpose(1, 2)
         gqa = HK < H
 
         def sdpa():
-            return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
-                                                  enable_gqa=gqa)
+            return F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=mask, is_causal=mask is None,
+                enable_gqa=gqa)
 
         def sdpa_fwd_bwd():
             torch.autograd.grad(sdpa(), (qt, kt, vt), dot)
@@ -3399,7 +3942,8 @@ def time_flash_bwd(device, gen, mem_rate: float, bf16_tc: float,
         lib_ms = batched_ms(sdpa_fwd_bwd, n=5, reps=3) - fwd_ms
         bf16 = dtype == torch.bfloat16
         name = fa.BWD_KERNELS[dtype]
-        flops = 2.5 * 4 * B * H * T * S * D / 2
+        flops = 2.5 * 4 * B * H * D * (causal_pairs(T, window) if window
+                                       else T * S / 2)
         # q, o, dO and dq (B T H D each), k, v, dk and dv (B S HK D each),
         # lse (B H T, f32)
         nbytes = (q.element_size() * 4 * (B * T * H * D + B * S * HK * D)
@@ -3408,7 +3952,8 @@ def time_flash_bwd(device, gen, mem_rate: float, bf16_tc: float,
         ops_ms = (flops / bf16_tc if bf16 else 3 * flops / tf32_tc) * 1e3
         bound = max(bytes_ms, ops_ms)
         by = "bytes" if bytes_ms >= ops_ms else "operations"
-        shape = f"({B}, {T}, {H} / {HK} heads, {D}) {dt} causal"
+        shape = (f"({B}, {T}, {H} / {HK} heads, {D}) {dt} causal"
+                 + (f" window {window}" if window else ""))
         row = {"name": name, "config": shape, "ms": ms,
                "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
                "bytes": nbytes, "flops": flops, "library_ms": lib_ms,
@@ -3421,7 +3966,7 @@ def time_flash_bwd(device, gen, mem_rate: float, bf16_tc: float,
             f"{lib_ms:.4f} ms (forward + backward {lib_ms + fwd_ms:.4f}, "
             f"forward {fwd_ms:.4f}; kernel / SDPA {ms / lib_ms:.2f})")
         rows.append(row)
-        del q, k, v, o, lse, do, qt, kt, vt, dot
+        del q, k, v, o, lse, do, qt, kt, vt, dot, mask
     torch.cuda.empty_cache()
     return rows
 
@@ -3536,16 +4081,17 @@ def time_flash_span(device, gen) -> list:
     """The bf16 forward kernel at the configs' kv_chunk (two passes over
     each 1024-key span) beside its single pass over 128-key tiles
     (kv_chunk 128, the PR 14-16 function, held to the bf16 bars against
-    the plain version at 128 first), at the FLASH_TIMED bf16 shapes, in
-    turns (``batched_ms``)."""
+    the plain version at 128 first), at the FLASH_TIMED bf16 shapes
+    without a window, in turns (``batched_ms``)."""
     import torch
 
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref
 
     rows = []
-    for B, T, S, H, HK, D, dt in FLASH_TIMED:
-        if dt != "bfloat16":
+    for row_case in FLASH_TIMED:
+        B, T, S, H, HK, D, dt = row_case[:7]
+        if dt != "bfloat16" or case_window(row_case):
             continue
         case = (B, T, S, H, HK, D, True)
         q, k, v = flash_inputs(case, torch.bfloat16, gen, device)
@@ -3588,6 +4134,13 @@ def copy_rate(device) -> dict:
 
 
 def main() -> int:
+    import os
+
+    # grow segments instead of caching fixed blocks: the train steps' f64
+    # temporaries of the largest leaves (zamba2's 522 M-element group stack
+    # at 14 layers) otherwise leave the cache too fragmented for the next
+    # step (set before the first allocation; the spawned ranks inherit it)
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
     import torch
 
     if not torch.cuda.is_available():
@@ -3626,7 +4179,7 @@ def main() -> int:
                 log(f"  ptxas {lib}: {line.strip()}")
     f32_lib = build.load("flash_attention_f32_sm90")
     bwd_lib = build.load("flash_attention_bwd_f32_sm90")
-    heads = (16, 32, 64, 128)
+    heads = (16, 32, 64, 112, 128)
     smem = {"flash_attention_f32_sm90": {
         d: f32_lib.flash_attention_f32_smem_bytes(d) for d in heads},
         "flash_attention_bwd_f32_sm90 dq": {
@@ -3655,11 +4208,17 @@ def main() -> int:
     worst.update(compare_layered(device, gen))
     worst.update(compare_dither_pack(device, gen))
     flash = compare_flash(device, gen)
-    worst.update({k: flash[k] for k in ("flash_attention_sm90",
-                                        "flash_attention_f32")})
     bwd = compare_flash_bwd(device, gen)
-    worst.update({k: bwd[k] for k in ("flash_attention_bwd_sm90",
-                                      "flash_attention_bwd_f32_sm90")})
+    # the windowed and head-dim-112 cases from their own generator, so the
+    # cases above keep their inputs
+    wgen = torch.Generator(device=device)
+    wgen.manual_seed(WINDOW_SEED)
+    flash_w = compare_flash(device, wgen, FLASH_WINDOW_CASES)
+    bwd_w = compare_flash_bwd(device, wgen, BWD_WINDOW_CASES)
+    worst.update({k: max(flash[k], flash_w[k]) for k in (
+        "flash_attention_sm90", "flash_attention_f32")})
+    worst.update({k: max(bwd[k], bwd_w[k]) for k in (
+        "flash_attention_bwd_sm90", "flash_attention_bwd_f32_sm90")})
     wkv = compare_wkv6(device, gen)
     worst.update({k: wkv[k] for k in ("wkv6_fwd", "wkv6_bwd", "wkv6_step")})
     done("2")
@@ -3752,6 +4311,12 @@ def main() -> int:
     train_rwkv = run_train_rwkv6_phase(device)
     done("3l (train rwkv6)")
     held("after the rwkv6 train phase")
+    serve_zamba = run_serve_zamba2_phase(device)
+    done("3m (serve zamba2)")
+    held("after the zamba2 serve phase")
+    train_zamba = run_train_zamba2_phase(device)
+    done("3n (train zamba2)")
+    held("after the zamba2 train phase")
     done("3")
 
     # 4. times
@@ -3787,6 +4352,11 @@ def main() -> int:
                 + serve_rwkv["f32"]["launches"][k]
                 + serve_rwkv["f32"]["scan_launches"][k]
                 + train_rwkv["launches"][k]
+                + serve_zamba["launches"][k]
+                + serve_zamba["prefill"]["launches"][k]
+                + serve_zamba["f32"]["launches"][k]
+                + serve_zamba["f32"]["scan_launches"][k]
+                + train_zamba["launches"][k]
                 for k in KERNELS}
     kernels = []
     for kname, (src, replaces) in KERNELS.items():
@@ -3808,7 +4378,10 @@ def main() -> int:
               "rounds": {m: {k: v for k, v in r.items() if k != "errs"}
                          for m, r in res.items()},
               "laws": laws, "flash_cases": flash["flash_cases"],
-              "bwd_cases": bwd["bwd_cases"], "flash_span": span_rows,
+              "bwd_cases": bwd["bwd_cases"],
+              "flash_window_cases": flash_w["flash_cases"],
+              "bwd_window_cases": bwd_w["bwd_cases"],
+              "flash_span": span_rows,
               "train": train, "train_f32": train_f32,
               "train_ranks": train_ranks,
               "client_ranks": ranks, "async": async_res,
@@ -3817,6 +4390,7 @@ def main() -> int:
               "llava": llava, "train_moe": train_moe,
               "serve_dense": serve_dense, "wkv_cases": wkv["wkv_cases"],
               "serve_rwkv6": serve_rwkv, "train_rwkv6": train_rwkv,
+              "serve_zamba2": serve_zamba, "train_zamba2": train_zamba,
               "kernels": kernels, "phase_s": phase_s, "seconds": total}
     out_dir = ROOT / "build"
     try:

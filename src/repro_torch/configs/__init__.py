@@ -3,7 +3,8 @@
 ``ARCHS`` keeps all ten ids.  The port has the configs of the
 transformer's three kinds: dense (qwen1.5-0.5b, starcoder2-3b,
 qwen3-32b, minitron-4b), moe (dbrx-132b, phi3.5-moe-42b-a6.6b) and
-llava (llava-next-mistral-7b), and of rwkv6 (rwkv6-1.6b);
+llava (llava-next-mistral-7b), of rwkv6 (rwkv6-1.6b) and of zamba2
+(zamba2-7b);
 ``get_config`` / ``get_smoke_config`` of another family raise
 NotImplementedError until its slice lands (see ROADMAP.md).
 """
@@ -37,6 +38,7 @@ _MODULES: Dict[str, str] = {
     "minitron-4b": "minitron_4b",
     "llava-next-mistral-7b": "llava_next_mistral_7b",
     "rwkv6-1.6b": "rwkv6_16b",
+    "zamba2-7b": "zamba2_7b",
 }
 
 

@@ -10,9 +10,10 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.models.rwkv6 import Rwkv6
 from repro_torch.models.transformer import Transformer
+from repro_torch.models.zamba2 import Zamba2
 
 __all__ = ["params_from_numpy", "key_from_numpy", "transformer_from_numpy",
-           "rwkv6_from_numpy"]
+           "rwkv6_from_numpy", "zamba2_from_numpy"]
 
 
 def params_from_numpy(tree: Any, device=None) -> Any:
@@ -47,3 +48,11 @@ def rwkv6_from_numpy(cfg, tree: Any, device=None):
     a leading axis) -> the port's ``Rwkv6`` on ``device`` (CUDA unless
     "cpu"), dtypes kept."""
     return Rwkv6(cfg, params_from_numpy(tree, device))
+
+
+def zamba2_from_numpy(cfg, tree: Any, device=None):
+    """The reference's zamba2 parameter tree (numpy arrays; group stacks
+    (G, every - 1, ...), tail stacks (tail, ...), the shared block once)
+    -> the port's ``Zamba2`` on ``device`` (CUDA unless "cpu"), dtypes
+    kept."""
+    return Zamba2(cfg, params_from_numpy(tree, device))

@@ -11,16 +11,24 @@
 //
 //   qs   = f32(q * f32(D^-1/2))                (the forward's scaled q)
 //   S    = qs k^T, masked where key >= S_len or, causal, key > query
-//          (aligned at the top left)
+//          (aligned at the top left), or key <= query - window with a
+//          window
 //   P    = exp(S - lse), 0 where masked
 //   Drow = rowsum(dO * O)
 //   dV   = P^T dO,  dP = dO v^T,  dS = P (dP - Drow)
 //   dK   = dS^T qs,  dQ = scale * dS k
 //
 // q, o, dO, dq (B, T, H, D); k, v, dk, dv (B, S, HK, D); all f32; lse
-// (B, H, T) f32; D in {16, 32, 64, 128}, H % HK == 0, ragged T and S.
+// (B, H, T) f32; D in {16, 32, 64, 112, 128}, H % HK == 0, ragged T and S.
 // Within 2e-5 max|g| of the plain version, not bitwise: the f32 sums run
-// in another order.  The bf16 gradient is flash_attention_bwd_sm90.cu.
+// in another order.  Head dim 112 runs D = 128 instances compiled for a
+// true width of 112 (HD; D = 128 keeps its own): the
+// preprocess reads the inputs at their true width and writes its scratch
+// 128 columns wide, zeros past 112 (exact zeros in every product), and
+// the stores stop at 112.  With a window (``window`` > 0) the dQ kernel
+// starts at its first key tile inside its first query's window and the
+// dK / dV kernel stops at the last query tile that sees its last key;
+// masked keys take P = 0.  The bf16 gradient is flash_attention_bwd_sm90.cu.
 //
 // 3xTF32, as the f32 forward: every operand x is split as hi =
 // cvt.rna.tf32.f32(x) and lo = cvt.rna.tf32.f32(x - hi), and every 8-deep
@@ -249,24 +257,27 @@ __device__ __forceinline__ bool released_last(uint32_t* claim, int wg,
 
 // store rows row0 / row1 (< len) of a 64 x D accumulator, times ``mul``,
 // into dst rows of ``row_stride`` elements
+// (columns < hd, the true head dim)
 template <int D>
 __device__ __forceinline__ void store_rows(const float (&acc)[D / 2],
                                            float* base, int row0, int row1,
                                            int len, size_t row_stride,
-                                           float mul) {
+                                           float mul, int hd) {
   if (row0 < len) {
     float* dst = base + (size_t)row0 * row_stride;
 #pragma unroll
     for (int n = 0; n < D / 8; ++n)
-      *reinterpret_cast<float2*>(dst + 8 * n) = make_float2(
-          __fmul_rn(acc[4 * n], mul), __fmul_rn(acc[4 * n + 1], mul));
+      if (8 * n < hd)
+        *reinterpret_cast<float2*>(dst + 8 * n) = make_float2(
+            __fmul_rn(acc[4 * n], mul), __fmul_rn(acc[4 * n + 1], mul));
   }
   if (row1 < len) {
     float* dst = base + (size_t)row1 * row_stride;
 #pragma unroll
     for (int n = 0; n < D / 8; ++n)
-      *reinterpret_cast<float2*>(dst + 8 * n) = make_float2(
-          __fmul_rn(acc[4 * n + 2], mul), __fmul_rn(acc[4 * n + 3], mul));
+      if (8 * n < hd)
+        *reinterpret_cast<float2*>(dst + 8 * n) = make_float2(
+            __fmul_rn(acc[4 * n + 2], mul), __fmul_rn(acc[4 * n + 3], mul));
   }
 }
 
@@ -289,6 +300,9 @@ __host__ __device__ __forceinline__ int pad_of(int len) {
   return (len + kRowPad - 1) / kRowPad * kRowPad;
 }
 
+// the scratch's width for a head dim: 112 runs the 128 instances
+int scratch_dim(int head_dim) { return head_dim == 112 ? 128 : head_dim; }
+
 Work carve(void* work, int batch, int t_len, int s_len, int heads,
            int kv_heads, int head_dim) {
   const size_t rows = (size_t)batch * heads * pad_of(t_len);
@@ -310,6 +324,7 @@ Work carve(void* work, int batch, int t_len, int s_len, int heads,
 
 size_t work_floats(int batch, int t_len, int s_len, int heads, int kv_heads,
                    int head_dim) {
+  head_dim = scratch_dim(head_dim);
   const size_t rows = (size_t)batch * heads * pad_of(t_len);
   const size_t qn = 2 * (size_t)batch * t_len * heads * head_dim;
   const size_t qtn = 2 * (size_t)batch * heads * head_dim * pad_of(t_len);
@@ -326,7 +341,7 @@ size_t work_floats(int batch, int t_len, int s_len, int heads, int kv_heads,
 // its lanes over D (neighbouring columns: coalesced); the transposes go
 // through shared memory, each warp writing 32 neighbouring rows of one
 // column.
-template <int D>
+template <int D, int HD>
 __global__ void __launch_bounds__(kPrepThreads)
     fa_bwd_f32_prep_kernel(const float* __restrict__ q,
                            const float* __restrict__ k,
@@ -360,14 +375,18 @@ __global__ void __launch_bounds__(kPrepThreads)
       if (d >= D) break;
       float a = 0.f, c = 0.f;
       if (live) {
+        // the input at its width HD, the scratch at D (zeros past HD)
+        const size_t in = (((size_t)b * len + row) * nh + h) * HD + d;
         const size_t off = (((size_t)b * len + row) * nh + h) * D + d;
-        if (q_side) {
-          a = __fmul_rn(q[off], scale);
-          c = dout[off];
-          part = __fmaf_rn(c, o[off], part);
-        } else {
-          a = k[off];
-          c = v[off];
+        if (d < HD) {
+          if (q_side) {
+            a = __fmul_rn(q[in], scale);
+            c = dout[in];
+            part = __fmaf_rn(c, o[in], part);
+          } else {
+            a = k[in];
+            c = v[in];
+          }
         }
         uint32_t hi, lo;
         split_tf32(a, hi, lo);
@@ -451,14 +470,15 @@ struct DqMaps {
 
 // Grid: (B * H, ceil(T / kRows)); blockIdx.y counts the query tiles from
 // the last, so that the causal tiles with the most key tiles start first.
-template <int D>
+template <int D, int HD, bool kWindow>
 __global__ void __launch_bounds__(DqCfg<D>::kWGs * 128, 1)
     fa_bwd_f32_dq_kernel(const __grid_constant__ DqMaps maps,
                          const float* __restrict__ lse2,
                          const float* __restrict__ drow,
                          float* __restrict__ dq, int batch, int t_len,
                          int t_pad, int s_len, int heads, int kv_heads,
-                         int causal, float scale) {
+                         int causal, float scale, int window) {
+  if (!kWindow) window = 0;  // the instance without a window's terms
   using C = DqCfg<D>;
   using RT = typename C::RT;
   using KT = typename C::KT;
@@ -486,6 +506,10 @@ __global__ void __launch_bounds__(DqCfg<D>::kWGs * 128, 1)
   const int q0 = (gridDim.y - 1 - blockIdx.y) * C::kRows;
   int n_kv = (s_len + BK - 1) / BK;
   if (causal) n_kv = min(n_kv, (q0 + C::kRows - 1) / BK + 1);
+  // with a window, ring step i is key tile j_first + i, the first that
+  // holds a key in the window of the block's first query
+  const int j_first = window > 0 ? max(q0 - window + 1, 0) / BK : 0;
+  const int n_steps = max(n_kv - j_first, 0);
 
   if (threadIdx.x == 0) {
     mbar_init(res_full, 1);
@@ -501,9 +525,11 @@ __global__ void __launch_bounds__(DqCfg<D>::kWGs * 128, 1)
   }
   __syncthreads();
 
-  // ring step j (keys j * BK ..): A = k hi, k lo, v hi, v lo; B = k^T hi, lo
-  const auto load_a = [&](int j) {
-    const int st = j % NA;
+  // ring step i (keys (j_first + i) * BK ..): A = k hi, k lo, v hi, v lo;
+  // B = k^T hi, lo
+  const auto load_a = [&](int i) {
+    const int j = j_first + i;
+    const int st = i % NA;
     const uint32_t bar = full_a + 8 * st;
     const uint32_t dst = s_a + st * C::kStageA;
     mbar_expect_tx(bar, C::kStageA);
@@ -516,8 +542,9 @@ __global__ void __launch_bounds__(DqCfg<D>::kWGs * 128, 1)
                  bar, x * KT::kBoxCols, hk, j * BK, bb);
       }
   };
-  const auto load_b = [&](int j) {
-    const int st = j % NB;
+  const auto load_b = [&](int i) {
+    const int j = j_first + i;
+    const int st = i % NB;
     const uint32_t bar = full_b + 8 * st;
     const uint32_t dst = s_b + st * C::kStageB;
     mbar_expect_tx(bar, C::kStageB);
@@ -536,8 +563,8 @@ __global__ void __launch_bounds__(DqCfg<D>::kWGs * 128, 1)
         tma_load(s_res + (2 + part) * RT::kBytes + x * RT::kBoxBytes,
                  &maps.dout, res_full, x * RT::kBoxCols, h, q0, bb);
       }
-    for (int j = 0; j < min(NA, n_kv); ++j) load_a(j);
-    for (int j = 0; j < min(NB, n_kv); ++j) load_b(j);
+    for (int i = 0; i < min(NA, n_steps); ++i) load_a(i);
+    for (int i = 0; i < min(NB, n_steps); ++i) load_b(i);
   }
 
   const int wg = threadIdx.x / 128;       // queries wg * 64 .. of the tile
@@ -559,11 +586,13 @@ __global__ void __launch_bounds__(DqCfg<D>::kWGs * 128, 1)
   float acc[D / 2];
   zero_all(acc);
   mbar_wait(res_full, 0);
-  for (int j = 0; j < n_kv; ++j) {
+  for (int j = 0; j < n_steps; ++j) {  // ring step j: tile j_first + j
     const int sa = j % NA, sb = j % NB;
-    const int k0 = j * BK;
-    // else every key of the tile lies above the warpgroup's rows
-    const bool work = !causal || k0 <= first + 63;
+    const int k0 = (j_first + j) * BK;
+    // else every key of the tile lies above the warpgroup's rows, or
+    // before their windows
+    const bool work = (!causal || k0 <= first + 63) &&
+                      (window == 0 || k0 + BK - 1 > first - window);
     const uint32_t k_hi = s_a + sa * C::kStageA;
     const uint32_t kt_hi = s_b + sb * C::kStageB;
     float s[BK / 2], dp[BK / 2];
@@ -578,13 +607,14 @@ __global__ void __launch_bounds__(DqCfg<D>::kWGs * 128, 1)
       fence_all(s);
       fence_all(dp);
     }
-    if (released_last<C::kWGs>(claim_a + sa, wg, t) && j + NA < n_kv)
+    if (released_last<C::kWGs>(claim_a + sa, wg, t) && j + NA < n_steps)
       load_a(j + NA);
     uint32_t hi[BK / 8][4], lo[BK / 8][4];
     if (work) {
       // P = exp(S - lse), 0 past S and above the diagonal; dS = P (dP -
       // Drow) in dp
-      const bool edge = k0 + BK > s_len || (causal && k0 + BK - 1 > first);
+      const bool edge = k0 + BK > s_len || (causal && k0 + BK - 1 > first) ||
+                        (window > 0 && k0 <= first + 63 - window);
 #pragma unroll
       for (int n = 0; n < BK / 8; ++n)
 #pragma unroll
@@ -595,7 +625,9 @@ __global__ void __launch_bounds__(DqCfg<D>::kWGs * 128, 1)
             float p = ex2(__fmaf_rn(s[i], kLog2e, -(r ? l1 : l0)));
             if (edge) {
               const int col = k0 + 8 * n + c0 + e;
-              if (col >= s_len || (causal && col > (r ? row1 : row0)))
+              const int row = r ? row1 : row0;
+              if (col >= s_len || (causal && col > row) ||
+                  (window > 0 && col <= row - window))
                 p = 0.f;
             }
             dp[i] = __fmul_rn(p, __fsub_rn(dp[i], r ? d1 : d0));
@@ -621,12 +653,12 @@ __global__ void __launch_bounds__(DqCfg<D>::kWGs * 128, 1)
         add_part<D, PN>(acc, part, c);
       }
     }
-    if (released_last<C::kWGs>(claim_b + sb, wg, t) && j + NB < n_kv)
+    if (released_last<C::kWGs>(claim_b + sb, wg, t) && j + NB < n_steps)
       load_b(j + NB);
   }
   // dq = scale dQ; rows past T are not stored
-  store_rows<D>(acc, dq + ((size_t)b * t_len * heads + h) * D + c0, row0,
-                row1, t_len, (size_t)heads * D, scale);
+  store_rows<D>(acc, dq + ((size_t)b * t_len * heads + h) * HD + c0, row0,
+                row1, t_len, (size_t)heads * HD, scale, HD);
 }
 
 // ------------------------------------------------------------- dK, dV
@@ -666,14 +698,16 @@ struct DkvMaps {
 
 // Grid: (B * HK, ceil(S / kRows)); blockIdx.y counts the key tiles from
 // the first, whose causal query range is the longest.
-template <int D>
+template <int D, int HD, bool kWindow>
 __global__ void __launch_bounds__(DkvCfg<D>::kWGs * 128, 1)
     fa_bwd_f32_dkv_kernel(const __grid_constant__ DkvMaps maps,
                           const float* __restrict__ lse2,
                           const float* __restrict__ drow,
                           float* __restrict__ dk, float* __restrict__ dv,
                           int batch, int t_len, int t_pad, int s_len,
-                          int heads, int kv_heads, int causal) {
+                          int heads, int kv_heads, int causal,
+                          int window) {
+  if (!kWindow) window = 0;  // the instance without a window's terms
   using C = DkvCfg<D>;
   using RT = typename C::RT;
   using QT = typename C::QT;
@@ -702,11 +736,14 @@ __global__ void __launch_bounds__(DkvCfg<D>::kWGs * 128, 1)
   const int group = heads / kv_heads;
   const int k0 = blockIdx.y * C::kRows;
   const int n_q = (t_len + BQ - 1) / BQ;
-  // causal: query tiles before k0 see none of these keys
+  // causal: query tiles before k0 see none of these keys; with a window,
+  // nor do those from key k0 + kRows - 1 + window on
   const int i0 = causal ? min(k0 / BQ, n_q) : 0;
+  const int i1 =
+      window > 0 ? min(n_q, (k0 + C::kRows - 1 + window - 1) / BQ + 1) : n_q;
   // ring step it is query tile i0 + it % per_head of query head
   // hk * group + it / per_head
-  const int per_head = n_q - i0;
+  const int per_head = max(i1 - i0, 0);
   const int n_it = group * per_head;
 
   if (threadIdx.x == 0) {
@@ -795,8 +832,10 @@ __global__ void __launch_bounds__(DkvCfg<D>::kWGs * 128, 1)
   for (int it = 0; it < n_it; ++it) {
     const int sa = it % NA, sb = it % NB;
     const int q0 = (i0 + it % per_head) * BQ;
-    // else every query of the tile lies before the warpgroup's keys
-    const bool work = !causal || q0 + BQ - 1 >= kw;
+    // else every query of the tile lies before the warpgroup's keys, or
+    // past their windows
+    const bool work = (!causal || q0 + BQ - 1 >= kw) &&
+                      (window == 0 || q0 <= kw + 63 + window - 1);
     const uint32_t q_hi = s_a + sa * C::kStageA;
     const uint32_t qt_hi = s_b + sb * C::kStageB;
     float s[BQ / 2], dp[BQ / 2];
@@ -816,7 +855,8 @@ __global__ void __launch_bounds__(DkvCfg<D>::kWGs * 128, 1)
       // where the query is before the key; dS^T = P^T (dP^T - Drow)
       const float* lse_st = rows_ptr + sa * (C::kRowsBytes / 4);
       const float* drow_st = lse_st + BQ;
-      const bool edge = q0 + BQ > t_len || (causal && q0 < kw + 63);
+      const bool edge = q0 + BQ > t_len || (causal && q0 < kw + 63) ||
+                        (window > 0 && q0 + BQ - 1 >= kw + window);
 #pragma unroll
       for (int n = 0; n < BQ / 8; ++n)
 #pragma unroll
@@ -829,7 +869,9 @@ __global__ void __launch_bounds__(DkvCfg<D>::kWGs * 128, 1)
             float p = ex2(__fmaf_rn(s[i], kLog2e, -l));
             if (edge) {
               const int query = q0 + col;
-              if (query >= t_len || (causal && query < (r ? key1 : key0)))
+              const int key = r ? key1 : key0;
+              if (query >= t_len || (causal && query < key) ||
+                  (window > 0 && query >= key + window))
                 p = 0.f;
             }
             s[i] = p;
@@ -873,10 +915,10 @@ __global__ void __launch_bounds__(DkvCfg<D>::kWGs * 128, 1)
       load_b(it + NB);
   }
   // dk, dv; keys past S are not stored
-  const size_t row_stride = (size_t)kv_heads * D;
-  const size_t off = ((size_t)b * s_len * kv_heads + hk) * D + c0;
-  store_rows<D>(dk_acc, dk + off, key0, key1, s_len, row_stride, 1.f);
-  store_rows<D>(dv_acc, dv + off, key0, key1, s_len, row_stride, 1.f);
+  const size_t row_stride = (size_t)kv_heads * HD;
+  const size_t off = ((size_t)b * s_len * kv_heads + hk) * HD + c0;
+  store_rows<D>(dk_acc, dk + off, key0, key1, s_len, row_stride, 1.f, HD);
+  store_rows<D>(dv_acc, dv + off, key0, key1, s_len, row_stride, 1.f, HD);
 }
 
 // -------------------------------------------------------------- host
@@ -920,19 +962,22 @@ int encode_cols(CUtensorMap* map, const void* ptr, int batch2, int len_pad,
                 G::kSwizzle);
 }
 
-template <int D>
-int launch(const void* q, const void* k, const void* v, const void* o,
-           const void* lse, const void* dout, void* dq, void* dk, void* dv,
-           void* work, int batch, int t_len, int s_len, int heads,
-           int kv_heads, int causal, float scale, cudaStream_t stream) {
+template <int D, int HD, bool kWindow>
+int launch_impl(const void* q, const void* k, const void* v, const void* o,
+                const void* lse, const void* dout, void* dq, void* dk,
+                void* dv, void* work, int batch, int t_len, int s_len,
+                int heads, int kv_heads, int causal, float scale, int window,
+                cudaStream_t stream) {
   using QC = DqCfg<D>;
   using KC = DkvCfg<D>;
   // set once per instance (thread-safe static initialisation)
   static const cudaError_t attr_dq = cudaFuncSetAttribute(
-      fa_bwd_f32_dq_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      fa_bwd_f32_dq_kernel<D, HD, kWindow>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)QC::kSmem);
   static const cudaError_t attr_dkv = cudaFuncSetAttribute(
-      fa_bwd_f32_dkv_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      fa_bwd_f32_dkv_kernel<D, HD, kWindow>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)KC::kSmem);
   if (attr_dq != cudaSuccess) return (int)attr_dq;
   if (attr_dkv != cudaSuccess) return (int)attr_dkv;
@@ -941,7 +986,7 @@ int launch(const void* q, const void* k, const void* v, const void* o,
 
   const dim3 prep_grid(batch * heads + batch * kv_heads,
                        (t_pad > s_pad ? t_pad : s_pad) / kPrepRows);
-  fa_bwd_f32_prep_kernel<D><<<prep_grid, kPrepThreads, 0, stream>>>(
+  fa_bwd_f32_prep_kernel<D, HD><<<prep_grid, kPrepThreads, 0, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<const float*>(o),
       static_cast<const float*>(lse), static_cast<const float*>(dout), w,
@@ -973,19 +1018,36 @@ int launch(const void* q, const void* k, const void* v, const void* o,
   if (err != 0) return err;
 
   const dim3 grid_q(batch * heads, (t_len + QC::kRows - 1) / QC::kRows);
-  fa_bwd_f32_dq_kernel<D>
+  fa_bwd_f32_dq_kernel<D, HD, kWindow>
       <<<grid_q, QC::kWGs * 128, QC::kSmem, stream>>>(
           mq, w.lse2, w.drow, static_cast<float*>(dq), batch, t_len, t_pad,
-          s_len, heads, kv_heads, causal, scale);
+          s_len, heads, kv_heads, causal, scale, window);
   launched = cudaGetLastError();
   if (launched != cudaSuccess) return (int)launched;
   const dim3 grid_k(batch * kv_heads, (s_len + KC::kRows - 1) / KC::kRows);
-  fa_bwd_f32_dkv_kernel<D>
+  fa_bwd_f32_dkv_kernel<D, HD, kWindow>
       <<<grid_k, KC::kWGs * 128, KC::kSmem, stream>>>(
           mk, w.lse2, w.drow, static_cast<float*>(dk),
           static_cast<float*>(dv), batch, t_len, t_pad, s_len, heads,
-          kv_heads, causal);
+          kv_heads, causal, window);
   return (int)cudaGetLastError();
+}
+
+// a call without a window runs instances with none of the window's terms
+template <int D, int HD = D>
+int launch(const void* q, const void* k, const void* v, const void* o,
+           const void* lse, const void* dout, void* dq, void* dk, void* dv,
+           void* work, int batch, int t_len, int s_len, int heads,
+           int kv_heads, int causal, float scale, int window,
+           cudaStream_t stream) {
+  return window > 0
+             ? launch_impl<D, HD, true>(q, k, v, o, lse, dout, dq, dk, dv,
+                                        work, batch, t_len, s_len, heads,
+                                        kv_heads, causal, scale, window,
+                                        stream)
+             : launch_impl<D, HD, false>(q, k, v, o, lse, dout, dq, dk, dv,
+                                         work, batch, t_len, s_len, heads,
+                                         kv_heads, causal, scale, 0, stream);
 }
 
 }  // namespace
@@ -1005,10 +1067,11 @@ size_t flash_attention_bwd_f32_sm90_work_bytes(int batch, int t_len,
 // s_len, kv_heads, head_dim); all contiguous f32, 16-byte aligned.  lse
 // (the forward's m + log(l)) is (batch, heads, t_len) f32; ``work`` is
 // scratch of flash_attention_bwd_f32_sm90_work_bytes(...) bytes, 16-byte
-// aligned, written here.  head_dim in {16, 32, 64, 128}; heads % kv_heads
-// == 0; t_len, s_len >= 1; batch * (heads + kv_heads) < 2^31 and
+// aligned, written here.  head_dim in {16, 32, 64, 112, 128}; heads %
+// kv_heads == 0; t_len, s_len >= 1; batch * (heads + kv_heads) < 2^31 and
 // ceil(t_len / 32), ceil(s_len / 32) <= 65535.  ``scale`` is the forward's
-// f32(head_dim^-1/2).  Launches the three kernels on ``stream`` and
+// f32(head_dim^-1/2); ``window`` the forward's (0 is none).  Launches the
+// three kernels on ``stream`` and
 // returns the first nonzero cudaGetLastError(), cudaErrorInvalidValue for
 // an unsupported head_dim, -1 if the driver has no cuTensorMapEncodeTiled,
 // or -1000 - r if it returned CUresult r.
@@ -1019,21 +1082,27 @@ int flash_attention_bwd_f32_sm90_launch(const void* q, const void* k,
                                         void* work, int batch, int t_len,
                                         int s_len, int heads, int kv_heads,
                                         int head_dim, int causal, float scale,
-                                        void* stream) {
+                                        int window, void* stream) {
   const cudaStream_t st = (cudaStream_t)stream;
+  if (window < 0) return (int)cudaErrorInvalidValue;
   switch (head_dim) {
     case 16:
       return launch<16>(q, k, v, o, lse, dout, dq, dk, dv, work, batch, t_len,
-                        s_len, heads, kv_heads, causal, scale, st);
+                        s_len, heads, kv_heads, causal, scale, window, st);
     case 32:
       return launch<32>(q, k, v, o, lse, dout, dq, dk, dv, work, batch, t_len,
-                        s_len, heads, kv_heads, causal, scale, st);
+                        s_len, heads, kv_heads, causal, scale, window, st);
     case 64:
       return launch<64>(q, k, v, o, lse, dout, dq, dk, dv, work, batch, t_len,
-                        s_len, heads, kv_heads, causal, scale, st);
+                        s_len, heads, kv_heads, causal, scale, window, st);
+    case 112:  // D = 128 instances on a 128-wide scratch
+      return launch<128, 112>(q, k, v, o, lse, dout, dq, dk, dv, work,
+                              batch, t_len, s_len, heads, kv_heads, causal,
+                              scale, window, st);
     case 128:
       return launch<128>(q, k, v, o, lse, dout, dq, dk, dv, work, batch,
-                         t_len, s_len, heads, kv_heads, causal, scale, st);
+                         t_len, s_len, heads, kv_heads, causal, scale,
+                         window, st);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -1046,6 +1115,7 @@ int flash_attention_bwd_f32_sm90_smem_bytes(int head_dim, int dkv) {
     case 16: return (int)(dkv ? DkvCfg<16>::kSmem : DqCfg<16>::kSmem);
     case 32: return (int)(dkv ? DkvCfg<32>::kSmem : DqCfg<32>::kSmem);
     case 64: return (int)(dkv ? DkvCfg<64>::kSmem : DqCfg<64>::kSmem);
+    case 112:
     case 128: return (int)(dkv ? DkvCfg<128>::kSmem : DqCfg<128>::kSmem);
     default: return 0;
   }
@@ -1060,6 +1130,7 @@ int flash_attention_bwd_f32_sm90_tile(int head_dim, int dkv) {
     case 16: return dkv ? DkvCfg<16>::BQ : DqCfg<16>::BK;
     case 32: return dkv ? DkvCfg<32>::BQ : DqCfg<32>::BK;
     case 64: return dkv ? DkvCfg<64>::BQ : DqCfg<64>::BK;
+    case 112:
     case 128: return dkv ? DkvCfg<128>::BQ : DqCfg<128>::BK;
     default: return 0;
   }

@@ -10,7 +10,8 @@
 //
 //   qs   = bf16(f32(q) * f32(bf16(D^-1/2)))   (the forward's scaled q)
 //   S    = qs k^T (f32), masked where key >= S_len or, causal, key > query
-//          (aligned at the top left)
+//          (aligned at the top left), or key <= query - window with a
+//          window
 //   P    = exp(S - lse), 0 where masked        (f32)
 //   Drow = rowsum(dO * O)                      (f32)
 //   dV   = bf16(P)^T dO                        (P rounded as the forward's
@@ -20,7 +21,16 @@
 //   dK   = dS^T qs,  dQ = scale * dS k          (dS in f32, see below)
 //
 // q, o, dO, dq (B, T, H, D); k, v, dk, dv (B, S, HK, D); all bf16; lse
-// (B, H, T) f32; D in {16, 32, 64, 128}, H % HK == 0, ragged T and S.
+// (B, H, T) f32; D in {16, 32, 64, 112, 128}, H % HK == 0, ragged T and S.
+// Head dim 112 runs D = 128 instances compiled for a true width of 112
+// (HD; D = 128 keeps its own): the maps of dO, K, V and the
+// scratch qs keep the true width (TMA fills columns 112-127 with zeros,
+// which add exact zeros to every product) and the stores stop at 112.
+// With a window (``window`` > 0) the dQ kernel starts at its first key
+// tile inside its first query's window and the dK / dV kernel stops at
+// the last query tile that sees its last key (query < key + window);
+// masked keys take P = 0 (exp of S - lse, where lse is finite), so a
+// tile skipped is a tile of zeros.
 // Every sum runs in f32 (wgmma's f32 accumulators) and each output is
 // rounded to bf16 once.  The f32 gradient is
 // flash_attention_bwd_f32_sm90.cu.
@@ -187,31 +197,38 @@ __device__ __forceinline__ void split_fragments(const float (&d)[N / 2],
 
 // store rows row0 / row1 (< len) of a 64 x D accumulator, times ``mul``,
 // as bf16 into dst rows of ``row_stride`` elements
+// (columns < hd, the true head dim)
 template <int D>
 __device__ __forceinline__ void store_rows(const float (&acc)[D / 2],
                                            __nv_bfloat16* base, int row0,
                                            int row1, int len,
-                                           size_t row_stride, float mul) {
+                                           size_t row_stride, float mul,
+                                           int hd) {
   if (row0 < len) {
     __nv_bfloat16* dst = base + (size_t)row0 * row_stride;
 #pragma unroll
     for (int n = 0; n < D / 8; ++n)
-      *reinterpret_cast<__nv_bfloat162*>(dst + 8 * n) = __floats2bfloat162_rn(
-          __fmul_rn(acc[4 * n], mul), __fmul_rn(acc[4 * n + 1], mul));
+      if (8 * n < hd)
+        *reinterpret_cast<__nv_bfloat162*>(dst + 8 * n) =
+            __floats2bfloat162_rn(__fmul_rn(acc[4 * n], mul),
+                                  __fmul_rn(acc[4 * n + 1], mul));
   }
   if (row1 < len) {
     __nv_bfloat16* dst = base + (size_t)row1 * row_stride;
 #pragma unroll
     for (int n = 0; n < D / 8; ++n)
-      *reinterpret_cast<__nv_bfloat162*>(dst + 8 * n) = __floats2bfloat162_rn(
-          __fmul_rn(acc[4 * n + 2], mul), __fmul_rn(acc[4 * n + 3], mul));
+      if (8 * n < hd)
+        *reinterpret_cast<__nv_bfloat162*>(dst + 8 * n) =
+            __floats2bfloat162_rn(__fmul_rn(acc[4 * n + 2], mul),
+                                  __fmul_rn(acc[4 * n + 3], mul));
   }
 }
 
 // --------------------------------------------------------- preprocess
 // One thread per 8 columns of a (b, t, h) row, t < T_pad, rows in memory
-// order; D / 8 threads a row (neighbouring lanes of one warp).
-template <int D>
+// order; D / 8 threads a row (neighbouring lanes of one warp).  HD is the
+// tensors' true head dim (D, or 112 in a D = 128 instance).
+template <int D, int HD>
 __global__ void __launch_bounds__(kPrepThreads)
     fa_bwd_sm90_prep_kernel(const __nv_bfloat16* __restrict__ q,
                             const __nv_bfloat16* __restrict__ o,
@@ -221,7 +238,7 @@ __global__ void __launch_bounds__(kPrepThreads)
                             float* __restrict__ lse2,
                             float* __restrict__ drow, int batch, int t_len,
                             int t_pad, int heads, float scale) {
-  constexpr int kLanes = D / 8;
+  constexpr int kLanes = D / 8;  // the lanes of a row; those past HD idle
   const long long idx = (long long)blockIdx.x * kPrepThreads + threadIdx.x;
   const long long row = idx / kLanes;
   const int part = (int)(idx % kLanes);
@@ -232,8 +249,8 @@ __global__ void __launch_bounds__(kPrepThreads)
   const int b = (int)(bt / t_pad);
   const bool live = valid && t < t_len;
   float acc = 0.f;
-  if (live) {
-    const size_t off = (((size_t)b * t_len + t) * heads + h) * D + part * 8;
+  if (live && part * 8 < HD) {
+    const size_t off = (((size_t)b * t_len + t) * heads + h) * HD + part * 8;
     uint4 qv = *reinterpret_cast<const uint4*>(q + off);
     const uint4 ov = *reinterpret_cast<const uint4*>(o + off);
     const uint4 dv = *reinterpret_cast<const uint4*>(dout + off);
@@ -279,7 +296,7 @@ struct DqSmem {
       2 * QT::kBytes + 2 * kStages * KT::kBytes + kBars + 1024;
 };
 
-template <int D>
+template <int D, int HD, bool kWindow>
 __global__ void __launch_bounds__(kThreads, 1)
     fa_bwd_sm90_dq_kernel(const __grid_constant__ CUtensorMap tm_qs,
                           const __grid_constant__ CUtensorMap tm_do,
@@ -289,7 +306,8 @@ __global__ void __launch_bounds__(kThreads, 1)
                           const float* __restrict__ drow,
                           __nv_bfloat16* __restrict__ dq, int t_len,
                           int t_pad, int s_len, int heads, int kv_heads,
-                          int causal, float scale) {
+                          int causal, float scale, int window) {
+  if (!kWindow) window = 0;  // the instance without a window's terms
   constexpr int BK = DqSmem<D>::BK;
   using QT = typename DqSmem<D>::QT;
   using KT = typename DqSmem<D>::KT;
@@ -311,6 +329,10 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int q0 = (gridDim.y - 1 - blockIdx.y) * 128;
   int n_kv = (s_len + BK - 1) / BK;
   if (causal) n_kv = min(n_kv, (q0 + 127) / BK + 1);
+  // with a window, ring step i is key tile j_first + i, the first that
+  // holds a key in the window of the tile's first query
+  const int j_first = window > 0 ? max(q0 - window + 1, 0) / BK : 0;
+  const int n_steps = max(n_kv - j_first, 0);
 
   if (threadIdx.x == 0) {
     mbar_init(q_full, 1);
@@ -322,11 +344,12 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
   __syncthreads();
 
-  // thread 0's load of KV tile j into its ring stage, once every warp has
-  // released the tile the stage held
-  const auto load_kv = [&](int j) {
-    const int st = j % kStages;
-    mbar_wait(kv_empty + 8 * st, ((j / kStages) & 1) ^ 1);
+  // thread 0's load of ring step i (KV tile j_first + i) into its stage,
+  // once every warp has released the tile the stage held
+  const auto load_kv = [&](int i) {
+    const int j = j_first + i;
+    const int st = i % kStages;
+    mbar_wait(kv_empty + 8 * st, ((i / kStages) & 1) ^ 1);
     mbar_expect_tx(kv_full + 8 * st, 2 * KT::kBytes);
     for (int x = 0; x < KT::kBoxes; ++x) {
       tma_load(sk + st * KT::kBytes + x * KT::kBoxBytes, &tm_k,
@@ -341,7 +364,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       tma_load(sq + x * QT::kBoxBytes, &tm_qs, q_full, x * 64, h, q0, b);
       tma_load(sdo + x * QT::kBoxBytes, &tm_do, q_full, x * 64, h, q0, b);
     }
-    for (int j = 0; j < min(kAhead, n_kv); ++j) load_kv(j);
+    for (int i = 0; i < min(kAhead, n_steps); ++i) load_kv(i);
   }
 
   const int cw = threadIdx.x / 128;       // queries cw * 64 .. of the tile
@@ -362,14 +385,16 @@ __global__ void __launch_bounds__(kThreads, 1)
   float acc[D / 2];
   zero_all(acc);
   mbar_wait(q_full, 0);
-  for (int j = 0; j < n_kv; ++j) {
-    if (threadIdx.x == 0 && j + kAhead < n_kv) load_kv(j + kAhead);
-    const int st = j % kStages;
-    const int k0 = j * BK;
+  for (int i = 0; i < n_steps; ++i) {
+    if (threadIdx.x == 0 && i + kAhead < n_steps) load_kv(i + kAhead);
+    const int st = i % kStages;
+    const int k0 = (j_first + i) * BK;
     const uint32_t k_st = sk + st * KT::kBytes;
     const uint32_t v_st = sv + st * KT::kBytes;
-    mbar_wait(kv_full + 8 * st, (j / kStages) & 1);
-    if (!causal || k0 <= first + 63) {  // else every key is above the rows
+    mbar_wait(kv_full + 8 * st, (i / kStages) & 1);
+    // else every key is above the rows, or before their windows
+    if ((!causal || k0 <= first + 63) &&
+        (window == 0 || k0 + BK - 1 > first - window)) {
       float s[BK / 2], dp[BK / 2];
       wgmma_fence();
 #pragma unroll
@@ -386,21 +411,24 @@ __global__ void __launch_bounds__(kThreads, 1)
       fence_all(dp);
       // P = exp(S - lse), 0 past S and above the diagonal; dS = P (dP -
       // Drow) in dp
-      const bool edge = k0 + BK > s_len || (causal && k0 + BK - 1 > first);
+      const bool edge = k0 + BK > s_len || (causal && k0 + BK - 1 > first) ||
+                        (window > 0 && k0 <= first + 63 - window);
 #pragma unroll
       for (int n = 0; n < BK / 8; ++n)
 #pragma unroll
         for (int e = 0; e < 2; ++e)
 #pragma unroll
           for (int r = 0; r < 2; ++r) {
-            const int i = 4 * n + 2 * r + e;
-            float p = ex2(__fmaf_rn(s[i], kLog2e, -(r ? l1 : l0)));
+            const int x = 4 * n + 2 * r + e;
+            float p = ex2(__fmaf_rn(s[x], kLog2e, -(r ? l1 : l0)));
             if (edge) {
               const int col = k0 + 8 * n + c0 + e;
-              if (col >= s_len || (causal && col > (r ? row1 : row0)))
+              const int row = r ? row1 : row0;
+              if (col >= s_len || (causal && col > row) ||
+                  (window > 0 && col <= row - window))
                 p = 0.f;
             }
-            dp[i] = __fmul_rn(p, __fsub_rn(dp[i], r ? d1 : d0));
+            dp[x] = __fmul_rn(p, __fsub_rn(dp[x], r ? d1 : d0));
           }
       uint32_t hi[BK / 16][4], lo[BK / 16][4];
       split_fragments<BK>(dp, hi, lo);
@@ -422,9 +450,9 @@ __global__ void __launch_bounds__(kThreads, 1)
     if (lane == 0) mbar_arrive(kv_empty + 8 * st);
   }
   // dq = bf16(scale dQ); rows past T are not stored
-  const size_t row_stride = (size_t)heads * D;
-  store_rows<D>(acc, dq + ((size_t)b * t_len * heads + h) * D + c0, row0,
-                row1, t_len, row_stride, scale);
+  const size_t row_stride = (size_t)heads * HD;
+  store_rows<D>(acc, dq + ((size_t)b * t_len * heads + h) * HD + c0, row0,
+                row1, t_len, row_stride, scale, HD);
 }
 
 // ------------------------------------------------------------- dK, dV
@@ -442,7 +470,7 @@ struct DkvSmem {
                                    kBars + 1024;
 };
 
-template <int D>
+template <int D, int HD, bool kWindow>
 __global__ void __launch_bounds__(kThreads, 1)
     fa_bwd_sm90_dkv_kernel(const __grid_constant__ CUtensorMap tm_k,
                            const __grid_constant__ CUtensorMap tm_v,
@@ -453,7 +481,8 @@ __global__ void __launch_bounds__(kThreads, 1)
                            __nv_bfloat16* __restrict__ dk,
                            __nv_bfloat16* __restrict__ dv, int t_len,
                            int t_pad, int s_len, int heads, int kv_heads,
-                           int causal) {
+                           int causal, int window) {
+  if (!kWindow) window = 0;  // the instance without a window's terms
   constexpr int BQ = DkvSmem<D>::BQ;
   using KT = typename DkvSmem<D>::KT;
   using QT = typename DkvSmem<D>::QT;
@@ -478,8 +507,11 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int group = heads / kv_heads;
   const int k0 = blockIdx.y * 128;
   const int n_q = (t_len + BQ - 1) / BQ;
-  // causal: query tiles before k0 see none of these keys
+  // causal: query tiles before k0 see none of these keys; with a window,
+  // nor do those from key k0 + 127 + window on
   const int i0 = causal ? min(k0 / BQ, n_q) : 0;
+  const int i1 =
+      window > 0 ? min(n_q, (k0 + 127 + window - 1) / BQ + 1) : n_q;
 
   if (threadIdx.x == 0) {
     mbar_init(kv_full, 1);
@@ -494,7 +526,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   // ring step it is query tile i0 + it % per_head of query head
   // hk * group + it / per_head; thread 0 loads it into its stage once every
   // warp has released the step the stage held
-  const int per_head = n_q - i0;
+  const int per_head = max(i1 - i0, 0);
   const int n_it = group * per_head;
   const auto load_q = [&](int it) {
     const int st = it % kStages;
@@ -543,7 +575,9 @@ __global__ void __launch_bounds__(kThreads, 1)
     const int st = it % kStages;
     const int q0 = (i0 + it % per_head) * BQ;
     mbar_wait(q_full + 8 * st, (it / kStages) & 1);
-    if (!causal || q0 + BQ - 1 >= kw) {  // else every query is above
+    // else every query is above the keys, or past their windows
+    if ((!causal || q0 + BQ - 1 >= kw) &&
+        (window == 0 || q0 <= kw + 63 + window - 1)) {
       const uint32_t q_st = sq + st * QT::kBytes;
       const uint32_t do_st = sdo + st * QT::kBytes;
       float s[BQ / 2], dp[BQ / 2];
@@ -564,7 +598,8 @@ __global__ void __launch_bounds__(kThreads, 1)
       // where the query is before the key; dS^T = P^T (dP^T - Drow)
       const float* lse_st = rows_ptr + st * (kRowsBytes / 4);
       const float* drow_st = lse_st + BQ;
-      const bool edge = q0 + BQ > t_len || (causal && q0 < kw + 63);
+      const bool edge = q0 + BQ > t_len || (causal && q0 < kw + 63) ||
+                        (window > 0 && q0 + BQ - 1 >= kw + window);
 #pragma unroll
       for (int n = 0; n < BQ / 8; ++n)
 #pragma unroll
@@ -577,7 +612,9 @@ __global__ void __launch_bounds__(kThreads, 1)
             float p = ex2(__fmaf_rn(s[j], kLog2e, -l));
             if (edge) {
               const int query = q0 + col;
-              if (query >= t_len || (causal && query < (r ? key1 : key0)))
+              const int key = r ? key1 : key0;
+              if (query >= t_len || (causal && query < key) ||
+                  (window > 0 && query >= key + window))
                 p = 0.f;
             }
             s[j] = p;
@@ -609,28 +646,28 @@ __global__ void __launch_bounds__(kThreads, 1)
     if (lane == 0) mbar_arrive(q_empty + 8 * st);
   }
   // dk, dv in bf16; keys past S are not stored
-  const size_t row_stride = (size_t)kv_heads * D;
-  const size_t off = ((size_t)b * s_len * kv_heads + hk) * D + c0;
-  store_rows<D>(dk_acc, dk + off, key0, key1, s_len, row_stride, 1.f);
-  store_rows<D>(dv_acc, dv + off, key0, key1, s_len, row_stride, 1.f);
+  const size_t row_stride = (size_t)kv_heads * HD;
+  const size_t off = ((size_t)b * s_len * kv_heads + hk) * HD + c0;
+  store_rows<D>(dk_acc, dk + off, key0, key1, s_len, row_stride, 1.f, HD);
+  store_rows<D>(dv_acc, dv + off, key0, key1, s_len, row_stride, 1.f, HD);
 }
 
 // -------------------------------------------------------------- host
 int t_pad_of(int t_len) { return (t_len + kRowPad - 1) / kRowPad * kRowPad; }
 
-// A 4-D map of a contiguous (batch, len, heads, D) bf16 tensor, innermost
-// first: (D, heads, len, batch), box (kCols, 1, rows, 1).  Rows past len
-// read as 0.
+// A 4-D map of a contiguous (batch, len, heads, hd) bf16 tensor, innermost
+// first: (hd, heads, len, batch), box (kCols, 1, rows, 1).  Rows past len,
+// and columns past hd (112 in the D = 128 instances), read as 0.
 template <int D>
 int encode(CUtensorMap* map, const void* ptr, int batch, int len, int heads,
-           int rows) {
+           int hd, int rows) {
   using G = Tile<D, 64>;  // the box's row width and swizzle
   const EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return kNoEncoder;
-  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)heads,
+  const cuuint64_t dims[4] = {(cuuint64_t)hd, (cuuint64_t)heads,
                               (cuuint64_t)len, (cuuint64_t)batch};
-  const cuuint64_t strides[3] = {2ull * D, 2ull * D * heads,
-                                 2ull * D * heads * len};
+  const cuuint64_t strides[3] = {2ull * hd, 2ull * hd * heads,
+                                 2ull * hd * heads * len};
   const cuuint32_t box[4] = {(cuuint32_t)G::kCols, 1, (cuuint32_t)rows, 1};
   const cuuint32_t elem[4] = {1, 1, 1, 1};
   const CUtensorMapSwizzle swizzle =
@@ -645,19 +682,22 @@ int encode(CUtensorMap* map, const void* ptr, int batch, int len, int heads,
   return r == CUDA_SUCCESS ? 0 : kEncodeFailed - (int)r;
 }
 
-template <int D>
-int launch(const void* q, const void* k, const void* v, const void* o,
-           const void* lse, const void* dout, void* dq, void* dk, void* dv,
-           void* work, int batch, int t_len, int s_len, int heads,
-           int kv_heads, int causal, float scale, cudaStream_t stream) {
+template <int D, int HD, bool kWindow>
+int launch_impl(const void* q, const void* k, const void* v, const void* o,
+                const void* lse, const void* dout, void* dq, void* dk,
+                void* dv, void* work, int batch, int t_len, int s_len,
+                int heads, int kv_heads, int causal, float scale, int window,
+                cudaStream_t stream) {
   using bf16 = __nv_bfloat16;
   constexpr int BQ = DkvSmem<D>::BQ;
   // set once per instance (thread-safe static initialisation)
   static const cudaError_t attr_dq = cudaFuncSetAttribute(
-      fa_bwd_sm90_dq_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      fa_bwd_sm90_dq_kernel<D, HD, kWindow>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)DqSmem<D>::kBytes);
   static const cudaError_t attr_dkv = cudaFuncSetAttribute(
-      fa_bwd_sm90_dkv_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      fa_bwd_sm90_dkv_kernel<D, HD, kWindow>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)DkvSmem<D>::kBytes);
   if (attr_dq != cudaSuccess) return (int)attr_dq;
   if (attr_dkv != cudaSuccess) return (int)attr_dkv;
@@ -670,7 +710,7 @@ int launch(const void* q, const void* k, const void* v, const void* o,
   const long long threads = (long long)rows * (D / 8);
   const unsigned prep_blocks =
       (unsigned)((threads + kPrepThreads - 1) / kPrepThreads);
-  fa_bwd_sm90_prep_kernel<D><<<prep_blocks, kPrepThreads, 0, stream>>>(
+  fa_bwd_sm90_prep_kernel<D, HD><<<prep_blocks, kPrepThreads, 0, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(o),
       static_cast<const bf16*>(dout), static_cast<const float*>(lse), qs,
       lse2, drow, batch, t_len, t_pad, heads, scale);
@@ -679,30 +719,47 @@ int launch(const void* q, const void* k, const void* v, const void* o,
 
   constexpr int BK = DqSmem<D>::BK;
   CUtensorMap tq128, tdo128, tkbk, tvbk, tk128, tv128, tqbq, tdobq;
-  int err = encode<D>(&tq128, qs, batch, t_len, heads, 128);
-  if (err == 0) err = encode<D>(&tdo128, dout, batch, t_len, heads, 128);
-  if (err == 0) err = encode<D>(&tkbk, k, batch, s_len, kv_heads, BK);
-  if (err == 0) err = encode<D>(&tvbk, v, batch, s_len, kv_heads, BK);
-  if (err == 0) err = encode<D>(&tk128, k, batch, s_len, kv_heads, 128);
-  if (err == 0) err = encode<D>(&tv128, v, batch, s_len, kv_heads, 128);
-  if (err == 0) err = encode<D>(&tqbq, qs, batch, t_len, heads, BQ);
-  if (err == 0) err = encode<D>(&tdobq, dout, batch, t_len, heads, BQ);
+  int err = encode<D>(&tq128, qs, batch, t_len, heads, HD, 128);
+  if (err == 0) err = encode<D>(&tdo128, dout, batch, t_len, heads, HD, 128);
+  if (err == 0) err = encode<D>(&tkbk, k, batch, s_len, kv_heads, HD, BK);
+  if (err == 0) err = encode<D>(&tvbk, v, batch, s_len, kv_heads, HD, BK);
+  if (err == 0) err = encode<D>(&tk128, k, batch, s_len, kv_heads, HD, 128);
+  if (err == 0) err = encode<D>(&tv128, v, batch, s_len, kv_heads, HD, 128);
+  if (err == 0) err = encode<D>(&tqbq, qs, batch, t_len, heads, HD, BQ);
+  if (err == 0) err = encode<D>(&tdobq, dout, batch, t_len, heads, HD, BQ);
   if (err != 0) return err;
 
   const dim3 grid_q(batch * heads, (t_len + 127) / 128);
-  fa_bwd_sm90_dq_kernel<D>
+  fa_bwd_sm90_dq_kernel<D, HD, kWindow>
       <<<grid_q, kThreads, DqSmem<D>::kBytes, stream>>>(
           tq128, tdo128, tkbk, tvbk, lse2, drow, static_cast<bf16*>(dq),
-          t_len, t_pad, s_len, heads, kv_heads, causal, scale);
+          t_len, t_pad, s_len, heads, kv_heads, causal, scale, window);
   launched = cudaGetLastError();
   if (launched != cudaSuccess) return (int)launched;
   const dim3 grid_k(batch * kv_heads, (s_len + 127) / 128);
-  fa_bwd_sm90_dkv_kernel<D>
+  fa_bwd_sm90_dkv_kernel<D, HD, kWindow>
       <<<grid_k, kThreads, DkvSmem<D>::kBytes, stream>>>(
           tk128, tv128, tqbq, tdobq, lse2, drow, static_cast<bf16*>(dk),
           static_cast<bf16*>(dv), t_len, t_pad, s_len, heads, kv_heads,
-          causal);
+          causal, window);
   return (int)cudaGetLastError();
+}
+
+// a call without a window runs instances with none of the window's terms
+template <int D, int HD = D>
+int launch(const void* q, const void* k, const void* v, const void* o,
+           const void* lse, const void* dout, void* dq, void* dk, void* dv,
+           void* work, int batch, int t_len, int s_len, int heads,
+           int kv_heads, int causal, float scale, int window,
+           cudaStream_t stream) {
+  return window > 0
+             ? launch_impl<D, HD, true>(q, k, v, o, lse, dout, dq, dk, dv,
+                                        work, batch, t_len, s_len, heads,
+                                        kv_heads, causal, scale, window,
+                                        stream)
+             : launch_impl<D, HD, false>(q, k, v, o, lse, dout, dq, dk, dv,
+                                         work, batch, t_len, s_len, heads,
+                                         kv_heads, causal, scale, 0, stream);
 }
 
 }  // namespace
@@ -727,10 +784,11 @@ size_t flash_attention_bwd_sm90_work_bytes(int batch, int t_len, int s_len,
 // (the forward's m + log(l)) is (batch, heads, t_len) f32; ``work`` is
 // scratch of flash_attention_bwd_sm90_work_bytes(batch, t_len, s_len,
 // heads, kv_heads, head_dim) bytes, 16-byte aligned, written here.
-// head_dim in {16, 32, 64, 128}; heads % kv_heads == 0; t_len, s_len >=
-// 1; batch * heads < 2^31 and ceil(t_len / 128), ceil(s_len / 128) <=
+// head_dim in {16, 32, 64, 112, 128}; heads % kv_heads == 0; t_len, s_len
+// >= 1; batch * heads < 2^31 and ceil(t_len / 128), ceil(s_len / 128) <=
 // 65535.  ``scale`` is
-// the forward's f32(bf16(head_dim^-1/2)).  Launches the three kernels on
+// the forward's f32(bf16(head_dim^-1/2)); ``window`` the forward's (0 is
+// none).  Launches the three kernels on
 // ``stream`` and returns the first nonzero cudaGetLastError(),
 // cudaErrorInvalidValue for an unsupported head_dim, -1 if libcuda has no
 // cuTensorMapEncodeTiled, or -1000 - r if it returned CUresult r.
@@ -740,21 +798,28 @@ int flash_attention_bwd_sm90_launch(const void* q, const void* k,
                                     void* dq, void* dk, void* dv, void* work,
                                     int batch, int t_len, int s_len,
                                     int heads, int kv_heads, int head_dim,
-                                    int causal, float scale, void* stream) {
+                                    int causal, float scale, int window,
+                                    void* stream) {
   const cudaStream_t st = (cudaStream_t)stream;
+  if (window < 0) return (int)cudaErrorInvalidValue;
   switch (head_dim) {
     case 16:
       return launch<16>(q, k, v, o, lse, dout, dq, dk, dv, work, batch, t_len,
-                        s_len, heads, kv_heads, causal, scale, st);
+                        s_len, heads, kv_heads, causal, scale, window, st);
     case 32:
       return launch<32>(q, k, v, o, lse, dout, dq, dk, dv, work, batch, t_len,
-                        s_len, heads, kv_heads, causal, scale, st);
+                        s_len, heads, kv_heads, causal, scale, window, st);
     case 64:
       return launch<64>(q, k, v, o, lse, dout, dq, dk, dv, work, batch, t_len,
-                        s_len, heads, kv_heads, causal, scale, st);
+                        s_len, heads, kv_heads, causal, scale, window, st);
+    case 112:  // D = 128 instances, columns past 112 zero-filled
+      return launch<128, 112>(q, k, v, o, lse, dout, dq, dk, dv, work,
+                              batch, t_len, s_len, heads, kv_heads, causal,
+                              scale, window, st);
     case 128:
       return launch<128>(q, k, v, o, lse, dout, dq, dk, dv, work, batch,
-                         t_len, s_len, heads, kv_heads, causal, scale, st);
+                         t_len, s_len, heads, kv_heads, causal, scale,
+                         window, st);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -6,15 +6,25 @@
 //
 //   qs      = f32(q * f32(D^-1/2)), rounded before the product
 //   s[i, j] = qs[i] . k[j]          (3xTF32, f32 accumulators)
-//   s[i, j] = -1e30 where j >= S, or j > i when causal (aligned top left)
+//   s[i, j] = -1e30 where j >= S, or j > i when causal (aligned top left),
+//             or j <= i - window with a window
 //   online softmax over KV tiles: m, l, p in f32, p = exp(s - m)
 //   acc    += p . v                 (3xTF32: P kept at f32 accuracy)
 //   out     = acc / max(l, 1e-30)
 //   lse     = m + log(l)            (optional: the backward's row statistic)
 //
 // q (B, T, H, D), k and v (B, S, HK, D), out (B, T, H, D), all contiguous
-// f32, D in {16, 32, 64, 128}, H % HK == 0; lse (B, H, T) f32 or null.  Within 2e-5 of the plain
-// version, not bitwise: the f32 sums run in another order.
+// f32, D in {16, 32, 64, 112, 128}, H % HK == 0; lse (B, H, T) f32 or
+// null.  Within 2e-5 of the plain version, not bitwise: the f32 sums run
+// in another order.  Head dim 112 runs a D = 128 instance compiled for a
+// true width of 112 (HD; D = 128 keeps its own), whose K and V
+// maps keep the true width (TMA fills columns 112-127 with zeros), whose q
+// loads read zeros past 112, and whose stores stop at 112.  With a window
+// (``window`` > 0) a block starts at its first tile that holds a key in
+// the window of its first row, a warpgroup skips the tiles wholly before
+// its rows' windows, and a row whose keys so far are all masked takes
+// m log2(e) = 0, so that p and the correction are 0, never exp2 of the
+// rounding error of -1e30 log2(e).
 //
 // 3xTF32.  The tensor cores multiply TF32 (10 stored mantissa bits).  Each
 // operand x is split as hi = cvt.rna.tf32.f32(x) and lo =
@@ -155,8 +165,9 @@ __device__ __forceinline__ uint64_t desc_vt(uint32_t addr) {
 // ------------------------------------------------------------ kernel
 // Grid: (B * H, ceil(T / 128)); block: 384 threads.  blockIdx.y counts the
 // query tiles from the last, so that the causal tiles with the most KV
-// tiles start first.
-template <int D>
+// tiles start first.  HD is the tensors' true head dim (D, or 112 in a
+// D = 128 instance).
+template <int D, int HD, bool kWindow>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_attention_f32_kernel(const __grid_constant__ CUtensorMap tm_q,
                                const __grid_constant__ CUtensorMap tm_k,
@@ -165,7 +176,8 @@ __global__ void __launch_bounds__(kThreads, 1)
                                float* __restrict__ out,
                                float* __restrict__ lse, int t_len, int s_len,
                                int heads, int kv_heads, int causal,
-                               float scale) {
+                               float scale, int window) {
+  if (!kWindow) window = 0;  // the instance without a window's terms
   using G = Tile<D>;
   constexpr int kBN = G::kBN;
   extern __shared__ uint8_t smem_raw[];
@@ -199,6 +211,9 @@ __global__ void __launch_bounds__(kThreads, 1)
   int n_kv = (s_len + kBN - 1) / kBN;
   // skip the tiles above the diagonal
   if (causal) n_kv = min(n_kv, (q0 + kBM - 1) / kBN + 1);
+  // with a window, start at the tile that holds the first row's first key
+  const int j_first = window > 0 ? max(q0 - window + 1, 0) / kBN : 0;
+  const int n_steps = max(n_kv - j_first, 0);  // ring steps; tile j_first + i
 
   if (threadIdx.x == 0) {
     for (int st = 0; st < 2; ++st) {
@@ -215,8 +230,9 @@ __global__ void __launch_bounds__(kThreads, 1)
   if (wg == 0) {
     // ------------------------------------------------------ producer
     const int pt = threadIdx.x;
-    const auto load = [&](int j) {
-      const int st = j % G::kStages;
+    const auto load = [&](int i) {  // ring step i: tile j_first + i
+      const int j = j_first + i;
+      const int st = i % G::kStages;
       mbar_expect_tx(stage_full + 8 * st, 2 * G::kBytes);
       for (int x = 0; x < G::kBoxes; ++x) {
         tma_load(staged(st) + x * G::kBoxBytes, &tm_k, stage_full + 8 * st,
@@ -236,13 +252,13 @@ __global__ void __launch_bounds__(kThreads, 1)
                      x * G::kCols, h, q0 + 64 * cw, b);
         }
       }
-      for (int j = 0; j < min(n_kv, G::kStages); ++j) load(j);
+      for (int i = 0; i < min(n_steps, G::kStages); ++i) load(i);
     }
-    for (int j = 0; j < n_kv; ++j) {
-      const int st = j & 1;           // the split set
-      const int sg = j % G::kStages;  // the staging stage
-      mbar_wait(stage_full + 8 * sg, (j / G::kStages) & 1);
-      mbar_wait(split_empty + 8 * st, ((j >> 1) & 1) ^ 1);
+    for (int i = 0; i < n_steps; ++i) {
+      const int st = i & 1;           // the split set
+      const int sg = i % G::kStages;  // the staging stage
+      mbar_wait(stage_full + 8 * sg, (i / G::kStages) & 1);
+      mbar_wait(split_empty + 8 * st, ((i >> 1) & 1) ^ 1);
       // split pass: K element for element; V^T chunk by chunk, where
       // chunk ch of row d holds keys 8 (ch / 2) + 2 i + (ch & 1), i = 0..3
       const uint8_t* stage = base_ptr + (staged(sg) - base);
@@ -284,7 +300,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       mbar_arrive(split_full + 8 * st);
       // every producer thread has read stage sg: refill it
       asm volatile("bar.sync 1, %0;\n" ::"n"(kProducers) : "memory");
-      if (pt == 0 && j + G::kStages < n_kv) load(j + G::kStages);
+      if (pt == 0 && i + G::kStages < n_steps) load(i + G::kStages);
     }
     return;
   }
@@ -329,15 +345,17 @@ __global__ void __launch_bounds__(kThreads, 1)
       asm volatile("bar.sync %0, 128;\n" ::"r"(2 + cw) : "memory");
     }
   } else {
-    const size_t row_stride = (size_t)heads * D;
-    const float* qb = q + ((size_t)b * t_len * heads + h) * D + c;
+    const size_t row_stride = (size_t)heads * HD;
+    const float* qb = q + ((size_t)b * t_len * heads + h) * HD + c;
 #pragma unroll
     for (int kk = 0; kk < D / 8; ++kk)
 #pragma unroll
       for (int r = 0; r < 4; ++r) {
         const int row = (r & 1) ? row1 : row0;
-        const float* src = qb + row * row_stride + 8 * kk + 4 * (r >> 1);
-        const float x = row < t_len ? __fmul_rn(__ldg(src), scale) : 0.f;
+        const int col = 8 * kk + c + 4 * (r >> 1);
+        const float* src = qb + row * row_stride + col - c;
+        const float x = row < t_len && col < HD
+                            ? __fmul_rn(__ldg(src), scale) : 0.f;
         split_tf32(x, q_hi[kk][r], q_lo[kk][r]);
       }
   }
@@ -347,19 +365,20 @@ __global__ void __launch_bounds__(kThreads, 1)
   for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
   float m0 = kNegInf, m1 = kNegInf, l0 = 0.f, l1 = 0.f;
 
-  for (int j = 0; j < n_kv; ++j) {
-    const int st = j & 1;
-    const int k0 = j * kBN;
+  for (int i = 0; i < n_steps; ++i) {
+    const int st = i & 1;
+    const int k0 = (j_first + i) * kBN;
     const uint32_t k_hi = split_set(st);
     const uint32_t k_lo = k_hi + G::kBytes;
     const uint32_t vt_hi = k_hi + 2 * G::kBytes;
     const uint32_t vt_lo = k_hi + 3 * G::kBytes;
     // wait even for a tile this warpgroup skips, so that its release of
     // set st counts toward tile j's phase and never tile j - 2's
-    mbar_wait(split_full + 8 * st, (j >> 1) & 1);
-    // a warpgroup whose rows all lie above this causal tile, or past T,
-    // skips it
-    if (!live || (causal && k0 > rw + 63)) {
+    mbar_wait(split_full + 8 * st, (i >> 1) & 1);
+    // a warpgroup whose rows all lie above this causal tile, or whose
+    // windows all start after it, or past T, skips it
+    if (!live || (causal && k0 > rw + 63) ||
+        (window > 0 && k0 + kBN - 1 <= rw - window)) {
       __syncwarp();
       if (lane == 0) mbar_arrive(split_empty + 8 * st);
       continue;
@@ -390,15 +409,20 @@ __global__ void __launch_bounds__(kThreads, 1)
     for (int i = 0; i < kBN / 2; ++i) fence_reg(s[i]);
 
     // s[4n + 2i + e] is (row i ? row1 : row0, column k0 + 8n + c0 + e)
-    if (k0 + kBN > s_len || (causal && k0 + kBN - 1 > rw)) {
+    if (k0 + kBN > s_len || (causal && k0 + kBN - 1 > rw) ||
+        (window > 0 && k0 <= rw + 63 - window)) {
 #pragma unroll
       for (int n = 0; n < kBN / 8; ++n)
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
           const int col = k0 + 8 * n + c0 + e;
           const bool out_s = col >= s_len;
-          if (out_s || (causal && col > row0)) s[4 * n + e] = kNegInf;
-          if (out_s || (causal && col > row1)) s[4 * n + 2 + e] = kNegInf;
+          if (out_s || (causal && col > row0) ||
+              (window > 0 && col <= row0 - window))
+            s[4 * n + e] = kNegInf;
+          if (out_s || (causal && col > row1) ||
+              (window > 0 && col <= row1 - window))
+            s[4 * n + 2 + e] = kNegInf;
         }
     }
 
@@ -412,8 +436,11 @@ __global__ void __launch_bounds__(kThreads, 1)
     }
     mx0 = quad_max(mx0);
     mx1 = quad_max(mx1);
-    const float ml0 = __fmul_rn(mx0, kLog2e);
-    const float ml1 = __fmul_rn(mx1, kLog2e);
+    // m log2(e) = 0 while every key a row has seen is masked
+    const float ml0 =
+        window > 0 && mx0 <= kNegInf ? 0.f : __fmul_rn(mx0, kLog2e);
+    const float ml1 =
+        window > 0 && mx1 <= kNegInf ? 0.f : __fmul_rn(mx1, kLog2e);
     const float corr0 = exp2f(__fmaf_rn(m0, kLog2e, -ml0));
     const float corr1 = exp2f(__fmaf_rn(m1, kLog2e, -ml1));
     float sum0 = 0.f, sum1 = 0.f;
@@ -487,38 +514,41 @@ __global__ void __launch_bounds__(kThreads, 1)
     if (row0 < t_len) lb[row0] = __fadd_rn(m0, logf(l0));
     if (row1 < t_len) lb[row1] = __fadd_rn(m1, logf(l1));
   }
-  const size_t row_stride = (size_t)heads * D;
-  float* ob = out + ((size_t)b * t_len * heads + h) * D + c0;
+  // out rows of the true head dim HD (columns past it are zeros)
+  const size_t row_stride = (size_t)heads * HD;
+  float* ob = out + ((size_t)b * t_len * heads + h) * HD + c0;
   if (row0 < t_len) {
     float* dst = ob + (size_t)row0 * row_stride;
 #pragma unroll
     for (int n = 0; n < D / 8; ++n)
-      *reinterpret_cast<float2*>(dst + 8 * n) = make_float2(
-          __fdiv_rn(o[4 * n], d0), __fdiv_rn(o[4 * n + 1], d0));
+      if (8 * n < HD)
+        *reinterpret_cast<float2*>(dst + 8 * n) = make_float2(
+            __fdiv_rn(o[4 * n], d0), __fdiv_rn(o[4 * n + 1], d0));
   }
   if (row1 < t_len) {
     float* dst = ob + (size_t)row1 * row_stride;
 #pragma unroll
     for (int n = 0; n < D / 8; ++n)
-      *reinterpret_cast<float2*>(dst + 8 * n) = make_float2(
-          __fdiv_rn(o[4 * n + 2], d1), __fdiv_rn(o[4 * n + 3], d1));
+      if (8 * n < HD)
+        *reinterpret_cast<float2*>(dst + 8 * n) = make_float2(
+            __fdiv_rn(o[4 * n + 2], d1), __fdiv_rn(o[4 * n + 3], d1));
   }
 }
 
 // -------------------------------------------------------------- host
-// A 4-D map of a contiguous (batch, len, heads, D) f32 tensor, innermost
-// first: (D, heads, len, batch), box (kCols, 1, kBN, 1).  Rows past len
-// read as 0.
+// A 4-D map of a contiguous (batch, len, heads, hd) f32 tensor, innermost
+// first: (hd, heads, len, batch), box (kCols, 1, kBN, 1).  Rows past len,
+// and columns past hd (112 in the HD = 112 instance), read as 0.
 template <int D>
 int encode(CUtensorMap* map, const void* ptr, int batch, int len, int heads,
-           CUtensorMapSwizzle swizzle) {
+           int hd, CUtensorMapSwizzle swizzle) {
   using G = Tile<D>;
   const EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return kNoEncoder;
-  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)heads,
+  const cuuint64_t dims[4] = {(cuuint64_t)hd, (cuuint64_t)heads,
                               (cuuint64_t)len, (cuuint64_t)batch};
-  const cuuint64_t strides[3] = {4ull * D, 4ull * D * heads,
-                                 4ull * D * heads * len};
+  const cuuint64_t strides[3] = {4ull * hd, 4ull * hd * heads,
+                                 4ull * hd * heads * len};
   const cuuint32_t box[4] = {(cuuint32_t)G::kCols, 1, (cuuint32_t)G::kBN, 1};
   const cuuint32_t elem[4] = {1, 1, 1, 1};
   const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4,
@@ -529,14 +559,15 @@ int encode(CUtensorMap* map, const void* ptr, int batch, int len, int heads,
   return r == CUDA_SUCCESS ? 0 : kEncodeFailed - (int)r;
 }
 
-template <int D>
-int launch(const void* q, const void* k, const void* v, void* o, void* lse,
-           int batch, int t_len, int s_len, int heads, int kv_heads,
-           int causal, float scale, cudaStream_t stream) {
+template <int D, int HD, bool kWindow>
+int launch_impl(const void* q, const void* k, const void* v, void* o,
+                void* lse, int batch, int t_len, int s_len, int heads,
+                int kv_heads, int causal, float scale, int window,
+                cudaStream_t stream) {
   using G = Tile<D>;
   // set once per instance (thread-safe static initialisation)
   static const cudaError_t attr = cudaFuncSetAttribute(
-      flash_attention_f32_kernel<D>,
+      flash_attention_f32_kernel<D, HD, kWindow>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)G::kSmem);
   if (attr != cudaSuccess) return (int)attr;
   CUtensorMap tq, tk, tv;
@@ -544,18 +575,33 @@ int launch(const void* q, const void* k, const void* v, void* o, void* lse,
                                          ? CU_TENSOR_MAP_SWIZZLE_128B
                                          : CU_TENSOR_MAP_SWIZZLE_64B;
   // q's map has K's box (kBN = 64 rows where q goes to shared memory)
-  int err = encode<D>(&tq, q, batch, t_len, heads, swizzle);
-  if (err == 0) err = encode<D>(&tk, k, batch, s_len, kv_heads, swizzle);
+  int err = encode<D>(&tq, q, batch, t_len, heads, HD, swizzle);
   if (err == 0)
-    err = encode<D>(&tv, v, batch, s_len, kv_heads,
+    err = encode<D>(&tk, k, batch, s_len, kv_heads, HD, swizzle);
+  if (err == 0)
+    err = encode<D>(&tv, v, batch, s_len, kv_heads, HD,
                     CU_TENSOR_MAP_SWIZZLE_NONE);
   if (err != 0) return err;
   const dim3 grid(batch * heads, (t_len + kBM - 1) / kBM);
-  flash_attention_f32_kernel<D><<<grid, kThreads, G::kSmem, stream>>>(
+  flash_attention_f32_kernel<D, HD, kWindow><<<grid, kThreads, G::kSmem, stream>>>(
       tq, tk, tv, static_cast<const float*>(q), static_cast<float*>(o),
       static_cast<float*>(lse), t_len, s_len, heads, kv_heads, causal,
-      scale);
+      scale, window);
   return (int)cudaGetLastError();
+}
+
+// a call without a window runs an instance with none of the window's terms
+template <int D, int HD = D>
+int launch(const void* q, const void* k, const void* v, void* o, void* lse,
+           int batch, int t_len, int s_len, int heads, int kv_heads,
+           int causal, float scale, int window, cudaStream_t stream) {
+  return window > 0
+             ? launch_impl<D, HD, true>(q, k, v, o, lse, batch, t_len, s_len,
+                                        heads, kv_heads, causal, scale,
+                                        window, stream)
+             : launch_impl<D, HD, false>(q, k, v, o, lse, batch, t_len,
+                                         s_len, heads, kv_heads, causal,
+                                         scale, 0, stream);
 }
 
 }  // namespace
@@ -564,31 +610,36 @@ extern "C" {
 
 // q, o: (batch, t_len, heads, head_dim); k, v: (batch, s_len, kv_heads,
 // head_dim); contiguous f32, 16-byte aligned; head_dim in {16, 32, 64,
-// 128}; heads % kv_heads == 0; t_len, s_len >= 1; batch * heads < 2^31 and
+// 112, 128}; heads % kv_heads == 0; t_len, s_len >= 1; batch * heads < 2^31 and
 // ceil(t_len / 128) <= 65535.  ``lse`` is null or (batch, heads, t_len)
 // f32, written with each row's m + log(l).  ``scale`` is
-// f32(head_dim^-1/2).  Launches
-// on ``stream`` and returns its cudaGetLastError(), or
+// f32(head_dim^-1/2).  ``window`` > 0 also masks key j for query i where
+// j <= i - window; 0 is no window.  Launches on ``stream`` and returns its cudaGetLastError(), or
 // cudaErrorInvalidValue for an unsupported head_dim, -1 if the driver has
 // no cuTensorMapEncodeTiled, or -1000 - r if it returned CUresult r.
 int flash_attention_launch(const void* q, const void* k, const void* v,
                            void* o, void* lse, int batch, int t_len,
                            int s_len, int heads, int kv_heads, int head_dim,
-                           int causal, float scale, void* stream) {
+                           int causal, float scale, int window,
+                           void* stream) {
   const cudaStream_t st = (cudaStream_t)stream;
+  if (window < 0) return (int)cudaErrorInvalidValue;
   switch (head_dim) {
     case 16:
       return launch<16>(q, k, v, o, lse, batch, t_len, s_len, heads,
-                        kv_heads, causal, scale, st);
+                        kv_heads, causal, scale, window, st);
     case 32:
       return launch<32>(q, k, v, o, lse, batch, t_len, s_len, heads,
-                        kv_heads, causal, scale, st);
+                        kv_heads, causal, scale, window, st);
     case 64:
       return launch<64>(q, k, v, o, lse, batch, t_len, s_len, heads,
-                        kv_heads, causal, scale, st);
+                        kv_heads, causal, scale, window, st);
+    case 112:  // a D = 128 instance, columns past 112 zero-filled
+      return launch<128, 112>(q, k, v, o, lse, batch, t_len, s_len, heads,
+                              kv_heads, causal, scale, window, st);
     case 128:
       return launch<128>(q, k, v, o, lse, batch, t_len, s_len, heads,
-                         kv_heads, causal, scale, st);
+                         kv_heads, causal, scale, window, st);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -601,6 +652,7 @@ int flash_attention_f32_smem_bytes(int head_dim) {
     case 16: return (int)Tile<16>::kSmem;
     case 32: return (int)Tile<32>::kSmem;
     case 64: return (int)Tile<64>::kSmem;
+    case 112:
     case 128: return (int)Tile<128>::kSmem;
     default: return 0;
   }

@@ -7,7 +7,8 @@
 //
 //   qs      = bf16(f32(q) * f32(bf16(D^-1/2)))      (attention.py:46)
 //   s[i, j] = qs[i] . k[j], summed in f32            (wgmma, f32 accumulators)
-//   s[i, j] = -1e30 where j >= S, or j > i when causal (aligned top left)
+//   s[i, j] = -1e30 where j >= S, or j > i when causal (aligned top left),
+//             or j <= i - window with a window (attention.py:81-82)
 //   online softmax over spans of the caller's kv_chunk keys (attention.py:
 //   84-93): m_span = max(m, row max over the span); p = exp(s - m_span);
 //   l = l exp(m - m_span) + sum p, in f32
@@ -18,8 +19,26 @@
 //
 // f32 inputs go to flash_attention_f32_sm90.cu, which keeps the Pallas
 // kernel's f32 function.  q (B, T, H, D), k and v (B, S, HK, D), out
-// (B, T, H, D), all contiguous bf16, D in {16, 32, 64, 128}, H % HK == 0;
-// lse (B, H, T) f32 or null.
+// (B, T, H, D), all contiguous bf16, D in {16, 32, 64, 112, 128}, H % HK
+// == 0; lse (B, H, T) f32 or null.
+//
+// Head dim 112 (zamba2-7b) runs a D = 128 instance compiled for a true
+// width of 112 (HD; D = 128 keeps its own instance): the tensor maps keep
+// the true width, so TMA fills columns 112-127 of every Q, K and V tile
+// with zeros, which add exact zeros to Q K^T and give zero columns of O
+// that are not stored.  Nothing is padded in device memory.
+//
+// The sliding window (``window`` > 0; zamba2's shared attention, 4096):
+// a query tile's loop starts at the span (of the caller's kv_chunk keys,
+// aligned to key 0, as the JAX model's chunks are) that holds its first
+// in-window key, so each span covers the keys of one of the JAX model's
+// chunks and P takes its bits.  A span wholly outside the window adds
+// p = 1 terms in the JAX model, which the next live span multiplies by
+// exp(-1e30 - m) = 0: skipping them is exact.  A row whose running max is
+// still -1e30 here (every key it has seen lies outside the window) takes
+// m log2(e) = 0, so that p and the correction are 0 and not exp2 of the
+// rounding error of -1e30 log2(e) (2^72, which is inf): its sums stay 0
+// until its first live key, as the JAX model's are multiplied to 0 there.
 //
 // The span.  P is rounded to bf16 against the running max, so the span
 // the max runs over is part of the function: the JAX model takes it from
@@ -115,8 +134,9 @@ __device__ __forceinline__ uint64_t desc_mn_major(uint32_t addr) {
 template <int D>
 __device__ __forceinline__ void tile_scores(float (&s)[64], uint32_t q_wg,
                                             uint32_t k_st, int k0, int s_len,
-                                            int causal, int first_row,
-                                            int row0, int row1, int c0) {
+                                            int causal, int window,
+                                            int first_row, int row0,
+                                            int row1, int c0) {
   using G = Tile<D>;
   wgmma_fence();
 #pragma unroll
@@ -130,15 +150,20 @@ __device__ __forceinline__ void tile_scores(float (&s)[64], uint32_t q_wg,
   wgmma_wait_all();
 #pragma unroll
   for (int i = 0; i < 64; ++i) fence_reg(s[i]);
-  if (k0 + kBN > s_len || (causal && k0 + kBN - 1 > first_row)) {
+  if (k0 + kBN > s_len || (causal && k0 + kBN - 1 > first_row) ||
+      (window > 0 && k0 <= first_row + 63 - window)) {
 #pragma unroll
     for (int n = 0; n < 16; ++n)
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
         const int col = k0 + 8 * n + c0 + e;
         const bool out_s = col >= s_len;
-        if (out_s || (causal && col > row0)) s[4 * n + e] = kNegInf;
-        if (out_s || (causal && col > row1)) s[4 * n + 2 + e] = kNegInf;
+        if (out_s || (causal && col > row0) ||
+            (window > 0 && col <= row0 - window))
+          s[4 * n + e] = kNegInf;
+        if (out_s || (causal && col > row1) ||
+            (window > 0 && col <= row1 - window))
+          s[4 * n + 2 + e] = kNegInf;
       }
   }
 }
@@ -156,8 +181,9 @@ __device__ __forceinline__ void row_max(const float (&s)[64], float& mx0,
 // ------------------------------------------------------------ kernel
 // Grid: (B * H, ceil(T / 128)); block: 384 threads.  blockIdx.y counts the
 // query tiles from the last, so that the causal tiles with the most KV
-// tiles start first.
-template <int D>
+// tiles start first.  HD is the tensors' true head dim (D, or 112 in a
+// D = 128 instance).
+template <int D, int HD, bool kWindow>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_attention_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
                                 const __grid_constant__ CUtensorMap tm_k,
@@ -165,7 +191,9 @@ __global__ void __launch_bounds__(kThreads, 1)
                                 __nv_bfloat16* __restrict__ out,
                                 float* __restrict__ lse, int t_len,
                                 int s_len, int heads, int kv_heads,
-                                int causal, float scale, int span_tiles) {
+                                int causal, float scale, int span_tiles,
+                                int window) {
+  if (!kWindow) window = 0;  // the instance without a window's terms
   using G = Tile<D>;
   extern __shared__ uint8_t smem_raw[];
   // the swizzle patterns repeat every 1024 bytes: align the tiles to it
@@ -187,6 +215,10 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int q0 = q_tile * kBM;
   int n_kv = (s_len + kBN - 1) / kBN;
   if (causal) n_kv = min(n_kv, q_tile + 1);  // skip tiles above the diagonal
+  // with a window, start at the span that holds the tile's first live key
+  const int j_first =
+      window > 0 ? max(q0 - window + 1, 0) / kBN / span_tiles * span_tiles
+                 : 0;
 
   if (threadIdx.x == 0) {
     mbar_init(q_full, 1);
@@ -209,7 +241,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       // the consumers' schedule: for each span, its tiles' K alone (the
       // max pass, when a span has more than one tile), then K and V
       int it = 0;  // ring step
-      for (int j0 = 0; j0 < n_kv; j0 += span_tiles) {
+      for (int j0 = j_first; j0 < n_kv; j0 += span_tiles) {
         const int j1 = min(j0 + span_tiles, n_kv);
         for (int pass = span_tiles > 1 ? 0 : 1; pass < 2; ++pass)
           for (int j = j0; j < j1; ++j, ++it) {
@@ -264,7 +296,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   const uint32_t q_wg = sq + cw * 64 * G::kRowBytes;
 
   int it = 0;  // ring step, as the producer counts it
-  for (int j0 = 0; j0 < n_kv; j0 += span_tiles) {
+  for (int j0 = j_first; j0 < n_kv; j0 += span_tiles) {
     const int j1 = min(j0 + span_tiles, n_kv);
     // the span's max: a pass of Q K^T alone when the span has more tiles
     float mx0 = m0, mx1 = m1;
@@ -274,7 +306,7 @@ __global__ void __launch_bounds__(kThreads, 1)
         mbar_wait(kv_full + 8 * st, (it >> 1) & 1);
         float s[64];
         tile_scores<D>(s, q_wg, sk + st * G::kBytes, j * kBN, s_len, causal,
-                       q0 + cw * 64, row0, row1, c0);
+                       window, q0 + cw * 64, row0, row1, c0);
         if (lane == 0) mbar_arrive(kv_empty + 8 * st);
         row_max(s, mx0, mx1);
       }
@@ -289,7 +321,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       mbar_wait(kv_full + 8 * st, (it >> 1) & 1);
       float s[64];
       tile_scores<D>(s, q_wg, sk + st * G::kBytes, j * kBN, s_len, causal,
-                     q0 + cw * 64, row0, row1, c0);
+                     window, q0 + cw * 64, row0, row1, c0);
       if (span_tiles == 1) {
         row_max(s, mx0, mx1);
         mx0 = quad_max(mx0);
@@ -297,8 +329,9 @@ __global__ void __launch_bounds__(kThreads, 1)
       }
       if (j == j0) {
         // once a span: m_span = max(m, max s); O = O exp(m - m_span)
-        ml0 = __fmul_rn(mx0, kLog2e);
-        ml1 = __fmul_rn(mx1, kLog2e);
+        // (m_span log2(e) = 0 while every key a row has seen is masked)
+        ml0 = window > 0 && mx0 <= kNegInf ? 0.f : __fmul_rn(mx0, kLog2e);
+        ml1 = window > 0 && mx1 <= kNegInf ? 0.f : __fmul_rn(mx1, kLog2e);
         corr0 = exp2f(__fmaf_rn(m0, kLog2e, -ml0));
         corr1 = exp2f(__fmaf_rn(m1, kLog2e, -ml1));
 #pragma unroll
@@ -363,38 +396,43 @@ __global__ void __launch_bounds__(kThreads, 1)
     if (row0 < t_len) lb[row0] = __fadd_rn(m0, logf(l0));
     if (row1 < t_len) lb[row1] = __fadd_rn(m1, logf(l1));
   }
-  const size_t row_stride = (size_t)heads * D;
-  __nv_bfloat16* ob = out + ((size_t)b * t_len * heads + h) * D + c0;
+  // out rows of the true head dim HD (columns past it are zeros)
+  const size_t row_stride = (size_t)heads * HD;
+  __nv_bfloat16* ob = out + ((size_t)b * t_len * heads + h) * HD + c0;
   if (row0 < t_len) {
     __nv_bfloat16* dst = ob + (size_t)row0 * row_stride;
 #pragma unroll
     for (int n = 0; n < D / 8; ++n)
-      *reinterpret_cast<__nv_bfloat162*>(dst + 8 * n) = __floats2bfloat162_rn(
-          __fdiv_rn(o[4 * n], d0), __fdiv_rn(o[4 * n + 1], d0));
+      if (8 * n < HD)
+        *reinterpret_cast<__nv_bfloat162*>(dst + 8 * n) =
+            __floats2bfloat162_rn(__fdiv_rn(o[4 * n], d0),
+                                  __fdiv_rn(o[4 * n + 1], d0));
   }
   if (row1 < t_len) {
     __nv_bfloat16* dst = ob + (size_t)row1 * row_stride;
 #pragma unroll
     for (int n = 0; n < D / 8; ++n)
-      *reinterpret_cast<__nv_bfloat162*>(dst + 8 * n) = __floats2bfloat162_rn(
-          __fdiv_rn(o[4 * n + 2], d1), __fdiv_rn(o[4 * n + 3], d1));
+      if (8 * n < HD)
+        *reinterpret_cast<__nv_bfloat162*>(dst + 8 * n) =
+            __floats2bfloat162_rn(__fdiv_rn(o[4 * n + 2], d1),
+                                  __fdiv_rn(o[4 * n + 3], d1));
   }
 }
 
 // -------------------------------------------------------------- host
-// A 4-D map of a contiguous (batch, len, heads, D) bf16 tensor, innermost
-// first: (D, heads, len, batch), box (kCols, 1, 128, 1).  Rows past len
-// read as 0.
+// A 4-D map of a contiguous (batch, len, heads, hd) bf16 tensor, innermost
+// first: (hd, heads, len, batch), box (kCols, 1, 128, 1).  Rows past len,
+// and columns past hd (112 in the HD = 112 instance), read as 0.
 template <int D>
 int encode(CUtensorMap* map, const void* ptr, int batch, int len,
-           int heads) {
+           int heads, int hd) {
   using G = Tile<D>;
   const EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return kNoEncoder;
-  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)heads,
+  const cuuint64_t dims[4] = {(cuuint64_t)hd, (cuuint64_t)heads,
                               (cuuint64_t)len, (cuuint64_t)batch};
-  const cuuint64_t strides[3] = {2ull * D, 2ull * D * heads,
-                                 2ull * D * heads * len};
+  const cuuint64_t strides[3] = {2ull * hd, 2ull * hd * heads,
+                                 2ull * hd * heads * len};
   const cuuint32_t box[4] = {(cuuint32_t)G::kCols, 1, (cuuint32_t)kBN, 1};
   const cuuint32_t elem[4] = {1, 1, 1, 1};
   const CUtensorMapSwizzle swizzle =
@@ -409,26 +447,42 @@ int encode(CUtensorMap* map, const void* ptr, int batch, int len,
   return r == CUDA_SUCCESS ? 0 : kEncodeFailed - (int)r;
 }
 
-template <int D>
-int launch(const void* q, const void* k, const void* v, void* o, void* lse,
-           int batch, int t_len, int s_len, int heads, int kv_heads,
-           int causal, float scale, int span_tiles, cudaStream_t stream) {
+template <int D, int HD, bool kWindow>
+int launch_impl(const void* q, const void* k, const void* v, void* o,
+                void* lse, int batch, int t_len, int s_len, int heads,
+                int kv_heads, int causal, float scale, int span_tiles,
+                int window, cudaStream_t stream) {
   using G = Tile<D>;
   // set once per instance (thread-safe static initialisation)
   static const cudaError_t attr = cudaFuncSetAttribute(
-      flash_attention_sm90_kernel<D>,
+      flash_attention_sm90_kernel<D, HD, kWindow>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)G::kSmem);
   if (attr != cudaSuccess) return (int)attr;
   CUtensorMap tq, tk, tv;
-  int err = encode<D>(&tq, q, batch, t_len, heads);
-  if (err == 0) err = encode<D>(&tk, k, batch, s_len, kv_heads);
-  if (err == 0) err = encode<D>(&tv, v, batch, s_len, kv_heads);
+  int err = encode<D>(&tq, q, batch, t_len, heads, HD);
+  if (err == 0) err = encode<D>(&tk, k, batch, s_len, kv_heads, HD);
+  if (err == 0) err = encode<D>(&tv, v, batch, s_len, kv_heads, HD);
   if (err != 0) return err;
   const dim3 grid(batch * heads, (t_len + kBM - 1) / kBM);
-  flash_attention_sm90_kernel<D><<<grid, kThreads, G::kSmem, stream>>>(
+  flash_attention_sm90_kernel<D, HD, kWindow><<<grid, kThreads, G::kSmem, stream>>>(
       tq, tk, tv, static_cast<__nv_bfloat16*>(o), static_cast<float*>(lse),
-      t_len, s_len, heads, kv_heads, causal, scale, span_tiles);
+      t_len, s_len, heads, kv_heads, causal, scale, span_tiles, window);
   return (int)cudaGetLastError();
+}
+
+// a call without a window runs an instance with none of the window's terms
+template <int D, int HD = D>
+int launch(const void* q, const void* k, const void* v, void* o, void* lse,
+           int batch, int t_len, int s_len, int heads, int kv_heads,
+           int causal, float scale, int span_tiles, int window,
+           cudaStream_t stream) {
+  return window > 0
+             ? launch_impl<D, HD, true>(q, k, v, o, lse, batch, t_len, s_len,
+                                        heads, kv_heads, causal, scale,
+                                        span_tiles, window, stream)
+             : launch_impl<D, HD, false>(q, k, v, o, lse, batch, t_len,
+                                         s_len, heads, kv_heads, causal,
+                                         scale, span_tiles, 0, stream);
 }
 
 }  // namespace
@@ -437,11 +491,12 @@ extern "C" {
 
 // q, o: (batch, t_len, heads, head_dim); k, v: (batch, s_len, kv_heads,
 // head_dim); contiguous bf16, 16-byte aligned; head_dim in {16, 32, 64,
-// 128}; heads % kv_heads == 0; t_len, s_len >= 1; batch * heads < 2^31 and
+// 112, 128}; heads % kv_heads == 0; t_len, s_len >= 1; batch * heads < 2^31 and
 // ceil(t_len / 128) <= 65535.  ``lse`` is null or (batch, heads, t_len)
 // f32, written with each row's m + log(l).  ``scale`` is
 // f32(bf16(head_dim^-1/2)).  P is rounded against the running max of spans
-// of ``span_tiles`` 128-key tiles (>= 1).  Launches on ``stream`` and
+// of ``span_tiles`` 128-key tiles (>= 1).  ``window`` > 0 also masks key j
+// for query i where j <= i - window; 0 is no window.  Launches on ``stream`` and
 // returns its cudaGetLastError(), or cudaErrorInvalidValue for an
 // unsupported head_dim or span, -1 if libcuda has no
 // cuTensorMapEncodeTiled, or -1000 - r if it returned CUresult r.
@@ -449,22 +504,26 @@ int flash_attention_sm90_launch(const void* q, const void* k, const void* v,
                                 void* o, void* lse, int batch, int t_len,
                                 int s_len, int heads, int kv_heads,
                                 int head_dim, int causal, float scale,
-                                int span_tiles, void* stream) {
+                                int span_tiles, int window, void* stream) {
   const cudaStream_t st = (cudaStream_t)stream;
-  if (span_tiles < 1) return (int)cudaErrorInvalidValue;
+  if (span_tiles < 1 || window < 0) return (int)cudaErrorInvalidValue;
   switch (head_dim) {
     case 16:
       return launch<16>(q, k, v, o, lse, batch, t_len, s_len, heads,
-                        kv_heads, causal, scale, span_tiles, st);
+                        kv_heads, causal, scale, span_tiles, window, st);
     case 32:
       return launch<32>(q, k, v, o, lse, batch, t_len, s_len, heads,
-                        kv_heads, causal, scale, span_tiles, st);
+                        kv_heads, causal, scale, span_tiles, window, st);
     case 64:
       return launch<64>(q, k, v, o, lse, batch, t_len, s_len, heads,
-                        kv_heads, causal, scale, span_tiles, st);
+                        kv_heads, causal, scale, span_tiles, window, st);
+    case 112:  // a D = 128 instance, columns past 112 zero-filled
+      return launch<128, 112>(q, k, v, o, lse, batch, t_len, s_len, heads,
+                              kv_heads, causal, scale, span_tiles, window,
+                              st);
     case 128:
       return launch<128>(q, k, v, o, lse, batch, t_len, s_len, heads,
-                         kv_heads, causal, scale, span_tiles, st);
+                         kv_heads, causal, scale, span_tiles, window, st);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -32,7 +32,19 @@ lse = m + log(l), (B, H, T) f32, which the backward takes.
   attention by autodiff.
 
 q (B, T, H, D), k / v (B, S, HK, D), all contiguous on one CUDA device,
-one dtype, D in {16, 32, 64, 128}, H % HK == 0.  The kernels mask the
+one dtype, D in {16, 32, 64, 112, 128}, H % HK == 0.  Head dim 112
+(zamba2-7b) runs D = 128 instances of the kernels compiled for a true
+width of 112, on the tensors as they lie: the tensor maps keep the width
+112, so TMA reads columns 112-127 as zeros, and the stores stop at 112
+(the f32 backward's preprocess writes its scratch 128 wide).  ``window``
+> 0 is the JAX model's sliding window
+(``repro.models.attention.flash_attention(window=)``): key j is masked
+for query i where j <= i - window, on top of the causal mask (a window
+needs causal attention with T <= S, as the model calls it); 0 is none,
+and runs instances compiled without the window's terms.  The kernels
+skip the key tiles wholly outside every row's window; the bf16 forward
+starts at the ``kv_tile`` span (aligned to key 0) that holds the first
+live key, so its spans stay the JAX model's chunks.  The kernels mask the
 ragged edges of T and S and index the KV head of each query head (GQA)
 themselves, so nothing is padded or repeated (the backward kernels write
 the scaled q once, into their scratch).  Each wrapper
@@ -50,7 +62,7 @@ import torch
 
 from repro_torch.kernels import build, ref
 
-HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 112, 128)
 # dtype -> (kernel name, C library, launch function)
 KERNELS = {
     torch.bfloat16: ("flash_attention_sm90", "flash_attention_sm90",
@@ -72,7 +84,8 @@ TF32_KEY_ORDER = (0, 2, 4, 6, 1, 3, 5, 7)
 # accumulator added to the running sum.  The library reports its own
 # (``flash_attention_bwd_f32_sm90_tile``), which chip_smoke.py holds
 # against these; the CPU emulation of the kernel takes these.
-F32_BWD_TILES = {16: (64, 64), 32: (64, 64), 64: (32, 32), 128: (32, 16)}
+F32_BWD_TILES = {16: (64, 64), 32: (64, 64), 64: (32, 32), 112: (32, 16),
+                 128: (32, 16)}
 
 # dtype -> the backward kernel's name, which is its C library's (csrc/
 # <name>.cu, launch function ``<name>_launch`` and scratch size
@@ -96,10 +109,11 @@ def _launcher(dtype: torch.dtype):
     _, lib_name, fn_name = KERNELS[dtype]
     fn = getattr(build.load(lib_name), fn_name)
     if id(fn) not in _TYPED:
-        # q, k, v, o, lse, B, T, S, H, HK, D, causal, scale[, span], stream
+        # q, k, v, o, lse, B, T, S, H, HK, D, causal, scale[, span],
+        # window, stream
         span = [_I] if dtype == torch.bfloat16 else []
         fn.argtypes = ([_P] * 5 + [_I] * 7 + [ctypes.c_float] + span
-                       + [_P])
+                       + [_I, _P])
         fn.restype = ctypes.c_int
         _TYPED.add(id(fn))
     return fn
@@ -110,8 +124,8 @@ def _bwd_launcher(dtype: torch.dtype):
     fn = getattr(build.load(name), name + "_launch")
     if id(fn) not in _TYPED:
         # q, k, v, o, lse, dout, dq, dk, dv, scratch, B, T, S, H, HK, D,
-        # causal, scale, stream
-        fn.argtypes = [_P] * 10 + [_I] * 7 + [ctypes.c_float, _P]
+        # causal, scale, window, stream
+        fn.argtypes = [_P] * 10 + [_I] * 7 + [ctypes.c_float, _I, _P]
         fn.restype = ctypes.c_int
         _TYPED.add(id(fn))
     return fn
@@ -175,6 +189,19 @@ def check_shapes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
     return B, T, S, H, HK, D
 
 
+def check_window(window, causal: bool, T: int, S: int) -> int:
+    """The window as the kernels take it (0 for None), else raise: a
+    window needs causal attention with T <= S, where every query has a key
+    in its window (its own)."""
+    window = 0 if window is None else int(window)
+    if window < 0:
+        raise ValueError(f"window {window} < 0")
+    if window and (not causal or T > S):
+        raise ValueError(f"a window needs causal attention with T <= S, "
+                         f"got causal={causal}, T={T}, S={S}")
+    return window
+
+
 def _check_cuda(q, named) -> None:
     for name, t in named:
         if t.device.type != "cuda":
@@ -210,12 +237,14 @@ def _check_launch(name: str, err: int) -> None:
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True, *, kv_tile: int,
-                    with_lse: bool = False):
+                    with_lse: bool = False, window: int = 0):
     """Launch q's dtype's kernel: the (B, T, H, D) attention output in q's
     dtype, and with ``with_lse`` also the (B, H, T) f32 row statistic
     lse = m + log(l).  ``kv_tile`` sets the bf16 kernel's span
-    (``span_tiles``); the f32 kernel's result has no tiling."""
+    (``span_tiles``); the f32 kernel's result has no tiling.  ``window``:
+    the sliding window (0 for none)."""
     B, T, S, H, HK, D = check_shapes(q, k, v)
+    window = check_window(window, causal, T, S)
     _check_cuda(q, (("q", q), ("k", k), ("v", v)))
     name = KERNELS[q.dtype][0]
     if B * H >= 2 ** 31 or -(-T // _TILE) > _MAX_Q_TILES:
@@ -230,17 +259,20 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         err = _launcher(q.dtype)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             None if lse is None else lse.data_ptr(), B, T, S, H, HK, D,
-            int(causal), _scale(q.dtype, D), *span, stream)
+            int(causal), _scale(q.dtype, D), *span, window, stream)
     _check_launch(name, err)
     LAUNCHES[name] += 1
     return (out, lse) if with_lse else out
 
 
-def flash_attention_bwd(q, k, v, o, lse, dout, causal: bool = True):
+def flash_attention_bwd(q, k, v, o, lse, dout, causal: bool = True,
+                        window: int = 0):
     """Launch q's dtype's backward kernel: (dq, dk, dv) in q's dtype,
     shaped as q, k, v, from the forward's inputs, output ``o``, row
-    statistic ``lse`` (B, H, T) f32 and the output's gradient ``dout``."""
+    statistic ``lse`` (B, H, T) f32 and the output's gradient ``dout``;
+    ``window`` the forward's (0 for none)."""
     B, T, S, H, HK, D = check_shapes(q, k, v)
+    window = check_window(window, causal, T, S)
     _check_cuda(q, (("q", q), ("k", k), ("v", v), ("o", o), ("lse", lse),
                     ("dout", dout)))
     for name, t, shape, dtype in (("o", o, q.shape, q.dtype),
@@ -263,17 +295,19 @@ def flash_attention_bwd(q, k, v, o, lse, dout, causal: bool = True):
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             lse.data_ptr(), dout.data_ptr(), dq.data_ptr(), dk.data_ptr(),
             dv.data_ptr(), scratch.data_ptr(), B, T, S, H, HK, D,
-            int(causal), _scale(q.dtype, D), stream)
+            int(causal), _scale(q.dtype, D), window, stream)
     _check_launch(name, err)
     LAUNCHES[name] += 1
     return dq, dk, dv
 
 
-def _plain_forward(q, k, v, causal, *, kv_tile, with_lse):
+def _plain_forward(q, k, v, causal, *, kv_tile, with_lse, window=0):
     if q.dtype == torch.bfloat16:
         return ref.flash_attention_bf16_ref(q, k, v, causal, kv_tile=kv_tile,
-                                            return_lse=with_lse)
-    return ref.flash_attention_ref(q, k, v, causal, return_lse=with_lse)
+                                            return_lse=with_lse,
+                                            window=window)
+    return ref.flash_attention_ref(q, k, v, causal, return_lse=with_lse,
+                                   window=window)
 
 
 def _on_cuda(t: torch.Tensor) -> bool:
@@ -288,23 +322,26 @@ class FlashAttention(torch.autograd.Function):
     backward kernel (through ``flash_attention_bwd``), on a CUDA tensor;
     the plain versions (``ref``) on a CPU tensor.  Nothing falls back from
     one to the other.
-    ``apply(q, k, v, causal, kv_tile)`` -> (B, T, H, D)."""
+    ``apply(q, k, v, causal, kv_tile, window)`` -> (B, T, H, D)."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, kv_tile):
+    def forward(ctx, q, k, v, causal, kv_tile, window=0):
         need = any(ctx.needs_input_grad[:3])
         run = flash_attention if _on_cuda(q) else _plain_forward
-        res = run(q, k, v, causal, kv_tile=kv_tile, with_lse=need)
+        res = run(q, k, v, causal, kv_tile=kv_tile, with_lse=need,
+                  window=window)
         if not need:
             return res
         out, lse = res
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.causal = causal
+        ctx.window = window
         return out
 
     @staticmethod
     def backward(ctx, dout):
         q, k, v, o, lse = ctx.saved_tensors
         run = flash_attention_bwd if _on_cuda(q) else ref.flash_attention_bwd_ref
-        dq, dk, dv = run(q, k, v, o, lse, dout.contiguous(), ctx.causal)
-        return dq, dk, dv, None, None
+        dq, dk, dv = run(q, k, v, o, lse, dout.contiguous(), ctx.causal,
+                         window=ctx.window)
+        return dq, dk, dv, None, None, None

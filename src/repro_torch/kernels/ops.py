@@ -188,11 +188,14 @@ def layered_decode(m: torch.Tensor, u: torch.Tensor, layer: torch.Tensor,
 
 # ------------------------------------------------------- flash attention
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    causal: bool = True, *, kv_tile: int) -> torch.Tensor:
+                    causal: bool = True, *, kv_tile: int,
+                    window: int = 0) -> torch.Tensor:
     """q (B, T, H, D), k / v (B, S, HK, D) -> (B, T, H, D) in q's dtype;
-    GQA (H % HK == 0), ragged T and S, D in {16, 32, 64, 128}, f32 or
+    GQA (H % HK == 0), ragged T and S, D in {16, 32, 64, 112, 128}, f32 or
     bf16, differentiable.  The causal mask is the Pallas kernel's: query
-    i sees keys 0..i (aligned at the top left, whatever S is).  Each dtype
+    i sees keys 0..i (aligned at the top left, whatever S is); ``window``
+    > 0 also masks keys at or before i - window (the JAX model's sliding
+    window; causal, T <= S), 0 is none.  Each dtype
     computes one function on both devices: bf16 the JAX model's bf16
     attention (q scaled in bf16, P rounded to bf16 against the running
     max of spans of ``kv_tile`` keys, the model's ``kv_chunk``; the sm90
@@ -204,8 +207,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     on the CPU), through ``flash_attention.FlashAttention``.  The same
     shapes are refused on both devices."""
     fa.check_shapes(q, k, v)
+    fa.check_window(window, causal, q.shape[1], k.shape[1])
     _on_cuda(q)
-    return fa.FlashAttention.apply(q, k, v, causal, kv_tile)
+    return fa.FlashAttention.apply(q, k, v, causal, kv_tile,
+                                   0 if window is None else int(window))
 
 
 # ------------------------------------------------------- rwkv6 recurrence

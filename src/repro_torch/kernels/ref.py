@@ -124,14 +124,32 @@ def mha_ref(q, k, v, causal: bool = True) -> torch.Tensor:
     return torch.einsum("bhts,bshd->bthd", p.to(v.dtype), v)
 
 
+def _keep(T: int, S: int, k0: int, n: int, causal: bool, window: int,
+          device):
+    """The (T, n) mask of keys k0 .. k0 + n - 1 the queries see: key j
+    for query i where j <= i (causal) and j > i - window (a window > 0,
+    the JAX model's ``kpos > q_pos - window``), or None for no mask."""
+    if not causal and not window:
+        return None
+    rows = torch.arange(T, device=device)[:, None]
+    cols = torch.arange(k0, k0 + n, device=device)[None, :]
+    keep = torch.ones((T, n), dtype=torch.bool, device=device)
+    if causal:
+        keep = keep & (cols <= rows)
+    if window:
+        keep = keep & (cols > rows - window)
+    return keep
+
+
 def flash_attention_ref(q, k, v, causal: bool = True,
-                        return_lse: bool = False):
+                        return_lse: bool = False, window: int = 0):
     """What the Pallas flash kernel computes, written plainly: q
     (B, T, H, D), k/v (B, S, HK, D) with H % HK == 0 -> (B, T, H, D) in
     q's dtype.  f32 arithmetic: ``q * D^-1/2`` rounded to f32 before the
     product, scores masked to -1e30 (never -inf) where ``col > row``
     (causal, aligned at the top left: query i sees keys 0..i, whatever
-    S is), P kept in f32 for P V, and the sum clamped below by 1e-30.
+    S is) and, with a ``window`` > 0, where ``col <= row - window``, P kept
+    in f32 for P V, and the sum clamped below by 1e-30.
     ``return_lse`` also returns the row statistic m + log(l), (B, H, T)
     f32, as the kernels write it for the backward."""
     B, T, H, D = q.shape
@@ -142,10 +160,9 @@ def flash_attention_ref(q, k, v, causal: bool = True,
     k32 = k.to(torch.float32).repeat_interleave(g, dim=2)
     v32 = v.to(torch.float32).repeat_interleave(g, dim=2)
     s = torch.einsum("bthd,bshd->bhts", q32, k32)
-    if causal:
-        rows = torch.arange(T, device=q.device)[:, None]
-        cols = torch.arange(S, device=q.device)[None, :]
-        s = torch.where(cols <= rows, s, NEG_INF)
+    keep = _keep(T, S, 0, S, causal, window, q.device)
+    if keep is not None:
+        s = torch.where(keep, s, NEG_INF)
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - m)
     l = p.sum(dim=-1, keepdim=True)
@@ -169,18 +186,22 @@ def scale_q_bf16(q) -> torch.Tensor:
 
 
 def flash_attention_bf16_ref(q, k, v, causal: bool = True, *,
-                             kv_tile: int, return_lse: bool = False):
+                             kv_tile: int, return_lse: bool = False,
+                             window: int = 0):
     """What the JAX model's attention (``repro.models.attention.
     flash_attention``) computes in bf16, written plainly: q (B, T, H, D),
     k/v (B, S, HK, D) bf16 with H % HK == 0 -> (B, T, H, D) bf16.  q is
     scaled by bf16(D^-1/2) and rounded to bf16; scores are f32 products of
     that and k (f32 einsums, no TF32), masked to -1e30 where ``col > row``
-    (causal, aligned at the top left); an online softmax over tiles of
+    (causal, aligned at the top left) and, with a ``window`` > 0, where
+    ``col <= row - window``; an online softmax over tiles of
     ``kv_tile`` keys (the JAX model's ``kv_chunk``; P is rounded against
     the running max of the tiles seen so far, so the chunking is part of
     the function) keeps m and l in f32, l summing the f32 p; P is rounded
     to bf16 for P V (f32 sums); the output is acc / max(l, 1e-30)
-    rounded to bf16.
+    rounded to bf16.  A chunk wholly outside a row's window adds p = 1
+    terms (exp(-1e30 - -1e30)) until the row's first live chunk multiplies
+    them by exp(-1e30 - m) = 0, as in the JAX model.
     ``return_lse`` also returns m + log(l), (B, H, T) f32."""
     B, T, H, D = q.shape
     HK = k.shape[2]
@@ -193,13 +214,12 @@ def flash_attention_bf16_ref(q, k, v, causal: bool = True, *,
     m = torch.full((B, H, T, 1), NEG_INF, dtype=f32, device=q.device)
     l = torch.zeros((B, H, T, 1), dtype=f32, device=q.device)
     acc = torch.zeros((B, H, T, D), dtype=f32, device=q.device)
-    rows = torch.arange(T, device=q.device)[:, None]
     kv_tile = int(kv_tile)
     for k0 in range(0, S, kv_tile):
         s = torch.einsum("bthd,bshd->bhts", qs, k32[:, k0:k0 + kv_tile])
-        if causal:
-            cols = torch.arange(k0, k0 + s.shape[-1], device=q.device)
-            s = torch.where(cols[None, :] <= rows, s, NEG_INF)
+        keep = _keep(T, S, k0, s.shape[-1], causal, window, q.device)
+        if keep is not None:
+            s = torch.where(keep, s, NEG_INF)
         m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
         p = torch.exp(s - m_new)
         corr = torch.exp(m - m_new)
@@ -218,7 +238,7 @@ BWD_KV_TILE = 128
 
 
 def flash_attention_bwd_ref(q, k, v, o, lse, do, causal: bool = True,
-                            kv_tile: int = BWD_KV_TILE):
+                            kv_tile: int = BWD_KV_TILE, window: int = 0):
     """The gradient of the forward above (bf16 or f32 by q's dtype),
     written plainly with FlashAttention-2's formula, one tile of keys at
     a time: the kernels ``csrc/flash_attention_bwd_sm90.cu`` (bf16) and
@@ -226,8 +246,8 @@ def flash_attention_bwd_ref(q, k, v, o, lse, do, causal: bool = True,
     q, o, do (B, T, H, D), k, v (B, S, HK, D), lse (B, H, T) f32 (the
     forward's m + log(l)) -> (dq, dk, dv) in the inputs' dtype.  In f32:
     qs = q scaled as the forward scales it (bf16(q bf16(D^-1/2)) in bf16),
-    S = qs k^T masked as the forward masks, P = exp(S - lse) (0 where
-    masked), Drow = rowsum(do o), dV = P^T do (P rounded to bf16 in bf16,
+    S = qs k^T masked as the forward masks (``window`` the forward's),
+    P = exp(S - lse) (0 where masked), Drow = rowsum(do o), dV = P^T do (P rounded to bf16 in bf16,
     as the forward's P V), dS = P (do v^T - Drow), dK = dS^T qs, dQ =
     scale dS k; GQA sums dK and dV over each KV head's query heads."""
     B, T, H, D = q.shape
@@ -250,13 +270,12 @@ def flash_attention_bwd_ref(q, k, v, o, lse, do, causal: bool = True,
     dq = torch.zeros_like(qs)
     dk = torch.zeros_like(k32)
     dv = torch.zeros_like(v32)
-    rows = torch.arange(T, device=q.device)[:, None]
     for k0 in range(0, S, kv_tile):
         kt, vt = k32[:, :, k0:k0 + kv_tile], v32[:, :, k0:k0 + kv_tile]
         p = torch.exp(qs @ kt.transpose(-1, -2) - lse_)
-        if causal:
-            cols = torch.arange(k0, k0 + kt.shape[2], device=q.device)
-            p = torch.where(cols[None, :] <= rows, p, 0.0)
+        keep = _keep(T, S, k0, kt.shape[2], causal, window, q.device)
+        if keep is not None:
+            p = torch.where(keep, p, 0.0)
         ds = p * (do32 @ vt.transpose(-1, -2) - drow)
         pv = p.to(torch.bfloat16).to(f32) if bf16 else p
         dv[:, :, k0:k0 + kv_tile] = pv.transpose(-1, -2) @ do32

@@ -12,6 +12,7 @@ lockstep oracle loop (``repro_torch.serve.oracle``) instead.
   python -m repro_torch.launch.serve --arch llava-next-mistral-7b --smoke \\
       --device cpu --naive     # llava: the naive loop, with the patch stub
   python -m repro_torch.launch.serve --arch rwkv6-1.6b --smoke --device cpu
+  python -m repro_torch.launch.serve --arch zamba2-7b --smoke --device cpu
 
 Weights are random (the reference's init law, seed 0); prompts come
 from ``numpy.random.default_rng``.  The model is built layer by layer in

@@ -10,6 +10,8 @@ CPU usage (reduced config):
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen1.5-0.5b \\
       --smoke --device cpu --steps 3 --mechanism aggregate_gaussian \\
       --no-per-coord --fused
+  (--arch zamba2-7b --smoke as well: its sequence a multiple of the SSD
+  chunk, 8 in the smoke config, 128 in the full one)
 
 Async actor/learner mode (repro_torch.runtime): N client threads or
 processes exchange integer messages with a staleness-aware learner —

@@ -13,9 +13,14 @@ a multiple of the kernel's 128-key tile or cover every key (the configs'
 1024 is; the smoke configs' 8 runs on the CPU only).  In f32 it is the
 Pallas kernel's f32 function (``flash_attention_f32``), which has no
 tiling in its result.  It takes the masks those kernels support, causal
-or none, with queries starting at position 0; a sliding window or a
-query offset raises on both devices (zamba2's window comes with its
-slice, see ROADMAP.md).
+or none, with queries starting at position 0, and the reference's
+sliding window (zamba2's shared attention: key j is masked for query i
+where ``j <= i - window``, the reference's ``kpos > q_pos - window``;
+causal only, as the reference's callers use it).  The kernels skip the
+key tiles wholly outside every row's window; in bf16 the spans stay the
+reference's ``kv_chunk`` chunks, aligned to key 0, so P takes its bits.
+A query offset raises on both devices: no caller in the reference passes
+one.
 
 ``decode_attention`` (one new token against a KV cache) is plain
 PyTorch, as the reference computes it outside any Pallas kernel; bf16 q
@@ -38,19 +43,15 @@ def flash_attention(q, k, v, *, causal: bool = True, q_offset=0,
     (B, Tq, HQ, D) in v's dtype: bf16 the reference's bf16 function, f32
     its f32 function (see the module's docstring).  ``kv_chunk`` is the
     reference's KV tiling, which sets the running max bf16 P is rounded
-    against, on both devices (1024 by default, as the reference's).  The
-    reference's ``q_chunk`` has no counterpart: it does not change the
-    result."""
-    if window is not None:
-        raise NotImplementedError(
-            "sliding-window attention is not ported yet (it comes with "
-            "zamba2's slice, see ROADMAP.md)")
+    against, on both devices (1024 by default, as the reference's).
+    ``window``: the sliding window (None for none).  The reference's
+    ``q_chunk`` has no counterpart: it does not change the result."""
     if not (isinstance(q_offset, int) and q_offset == 0):
         raise NotImplementedError(
             "a query offset is not ported yet: the flash kernel's causal "
             "mask starts the queries at position 0 (see ROADMAP.md)")
-    return ops.flash_attention(q, k, v, causal=causal,
-                               kv_tile=kv_chunk).to(v.dtype)
+    return ops.flash_attention(q, k, v, causal=causal, kv_tile=kv_chunk,
+                               window=window or 0).to(v.dtype)
 
 
 def decode_attention(q, k_cache, v_cache, new_k, new_v, *,

@@ -1,6 +1,6 @@
 """Model API over the architecture families (the port of
 ``repro.models.registry``), for the transformer's kinds (dense, moe,
-llava) and rwkv6:
+llava), rwkv6 and zamba2:
 
   param_specs(cfg)                    -> ParamSpec tree
   logits_fn(cfg, model, batch)        -> (B, T, V) logits
@@ -13,12 +13,14 @@ llava) and rwkv6:
 
 ``batch`` is a dict with tokens (B, T) int, and for llava patches
 (B, P, D) (``data.synthetic.with_frontend_stubs``): the logits are the
-text positions'.  ``model`` is a ``transformer.Transformer`` or an
-``rwkv6.Rwkv6`` (or either's ``TreeModel``); ``params`` is a parameter
-tree in the reference's layout.  rwkv6's prefill is its scan path
-(``rwkv6.forward``), which returns ``(logits, None)``; its decode cache
-is the recurrent state (``rwkv6.init_state``).  zamba2 and whisper are
-not ported yet and raise NotImplementedError (see ROADMAP.md).
+text positions'.  ``model`` is a ``transformer.Transformer``, an
+``rwkv6.Rwkv6`` or a ``zamba2.Zamba2`` (or its family's ``TreeModel``);
+``params`` is a parameter tree in the reference's layout.  rwkv6's and
+zamba2's prefill is their scan path (``forward(last_only=True)``), which
+returns ``(logits, None)``; their decode cache is their recurrent state
+(``rwkv6.init_state``; ``zamba2.init_state``, whose KV rings are
+``min(window, seq_len)`` rows).  whisper is not ported yet and raises
+NotImplementedError (see ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -27,11 +29,13 @@ from typing import Any, Callable, Dict
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.models import nn, rwkv6, transformer
+from repro_torch.models import nn, rwkv6, transformer, zamba2
 from repro_torch.models.config import ModelConfig, torch_dtype
 
 DENSE_KINDS = transformer.KINDS
-KINDS = DENSE_KINDS + ("rwkv6",)
+KINDS = DENSE_KINDS + ("rwkv6", "zamba2")
+# the recurrent families: their own modules, prefill on the scan path
+_FAMILIES = {"rwkv6": rwkv6, "zamba2": zamba2}
 
 
 def _ported(cfg: ModelConfig) -> None:
@@ -43,18 +47,15 @@ def _ported(cfg: ModelConfig) -> None:
 
 def param_specs(cfg: ModelConfig):
     _ported(cfg)
-    if cfg.kind == "rwkv6":
-        return rwkv6.param_specs(cfg)
-    return transformer.param_specs(cfg)
+    return _FAMILIES.get(cfg.kind, transformer).param_specs(cfg)
 
 
 def init_model(cfg: ModelConfig, generator: torch.Generator, device=None):
     """Random weights with the reference's init law, layer by layer in
-    the compute dtype (``transformer.init_model`` / ``rwkv6.init_model``)."""
+    the compute dtype (each family's ``init_model``)."""
     _ported(cfg)
-    if cfg.kind == "rwkv6":
-        return rwkv6.init_model(cfg, generator, device)
-    return transformer.init_model(cfg, generator, device)
+    return _FAMILIES.get(cfg.kind, transformer).init_model(cfg, generator,
+                                                           device)
 
 
 def tree_model(cfg: ModelConfig, params):
@@ -62,15 +63,13 @@ def tree_model(cfg: ModelConfig, params):
     as it is)."""
     if not isinstance(params, dict):
         return params
-    if cfg.kind == "rwkv6":
-        return rwkv6.TreeModel(cfg, params)
-    return transformer.TreeModel(cfg, params)
+    return _FAMILIES.get(cfg.kind, transformer).TreeModel(cfg, params)
 
 
 def logits_fn(cfg: ModelConfig, model, batch) -> torch.Tensor:
     _ported(cfg)
-    if cfg.kind == "rwkv6":
-        return rwkv6.forward(cfg, model, batch["tokens"])
+    if cfg.kind in _FAMILIES:
+        return _FAMILIES[cfg.kind].forward(cfg, model, batch["tokens"])
     if cfg.kind == "llava":
         patches = batch["patches"]
         logits, _ = transformer.forward(cfg, model, batch["tokens"],
@@ -100,10 +99,13 @@ def loss_fn(cfg: ModelConfig) -> Callable:
 def decode_state_specs(cfg: ModelConfig, batch: int,
                        seq_len: int) -> Dict[str, torch.Tensor]:
     """The decode cache tree as meta tensors (shape and dtype, no
-    allocation); rwkv6's is its recurrent state, whatever ``seq_len``."""
+    allocation); rwkv6's is its recurrent state, whatever ``seq_len``;
+    zamba2's KV rings hold ``min(window, seq_len)`` rows."""
     _ported(cfg)
     if cfg.kind == "rwkv6":
         return rwkv6.init_state(cfg, batch, "meta")
+    if cfg.kind == "zamba2":
+        return zamba2.init_state(cfg, batch, _ring(cfg, seq_len), "meta")
     shape = (cfg.n_layers, batch, seq_len, cfg.n_kv_heads, cfg.hd)
     dt = torch_dtype(cfg.compute_dtype)
     return {k: torch.empty(shape, dtype=dt, device="meta")
@@ -112,22 +114,31 @@ def decode_state_specs(cfg: ModelConfig, batch: int,
 
 def init_decode_state(cfg: ModelConfig, batch: int, seq_len: int,
                       device=None) -> Dict[str, torch.Tensor]:
-    """A fresh (zero) decode cache on ``device`` (CUDA unless "cpu")."""
+    """A fresh decode cache on ``device`` (CUDA unless "cpu"): zeros, and
+    zamba2's empty ring rows at position -1."""
     dev = resolve_device(device)
     if cfg.kind == "rwkv6":
         return rwkv6.init_state(cfg, batch, dev)
+    if cfg.kind == "zamba2":
+        return zamba2.init_state(cfg, batch, _ring(cfg, seq_len), dev)
     return {k: torch.zeros(s.shape, dtype=s.dtype, device=dev)
             for k, s in decode_state_specs(cfg, batch, seq_len).items()}
 
 
+def _ring(cfg: ModelConfig, seq_len: int) -> int:
+    """zamba2's KV ring rows for a horizon of ``seq_len`` positions."""
+    return min(seq_len, cfg.window or seq_len)
+
+
 def serve_fn(cfg: ModelConfig) -> Callable:
     """serve(model, batch{tokens (B, 1)}, cache) -> (logits, new kv); for
-    rwkv6 (logits, new state)."""
+    rwkv6 and zamba2 (logits, new state)."""
     _ported(cfg)
 
     def serve(model, batch, cache):
-        if cfg.kind == "rwkv6":
-            return rwkv6.decode(cfg, model, batch["tokens"], cache)
+        if cfg.kind in _FAMILIES:
+            return _FAMILIES[cfg.kind].decode(cfg, model, batch["tokens"],
+                                              cache)
         dtype = torch_dtype(cfg.compute_dtype)
         x = transformer.embed_tokens(cfg, model, batch["tokens"], dtype)
         y, new_kv = transformer.decoder_decode(cfg, model, x,
@@ -140,14 +151,14 @@ def serve_fn(cfg: ModelConfig) -> Callable:
 
 def prefill_fn(cfg: ModelConfig) -> Callable:
     """prefill(model, batch) -> (last-position logits, caches); llava's
-    caches cover its patch positions too; rwkv6 runs its scan path and
-    returns (logits, None), as the reference."""
+    caches cover its patch positions too; rwkv6 and zamba2 run their scan
+    path and return (logits, None), as the reference."""
     _ported(cfg)
 
     def prefill(model, batch) -> Any:
-        if cfg.kind == "rwkv6":
-            return rwkv6.forward(cfg, model, batch["tokens"],
-                                 last_only=True), None
+        if cfg.kind in _FAMILIES:
+            return _FAMILIES[cfg.kind].forward(cfg, model, batch["tokens"],
+                                               last_only=True), None
         patches = batch["patches"] if cfg.kind == "llava" else None
         return transformer.forward(cfg, model, batch["tokens"],
                                    patches=patches, last_only=True)

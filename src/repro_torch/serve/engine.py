@@ -21,11 +21,13 @@ row is written back unchanged) and returns new bookkeeping tensors.
 
 Families: dense and moe (slot-pool KV cache with ``valid_len`` masking:
 rows past a slot's length score -1e30 and contribute exactly 0; a moe
-decode step routes the slots' tokens as one call) and rwkv6 (a
+decode step routes the slots' tokens as one call), rwkv6 (a
 constant-size recurrent state per slot, no capacity limit; its prefill
-is ``rwkv6.prefill``, a loop of one-token decodes).  zamba2 is not
-ported yet and raises NotImplementedError (see ROADMAP.md); whisper /
-llava need per-request side inputs and raise as in the reference.
+is ``rwkv6.prefill``, a loop of one-token decodes) and zamba2 (per-layer
+SSD states and a per-group KV ring of ``min(window, max_seq_len)`` rows
+masked by absolute position; its prefill is ``zamba2.prefill``, a loop
+of one-token decodes).  whisper / llava need per-request side inputs
+and raise as in the reference.
 """
 from __future__ import annotations
 
@@ -35,7 +37,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.models import registry, rwkv6, transformer
+from repro_torch.models import registry, rwkv6, transformer, zamba2
 from repro_torch.models.config import ModelConfig, torch_dtype
 
 
@@ -130,15 +132,59 @@ class _Rwkv6Family:
         return logits
 
 
+class _Zamba2Family:
+    """zamba2: per-layer SSD states and a per-group shared-attention KV
+    ring, masked by each row's absolute position (``kv_pos``).  The state
+    carries each slot's own ``pos``; the engine's ``lengths`` mirror it.
+    With a window the ring is ``min(window, max_seq_len)`` rows and slides
+    (no capacity limit); without one it is max_seq_len rows and must not
+    wrap."""
+
+    # the slot axis of each state leaf
+    _AXES = {"ssm_groups": 2, "ssm_tail": 1, "attn_k": 1, "attn_v": 1,
+             "kv_pos": 0, "pos": 0}
+
+    def __init__(self, cfg: ModelConfig, ecfg: EngineConfig,
+                 device: torch.device):
+        self.cfg, self.ecfg, self.device = cfg, ecfg, device
+        if cfg.window:
+            self.window_cache = min(cfg.window, ecfg.max_seq_len)
+            self.capacity = None  # the ring slides under the window
+        else:
+            self.window_cache = ecfg.max_seq_len  # the ring must not wrap
+            self.capacity = ecfg.max_seq_len
+
+    def init_cache(self) -> Dict[str, torch.Tensor]:
+        return zamba2.init_state(self.cfg, self.ecfg.max_slots,
+                                 self.window_cache, self.device)
+
+    def prefill(self, model, tokens):
+        return zamba2.prefill(self.cfg, model, tokens, self.window_cache)
+
+    def insert(self, cache, prefix_cache, slot: int) -> None:
+        for k, c in cache.items():
+            a = self._AXES[k]
+            c.select(a, slot).copy_(prefix_cache[k].select(a, 0))
+
+    def step(self, model, tokens, cache, lengths, keep):
+        """Logits of one decode step; each kept slot's new state is
+        written into ``cache``, the others' left as they were (the
+        reference's select along each leaf's slot axis)."""
+        logits, new = zamba2.decode(self.cfg, model, tokens, cache)
+        for k, c in cache.items():
+            a = self._AXES[k]
+            sel = keep.reshape((1,) * a + (-1,) + (1,) * (c.dim() - a - 1))
+            c.copy_(torch.where(sel, new[k], c))
+        return logits
+
+
 def _make_family(cfg: ModelConfig, ecfg: EngineConfig, device):
     if cfg.kind in ("dense", "moe"):
         return _DenseFamily(cfg, ecfg, device)
     if cfg.kind == "rwkv6":
         return _Rwkv6Family(cfg, ecfg, device)
     if cfg.kind == "zamba2":
-        raise NotImplementedError(
-            f"serve engine: kind={cfg.kind!r} is not ported to repro_torch "
-            f"yet (see ROADMAP.md, Queue 1)")
+        return _Zamba2Family(cfg, ecfg, device)
     raise NotImplementedError(
         f"serve engine does not support kind={cfg.kind!r} "
         "(whisper/llava need per-request frames/patches)")

@@ -1,10 +1,12 @@
 """Naive one-batch generation loop, kept as the engine's correctness
-oracle (the port of ``repro.serve.oracle``, for the transformer's kinds
-and rwkv6).
+oracle (the port of ``repro.serve.oracle``, for the transformer's kinds,
+rwkv6 and zamba2).
 
 Every request in one batch, decode steps in lockstep, the dense cache
-*grows* by one row per step and never drops a position; rwkv6 runs one
-serve call per prompt token and carries its recurrent state.  ``ServeEngine``
+*grows* by one row per step and never drops a position; rwkv6 and zamba2
+run one serve call per prompt token and carry their recurrent state
+(zamba2's KV rings of ``min(window, P + n_tokens)`` rows, as the
+reference's).  ``ServeEngine``
 at full occupancy must be token-identical to this loop: same RoPE
 (``rope_at`` positions), same greedy argmax + clip, and the engine's
 padded cache rows contribute exact-zero probability.

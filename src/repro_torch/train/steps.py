@@ -122,13 +122,18 @@ def _client_slice(batch: Dict, rank: int, n: int) -> Dict:
 
 def value_and_grad(cfg: ModelConfig, params, batch):
     """(loss, gradient tree in f32) of the NLL on ``batch``, through the
-    compute copy of ``params`` (cast to ``cfg.compute_dtype``)."""
+    compute copy of ``params`` (cast to ``cfg.compute_dtype``).  A leaf
+    the loss does not use (zamba2's Mamba2 ``norm_w``, which the
+    reference's block never reads) has a zero gradient, as in
+    ``jax.grad``."""
     leaves, rebuild = compress_mod._flatten(params)
     req = [p.detach().requires_grad_(True) for p in leaves]
     loss = registry.loss_fn(cfg)(
         nn.cast_tree(rebuild(req), torch_dtype(cfg.compute_dtype)), batch)
-    grads = torch.autograd.grad(loss, req)
-    return loss.detach(), rebuild([g.to(torch.float32) for g in grads])
+    grads = torch.autograd.grad(loss, req, allow_unused=True)
+    return loss.detach(), rebuild([
+        torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+        if g is None else g.to(torch.float32) for g, p in zip(grads, req)])
 
 
 def loss_and_grads(cfg: ModelConfig, tc: TrainConfig, params, batch):

@@ -264,12 +264,14 @@ def test_unsupported_shapes_and_types_raise():
 
 
 def test_model_attention_refuses_other_masks():
-    """A window or a query offset raises on every device (zamba2's window
-    comes with its slice), so the CPU and the card take the same
-    configurations."""
+    """A query offset raises on every device (no caller in the reference
+    passes one), so the CPU and the card take the same configurations;
+    the sliding window (zamba2's) is the kernels' own mask and reaches
+    them (tests/test_torch_flash_window.py holds it)."""
     q, k, v = _t(*_qkv(1, 8, 8, 2, 2, 16))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        attention.flash_attention(q, k, v, window=4)
+    np.testing.assert_array_equal(
+        attention.flash_attention(q, k, v, window=4).numpy(),
+        ops.flash_attention(q, k, v, kv_tile=KV, window=4).numpy())
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         attention.flash_attention(q, k, v, q_offset=3)
     out = attention.flash_attention(q, k, v)

@@ -23,9 +23,9 @@ from repro_torch.models import nn, registry, transformer
 from repro_torch.models.config import torch_dtype
 
 DENSE = ("qwen1.5-0.5b", "starcoder2-3b", "qwen3-32b", "minitron-4b")
-# the transformer's other kinds (moe and llava), and rwkv6
+# the transformer's other kinds (moe and llava), rwkv6 and zamba2
 PORTED = DENSE + ("dbrx-132b", "phi3.5-moe-42b-a6.6b", "llava-next-mistral-7b",
-                  "rwkv6-1.6b")
+                  "rwkv6-1.6b", "zamba2-7b")
 QWEN15_PARAMS = 463_987_712
 
 

@@ -482,7 +482,7 @@ def test_converter_and_init():
     """``rwkv6_from_numpy`` keeps the reference's tree under its names (one
     module per layer, each leaf its stack's slice); ``init_model`` draws
     the reference's specs in the compute dtype; the engine and the naive
-    loop refuse nothing for rwkv6, and zamba2 still raises."""
+    loop refuse nothing for rwkv6, and whisper still raises."""
     cfg_j, cfg = _cfgs()
     params = _np(_params(cfg_j))
     model = rwkv6_from_numpy(cfg, params, "cpu")
@@ -500,8 +500,8 @@ def test_converter_and_init():
         jregistry.param_specs(cfg_j),
         is_leaf=lambda x: isinstance(x, jnn.ParamSpec)))
     assert sum(p.numel() for p in bf.parameters()) == want
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ServeEngine(cfg.scaled(kind="zamba2"), device="cpu")
+    with pytest.raises(NotImplementedError, match="frames"):
+        ServeEngine(cfg.scaled(kind="whisper"), device="cpu")
 
 
 def test_full_config_parameter_count():

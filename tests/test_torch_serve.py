@@ -281,7 +281,7 @@ def test_partly_active_pool_writes_only_active_rows():
 
 
 @pytest.mark.parametrize("kind,match", [
-    ("zamba2", "ROADMAP"), ("whisper", "frames"), ("llava", "frames")])
+    ("whisper", "frames"), ("llava", "frames")])
 def test_unsupported_families_raise(kind, match):
     cfg = _cfg("qwen1.5-0.5b").scaled(kind=kind)
     with pytest.raises(NotImplementedError, match=match):
