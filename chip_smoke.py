@@ -579,6 +579,17 @@ FLASH_WINDOW_CASES = (
     (1, 2048, 2048, 16, 4, 64, True, 700),
     (1, 1024, 1024, 8, 8, 112, True),
 )
+# whisper-small's non-causal shapes (12 / 12 heads of 64), drawn from
+# their own generator (WHISPER_SEED) after the cases above: the encoder's
+# self-attention over its 1500 frames (two 1024-key spans, the second a
+# ragged 476), the decoder's cross-attention of 448 tokens over them, and
+# the decode step's one query over them, at the serve path's 8 rows
+WHISPER_SEED = 31
+FLASH_WHISPER_CASES = (
+    (8, 1500, 1500, 12, 12, 64, False),
+    (8, 448, 1500, 12, 12, 64, False),
+    (8, 1, 1500, 12, 12, 64, False),
+)
 FLASH_ATOL = 2e-5  # the reference's own bar (tests/test_kernels.py)
 # bf16: a p that rounds to the other bf16 neighbour moves an output by at
 # most 2^-9 max|v|; the kernel and its plain version round P against the
@@ -747,6 +758,27 @@ BWD_WINDOW_CASES = (
     (1, 2048, 2048, 16, 4, 64, True, 700),
     (1, 1024, 1024, 8, 8, 112, True),
 )
+# whisper-small's backward at its train microbatch (8 rows): the encoder
+# (1500 x 1500) and the decoder's cross-attention (448 x 1500), both
+# non-causal (WHISPER_SEED's generator, after FLASH_WHISPER_CASES)
+BWD_WHISPER_CASES = (
+    (8, 1500, 1500, 12, 12, 64, False),
+    (8, 448, 1500, 12, 12, 64, False),
+)
+# the bf16 backward's long sums, from their own generator (DRIFT_SEED),
+# drawn after every case above: a key of qwen3-32b's GQA heads (64 / 8 of
+# 128) sums 8 heads x T queries in dK and dV, where one running wgmma
+# accumulator drifted past the bar; three draws at T = 4096, one at T =
+# 8192 (65,536 query terms a key), and whisper's encoder (non-causal).
+# bf16 only
+DRIFT_SEED = 37
+BWD_DRIFT_CASES = (
+    (1, 4096, 4096, 64, 8, 128, True),
+    (1, 4096, 4096, 64, 8, 128, True),
+    (1, 4096, 4096, 64, 8, 128, True),
+    (1, 8192, 8192, 64, 8, 128, True),
+    (8, 1500, 1500, 12, 12, 64, False),
+)
 # f32: within 2e-5 max|g| (the forward's bar, scaled by the gradient).
 # bf16: dV sums bf16(P) dO, and a p that rounds to the other bf16
 # neighbour moves dV[j] by at most 2^-9 P[i, j] |dO[i]|, so every dV
@@ -799,24 +831,28 @@ def p_colsum_max(q, k, lse, causal, window: int = 0) -> float:
     return best
 
 
-def compare_flash_bwd(device, gen, shapes=BWD_CASES) -> dict:
+def compare_flash_bwd(device, gen, shapes=BWD_CASES, dtypes=None) -> dict:
     """The backward kernels against ``ref.flash_attention_bwd_ref`` on
-    the card at ``shapes`` (BWD_CASES; BWD_WINDOW_CASES), bf16 (flash_attention_bwd_sm90) and f32
+    the card at ``shapes`` (BWD_CASES; BWD_WINDOW_CASES,
+    BWD_WHISPER_CASES; BWD_DRIFT_CASES in bf16 alone), in ``dtypes``
+    (default both): bf16 (flash_attention_bwd_sm90) and f32
     (flash_attention_bwd_f32_sm90), from the forward kernel's output and
     lse (held against the plain version's at the same shapes by
     ``compare_flash``); also run twice for determinism (bitwise equal).
     A case's window goes to the forward and both backwards; a window >= T
-    gives the bits of none."""
+    gives the bits of none.  Each bf16 output's worst diff over its bar
+    is logged (``*_bar_ratio``: at most 1 passes)."""
     import torch
 
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref
 
     worst = {name: 0.0 for name in fa.BWD_KERNELS.values()}
+    dtypes = dtypes or (torch.bfloat16, torch.float32)
     rows = []
     for case in shapes:
         causal, window = case[6], case_window(case)
-        for dtype in (torch.bfloat16, torch.float32):
+        for dtype in dtypes:
             kname = fa.BWD_KERNELS[dtype]
             q, k, v, o, lse, do = bwd_inputs(case, dtype, gen, device)
             got = fa.flash_attention_bwd(q, k, v, o, lse, do, causal,
@@ -863,6 +899,9 @@ def compare_flash_bwd(device, gen, shapes=BWD_CASES) -> dict:
                                   .mean())
                     shares.append(share)
                     row[f"{name}_share_within_ulp"] = share
+                    row[f"{name}_over"] = over
+                    row[f"{name}_bar_ratio"] = float(
+                        (diff / (ulp + slack)).max())
                     check(over == 0, f"bwd {case} bf16 {name}: {over} "
                                      f"outputs over the bar, max {err}")
                 else:
@@ -876,13 +915,14 @@ def compare_flash_bwd(device, gen, shapes=BWD_CASES) -> dict:
                 f"{n} max |diff| {row[n + '_max_abs_err']:.3g} "
                 f"({row[n + '_rel']:.3g} max|g|)"
                 + (f", {100 * row[n + '_share_within_ulp']:.4f}% within "
-                   f"one ulp" if bf16 else "")
+                   f"one ulp, worst {row[n + '_bar_ratio']:.4f} of its bar"
+                   if bf16 else "")
                 for n in ("dq", "dk", "dv")) + "; two runs bitwise equal")
             rows.append(row)
             del q, k, v, o, lse, do, got, again, want
     torch.cuda.empty_cache()
-    check(len(rows) == 2 * len(shapes), f"compare_flash_bwd ran {len(rows)} "
-                                       f"cases of {len(shapes)} shapes")
+    check(len(rows) == len(dtypes) * len(shapes),
+          f"compare_flash_bwd ran {len(rows)} cases of {len(shapes)} shapes")
     return {**worst, "bwd_cases": rows}
 
 
@@ -1619,8 +1659,10 @@ def train_launches_expected(cfg, microbatches: int) -> dict:
     flash_attention_sm90 and its backward, f32: flash_attention_f32 and
     its backward, none of the other dtype's; rwkv6's wkv6_fwd and
     wkv6_bwd in either dtype; zamba2's flash kernels once per group, the
-    shared block's applications, its Mamba2 layers plain PyTorch); then
-    one fused encode and decode per parameter leaf."""
+    shared block's applications, its Mamba2 layers plain PyTorch;
+    whisper's once per encoder layer and twice per decoder layer, its
+    self- and cross-attention); then one fused encode and decode per
+    parameter leaf."""
     import torch
 
     from repro_torch.kernels import flash_attention as fa
@@ -1630,8 +1672,12 @@ def train_launches_expected(cfg, microbatches: int) -> dict:
     nn.map_specs(lambda _, spec: specs.append(spec),
                  registry.param_specs(cfg))
     leaves = len(specs)
-    # the layers with attention
-    L = zamba2.layout(cfg)[0] if cfg.kind == "zamba2" else cfg.n_layers
+    # the attention calls of a forward
+    L = cfg.n_layers
+    if cfg.kind == "zamba2":
+        L = zamba2.layout(cfg)[0]
+    elif cfg.kind == "whisper":
+        L = cfg.encoder_layers + 2 * cfg.n_layers
     dtype = getattr(torch, cfg.compute_dtype)
     out = {name: 0 for name in fa.LAUNCHES}
     if cfg.kind == "rwkv6":
@@ -1716,17 +1762,20 @@ def token_nll(cfg, params, batch):
                 - torch.gather(logits, -1, labels)[..., 0])
 
 
-def check_batch(cfg, device, seq: int = TRAIN_CHECK_SEQ) -> dict:
-    """The gradient checks' microbatch: 1 x ``seq`` lm tokens."""
+def check_batch(cfg, device, seq: int = TRAIN_CHECK_SEQ,
+                rows: int = 1) -> dict:
+    """The gradient checks' microbatch: ``rows`` x ``seq`` lm tokens, with
+    the kind's stub embeddings (whisper's frames)."""
     from repro_torch.data import synthetic
 
     dc = synthetic.DataConfig(vocab=cfg.vocab, seq_len=seq,
-                              global_batch=1, kind="lm")
-    return synthetic.lm_batch(dc, 99, device=device)
+                              global_batch=rows, kind="lm")
+    return synthetic.with_frontend_stubs(
+        synthetic.lm_batch(dc, 99, device=device), cfg)
 
 
-def plain_f32_gradient(cfg, params, device,
-                       seq: int = TRAIN_CHECK_SEQ) -> tuple:
+def plain_f32_gradient(cfg, params, device, seq: int = TRAIN_CHECK_SEQ,
+                       rows: int = 1) -> tuple:
     """(loss, gradient) of the f32 model on the plain versions at
     ``check_batch``: the yardstick both gradient checks take, computed
     once for them."""
@@ -1734,12 +1783,13 @@ def plain_f32_gradient(cfg, params, device,
 
     with plain_kernels():
         return steps.value_and_grad(cfg.scaled(compute_dtype="float32"),
-                                    params, check_batch(cfg, device, seq))
+                                    params,
+                                    check_batch(cfg, device, seq, rows))
 
 
 def check_train_gradient(cfg, params, device, plain32=None,
-                         seq: int = TRAIN_CHECK_SEQ) -> dict:
-    """One microbatch of 1 x ``seq`` at full width: the loss and
+                         seq: int = TRAIN_CHECK_SEQ, rows: int = 1) -> dict:
+    """One microbatch of ``rows`` x ``seq`` at full width: the loss and
     every leaf's gradient of the bf16 model on the kernels against the
     same model on the plain versions, each measured against the f32
     model's loss and gradient of the same params on the plain versions
@@ -1753,11 +1803,11 @@ def check_train_gradient(cfg, params, device, plain32=None,
     are, after checking that their mean is the step's loss."""
     from repro_torch.train import steps
 
-    batch = check_batch(cfg, device, seq)
+    batch = check_batch(cfg, device, seq, rows)
     cfg32 = cfg.scaled(compute_dtype="float32")
     lk, gk = steps.value_and_grad(cfg, params, batch)
     tk = token_nll(cfg, params, batch)
-    l32, g32 = (plain_f32_gradient(cfg, params, device, seq)
+    l32, g32 = (plain_f32_gradient(cfg, params, device, seq, rows)
                 if plain32 is None else plain32)
     with plain_kernels():
         lp, gp = steps.value_and_grad(cfg, params, batch)
@@ -1786,7 +1836,7 @@ def check_train_gradient(cfg, params, device, plain32=None,
         check(ek <= 2 * ep, f"train gradient check leaf {i}: kernels "
                             f"{ek:.3e} > 2 x plain {ep:.3e}")
         ratios.append((ek, ep))
-    log(f"train gradient check (1 x {seq}, bf16, against the "
+    log(f"train gradient check ({rows} x {seq}, bf16, against the "
         f"f32 model): per-token NLL relative L2 error kernels "
         f"{tok[0]:.3e}, plain {tok[1]:.3e} (bar 2x); loss error kernels "
         f"{loss[0]:.3e}, plain {loss[1]:.3e} (logged); leaf relative L2 "
@@ -1888,7 +1938,8 @@ def drive_train(cfg, global_batch: int, n_steps: int, device,
     """``n_steps`` steps of ``train.steps.build_train_step`` (the
     launcher's step) at full width, AdamW lr 3e-4, lm data of ``seq``
     tokens a sequence, TRAIN_ACCUM microbatches, compressed at n = 1 by aggregate_gaussian fused b = 8
-    per-tensor; each step timed on the host clock after a synchronize,
+    per-tensor (with the kind's stub embeddings: whisper's frames); each
+    step timed on the host clock after a synchronize,
     with the launch counts set to 0 just before the steps and read just
     after, and checked against ``train_launches_expected``; then two more
     steps, the second traced (``profile_train_step``).  Returns (params,
@@ -1910,8 +1961,9 @@ def drive_train(cfg, global_batch: int, n_steps: int, device,
     dc = synthetic.DataConfig(vocab=cfg.vocab, seq_len=seq,
                               global_batch=global_batch, kind="lm")
     step_fn = steps.build_train_step(cfg, tc)
-    batches = [synthetic.lm_batch(dc, i, device=device)
-               for i in range(n_steps)]
+    batches = [synthetic.with_frontend_stubs(
+        synthetic.lm_batch(dc, i, device=device), cfg)
+        for i in range(n_steps)]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
@@ -1988,37 +2040,96 @@ TRAIN_F32_GRAD_REL = 1e-4
 TRAIN_F32_LOSS_REL = 1e-6
 
 
+def f64_attention(q, k, v, causal: bool = True, *, kv_tile, window=0):
+    """``ops.flash_attention``'s signature over attention computed in f64
+    and differentiated by autograd (no window: no caller of the f64
+    yardstick has one)."""
+    import torch
+
+    check(not window, "f64_attention takes no window")
+    D = q.shape[-1]
+    g = q.shape[2] // k.shape[2]
+    k, v = (x.repeat_interleave(g, dim=2) for x in (k, v))
+    s = torch.einsum("bthd,bshd->bhts", q, k) * D ** -0.5
+    if causal:
+        keep = torch.ones(s.shape[-2:], dtype=torch.bool,
+                          device=q.device).tril()
+        s = s.masked_fill(~keep, float("-inf"))
+    return torch.einsum("bhts,bshd->bthd", s.softmax(-1), v)
+
+
+def f64_gradient(cfg, params, device, seq: int = TRAIN_CHECK_SEQ,
+                 rows: int = 1) -> tuple:
+    """(loss, gradient) of the model in f64 (``f64_attention`` in place of
+    the flash attention; the loss's logits are cast to f32, as
+    ``nn.cross_entropy_loss`` casts them) at ``check_batch``: the
+    yardstick of the f32 gradient check where the f32 plain path itself
+    is further from the exact gradient than that check's bar."""
+    from repro_torch.kernels import ops
+    from repro_torch.train import steps
+
+    saved, ops.flash_attention = ops.flash_attention, f64_attention
+    try:
+        return steps.value_and_grad(cfg.scaled(compute_dtype="float64"),
+                                    params,
+                                    check_batch(cfg, device, seq, rows))
+    finally:
+        ops.flash_attention = saved
+
+
 def check_train_gradient_f32(cfg, params, device, plain=None,
-                             seq: int = TRAIN_CHECK_SEQ) -> dict:
-    """One microbatch of 1 x ``seq`` at full width in f32: the
+                             seq: int = TRAIN_CHECK_SEQ, rows: int = 1,
+                             exact=None) -> dict:
+    """One microbatch of ``rows`` x ``seq`` at full width in f32: the
     loss and every leaf's gradient on the kernels (the transformer's
     flash_attention_f32 and the f32 backward; rwkv6's wkv6 pair) against
     the same on the plain versions (``plain``, or ``plain_f32_gradient``'s
     here): the loss within TRAIN_F32_LOSS_REL relative, each leaf within
-    TRAIN_F32_GRAD_REL max|g| of that leaf."""
+    TRAIN_F32_GRAD_REL max|g| of that leaf.  With ``exact`` (the f64
+    gradient, ``f64_gradient``), a leaf further than that from the plain
+    path passes if its error from the f64 gradient is at most twice the
+    plain path's (where the plain f32 gradient is itself about the bar
+    from the exact one, two correct f32 orders differ by more than the
+    bar); every leaf's two errors from f64 are logged."""
     from repro_torch.train import steps
 
-    lk, gk = steps.value_and_grad(cfg, params, check_batch(cfg, device, seq))
-    lp, gp = (plain_f32_gradient(cfg, params, device, seq) if plain is None
-              else plain)
+    lk, gk = steps.value_and_grad(cfg, params,
+                                  check_batch(cfg, device, seq, rows))
+    lp, gp = (plain_f32_gradient(cfg, params, device, seq, rows)
+              if plain is None else plain)
     lk, lp = float(lk), float(lp)
     loss_rel = abs(lk - lp) / abs(lp)
     check(math.isfinite(lk) and loss_rel <= TRAIN_F32_LOSS_REL,
           f"train f32 gradient check: loss {lk} on the kernels, {lp} plain "
           f"({loss_rel:.3e} relative)")
-    rels = []
-    for i, (a, b) in enumerate(zip(_leaves(gk), _leaves(gp))):
+    ge = [None] * len(_leaves(gk)) if exact is None else _leaves(exact[1])
+    rels, vs_exact = [], []
+    for i, (a, b, e) in enumerate(zip(_leaves(gk), _leaves(gp), ge)):
         gmax = float(b.abs().max())
         rel = float((a - b).abs().max()) / max(gmax, 1e-30)
-        check(rel <= TRAIN_F32_GRAD_REL, f"train f32 gradient check leaf "
-                                         f"{i}: {rel:.3e} max|g|")
         rels.append(rel)
-    log(f"train gradient check (1 x {seq}, f32, kernels against "
+        ek = ep = None
+        if e is not None:
+            emax = max(float(e.abs().max()), 1e-300)
+            ek = float((a.double() - e.double()).abs().max()) / emax
+            ep = float((b.double() - e.double()).abs().max()) / emax
+            vs_exact.append((ek, ep))
+        check(rel <= TRAIN_F32_GRAD_REL or (ek is not None and ek <= 2 * ep),
+              f"train f32 gradient check leaf {i}: {rel:.3e} max|g| from the "
+              f"plain path" + ("" if ek is None else
+                               f"; from f64 kernels {ek:.3e}, plain {ep:.3e}"))
+    coarse = [i for i, r in enumerate(rels) if r > TRAIN_F32_GRAD_REL]
+    log(f"train gradient check ({rows} x {seq}, f32, kernels against "
         f"the plain versions): loss {lk} / {lp} ({loss_rel:.3e} relative, bar "
         f"{TRAIN_F32_LOSS_REL:g}); leaf max |diff| {min(rels):.3e}-"
-        f"{max(rels):.3e} max|g| (bar {TRAIN_F32_GRAD_REL:g})")
+        f"{max(rels):.3e} max|g| (bar {TRAIN_F32_GRAD_REL:g})"
+        + (f"; from the f64 gradient, kernels / plain per leaf "
+           + ", ".join(f"{k:.2e} / {p:.2e}" for k, p in vs_exact)
+           + f"; leaves {coarse} over the bar, held to 2x the plain path's "
+           f"error from f64" if vs_exact else ""))
     return {"loss_kernels": lk, "loss_plain": lp, "loss_rel": loss_rel,
-            "leaf_rel": rels}
+            "leaf_rel": rels, "leaf_vs_f64": vs_exact,
+            "leaves_held_to_f64": coarse}
 
 
 def run_train_f32_phase(device) -> dict:
@@ -3563,6 +3674,396 @@ def run_train_zamba2_phase(device) -> dict:
     return out
 
 
+# ------------------------------------------------------------ phase 3o
+# whisper-small uncut in bf16 (12 encoder and 12 decoder layers, d 768, 12
+# heads of 64, 239.4 M parameters, 0.45 GiB).  The reference's prefill is
+# its forward over the frames and the decoder tokens, which returns no
+# cache, and its engine and naive loop refuse whisper, as the port's do:
+# ``registry.prefill_fn`` over WHISPER_REQUESTS requests of its 1500 stub
+# frames and WHISPER_TEXT decoder tokens (448 is whisper's text context,
+# ``max_target_positions``), then a decode chain through
+# ``registry.serve_fn``: WHISPER_ROWS rows, a prompt of WHISPER_PROMPT
+# tokens (its self K / V from the decoder's layers), WHISPER_STEPS steps,
+# each appending its new K / V to the self cache, the cross K / V
+# projected once from the encoder memory; then the f32 checks, uncut
+WHISPER_ARCH = "whisper-small"
+WHISPER_REQUESTS = 8
+WHISPER_TEXT = (64, 448)
+WHISPER_ROWS = 8
+WHISPER_PROMPT = 64
+WHISPER_STEPS = 64
+WHISPER_F32_ROWS = 2
+WHISPER_F32_STEPS = 16
+WHISPER_LOGIT_REL = 1e-4  # of max|logit|
+
+
+def whisper_config(dtype=None):
+    from repro_torch import configs
+
+    cfg = configs.get_config(WHISPER_ARCH)
+    check(cfg.kind == "whisper" and cfg.compute_dtype == "bfloat16"
+          and cfg.remat == "full" and cfg.hd == 64 and cfg.encoder_len == 1500
+          and cfg.kv_chunk == CONFIG_KV_CHUNK, f"whisper config {cfg}")
+    return cfg if dtype is None else cfg.scaled(compute_dtype=dtype)
+
+
+def whisper_batch(cfg, tokens, key: int, device) -> dict:
+    """tokens (B, T) and their frames stub, drawn from PRNGKey(key)."""
+    import torch
+
+    from repro_torch.core import prng
+    from repro_torch.data import synthetic
+
+    return synthetic.with_frontend_stubs(
+        {"tokens": torch.as_tensor(tokens, device=device)}, cfg,
+        prng.PRNGKey(key))
+
+
+def whisper_cross_kv(cfg, model, frames):
+    """The decode cache's cross K / V, (L, B, 1500, HK, hd) each: each
+    decoder layer's ``cross.wk`` / ``cross.wv`` over the encoder memory,
+    as the reference's ``_cross_attend`` projects them; and the memory."""
+    import torch
+
+    from repro_torch.models import nn, whisper
+
+    memory = whisper.encode(cfg, model, frames)
+    B, S = memory.shape[:2]
+    shape = (B, S, cfg.n_kv_heads, cfg.hd)
+    return tuple(torch.stack([nn.dense(memory, lp.cross[w]).reshape(shape)
+                              for lp in model.dec_layers])
+                 for w in ("wk", "wv")), memory
+
+
+def whisper_self_cache(cfg, model, tokens, memory):
+    """The decoder's self K / V of a prompt, (L, B, T, HK, hd) each, from
+    its layers run in turn (their flash kernels, causal and cross)."""
+    import torch
+
+    from repro_torch.models import nn, whisper
+    from repro_torch.models.config import torch_dtype
+
+    x = model.embed[tokens].to(torch_dtype(cfg.compute_dtype))
+    rope = nn.rope_freqs(cfg.hd, x.shape[1] + 1, cfg.rope_theta, x.dtype,
+                         device=x.device)
+    ks, vs = [], []
+    for lp in model.dec_layers:
+        x, (k, v) = whisper._dec_layer(cfg, lp, x, memory, rope)
+        ks.append(k)
+        vs.append(v)
+    return torch.stack(ks), torch.stack(vs)
+
+
+def whisper_chain(cfg, model, prompt, frames, n_steps: int,
+                  timed: bool = False) -> dict:
+    """Greedy decode through ``registry.serve_fn``: the cross K / V from
+    ``encode``, the self cache of ``prompt[:, :-1]`` from the decoder's
+    layers, then ``n_steps`` steps from ``prompt[:, -1]``, each appending
+    its new K / V.  The launch counts are set to 0 just before the steps
+    and read just after (the decode step's cross-attention:
+    flash_attention_* once a layer).  Returns tokens (B, n_steps), the
+    steps' logits (B, n_steps, V), the launches and, with ``timed``, each
+    step's wall on the host clock after a synchronize."""
+    import torch
+
+    from repro_torch.models import registry
+
+    serve = registry.serve_fn(cfg)
+    with torch.no_grad():
+        (ck, cv), memory = whisper_cross_kv(cfg, model, frames)
+        k, v = whisper_self_cache(cfg, model, prompt[:, :-1], memory)
+        del memory
+        tok, out, logits, walls = prompt[:, -1:], [], [], []
+        torch.cuda.synchronize()
+        reset_launches()
+        for _ in range(n_steps):
+            t0 = time.perf_counter()
+            lg, (nk, nv) = serve(model, {"tokens": tok},
+                                 {"k": k, "v": v, "cross_k": ck,
+                                  "cross_v": cv})
+            k, v = torch.cat([k, nk], 2), torch.cat([v, nv], 2)
+            tok = lg.argmax(-1).to(torch.int32)
+            out.append(tok)
+            logits.append(lg)
+            if timed:
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t0)
+        torch.cuda.synchronize()
+        launches = read_launches()
+    return {"tokens": torch.cat(out, 1), "logits": torch.cat(logits, 1),
+            "launches": launches, "walls_s": walls}
+
+
+def run_whisper_prefill(cfg, model, device) -> dict:
+    """``registry.prefill_fn`` over WHISPER_REQUESTS requests (one a call)
+    of the 1500 stub frames and WHISPER_TEXT decoder tokens, each timed on
+    the host clock after a synchronize, launches counted (the bf16 flash
+    kernel once per encoder layer and twice per decoder layer a request,
+    nothing else), finite last logits and no cache; then the longest
+    request once more under ``torch.profiler``: the device's busy ms, the
+    flash kernel's and the GEMMs' ms and the idle share against its
+    unprofiled wall."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models import registry
+
+    prefill = registry.prefill_fn(cfg)
+    rng = np.random.default_rng(12)
+    sizes = rng.integers(WHISPER_TEXT[0], WHISPER_TEXT[1] + 1,
+                         size=WHISPER_REQUESTS)
+    sizes[-1] = WHISPER_TEXT[1]  # the text context, in full, among them
+    batches = [whisper_batch(cfg, rng.integers(0, cfg.vocab, size=(1, int(n)),
+                                               dtype=np.int32), 100 + r,
+                             device) for r, n in enumerate(sizes)]
+    with torch.no_grad():
+        prefill(model, batches[0])  # warm
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    walls = []
+    for batch in batches:
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            logits, cache = prefill(model, batch)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        check(cache is None and tuple(logits.shape) == (
+            1, 1, cfg.padded_vocab) and bool(torch.isfinite(logits).all()),
+            f"whisper prefill of {batch['tokens'].shape[1]}: "
+            f"{tuple(logits.shape)}")
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    per = cfg.encoder_layers + 2 * cfg.n_layers
+    for k, v in launches.items():
+        n = per * WHISPER_REQUESTS if k == "flash_attention_sm90" else 0
+        check(v == n, f"whisper prefill: {v} {k} launches, expected {n}")
+    lengths = [int(n) for n in sizes]
+    per_1k = 1e3 * sum(walls) / sum(lengths)
+    longest = int(np.argmax(lengths))
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        with torch.no_grad():
+            prefill(model, batches[longest])
+        torch.cuda.synchronize()
+    dev = _kernel_ms(prof, 1)
+    check(bool(dev), "whisper prefill profile: the trace holds no device "
+                     "time")
+    wall_ms = 1e3 * walls[longest]
+    busy = sum(ms for _, ms in dev)
+    prof_row = {"tokens": lengths[longest], "wall_ms": wall_ms,
+                "device_ms": busy, "idle_share": 1.0 - busy / wall_ms,
+                "flash_ms": sum(ms for k, ms in dev
+                                if FWD_TAGS["bfloat16"] in k),
+                "gemm_ms": sum(ms for k, ms in dev
+                               if any(t in k.lower() for t in GEMM_TAGS)),
+                "top": dev[:8]}
+    log(f"whisper prefill_fn ({cfg.encoder_layers} + {cfg.n_layers} layers, "
+        f"{cfg.compute_dtype}, 1500 frames): decoder prompts of {lengths} "
+        f"tokens in {[round(w, 4) for w in walls]} s, {per_1k:.4f} s per 1k "
+        f"decoder tokens, {sum(walls) / len(walls):.4f} s per request, peak "
+        f"{peak / 2**30:.2f} GiB; launches {launches}; the "
+        f"{lengths[longest]}-token request profiled: device busy "
+        f"{busy:.3f} ms of its {wall_ms:.3f} ms wall (idle share "
+        f"{prof_row['idle_share']:.3f}), flash_attention_sm90 "
+        f"{prof_row['flash_ms']:.3f} ms, GEMMs {prof_row['gemm_ms']:.3f} "
+        f"ms; top " + "; ".join(f"{k[:50]} {ms:.3f}" for k, ms in dev[:8]))
+    return {"launches": launches, "walls_s": walls, "tokens": lengths,
+            "prefill_s_per_1k": per_1k,
+            "s_per_request": sum(walls) / len(walls), "peak_bytes": peak,
+            "profile": prof_row}
+
+
+def run_whisper_decode(cfg, model, device) -> dict:
+    """The decode chain (``whisper_chain``) of WHISPER_ROWS rows over
+    WHISPER_STEPS steps after a WHISPER_PROMPT-token prompt, each step
+    timed: the step's ms (the median), tokens/s (rows over it), peak GiB,
+    launches (flash_attention_sm90 once a layer a step, nothing else)."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(13)
+    batch = whisper_batch(cfg, rng.integers(
+        0, cfg.vocab, size=(WHISPER_ROWS, WHISPER_PROMPT), dtype=np.int32),
+        200, device)
+    torch.cuda.reset_peak_memory_stats()
+    res = whisper_chain(cfg, model, batch["tokens"], batch["frames"],
+                        WHISPER_STEPS, timed=True)
+    peak = torch.cuda.max_memory_allocated()
+    for k, v in res["launches"].items():
+        n = (WHISPER_STEPS * cfg.n_layers if k == "flash_attention_sm90"
+             else 0)
+        check(v == n, f"whisper decode chain: {v} {k} launches, expected "
+                      f"{n}")
+    check(bool(torch.isfinite(res["logits"]).all()), "whisper decode chain: "
+                                                     "non-finite logits")
+    walls = sorted(res["walls_s"][1:])  # the first step warms
+    step_ms = 1e3 * walls[len(walls) // 2]
+    log(f"whisper decode chain ({WHISPER_ROWS} rows, {WHISPER_PROMPT}-token "
+        f"prompt, {WHISPER_STEPS} steps through serve_fn, cross K / V over "
+        f"1500 frames): step {step_ms:.3f} ms (median; first "
+        f"{1e3 * res['walls_s'][0]:.3f} ms), {WHISPER_ROWS / step_ms * 1e3:.1f}"
+        f" tokens/s, peak {peak / 2**30:.2f} GiB; launches {res['launches']}")
+    return {"launches": res["launches"], "step_ms": step_ms,
+            "tokens_per_s": WHISPER_ROWS / step_ms * 1e3,
+            "walls_s": res["walls_s"], "peak_bytes": peak}
+
+
+def check_serve_whisper_f32(device) -> dict:
+    """whisper uncut in f32.  (1) ``registry.prefill_fn`` over one request
+    of WHISPER_TEXT[1] decoder tokens: the last logits on the kernels
+    (flash_attention_f32, 36 launches) within WHISPER_LOGIT_REL
+    max|logit| of the same on the plain versions; (2) a decode chain
+    (``whisper_chain``) of WHISPER_F32_ROWS rows, WHISPER_F32_STEPS steps
+    after a WHISPER_PROMPT-token prompt: its greedy tokens are the argmax
+    of the teacher-forced forward over prompt and output (a differing
+    token only at a top-2 margin below MARGIN, once in all) and its
+    logits within WHISPER_LOGIT_REL max|logit| of that forward's."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models import registry
+
+    cfg = whisper_config("float32")
+    model = build_checked(cfg, device)
+    rng = np.random.default_rng(14)
+    batch = whisper_batch(cfg, rng.integers(
+        0, cfg.vocab, size=(1, WHISPER_TEXT[1]), dtype=np.int32), 300, device)
+    prefill = registry.prefill_fn(cfg)
+    torch.cuda.synchronize()
+    reset_launches()
+    with torch.no_grad():
+        got, _ = prefill(model, batch)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    with torch.no_grad(), plain_kernels():
+        want, _ = prefill(model, batch)
+    per = cfg.encoder_layers + 2 * cfg.n_layers
+    for k, v in launches.items():
+        n = per if k == "flash_attention_f32" else 0
+        check(v == n, f"whisper f32 prefill: {v} {k} launches, expected {n}")
+    scale = float(want.abs().max())
+    err = float((got - want).abs().max()) / scale
+    check(bool(torch.isfinite(got).all()) and err <= WHISPER_LOGIT_REL,
+          f"whisper f32 last logits: {err:.3e} max|logit| from the plain "
+          f"versions (bar {WHISPER_LOGIT_REL:g})")
+    chain_batch = whisper_batch(cfg, rng.integers(
+        0, cfg.vocab, size=(WHISPER_F32_ROWS, WHISPER_PROMPT),
+        dtype=np.int32), 301, device)
+    prompt = chain_batch["tokens"]
+    chain = whisper_chain(cfg, model, prompt, chain_batch["frames"],
+                          WHISPER_F32_STEPS)
+    for k, v in chain["launches"].items():
+        n = (WHISPER_F32_STEPS * cfg.n_layers if k == "flash_attention_f32"
+             else 0)
+        check(v == n, f"whisper f32 chain: {v} {k} launches, expected {n}")
+    full = torch.cat([prompt, chain["tokens"][:, :-1]], 1)
+    with torch.no_grad():
+        forced = registry.logits_fn(
+            cfg, model, {"tokens": full, "frames": chain_batch["frames"]})[
+                :, WHISPER_PROMPT - 1:]
+    fscale = float(forced.abs().max())
+    ferr = float((chain["logits"] - forced).abs().max()) / fscale
+    check(ferr <= WHISPER_LOGIT_REL, f"whisper f32 chain logits: {ferr:.3e} "
+          f"max|logit| from the teacher-forced forward")
+    margin = _margins(forced).cpu()
+    got_t = chain["tokens"].cpu().numpy()
+    forced_t = forced.argmax(-1).cpu().numpy()
+    ties = []
+    for b, t in zip(*np.nonzero(got_t != forced_t)):
+        m = float(margin[b, t])
+        log(f"whisper f32 chain vs teacher-forced: row {b} token {t} "
+            f"differs; top-2 margin {m:.3g}")
+        check(m < MARGIN, f"whisper f32 chain: row {b} token {t} differs "
+                          f"with top-2 margin {m} >= {MARGIN}")
+        ties.append({"row": int(b), "token": int(t), "margin": m})
+    # the forward reads the chain's own tokens: the same history at every
+    # position
+    check(len(ties) <= 1, f"whisper: {len(ties)} differing tokens; at most "
+                          f"1 allowed")
+    log(f"serve whisper f32 checks (uncut): prefill_fn's last logits "
+        f"({WHISPER_TEXT[1]} tokens) within {err:.3e} max|logit| "
+        f"({scale:.4g}) of the plain versions (bar {WHISPER_LOGIT_REL:g}), "
+        f"launches {launches}; decode chain of {WHISPER_F32_ROWS} x "
+        f"{WHISPER_F32_STEPS} == the teacher-forced forward's argmax "
+        f"({len(ties)} tie(s)), logits within {ferr:.3e} max|logit|; "
+        f"smallest top-2 margin {float(margin.min()):.4g}; chain launches "
+        f"{chain['launches']}")
+    del model
+    torch.cuda.empty_cache()
+    return {"launches": launches, "chain_launches": chain["launches"],
+            "logit_rel_err": err, "max_logit": scale,
+            "chain_logit_rel_err": ferr, "ties": ties,
+            "min_margin": float(margin.min()), "tokens": got_t.tolist()}
+
+
+def run_serve_whisper_phase(device) -> dict:
+    """Phase 3o: whisper uncut in bf16 prefilled (``run_whisper_prefill``)
+    and decoded (``run_whisper_decode``), then the f32 checks
+    (``check_serve_whisper_f32``)."""
+    import torch
+
+    t0 = time.perf_counter()
+    cfg = whisper_config()
+    model = build_checked(cfg, device)
+    res = {"prefill": run_whisper_prefill(cfg, model, device)}
+    t1 = time.perf_counter()
+    res["decode"] = run_whisper_decode(cfg, model, device)
+    del model
+    torch.cuda.empty_cache()
+    t2 = time.perf_counter()
+    res["f32"] = check_serve_whisper_f32(device)
+    res["split_s"] = {"prefill_fn": t1 - t0, "decode": t2 - t1,
+                      "f32_checks": time.perf_counter() - t2}
+    log(f"phase 3o split (s): {json.dumps(res['split_s'])}")
+    return res
+
+
+# ------------------------------------------------------------ phase 3p
+# whisper-small trained uncut: bf16, remat full, kv_chunk 1024, AdamW lr
+# 3e-4, lm data seed 0 with the frames stub, global batch 16 x (1500
+# frames, 448 decoder tokens) in 2 microbatches, aggregate_gaussian fused
+# b = 8 per-tensor, TRAIN_STEPS steps; the gradient checks at
+# WHISPER_CHECK_ROWS x (1500, 448)
+TRAIN_WHISPER_BATCH = 16
+WHISPER_CHECK_ROWS = 2
+
+
+def run_train_whisper_phase(device) -> dict:
+    """Phase 3p: ``drive_train`` on whisper uncut (launches per step: 2 x
+    36 flash_attention_sm90 and 36 flash_attention_bwd_sm90 a microbatch,
+    one fused encode and decode per leaf), then, on the trained parameters
+    and WHISPER_CHECK_ROWS x WHISPER_TEXT[1], the bf16 gradient check
+    against the f32 model (``check_train_gradient``) and the f32 check of
+    the kernels against the plain versions with the f64 gradient as the
+    yardstick (``check_train_gradient_f32``, ``f64_gradient``)."""
+    import torch
+
+    t0 = time.perf_counter()
+    cfg = whisper_config()
+    seq = WHISPER_TEXT[1]
+    params, out = drive_train(cfg, TRAIN_WHISPER_BATCH, TRAIN_STEPS, device,
+                              seq=seq)
+    t1 = time.perf_counter()
+    plain32 = plain_f32_gradient(cfg, params, device, seq, WHISPER_CHECK_ROWS)
+    out["gradient_check"] = check_train_gradient(
+        cfg, params, device, plain32, seq, WHISPER_CHECK_ROWS)
+    # with random weights the encoder's attention is spread over 1500
+    # nearly alike frames: dS = P (dP - Drow) cancels, and at some leaves
+    # the plain f32 gradient is itself about 1e-4 max|g| from the exact one
+    exact = f64_gradient(cfg, params, device, seq, WHISPER_CHECK_ROWS)
+    out["gradient_check_f32"] = check_train_gradient_f32(
+        cfg.scaled(compute_dtype="float32"), params, device, plain32, seq,
+        WHISPER_CHECK_ROWS, exact)
+    del plain32, exact, params
+    torch.cuda.empty_cache()
+    out["split_s"] = {"train": t1 - t0,
+                      "gradient_checks": time.perf_counter() - t1}
+    log(f"phase 3p split (s): {json.dumps(out['split_s'])}")
+    return out
+
+
 def check_gaussian_law(mech: str, res: dict, sigma: float) -> dict:
     """KS of each round's error against N(0, sigma^2), below 1.95/sqrt(N)
     on the subsample."""
@@ -3734,7 +4235,26 @@ FLASH_TIMED = (
     # heads of 112, window 4096
     (1, 8192, 8192, 32, 32, 112, "bfloat16", 4096),
     (1, 8192, 8192, 32, 32, 112, "float32", 4096),
+    # whisper-small's encoder over its 1500 frames (12 / 12 heads of 64),
+    # non-causal: the eighth entry is the window (0, none), the ninth the
+    # causal flag (True where absent)
+    (1, 1500, 1500, 12, 12, 64, "bfloat16", 0, False),
+    (1, 1500, 1500, 12, 12, 64, "float32", 0, False),
 )
+
+
+def timed_causal(row) -> bool:
+    """A timed row's causal flag: its ninth entry, True if it has none."""
+    return row[8] if len(row) > 8 else True
+
+
+def attn_pairs(T: int, S: int, causal: bool, window: int = 0) -> float:
+    """The (query, key) pairs the function computes: every T x S pair
+    without the causal mask, else ``causal_pairs``' count (T^2 / 2, or the
+    in-window pairs)."""
+    if not causal:
+        return T * S
+    return causal_pairs(T, window) if window else T * S / 2
 
 
 def causal_pairs(T: int, window: int = 0) -> float:
@@ -3803,9 +4323,9 @@ def time_flash(device, gen, mem_rate: float, f32_rate: float,
     rows = []
     for row_case in FLASH_TIMED:
         B, T, S, H, HK, D, dt = row_case[:7]
-        window = case_window(row_case)
+        window, causal = case_window(row_case), timed_causal(row_case)
         dtype = getattr(torch, dt)
-        case = (B, T, S, H, HK, D, True)
+        case = (B, T, S, H, HK, D, causal)
         q, k, v = flash_inputs(case, dtype, gen, device)
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
         bf16 = dtype == torch.bfloat16
@@ -3816,28 +4336,28 @@ def time_flash(device, gen, mem_rate: float, f32_rate: float,
         plain = (ref.flash_attention_bf16_ref if bf16
                  else ref.flash_attention_ref)
         ms = batched_ms(lambda: fa.flash_attention(
-            q, k, v, True, kv_tile=CONFIG_KV_CHUNK, window=window))
-        plain_ms = cuda_ms(lambda: plain(q, k, v, True, **kv,
+            q, k, v, causal, kv_tile=CONFIG_KV_CHUNK, window=window))
+        plain_ms = cuda_ms(lambda: plain(q, k, v, causal, **kv,
                                          window=window), reps=3)
-        # SDPA: causal, or the window's band as a boolean mask
+        # SDPA: causal or not, or the window's band as a boolean mask
         mask = band_mask(T, window, device) if window else None
         lib_ms = batched_ms(lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, attn_mask=mask, is_causal=mask is None,
+            qt, kt, vt, attn_mask=mask, is_causal=mask is None and causal,
             enable_gqa=HK < H))
         lib_x_ms = None
         if HK < H:
             kx, vx = (x.repeat_interleave(H // HK, dim=1) for x in (kt, vt))
             lib_x_ms = batched_ms(lambda: F.scaled_dot_product_attention(
-                qt, kx, vx, is_causal=True))
+                qt, kx, vx, is_causal=causal))
             del kx, vx
-        flops = 4 * B * H * D * (causal_pairs(T, window) if window
-                                 else T * S / 2)
+        flops = 4 * B * H * D * attn_pairs(T, S, causal, window)
         nbytes = q.element_size() * (2 * B * T * H * D + 2 * B * S * HK * D)
         bytes_ms = nbytes / mem_rate * 1e3
         ops_ms = (flops / bf16_tc if bf16 else 3 * flops / tf32_tc) * 1e3
         bound = max(bytes_ms, ops_ms)
         by = "bytes" if bytes_ms >= ops_ms else "operations"
-        shape = (f"({B}, {T}, {H} / {HK} heads, {D}) {dt} causal"
+        shape = (f"({B}, {T}, {H} / {HK} heads, {D}) {dt} "
+                 + ("causal" if causal else "non-causal")
                  + (f" window {window}" if window else "")
                  + (f" kv_chunk {CONFIG_KV_CHUNK}" if bf16 else ""))
         rate = (f"{flops / 1e9:.2f} GFLOP at {bf16_tc / 1e12:.0f} TFLOP/s"
@@ -3890,6 +4410,13 @@ BWD_TIMED = (
     # 4096)
     (1, 8192, 8192, 32, 32, 112, "bfloat16", 4096),
     (1, 8192, 8192, 32, 32, 112, "float32", 4096),
+    # whisper-small's train microbatch (8 rows, 12 / 12 heads of 64),
+    # non-causal: the decoder's cross-attention (448 x 1500) and the
+    # encoder (1500 x 1500)
+    (8, 448, 1500, 12, 12, 64, "bfloat16", 0, False),
+    (8, 1500, 1500, 12, 12, 64, "bfloat16", 0, False),
+    (8, 448, 1500, 12, 12, 64, "float32", 0, False),
+    (8, 1500, 1500, 12, 12, 64, "float32", 0, False),
 )
 
 
@@ -3915,14 +4442,14 @@ def time_flash_bwd(device, gen, mem_rate: float, bf16_tc: float,
     rows = []
     for row_case in BWD_TIMED:
         B, T, S, H, HK, D, dt = row_case[:7]
-        window = case_window(row_case)
+        window, causal = case_window(row_case), timed_causal(row_case)
         dtype = getattr(torch, dt)
-        case = (B, T, S, H, HK, D, True, window)
+        case = (B, T, S, H, HK, D, causal, window)
         q, k, v, o, lse, do = bwd_inputs(case, dtype, gen, device)
         ms = batched_ms(lambda: fa.flash_attention_bwd(
-            q, k, v, o, lse, do, True, window=window), n=5, reps=3)
+            q, k, v, o, lse, do, causal, window=window), n=5, reps=3)
         plain_ms = cuda_ms(lambda: ref.flash_attention_bwd_ref(
-            q, k, v, o, lse, do, True, window=window), reps=3)
+            q, k, v, o, lse, do, causal, window=window), reps=3)
         mask = band_mask(T, window, device) if window else None
         qt, kt, vt = (x.detach().transpose(1, 2).requires_grad_()
                       for x in (q, k, v))
@@ -3931,7 +4458,7 @@ def time_flash_bwd(device, gen, mem_rate: float, bf16_tc: float,
 
         def sdpa():
             return F.scaled_dot_product_attention(
-                qt, kt, vt, attn_mask=mask, is_causal=mask is None,
+                qt, kt, vt, attn_mask=mask, is_causal=mask is None and causal,
                 enable_gqa=gqa)
 
         def sdpa_fwd_bwd():
@@ -3942,8 +4469,7 @@ def time_flash_bwd(device, gen, mem_rate: float, bf16_tc: float,
         lib_ms = batched_ms(sdpa_fwd_bwd, n=5, reps=3) - fwd_ms
         bf16 = dtype == torch.bfloat16
         name = fa.BWD_KERNELS[dtype]
-        flops = 2.5 * 4 * B * H * D * (causal_pairs(T, window) if window
-                                       else T * S / 2)
+        flops = 2.5 * 4 * B * H * D * attn_pairs(T, S, causal, window)
         # q, o, dO and dq (B T H D each), k, v, dk and dv (B S HK D each),
         # lse (B H T, f32)
         nbytes = (q.element_size() * 4 * (B * T * H * D + B * S * HK * D)
@@ -3952,7 +4478,9 @@ def time_flash_bwd(device, gen, mem_rate: float, bf16_tc: float,
         ops_ms = (flops / bf16_tc if bf16 else 3 * flops / tf32_tc) * 1e3
         bound = max(bytes_ms, ops_ms)
         by = "bytes" if bytes_ms >= ops_ms else "operations"
-        shape = (f"({B}, {T}, {H} / {HK} heads, {D}) {dt} causal"
+        shape = (f"({B}, {T}" + (f", {S}" if S != T else "")
+                 + f", {H} / {HK} heads, {D}) {dt} "
+                 + ("causal" if causal else "non-causal")
                  + (f" window {window}" if window else ""))
         row = {"name": name, "config": shape, "ms": ms,
                "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
@@ -4215,9 +4743,19 @@ def main() -> int:
     wgen.manual_seed(WINDOW_SEED)
     flash_w = compare_flash(device, wgen, FLASH_WINDOW_CASES)
     bwd_w = compare_flash_bwd(device, wgen, BWD_WINDOW_CASES)
-    worst.update({k: max(flash[k], flash_w[k]) for k in (
+    # whisper's non-causal shapes, then the bf16 backward's long sums, each
+    # from its own generator
+    whgen = torch.Generator(device=device)
+    whgen.manual_seed(WHISPER_SEED)
+    flash_wh = compare_flash(device, whgen, FLASH_WHISPER_CASES)
+    bwd_wh = compare_flash_bwd(device, whgen, BWD_WHISPER_CASES)
+    dgen = torch.Generator(device=device)
+    dgen.manual_seed(DRIFT_SEED)
+    drift = compare_flash_bwd(device, dgen, BWD_DRIFT_CASES,
+                              (torch.bfloat16,))
+    worst.update({k: max(flash[k], flash_w[k], flash_wh[k]) for k in (
         "flash_attention_sm90", "flash_attention_f32")})
-    worst.update({k: max(bwd[k], bwd_w[k]) for k in (
+    worst.update({k: max(bwd[k], bwd_w[k], bwd_wh[k], drift[k]) for k in (
         "flash_attention_bwd_sm90", "flash_attention_bwd_f32_sm90")})
     wkv = compare_wkv6(device, gen)
     worst.update({k: wkv[k] for k in ("wkv6_fwd", "wkv6_bwd", "wkv6_step")})
@@ -4317,6 +4855,12 @@ def main() -> int:
     train_zamba = run_train_zamba2_phase(device)
     done("3n (train zamba2)")
     held("after the zamba2 train phase")
+    serve_whisper = run_serve_whisper_phase(device)
+    done("3o (serve whisper)")
+    held("after the whisper serve phase")
+    train_whisper = run_train_whisper_phase(device)
+    done("3p (train whisper)")
+    held("after the whisper train phase")
     done("3")
 
     # 4. times
@@ -4357,6 +4901,11 @@ def main() -> int:
                 + serve_zamba["f32"]["launches"][k]
                 + serve_zamba["f32"]["scan_launches"][k]
                 + train_zamba["launches"][k]
+                + serve_whisper["prefill"]["launches"][k]
+                + serve_whisper["decode"]["launches"][k]
+                + serve_whisper["f32"]["launches"][k]
+                + serve_whisper["f32"]["chain_launches"][k]
+                + train_whisper["launches"][k]
                 for k in KERNELS}
     kernels = []
     for kname, (src, replaces) in KERNELS.items():
@@ -4381,6 +4930,9 @@ def main() -> int:
               "bwd_cases": bwd["bwd_cases"],
               "flash_window_cases": flash_w["flash_cases"],
               "bwd_window_cases": bwd_w["bwd_cases"],
+              "flash_whisper_cases": flash_wh["flash_cases"],
+              "bwd_whisper_cases": bwd_wh["bwd_cases"],
+              "bwd_drift_cases": drift["bwd_cases"],
               "flash_span": span_rows,
               "train": train, "train_f32": train_f32,
               "train_ranks": train_ranks,
@@ -4391,6 +4943,8 @@ def main() -> int:
               "serve_dense": serve_dense, "wkv_cases": wkv["wkv_cases"],
               "serve_rwkv6": serve_rwkv, "train_rwkv6": train_rwkv,
               "serve_zamba2": serve_zamba, "train_zamba2": train_zamba,
+              "serve_whisper": serve_whisper,
+              "train_whisper": train_whisper,
               "kernels": kernels, "phase_s": phase_s, "seconds": total}
     out_dir = ROOT / "build"
     try:

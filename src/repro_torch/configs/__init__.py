@@ -3,10 +3,8 @@
 ``ARCHS`` keeps all ten ids.  The port has the configs of the
 transformer's three kinds: dense (qwen1.5-0.5b, starcoder2-3b,
 qwen3-32b, minitron-4b), moe (dbrx-132b, phi3.5-moe-42b-a6.6b) and
-llava (llava-next-mistral-7b), of rwkv6 (rwkv6-1.6b) and of zamba2
-(zamba2-7b);
-``get_config`` / ``get_smoke_config`` of another family raise
-NotImplementedError until its slice lands (see ROADMAP.md).
+llava (llava-next-mistral-7b), of rwkv6 (rwkv6-1.6b), of zamba2
+(zamba2-7b) and of whisper (whisper-small): every id has its config.
 """
 from __future__ import annotations
 
@@ -28,7 +26,7 @@ ARCHS: List[str] = [
     "llava-next-mistral-7b",
 ]
 
-# the ported configs; the other ids belong to families not ported yet
+# each id's config module
 _MODULES: Dict[str, str] = {
     "dbrx-132b": "dbrx_132b",
     "phi3.5-moe-42b-a6.6b": "phi35_moe",
@@ -39,16 +37,13 @@ _MODULES: Dict[str, str] = {
     "llava-next-mistral-7b": "llava_next_mistral_7b",
     "rwkv6-1.6b": "rwkv6_16b",
     "zamba2-7b": "zamba2_7b",
+    "whisper-small": "whisper_small",
 }
 
 
 def _module(arch: str):
     if arch not in ARCHS:
         raise KeyError(f"unknown arch {arch!r}; expected one of {ARCHS}")
-    if arch not in _MODULES:
-        raise NotImplementedError(
-            f"{arch}: its model family is not ported to repro_torch yet "
-            f"(see ROADMAP.md, Queue 1)")
     return importlib.import_module(f"repro_torch.configs.{_MODULES[arch]}")
 
 

@@ -10,10 +10,11 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.models.rwkv6 import Rwkv6
 from repro_torch.models.transformer import Transformer
+from repro_torch.models.whisper import Whisper
 from repro_torch.models.zamba2 import Zamba2
 
 __all__ = ["params_from_numpy", "key_from_numpy", "transformer_from_numpy",
-           "rwkv6_from_numpy", "zamba2_from_numpy"]
+           "rwkv6_from_numpy", "zamba2_from_numpy", "whisper_from_numpy"]
 
 
 def params_from_numpy(tree: Any, device=None) -> Any:
@@ -56,3 +57,10 @@ def zamba2_from_numpy(cfg, tree: Any, device=None):
     -> the port's ``Zamba2`` on ``device`` (CUDA unless "cpu"), dtypes
     kept."""
     return Zamba2(cfg, params_from_numpy(tree, device))
+
+
+def whisper_from_numpy(cfg, tree: Any, device=None):
+    """The reference's whisper parameter tree (numpy arrays; encoder and
+    decoder layer stacks on a leading axis) -> the port's ``Whisper`` on
+    ``device`` (CUDA unless "cpu"), dtypes kept."""
+    return Whisper(cfg, params_from_numpy(tree, device))

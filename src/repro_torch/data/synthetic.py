@@ -74,20 +74,20 @@ def batch_fn(cfg: DataConfig):
 
 
 def with_frontend_stubs(batch: Dict, model_cfg, key=None) -> Dict:
-    """Attach the vision stub's deterministic patch embeddings for llava:
-    ``0.02 * normal(key, (B, n_patches, d_model))`` with ``key``
-    PRNGKey(13) by default, bitwise the JAX package's, on the tokens'
-    device.  Other ported kinds take tokens alone (the batch is returned
-    as it is); whisper's frame stub raises until its slice lands."""
-    if model_cfg.kind == "whisper":
-        raise NotImplementedError(
-            "kind='whisper': its front-end stub comes with its model "
-            "family's slice (see ROADMAP.md, Queue 1)")
-    if model_cfg.kind == "llava":
+    """Attach the stubs' deterministic embeddings: whisper's audio frames
+    ``0.02 * normal(key, (B, encoder_len, d_model))`` as ``frames``,
+    llava's vision patches ``0.02 * normal(key, (B, n_patches,
+    d_model))`` as ``patches``, with ``key`` PRNGKey(13) by default,
+    bitwise the JAX package's, on the tokens' device.  The other kinds
+    take tokens alone (the batch is returned as it is)."""
+    stub = {"whisper": ("frames", "encoder_len"),
+            "llava": ("patches", "n_patches")}.get(model_cfg.kind)
+    if stub is not None:
+        name, length = stub
         key = prng.PRNGKey(13) if key is None else key
         tokens = batch["tokens"]
         batch = dict(batch)
-        batch["patches"] = 0.02 * prng.normal(
-            key, (tokens.shape[0], model_cfg.n_patches, model_cfg.d_model),
-            device=tokens.device)
+        batch[name] = 0.02 * prng.normal(
+            key, (tokens.shape[0], getattr(model_cfg, length),
+                  model_cfg.d_model), device=tokens.device)
     return batch

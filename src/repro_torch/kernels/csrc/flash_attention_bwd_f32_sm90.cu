@@ -14,9 +14,19 @@
 //          (aligned at the top left), or key <= query - window with a
 //          window
 //   P    = exp(S - lse), 0 where masked
-//   Drow = rowsum(dO * O)
-//   dV   = P^T dO,  dP = dO v^T,  dS = P (dP - Drow)
+//   dV   = P^T dO,  dP = dO v^T
+//   Drow = rowsum(P * dP)                       (= rowsum(dO * O))
+//   dS   = P (dP - Drow)
 //   dK   = dS^T qs,  dQ = scale * dS k
+//
+// Drow is summed from the kernel's own P and dP, not from the forward's O
+// (FlashAttention-2's rowsum(dO * O), the plain version's): dP - Drow
+// cancels where a row's attention is spread over keys whose values are
+// nearly alike (whisper-small's encoder at random weights, 1500 frames),
+// and there the forward's 3xTF32 output, within ~3e-6 of the plain one,
+// put the kernels' dQ ~1% of max|g| from the f64 gradient, 50x the plain
+// path's error at one leaf (chip_smoke.py phase 3p); from P and dP the
+// row's common error cancels in dP - Drow.
 //
 // q, o, dO, dq (B, T, H, D); k, v, dk, dv (B, S, HK, D); all f32; lse
 // (B, H, T) f32; D in {16, 32, 64, 112, 128}, H % HK == 0, ragged T and S.
@@ -42,10 +52,11 @@
 // (4, 2048, 16, 64), three TF32 products each at 495 TFLOP/s = 0.52 ms,
 // against 0.08 ms to move its tensors once at 3.35 TB/s.  This design runs
 // 7 tile-products where the bound counts 5 (S and dP in both kernels): its
-// floor is 1.4x the bound.  Three launches:
-//   * preprocess (fa_bwd_f32_prep_kernel): one pass over q, o, dO, k and
-//     v, 32 rows of one head a block; writes Drow and lse log2(e) as
-//     (B, H, T_pad) f32 (T_pad: T rounded up to 128, zeros past T), and
+// floor is 1.4x the bound, and the Drow pass adds S and dP once more.
+// Four launches:
+//   * preprocess (fa_bwd_f32_prep_kernel): one pass over q, dO, k and
+//     v, 32 rows of one head a block; writes lse log2(e) and Drow's zeros
+//     as (B, H, T_pad) f32 (T_pad: T rounded up to 128, zeros past T), and
 //     every operand the products read, already split into TF32 hi and lo
 //     (stored as batches b and B + b of one tensor, so one tensor map
 //     serves both): qs, dO, k, v as they lie, and qs^T, dO^T (B, H, D,
@@ -62,6 +73,8 @@
 //     (columns 2c, 2c + 1) is fed as the TF32 A fragment (columns c, c + 4)
 //     without a shuffle, as the f32 forward feeds P.  At (4, 2048, 16, 64)
 //     the scratch is 14 tensors of 32 MB, about 0.18 ms of writes;
+//   * Drow (fa_bwd_f32_dq_kernel, kRowsum): the dQ kernel's loop over its
+//     key tiles without ring B, summing P dP per row;
 //   * dQ (fa_bwd_f32_dq_kernel): one block per (b * h, 128 queries; 64 at
 //     D = 128), heaviest causal tiles first; qs and dO (hi, lo) loaded once,
 //     then a ring of key tiles (A: k and v hi / lo, B: k^T hi / lo).  Each
@@ -105,7 +118,7 @@
 // diagonal and the ragged last tile; a warpgroup whose rows see none of a
 // tile's columns skips its products (it still waits for the tile and
 // releases it).  Deterministic: no atomics on data, fixed sum orders
-// (Drow over a warp in a fixed shuffle tree), so two runs are bitwise
+// (Drow over a quad in a fixed shuffle tree), so two runs are bitwise
 // equal.  Softmax and products do not overlap inside a warpgroup, only
 // across the two.  The build passes --fmad=false: the multiply-adds are
 // written as fmaf.
@@ -286,7 +299,7 @@ __device__ __forceinline__ void store_rows(const float (&acc)[D / 2],
 // B + b, i.e. one batch-sized block after hi).
 struct Work {
   float* lse2;  // (B, H, T_pad): lse log2(e), 0 past T
-  float* drow;  // (B, H, T_pad): rowsum(dO O), 0 past T
+  float* drow;  // (B, H, T_pad): rowsum(P dP), 0 past T
   float* qs;    // (2B, T, H, D)
   float* dout;  // (2B, T, H, D)
   float* qst;   // (2B, H, D, T_pad), queries in TF32_KEY_ORDER
@@ -336,7 +349,8 @@ size_t work_floats(int batch, int t_len, int s_len, int heads, int kv_heads,
 
 // --------------------------------------------------------- preprocess
 // Grid: (B * H + B * HK, max(T_pad, S_pad) / 32).  blockIdx.x < B * H: 32
-// query rows of head h (qs, dO and their transposes, Drow, lse log2(e));
+// query rows of head h (qs, dO and their transposes, lse log2(e), Drow's
+// zeros);
 // else 32 key rows of KV head hk (k, v, k^T).  One warp per row at a time,
 // its lanes over D (neighbouring columns: coalesced); the transposes go
 // through shared memory, each warp writing 32 neighbouring rows of one
@@ -346,7 +360,6 @@ __global__ void __launch_bounds__(kPrepThreads)
     fa_bwd_f32_prep_kernel(const float* __restrict__ q,
                            const float* __restrict__ k,
                            const float* __restrict__ v,
-                           const float* __restrict__ o,
                            const float* __restrict__ lse,
                            const float* __restrict__ dout, Work w, int batch,
                            int t_len, int s_len, int heads, int kv_heads,
@@ -369,7 +382,6 @@ __global__ void __launch_bounds__(kPrepThreads)
   for (int rr = warp; rr < kPrepRows; rr += kPrepThreads / 32) {
     const int row = r0 + rr;
     const bool live = row < len;
-    float part = 0.f;
 #pragma unroll
     for (int d = lane; d < (D < 32 ? 32 : D); d += 32) {
       if (d >= D) break;
@@ -382,7 +394,6 @@ __global__ void __launch_bounds__(kPrepThreads)
           if (q_side) {
             a = __fmul_rn(q[in], scale);
             c = dout[in];
-            part = __fmaf_rn(c, o[in], part);
           } else {
             a = k[in];
             c = v[in];
@@ -400,13 +411,10 @@ __global__ void __launch_bounds__(kPrepThreads)
       x1[rr][d] = c;
     }
     if (q_side) {
-      // Drow: the row's sum over its lanes, in a fixed order
-#pragma unroll
-      for (int m = 16; m > 0; m >>= 1)
-        part = __fadd_rn(part, __shfl_xor_sync(0xffffffffu, part, m));
+      // Drow is the dQ kernel's row-sum pass's; zero past T
       if (lane == 0) {
         const size_t bh = (size_t)b * heads + h;
-        w.drow[bh * pad + row] = live ? part : 0.f;
+        w.drow[bh * pad + row] = 0.f;
         w.lse2[bh * pad + row] =
             live ? __fmul_rn(lse[bh * t_len + row], kLog2e) : 0.f;
       }
@@ -470,11 +478,14 @@ struct DqMaps {
 
 // Grid: (B * H, ceil(T / kRows)); blockIdx.y counts the query tiles from
 // the last, so that the causal tiles with the most key tiles start first.
-template <int D, int HD, bool kWindow>
+// kRowsum: the pass before dQ's, over the same key tiles (ring A alone),
+// writing Drow = rowsum(P dP) (each thread's columns in order, then the
+// quad's four partial sums) in place of dq.
+template <int D, int HD, bool kWindow, bool kRowsum>
 __global__ void __launch_bounds__(DqCfg<D>::kWGs * 128, 1)
     fa_bwd_f32_dq_kernel(const __grid_constant__ DqMaps maps,
                          const float* __restrict__ lse2,
-                         const float* __restrict__ drow,
+                         float* __restrict__ drow,
                          float* __restrict__ dq, int batch, int t_len,
                          int t_pad, int s_len, int heads, int kv_heads,
                          int causal, float scale, int window) {
@@ -564,7 +575,8 @@ __global__ void __launch_bounds__(DqCfg<D>::kWGs * 128, 1)
                  &maps.dout, res_full, x * RT::kBoxCols, h, q0, bb);
       }
     for (int i = 0; i < min(NA, n_steps); ++i) load_a(i);
-    for (int i = 0; i < min(NB, n_steps); ++i) load_b(i);
+    if (!kRowsum)
+      for (int i = 0; i < min(NB, n_steps); ++i) load_b(i);
   }
 
   const int wg = threadIdx.x / 128;       // queries wg * 64 .. of the tile
@@ -577,8 +589,9 @@ __global__ void __launch_bounds__(DqCfg<D>::kWGs * 128, 1)
   // rows < T_pad (a multiple of 128); rows past T read the zero padding
   const float l0 = lse2[(size_t)bh * t_pad + row0];
   const float l1 = lse2[(size_t)bh * t_pad + row1];
-  const float d0 = drow[(size_t)bh * t_pad + row0];
-  const float d1 = drow[(size_t)bh * t_pad + row1];
+  const float d0 = kRowsum ? 0.f : drow[(size_t)bh * t_pad + row0];
+  const float d1 = kRowsum ? 0.f : drow[(size_t)bh * t_pad + row1];
+  float rsum[2] = {0.f, 0.f};  // kRowsum: this thread's part of Drow
   const uint32_t a_row = wg * 64 * RT::kRowBytes;  // this warpgroup's rows
   const uint32_t qs_hi = s_res + a_row, qs_lo = qs_hi + RT::kBytes;
   const uint32_t do_hi = qs_hi + 2 * RT::kBytes, do_lo = qs_hi + 3 * RT::kBytes;
@@ -630,10 +643,14 @@ __global__ void __launch_bounds__(DqCfg<D>::kWGs * 128, 1)
                   (window > 0 && col <= row - window))
                 p = 0.f;
             }
-            dp[i] = __fmul_rn(p, __fsub_rn(dp[i], r ? d1 : d0));
+            if (kRowsum)
+              rsum[r] = __fmaf_rn(p, dp[i], rsum[r]);
+            else
+              dp[i] = __fmul_rn(p, __fsub_rn(dp[i], r ? d1 : d0));
           }
-      split_fragments<BK>(dp, hi, lo);
+      if (!kRowsum) split_fragments<BK>(dp, hi, lo);
     }
+    if (kRowsum) continue;
     mbar_wait(full_b + 8 * sb, (j / NB) & 1);
     if (work) {
       // dQ += dS k (k^T the K-major B operand), the tile's products in a
@@ -655,6 +672,18 @@ __global__ void __launch_bounds__(DqCfg<D>::kWGs * 128, 1)
     }
     if (released_last<C::kWGs>(claim_b + sb, wg, t) && j + NB < n_steps)
       load_b(j + NB);
+  }
+  if (kRowsum) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      rsum[r] = __fadd_rn(rsum[r], __shfl_xor_sync(0xffffffffu, rsum[r], 1));
+      rsum[r] = __fadd_rn(rsum[r], __shfl_xor_sync(0xffffffffu, rsum[r], 2));
+    }
+    if ((lane & 3) == 0) {
+      if (row0 < t_len) drow[(size_t)bh * t_pad + row0] = rsum[0];
+      if (row1 < t_len) drow[(size_t)bh * t_pad + row1] = rsum[1];
+    }
+    return;
   }
   // dq = scale dQ; rows past T are not stored
   store_rows<D>(acc, dq + ((size_t)b * t_len * heads + h) * HD + c0, row0,
@@ -972,9 +1001,14 @@ int launch_impl(const void* q, const void* k, const void* v, const void* o,
   using KC = DkvCfg<D>;
   // set once per instance (thread-safe static initialisation)
   static const cudaError_t attr_dq = cudaFuncSetAttribute(
-      fa_bwd_f32_dq_kernel<D, HD, kWindow>,
+      fa_bwd_f32_dq_kernel<D, HD, kWindow, false>,
       cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)QC::kSmem);
+  static const cudaError_t attr_rows = cudaFuncSetAttribute(
+      fa_bwd_f32_dq_kernel<D, HD, kWindow, true>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)QC::kSmem);
+  if (attr_rows != cudaSuccess) return (int)attr_rows;
   static const cudaError_t attr_dkv = cudaFuncSetAttribute(
       fa_bwd_f32_dkv_kernel<D, HD, kWindow>,
       cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -988,8 +1022,8 @@ int launch_impl(const void* q, const void* k, const void* v, const void* o,
                        (t_pad > s_pad ? t_pad : s_pad) / kPrepRows);
   fa_bwd_f32_prep_kernel<D, HD><<<prep_grid, kPrepThreads, 0, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<const float*>(o),
-      static_cast<const float*>(lse), static_cast<const float*>(dout), w,
+      static_cast<const float*>(v), static_cast<const float*>(lse),
+      static_cast<const float*>(dout), w,
       batch, t_len, s_len, heads, kv_heads, scale);
   cudaError_t launched = cudaGetLastError();
   if (launched != cudaSuccess) return (int)launched;
@@ -1018,7 +1052,13 @@ int launch_impl(const void* q, const void* k, const void* v, const void* o,
   if (err != 0) return err;
 
   const dim3 grid_q(batch * heads, (t_len + QC::kRows - 1) / QC::kRows);
-  fa_bwd_f32_dq_kernel<D, HD, kWindow>
+  fa_bwd_f32_dq_kernel<D, HD, kWindow, true>
+      <<<grid_q, QC::kWGs * 128, QC::kSmem, stream>>>(
+          mq, w.lse2, w.drow, nullptr, batch, t_len, t_pad, s_len, heads,
+          kv_heads, causal, scale, window);
+  launched = cudaGetLastError();
+  if (launched != cudaSuccess) return (int)launched;
+  fa_bwd_f32_dq_kernel<D, HD, kWindow, false>
       <<<grid_q, QC::kWGs * 128, QC::kSmem, stream>>>(
           mq, w.lse2, w.drow, static_cast<float*>(dq), batch, t_len, t_pad,
           s_len, heads, kv_heads, causal, scale, window);

@@ -35,6 +35,20 @@
 // rounded to bf16 once.  The f32 gradient is
 // flash_attention_bwd_f32_sm90.cu.
 //
+// dK and dV sum each query tile's products in a fresh wgmma accumulator
+// and add it to their running sums in IEEE f32 adds (__fadd_rn), 64
+// columns at a time, as the f32 backward does: the tensor core does not
+// round its adds to nearest, and with one running wgmma accumulator a key
+// of qwen3-32b's GQA heads (64 / 8 of 128), which sums 8 query heads x T
+// queries, drifted past the bar on the card (19 of 8.4 M dK outputs over
+// one ulp + 2e-5 max|g| at T = 8192, causal).  dQ keeps one running
+// accumulator over its S keys: held on the same cases, it meets the bar.
+// The partials cost registers: ptxas (CUDA 12.9) gives the dK / dV kernel
+// 121-198 registers at D = 16-64, no spill, and 255 at D = 128 with
+// 184-212 bytes of spill (none at HD = 112), no serialized wgmma; the D =
+// 128 shapes ran 6-17% slower than with one running accumulator (two
+// commit groups a tile), the D = 64 ones within 2%.
+//
 // dS in f32 on bf16 tensor cores.  The products dS^T qs and dS k take
 // bf16 operands, and one bf16 dS (FlashAttention-2's and -3's choice)
 // computes another function: on the CPU, 7-11.5% of dQ and dK outputs
@@ -71,10 +85,12 @@
 //     accumulator rows, S^T = K qs^T and dP^T = V dO^T are SS wgmmas whose
 //     accumulators are already the A fragments of dV += bf16(P^T) dO and
 //     dK += dS^T_hi qs + dS^T_lo qs (RS; dO and qs the MN-major B
-//     operand).  lse and Drow are read per accumulator column from shared
-//     memory.  The block loops over the H / HK query heads of its KV head
-//     (GQA summed in the block) and over the query tiles from the causal
-//     start.
+//     operand), each tile's into fresh accumulators of 64 columns (one
+//     box of dO and qs) that are then added to dK and dV (see above).  lse
+//     and Drow are read per accumulator column from shared memory.  The
+//     block loops over the H / HK query heads of its KV head (GQA summed
+//     in the block, in the running sums) and over the query tiles from
+//     the causal start.
 // Both product kernels are blocks of two warpgroups (256 threads), and
 // thread 0 issues the TMA loads, kAhead ring steps ahead: a block with a
 // producer warpgroup (384 threads) is held to 168 registers a thread
@@ -193,6 +209,17 @@ __device__ __forceinline__ void split_fragments(const float (&d)[N / 2],
       hi[kk][r] = *reinterpret_cast<const uint32_t*>(&h);
       lo[kk][r] = pack_bf16(__fsub_rn(a, hf.x), __fsub_rn(b, hf.y));
     }
+}
+
+// acc's columns c * PN .. += part, in IEEE f32 adds (the tensor core's
+// own adds do not round to nearest)
+template <int D, int PN>
+__device__ __forceinline__ void add_part(float (&acc)[D / 2],
+                                         const float (&part)[PN / 2],
+                                         int c) {
+#pragma unroll
+  for (int i = 0; i < PN / 2; ++i)
+    acc[c * PN / 2 + i] = __fadd_rn(acc[c * PN / 2 + i], part[i]);
 }
 
 // store rows row0 / row1 (< len) of a 64 x D accumulator, times ``mul``,
@@ -461,6 +488,10 @@ __global__ void __launch_bounds__(kThreads, 1)
 template <int D>
 struct DkvSmem {
   static constexpr int BQ = 64;                  // queries a stage
+  // each tile's dK and dV products go to fresh accumulators of PN columns
+  // (one 64-column box of the MN-major operand at most), then into the
+  // running sums in IEEE adds
+  static constexpr int PN = D < 64 ? D : 64;
   using KT = Tile<D, 128>;                       // K and V: 128 keys
   using QT = Tile<D, BQ>;                        // qs and dO
   static constexpr int kRowsBytes = 8 * BQ;      // lse log2(e), Drow
@@ -484,6 +515,7 @@ __global__ void __launch_bounds__(kThreads, 1)
                            int causal, int window) {
   if (!kWindow) window = 0;  // the instance without a window's terms
   constexpr int BQ = DkvSmem<D>::BQ;
+  constexpr int PN = DkvSmem<D>::PN;
   using KT = typename DkvSmem<D>::KT;
   using QT = typename DkvSmem<D>::QT;
   constexpr int kRowsBytes = DkvSmem<D>::kRowsBytes;
@@ -624,24 +656,35 @@ __global__ void __launch_bounds__(kThreads, 1)
       uint32_t pf[BQ / 16][4], hi[BQ / 16][4], lo[BQ / 16][4];
       pack_fragments<BQ>(s, pf);
       split_fragments<BQ>(dp, hi, lo);
-      // dV += bf16(P^T) dO; dK += dS^T_hi qs + dS^T_lo qs
-      fence_all(dk_acc);
-      fence_all(dv_acc);
+      // dV += bf16(P^T) dO; dK += dS^T_hi qs + dS^T_lo qs: the tile's
+      // products in fresh accumulators of PN columns (box c of dO and qs),
+      // added to the running sums in IEEE adds
       fence_all(pf);
       fence_all(hi);
       fence_all(lo);
-      wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < BQ / 16; ++kk) {
-        const uint32_t off = kk * 16 * QT::kRowBytes;
-        wgmma_rs<D>(dv_acc, pf[kk], QT::mn_major(do_st + off), 1);
-        wgmma_rs<D>(dk_acc, hi[kk], QT::mn_major(q_st + off), 1);
-        wgmma_rs<D>(dk_acc, lo[kk], QT::mn_major(q_st + off), 1);
+      for (int c = 0; c < D / PN; ++c) {
+        const uint32_t box = c * QT::kBoxBytes;
+        float pv[PN / 2], pk[PN / 2];
+        zero_all(pv);
+        zero_all(pk);
+        fence_all(pv);
+        fence_all(pk);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < BQ / 16; ++kk) {
+          const uint32_t off = box + kk * 16 * QT::kRowBytes;
+          wgmma_rs<PN>(pv, pf[kk], QT::mn_major(do_st + off), 1);
+          wgmma_rs<PN>(pk, hi[kk], QT::mn_major(q_st + off), 1);
+          wgmma_rs<PN>(pk, lo[kk], QT::mn_major(q_st + off), 1);
+        }
+        wgmma_commit();
+        wgmma_wait_all();
+        fence_all(pv);
+        fence_all(pk);
+        add_part<D, PN>(dv_acc, pv, c);
+        add_part<D, PN>(dk_acc, pk, c);
       }
-      wgmma_commit();
-      wgmma_wait_all();
-      fence_all(dk_acc);
-      fence_all(dv_acc);
     }
     if (lane == 0) mbar_arrive(q_empty + 8 * st);
   }

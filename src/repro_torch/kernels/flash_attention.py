@@ -24,15 +24,24 @@ lse = m + log(l), (B, H, T) f32, which the backward takes.
   ``ref.flash_attention_bwd_ref``.  Each dtype's kernel is a preprocess
   pass and dQ and dK / dV kernels on wgmma and TMA.  bf16 -> ``csrc/
   flash_attention_bwd_sm90.cu`` (``flash_attention_bwd_sm90``): dS kept
-  in f32 as a bf16 hi + lo pair on the tensor cores.  f32 -> ``csrc/
+  in f32 as a bf16 hi + lo pair on the tensor cores; dK and dV sum each
+  64-query tile's products in a fresh accumulator and add it to their
+  running sums (over the query heads of their KV head and the query
+  tiles) in IEEE f32 adds, since one running wgmma accumulator drifted
+  past the bar at qwen3-32b's GQA heads.  f32 -> ``csrc/
   flash_attention_bwd_f32_sm90.cu`` (``flash_attention_bwd_f32_sm90``):
-  3xTF32 as the f32 forward, its preprocess writing the operands split
+  Drow summed from its own P and dP (a pass before dQ's; the plain
+  version's rowsum(dO o) put the forward's 3xTF32 error into dS where a
+  row's attention is spread over nearly alike keys), 3xTF32 as the f32
+  forward, its preprocess writing the operands split
   and the transposed ones (qs^T, dO^T, k^T) in ``TF32_KEY_ORDER``.  The
   JAX package has no Pallas counterpart: it differentiates its pure-JAX
   attention by autodiff.
 
 q (B, T, H, D), k / v (B, S, HK, D), all contiguous on one CUDA device,
-one dtype, D in {16, 32, 64, 112, 128}, H % HK == 0.  Head dim 112
+one dtype, D in {16, 32, 64, 112, 128}, H % HK == 0, causal or not, any
+T and S (whisper's one-query decode step and its cross-attention of T
+decoder tokens over S = 1500 frames among them).  Head dim 112
 (zamba2-7b) runs D = 128 instances of the kernels compiled for a true
 width of 112, on the tensors as they lie: the tensor maps keep the width
 112, so TMA reads columns 112-127 as zeros, and the stores stop at 112

@@ -11,7 +11,8 @@ CPU usage (reduced config):
       --smoke --device cpu --steps 3 --mechanism aggregate_gaussian \\
       --no-per-coord --fused
   (--arch zamba2-7b --smoke as well: its sequence a multiple of the SSD
-  chunk, 8 in the smoke config, 128 in the full one)
+  chunk, 8 in the smoke config, 128 in the full one; --arch whisper-small
+  --smoke trains on the frames stub, ``encoder_len`` frames a row)
 
 Async actor/learner mode (repro_torch.runtime): N client threads or
 processes exchange integer messages with a staleness-aware learner —

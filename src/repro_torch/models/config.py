@@ -14,7 +14,7 @@ from typing import Optional
 import torch
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
-          "float16": torch.float16}
+          "float16": torch.float16, "float64": torch.float64}
 
 
 def torch_dtype(name: str) -> torch.dtype:

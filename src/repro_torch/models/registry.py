@@ -1,6 +1,6 @@
 """Model API over the architecture families (the port of
 ``repro.models.registry``), for the transformer's kinds (dense, moe,
-llava), rwkv6 and zamba2:
+llava), rwkv6, zamba2 and whisper:
 
   param_specs(cfg)                    -> ParamSpec tree
   logits_fn(cfg, model, batch)        -> (B, T, V) logits
@@ -11,16 +11,22 @@ llava), rwkv6 and zamba2:
   init_decode_state(cfg, B, S, device)-> fresh cache tree
   init_model(cfg, generator, device)  -> random model in the compute dtype
 
-``batch`` is a dict with tokens (B, T) int, and for llava patches
-(B, P, D) (``data.synthetic.with_frontend_stubs``): the logits are the
-text positions'.  ``model`` is a ``transformer.Transformer``, an
-``rwkv6.Rwkv6`` or a ``zamba2.Zamba2`` (or its family's ``TreeModel``);
+``batch`` is a dict with tokens (B, T) int, for llava patches (B, P,
+D) and for whisper frames (B, encoder_len, D)
+(``data.synthetic.with_frontend_stubs``): llava's logits are the text
+positions'.  ``model`` is a ``transformer.Transformer``, an
+``rwkv6.Rwkv6``, a ``zamba2.Zamba2`` or a ``whisper.Whisper`` (or its
+family's ``TreeModel``);
 ``params`` is a parameter tree in the reference's layout.  rwkv6's and
 zamba2's prefill is their scan path (``forward(last_only=True)``), which
 returns ``(logits, None)``; their decode cache is their recurrent state
 (``rwkv6.init_state``; ``zamba2.init_state``, whose KV rings are
-``min(window, seq_len)`` rows).  whisper is not ported yet and raises
-NotImplementedError (see ROADMAP.md).
+``min(window, seq_len)`` rows).  whisper's prefill is its forward over
+the frames and tokens (``last_only=True``) and returns ``(logits,
+None)``, as the reference's; its decode cache holds the decoder's self
+K / V (``k``, ``v``: (L, B, seq_len, HK, hd), every row a previous
+position) and the cross-attention's (``cross_k``, ``cross_v``: (L, B,
+encoder_len, HK, hd)), which nothing here fills, as in the reference.
 """
 from __future__ import annotations
 
@@ -29,31 +35,31 @@ from typing import Any, Callable, Dict
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.models import nn, rwkv6, transformer, zamba2
+from repro_torch.models import nn, rwkv6, transformer, whisper, zamba2
 from repro_torch.models.config import ModelConfig, torch_dtype
 
 DENSE_KINDS = transformer.KINDS
-KINDS = DENSE_KINDS + ("rwkv6", "zamba2")
-# the recurrent families: their own modules, prefill on the scan path
-_FAMILIES = {"rwkv6": rwkv6, "zamba2": zamba2}
+KINDS = DENSE_KINDS + ("rwkv6", "zamba2", "whisper")
+# the families with their own modules: the recurrent ones (prefill on the
+# scan path) and whisper
+_FAMILIES = {"rwkv6": rwkv6, "zamba2": zamba2, "whisper": whisper}
 
 
-def _ported(cfg: ModelConfig) -> None:
+def _known(cfg: ModelConfig) -> None:
     if cfg.kind not in KINDS:
-        raise NotImplementedError(
-            f"kind={cfg.kind!r} is not ported to repro_torch yet (see "
-            f"ROADMAP.md, Queue 1)")
+        raise ValueError(f"unknown kind {cfg.kind!r}; expected one of "
+                         f"{KINDS}")
 
 
 def param_specs(cfg: ModelConfig):
-    _ported(cfg)
+    _known(cfg)
     return _FAMILIES.get(cfg.kind, transformer).param_specs(cfg)
 
 
 def init_model(cfg: ModelConfig, generator: torch.Generator, device=None):
     """Random weights with the reference's init law, layer by layer in
     the compute dtype (each family's ``init_model``)."""
-    _ported(cfg)
+    _known(cfg)
     return _FAMILIES.get(cfg.kind, transformer).init_model(cfg, generator,
                                                            device)
 
@@ -67,7 +73,9 @@ def tree_model(cfg: ModelConfig, params):
 
 
 def logits_fn(cfg: ModelConfig, model, batch) -> torch.Tensor:
-    _ported(cfg)
+    _known(cfg)
+    if cfg.kind == "whisper":
+        return whisper.forward(cfg, model, batch["tokens"], batch["frames"])
     if cfg.kind in _FAMILIES:
         return _FAMILIES[cfg.kind].forward(cfg, model, batch["tokens"])
     if cfg.kind == "llava":
@@ -84,7 +92,7 @@ def loss_fn(cfg: ModelConfig) -> Callable:
     """loss(params, batch): next-token NLL, ``logits[:, :-1]`` against
     ``tokens[:, 1:]``; ``params`` is a parameter tree (a dict, seen
     through its family's ``TreeModel``) or a model."""
-    _ported(cfg)
+    _known(cfg)
 
     def loss(params, batch):
         model = tree_model(cfg, params)
@@ -101,15 +109,21 @@ def decode_state_specs(cfg: ModelConfig, batch: int,
     """The decode cache tree as meta tensors (shape and dtype, no
     allocation); rwkv6's is its recurrent state, whatever ``seq_len``;
     zamba2's KV rings hold ``min(window, seq_len)`` rows."""
-    _ported(cfg)
+    _known(cfg)
     if cfg.kind == "rwkv6":
         return rwkv6.init_state(cfg, batch, "meta")
     if cfg.kind == "zamba2":
         return zamba2.init_state(cfg, batch, _ring(cfg, seq_len), "meta")
     shape = (cfg.n_layers, batch, seq_len, cfg.n_kv_heads, cfg.hd)
     dt = torch_dtype(cfg.compute_dtype)
-    return {k: torch.empty(shape, dtype=dt, device="meta")
-            for k in ("k", "v")}
+    specs = {k: torch.empty(shape, dtype=dt, device="meta")
+             for k in ("k", "v")}
+    if cfg.kind == "whisper":
+        cross = (cfg.n_layers, batch, cfg.encoder_len, cfg.n_kv_heads,
+                 cfg.hd)
+        specs.update({k: torch.empty(cross, dtype=dt, device="meta")
+                      for k in ("cross_k", "cross_v")})
+    return specs
 
 
 def init_decode_state(cfg: ModelConfig, batch: int, seq_len: int,
@@ -132,10 +146,15 @@ def _ring(cfg: ModelConfig, seq_len: int) -> int:
 
 def serve_fn(cfg: ModelConfig) -> Callable:
     """serve(model, batch{tokens (B, 1)}, cache) -> (logits, new kv); for
-    rwkv6 and zamba2 (logits, new state)."""
-    _ported(cfg)
+    rwkv6 and zamba2 (logits, new state); whisper's new kv is the
+    decoder's self K / V (the cross K / V stay as they are)."""
+    _known(cfg)
 
     def serve(model, batch, cache):
+        if cfg.kind == "whisper":
+            return whisper.decode_step(
+                cfg, model, batch["tokens"], (cache["k"], cache["v"]),
+                (cache["cross_k"], cache["cross_v"]))
         if cfg.kind in _FAMILIES:
             return _FAMILIES[cfg.kind].decode(cfg, model, batch["tokens"],
                                               cache)
@@ -152,10 +171,14 @@ def serve_fn(cfg: ModelConfig) -> Callable:
 def prefill_fn(cfg: ModelConfig) -> Callable:
     """prefill(model, batch) -> (last-position logits, caches); llava's
     caches cover its patch positions too; rwkv6 and zamba2 run their scan
-    path and return (logits, None), as the reference."""
-    _ported(cfg)
+    path and whisper its forward, and return (logits, None), as the
+    reference."""
+    _known(cfg)
 
     def prefill(model, batch) -> Any:
+        if cfg.kind == "whisper":
+            return whisper.forward(cfg, model, batch["tokens"],
+                                   batch["frames"], last_only=True), None
         if cfg.kind in _FAMILIES:
             return _FAMILIES[cfg.kind].forward(cfg, model, batch["tokens"],
                                                last_only=True), None

@@ -47,9 +47,9 @@ KINDS = ("dense", "moe", "llava")
 
 def _check_kind(cfg: ModelConfig) -> None:
     if cfg.kind not in KINDS:
-        raise NotImplementedError(
-            f"kind={cfg.kind!r}: the transformer serves {KINDS}; the other "
-            f"families are not ported yet (see ROADMAP.md, Queue 1)")
+        raise ValueError(
+            f"kind={cfg.kind!r}: the transformer serves {KINDS}; rwkv6, "
+            f"zamba2 and whisper have their own modules")
 
 
 # ----------------------------------------------------------------- specs

@@ -1,0 +1,291 @@
+"""Whisper-small backbone: a transformer encoder-decoder (the port of
+``repro.models.whisper``).
+
+The audio front end (log-mel and the convolutions) is a stub, as in the
+reference: the batch carries precomputed frame embeddings (B,
+encoder_len, d_model) (``data.synthetic.with_frontend_stubs``).  The
+encoder adds learned positions ``enc_pos`` (in the compute dtype) and
+runs non-causal self-attention, LayerNorm and the GELU MLP; the decoder
+runs causal self-attention with RoPE (``transformer.attn_block``), then
+cross-attention over the encoder memory, then the MLP.  The unembedding
+is tied, ``embed.T`` over the padded vocab, whatever
+``cfg.tie_embeddings`` says, as the reference's.  Every attention over a
+full sequence goes through ``attention.flash_attention`` (the flash
+kernels on the card, with their backward under autograd): the encoder
+non-causal over encoder_len keys, the decoder's self-attention causal,
+its cross-attention non-causal over the encoder's keys, and the decode
+step's cross-attention at one query.
+
+``Whisper`` holds the parameters under the reference's names: ``embed``,
+``enc_pos``, ``enc_layers`` and ``dec_layers`` (one
+``transformer.DecoderLayer`` a layer: ``attn``, ``mlp`` and for the
+decoder ``cross`` ParameterDicts, ``norm1_w`` ...), ``enc_final_w`` /
+``_b`` and ``final_w`` / ``_b``.  ``TreeModel`` views a parameter tree
+in the reference's layout (layer stacks on a leading axis) the same
+way, each layer's slices unbound from the stacks.  ``cfg.remat`` other
+than ``none`` recomputes each encoder and decoder layer in the backward
+(``torch.utils.checkpoint``), as the reference's ``jax.checkpoint`` of
+each layer scan.
+
+``decode_step`` takes the decoder's self-attention cache (k, v) stacked
+(L, B, S, HK, hd), holding exactly the S previous positions, and the
+cross-attention's (k, v) stacked (L, B, encoder_len, HK, hd); it returns
+the logits and the new token's self K / V, (L, B, 1, HK, hd) each.  As
+in the reference, nothing here fills either cache: a caller projects the
+cross K / V from ``encode`` with each layer's ``cross.wk`` / ``cross.wv``.
+"""
+from __future__ import annotations
+
+from types import SimpleNamespace
+from typing import Any, Dict, List
+
+import torch
+from torch import nn as tnn
+from torch.utils import checkpoint
+
+from repro_torch import resolve_device
+from repro_torch.models import attention, nn, transformer
+from repro_torch.models.config import ModelConfig, torch_dtype
+from repro_torch.models.nn import ParamSpec
+
+STACKS = ("enc_layers", "dec_layers")
+
+
+def _check_kind(cfg: ModelConfig) -> None:
+    if cfg.kind != "whisper":
+        raise ValueError(f"kind={cfg.kind!r} is not whisper")
+
+
+def _depth(cfg: ModelConfig, stack: str) -> int:
+    return cfg.encoder_layers if stack == "enc_layers" else cfg.n_layers
+
+
+# ----------------------------------------------------------------- specs
+def _enc_layer_specs(cfg: ModelConfig) -> Dict[str, Any]:
+    s: Dict[str, Any] = {"attn": transformer.attn_specs(cfg),
+                         "mlp": transformer.mlp_specs(cfg)}
+    s.update(transformer.norm_specs(cfg, "norm1"))
+    s.update(transformer.norm_specs(cfg, "norm2"))
+    return s
+
+
+def _dec_layer_specs(cfg: ModelConfig) -> Dict[str, Any]:
+    s: Dict[str, Any] = {"attn": transformer.attn_specs(cfg),
+                         "cross": transformer.attn_specs(cfg),
+                         "mlp": transformer.mlp_specs(cfg)}
+    for name in ("norm1", "norm_cross", "norm2"):
+        s.update(transformer.norm_specs(cfg, name))
+    return s
+
+
+def param_specs(cfg: ModelConfig) -> Dict[str, Any]:
+    _check_kind(cfg)
+    d = cfg.d_model
+    specs: Dict[str, Any] = {
+        "embed": ParamSpec((cfg.padded_vocab, d), ("vocab_in", "embed"),
+                           "embed"),
+        "enc_pos": ParamSpec((cfg.encoder_len, d), (None, "embed"), "embed"),
+        "enc_layers": nn.map_specs(
+            lambda _, s: transformer._stack(s, cfg.encoder_layers),
+            _enc_layer_specs(cfg)),
+        "dec_layers": nn.map_specs(
+            lambda _, s: transformer._stack(s, cfg.n_layers),
+            _dec_layer_specs(cfg)),
+    }
+    specs.update(transformer.norm_specs(cfg, "enc_final"))
+    specs.update(transformer.norm_specs(cfg, "final"))
+    return specs
+
+
+# --------------------------------------------------------------- modules
+def _unbind(cfg: ModelConfig, tree: Dict[str, Any], stack: str,
+            take) -> List[Dict[str, Any]]:
+    """The layers of ``tree[stack]`` (stacks on a leading axis) as a list
+    of per-layer trees, each leaf ``take(stack_leaf)[i]``."""
+    L = _depth(cfg, stack)
+
+    def rec(node):
+        if isinstance(node, dict):
+            return {k: rec(v) for k, v in node.items()}
+        if node.shape[0] != L:
+            raise ValueError(f"{stack} stack of {node.shape[0]}, "
+                             f"expected {L}")
+        return take(node)
+
+    stacks = rec(tree[stack])
+
+    def layer(i, node):
+        if isinstance(node, dict):
+            return {k: layer(i, v) for k, v in node.items()}
+        return node[i]
+
+    return [layer(i, stacks) for i in range(L)]
+
+
+class Whisper(tnn.Module):
+    """The model, built from a parameter tree in the reference's layout
+    (each layer's slice copied out of its stack), or with ``enc_layers``
+    and ``dec_layers`` lists of per-layer trees, taken as they are."""
+
+    def __init__(self, cfg: ModelConfig, tree: Dict[str, Any]):
+        super().__init__()
+        _check_kind(cfg)
+        self.cfg = cfg
+        for stack in STACKS:
+            layers = tree[stack]
+            if not isinstance(layers, list):
+                layers = _unbind(cfg, tree, stack,
+                                 lambda t: [x.clone() for x in t])
+            if len(layers) != _depth(cfg, stack):
+                raise ValueError(f"{len(layers)} {stack}, expected "
+                                 f"{_depth(cfg, stack)}")
+            setattr(self, stack, tnn.ModuleList(
+                [transformer.DecoderLayer(t) for t in layers]))
+        for name, t in tree.items():
+            if name not in STACKS:
+                setattr(self, name, tnn.Parameter(t, requires_grad=False))
+
+
+class TreeModel:
+    """A parameter tree in the reference's layout seen as a ``Whisper``:
+    ``enc_layers`` / ``dec_layers`` namespaces of the stacks' slices
+    (``unbind``, whose backward stacks the layers' gradients in one op),
+    the other leaves as attributes."""
+
+    def __init__(self, cfg: ModelConfig, tree: Dict[str, Any]):
+        _check_kind(cfg)
+        for stack in STACKS:
+            setattr(self, stack, [
+                SimpleNamespace(**lp)
+                for lp in _unbind(cfg, tree, stack, lambda t: t.unbind(0))])
+        for name, t in tree.items():
+            if name not in STACKS:
+                setattr(self, name, t)
+
+
+# --------------------------------------------------------------- forward
+_norm = transformer._norm
+
+
+def _run(cfg: ModelConfig, fn, h):
+    """``fn(h)``, recomputed in the backward under ``cfg.remat``."""
+    if cfg.remat != "none" and torch.is_grad_enabled():
+        return checkpoint.checkpoint(fn, h, use_reentrant=False)
+    return fn(h)
+
+
+def _enc_layer(cfg: ModelConfig, lp, h):
+    q, k, v = transformer._project_qkv(cfg, lp, _norm(cfg, h, lp, "norm1"))
+    o = attention.flash_attention(q, k, v, causal=False,
+                                  kv_chunk=cfg.kv_chunk)
+    B, T = h.shape[:2]
+    h = h + nn.dense(o.reshape(B, T, -1), lp.attn["wo"])
+    return h + transformer.mlp_block(cfg, lp, _norm(cfg, h, lp, "norm2"))
+
+
+def encode(cfg: ModelConfig, model, frames):
+    """frames (B, encoder_len, d) stub embeddings -> the encoder memory
+    (B, encoder_len, d) in the compute dtype."""
+    dtype = torch_dtype(cfg.compute_dtype)
+    x = frames.to(dtype) + model.enc_pos.to(dtype)[None]
+    for lp in model.enc_layers:
+        x = _run(cfg, lambda h, lp=lp: _enc_layer(cfg, lp, h), x)
+    return _norm(cfg, x, model, "enc_final")
+
+
+def _cross_attend(cfg: ModelConfig, lp, x, memory):
+    """Cross-attention of decoder states x over the encoder memory."""
+    B, T = x.shape[:2]
+    hq, hk, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    a = lp.cross
+    q = nn.dense(x, a["wq"]).reshape(B, T, hq, hd)
+    k = nn.dense(memory, a["wk"]).reshape(B, memory.shape[1], hk, hd)
+    v = nn.dense(memory, a["wv"]).reshape(B, memory.shape[1], hk, hd)
+    o = attention.flash_attention(q, k, v, causal=False,
+                                  kv_chunk=cfg.kv_chunk)
+    return nn.dense(o.reshape(B, T, -1), a["wo"])
+
+
+def _dec_layer(cfg: ModelConfig, lp, h, memory, rope):
+    """One decoder layer -> (h, (k, v)): its self-attention's RoPE-rotated
+    K / V, (B, T, HK, hd) each, beside the output."""
+    a, kv = transformer.attn_block(cfg, lp, _norm(cfg, h, lp, "norm1"),
+                                   rope)
+    h = h + a
+    h = h + _cross_attend(cfg, lp, _norm(cfg, h, lp, "norm_cross"), memory)
+    h = h + transformer.mlp_block(cfg, lp, _norm(cfg, h, lp, "norm2"))
+    return h, kv
+
+
+def forward(cfg: ModelConfig, model, tokens, frames,
+            last_only: bool = False):
+    """Training / prefill: the decoder over tokens (B, T) with
+    cross-attention on the encoded frames -> logits (B, T, V), or
+    (B, 1, V) with ``last_only``."""
+    dtype = torch_dtype(cfg.compute_dtype)
+    memory = encode(cfg, model, frames)
+    # gather, then cast: the same values as the reference's cast-then-gather
+    x = model.embed[tokens].to(dtype)
+    rope = nn.rope_freqs(cfg.hd, x.shape[1] + 1, cfg.rope_theta, dtype,
+                         device=x.device)
+    for lp in model.dec_layers:
+        x = _run(cfg, lambda h, lp=lp: _dec_layer(cfg, lp, h, memory,
+                                                  rope)[0], x)
+    if last_only:
+        x = x[:, -1:]
+    x = _norm(cfg, x, model, "final")
+    return nn.dense(x, model.embed.T)  # tied
+
+
+def decode_step(cfg: ModelConfig, model, tokens, self_cache, cross_kv):
+    """One-token decode: tokens (B, 1); self_cache (k, v) stacked (L, B,
+    S, HK, hd), the S previous positions; cross_kv (k, v) stacked (L, B,
+    encoder_len, HK, hd).  Returns (logits (B, 1, V), new (k, v) stacked
+    (L, B, 1, HK, hd)); the caller appends."""
+    dtype = torch_dtype(cfg.compute_dtype)
+    x = model.embed[tokens].to(dtype)
+    k_all, v_all = self_cache
+    ck_all, cv_all = cross_kv
+    B = x.shape[0]
+    nks, nvs = [], []
+    h = x
+    for i, lp in enumerate(model.dec_layers):
+        a, (nk, nv) = transformer.attn_block_decode(
+            cfg, lp, _norm(cfg, h, lp, "norm1"), (k_all[i], v_all[i]))
+        h = h + a
+        hn = _norm(cfg, h, lp, "norm_cross")
+        q = nn.dense(hn, lp.cross["wq"]).reshape(B, 1, cfg.n_heads, cfg.hd)
+        o = attention.flash_attention(q, ck_all[i], cv_all[i], causal=False,
+                                      kv_chunk=cfg.kv_chunk)
+        h = h + nn.dense(o.reshape(B, 1, -1), lp.cross["wo"])
+        h = h + transformer.mlp_block(cfg, lp, _norm(cfg, h, lp, "norm2"))
+        nks.append(nk)
+        nvs.append(nv)
+    h = _norm(cfg, h, model, "final")
+    return nn.dense(h, model.embed.T), (torch.stack(nks), torch.stack(nvs))
+
+
+def init_model(cfg: ModelConfig, generator: torch.Generator,
+               device=None) -> Whisper:
+    """Random weights with the reference's init law from ``generator``
+    (on ``device``, CUDA unless "cpu"), layer by layer: each leaf drawn in
+    f32 (a layer's slice of a stack under the stack's law) and cast to
+    the compute dtype as it is made.  Draw order: embed, enc_pos, the
+    encoder's layers, the decoder's, then the final norms."""
+    dev = resolve_device(device)
+    dt = torch_dtype(cfg.compute_dtype)
+    specs = param_specs(cfg)
+
+    def draw(spec, per_layer=False):
+        shape = spec.shape[1:] if per_layer else spec.shape
+        return nn.init_leaf(spec, generator, dev, shape).to(dt)
+
+    tree: Dict[str, Any] = {name: draw(specs[name])
+                            for name in ("embed", "enc_pos")}
+    for stack in STACKS:
+        tree[stack] = [nn.map_specs(lambda _, s: draw(s, True), specs[stack])
+                       for _ in range(_depth(cfg, stack))]
+    for name, spec in specs.items():
+        if name not in tree:
+            tree[name] = draw(spec)
+    return Whisper(cfg, tree)

@@ -46,7 +46,7 @@ def test_randint_bitwise(lo, hi):
 def test_frontend_stubs():
     """The dense and moe kinds' batch passes through; llava gets its
     patch stub (bitwise the reference's: tests/test_torch_llava.py);
-    whisper raises until its slice lands."""
+    whisper gets its frames stub, bitwise the reference's."""
     cfg = ModelConfig(name="x", kind="dense", n_layers=1, d_model=8,
                       n_heads=1, n_kv_heads=1, d_ff=8, vocab=16, n_patches=3)
     batch = {"tokens": torch.zeros((2, 5), dtype=torch.int32)}
@@ -55,5 +55,10 @@ def test_frontend_stubs():
     out = tsyn.with_frontend_stubs(batch, cfg.scaled(kind="llava"))
     assert out["tokens"] is batch["tokens"] and "patches" not in batch
     assert out["patches"].shape == (2, 3, 8)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tsyn.with_frontend_stubs(batch, cfg.scaled(kind="whisper"))
+    wcfg = cfg.scaled(kind="whisper", encoder_len=6)
+    out = tsyn.with_frontend_stubs(batch, wcfg)
+    assert out["tokens"] is batch["tokens"] and "frames" not in batch
+    want = jsyn.with_frontend_stubs({"tokens": jax.numpy.zeros((2, 5))},
+                                    wcfg)["frames"]
+    assert out["frames"].shape == (2, 6, 8)
+    np.testing.assert_array_equal(out["frames"].numpy(), np.asarray(want))

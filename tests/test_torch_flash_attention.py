@@ -732,7 +732,9 @@ def test_bf16_gradient_error_at_most_twice_the_jax_models(B, T, H, HK, D,
 # bf16 tensor cores with f32 sums: S, dP, P and dS in f32, dV from bf16(P),
 # dK and dQ from dS as a bf16 hi + lo pair (each half's product exact in
 # f32).  Its query tile in dK / dV (BQ) and its key tile in dQ (BK, by
-# head dim) set where the f32 sums round between tiles.
+# head dim) set where the f32 sums round between tiles; dK and dV add each
+# tile's sum to one running sum over the query heads of their KV head, in
+# order.
 BWD_BQ = 64
 BWD_BK = {16: 128, 32: 128, 64: 128, 128: 64}
 BWD_EMU_CASES = [(2, 64, 192, 4, 4, 16, False), (2, 300, 130, 8, 2, 64, True),
@@ -751,6 +753,25 @@ def _tile_mm(pairs, tile):
                    @ b[..., t0:t0 + tile, :].double() for a, b in pairs)
         acc = part.float() if acc is None else acc + part.float()
     return acc
+
+
+def _head_tile_mm(pairs, tile, g):
+    """dK / dV's sums: ``_tile_mm`` of (B, H, S, T) by (B, H, T, D) pairs
+    over the query tiles of each KV head's ``g`` query heads, heads in
+    order, in one running f32 sum -> (B, H / g, S, D).  A tile holds one
+    head's queries (T padded to the tile with zeros)."""
+    T = pairs[0][0].shape[-1]
+    pad = -T % tile
+
+    def heads_in_k(a, b):
+        B, H, S, D = a.shape[0], a.shape[1], a.shape[2], b.shape[-1]
+        a = torch.nn.functional.pad(a, (0, pad)).reshape(B, H // g, g, S,
+                                                         T + pad)
+        b = torch.nn.functional.pad(b, (0, 0, 0, pad))
+        return (a.permute(0, 1, 3, 2, 4).reshape(B, H // g, S, -1),
+                b.reshape(B, H // g, -1, D))
+
+    return _tile_mm([heads_in_k(a, b) for a, b in pairs], tile)
 
 
 def _emulate_bf16_bwd(q, k, v, o, lse, do, causal, split=True):
@@ -776,11 +797,10 @@ def _emulate_bf16_bwd(q, k, v, o, lse, do, causal, split=True):
     hi = ds.to(torch.bfloat16).float()
     lo = (ds - hi).to(torch.bfloat16).float() if split else 0 * hi
     pt = p.to(torch.bfloat16).float().transpose(-1, -2)
-    dv = _tile_mm([(pt, do32)], BWD_BQ)
-    dk = _tile_mm([(hi.transpose(-1, -2), qs), (lo.transpose(-1, -2), qs)],
-                  BWD_BQ)
+    dv = _head_tile_mm([(pt, do32)], BWD_BQ, g)
+    dk = _head_tile_mm([(hi.transpose(-1, -2), qs),
+                        (lo.transpose(-1, -2), qs)], BWD_BQ, g)
     dq = _tile_mm([(hi, kh), (lo, kh)], BWD_BK[D]) * ref.bf16_scale(D)
-    dk, dv = (x.reshape(B, HK, g, S, D).sum(2) for x in (dk, dv))
     return tuple(x.permute(0, 2, 1, 3).to(torch.bfloat16)
                  for x in (dq, dk, dv))
 
@@ -890,8 +910,8 @@ def _emulate_f32_bwd(q, k, v, o, lse, do, causal, terms=3,
                      order=fa.TF32_KEY_ORDER):
     """The f32 backward kernel's arithmetic in plain PyTorch: (dq, dk, dv).
     S = qs k^T and dP = dO v^T as TF32 products over D; P = exp2(S log2(e)
-    - f32(lse log2(e))) as the kernel forms it, masked; dS = P (dP - Drow)
-    in f32; dV = P^T dO, dK = dS^T qs (summed over the query heads of each
+    - f32(lse log2(e))) as the kernel forms it, masked; Drow = rowsum(P
+    dP); dS = P (dP - Drow) in f32; dV = P^T dO, dK = dS^T qs (summed over the query heads of each
     KV head in order) and dQ = scale dS k as TF32 products over queries or
     keys, tile by tile, A's columns in TF32_KEY_ORDER and the transposed
     operand's rows in ``order``.  ``terms`` = 1 keeps only hi.hi."""
@@ -902,8 +922,6 @@ def _emulate_f32_bwd(q, k, v, o, lse, do, causal, terms=3,
     do32 = do.permute(0, 2, 1, 3)
     kh = k.repeat_interleave(g, 2).permute(0, 2, 1, 3)
     vh = v.repeat_interleave(g, 2).permute(0, 2, 1, 3)
-    drow = (do32.double() * o.double().permute(0, 2, 1, 3)).sum(
-        -1, keepdim=True).float()
     s = _mm_tf32(torch.zeros((B, H, T, S)), qs, kh.transpose(-1, -2), terms)
     dp = _mm_tf32(torch.zeros((B, H, T, S)), do32, vh.transpose(-1, -2),
                   terms)
@@ -911,6 +929,8 @@ def _emulate_f32_bwd(q, k, v, o, lse, do, causal, terms=3,
     if causal:
         p = torch.where(torch.arange(S)[None, :] <= torch.arange(T)[:, None],
                         p, 0.0)
+    # Drow from the kernel's own P and dP (its row-sum pass), not from o
+    drow = (p.double() * dp.double()).sum(-1, keepdim=True).float()
     ds = p * (dp - drow)
     hw = fa.TF32_KEY_ORDER
 

@@ -38,7 +38,8 @@ def test_port_imports_neither_jax_nor_the_reference():
                    "train/steps.py", "optim/optimizers.py",
                    "data/synthetic.py", "launch/train.py",
                    "runtime/workloads.py", "models/rwkv6.py",
-                   "kernels/wkv6.py"):
+                   "kernels/wkv6.py", "models/whisper.py",
+                   "configs/whisper_small.py"):
         assert f"src/repro_torch/{module}" in scanned, module
     bad = [hit for f in files for hit in _forbidden_imports(f)]
     assert bad == []

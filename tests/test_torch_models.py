@@ -25,7 +25,7 @@ from repro_torch.models.config import torch_dtype
 DENSE = ("qwen1.5-0.5b", "starcoder2-3b", "qwen3-32b", "minitron-4b")
 # the transformer's other kinds (moe and llava), rwkv6 and zamba2
 PORTED = DENSE + ("dbrx-132b", "phi3.5-moe-42b-a6.6b", "llava-next-mistral-7b",
-                  "rwkv6-1.6b", "zamba2-7b")
+                  "rwkv6-1.6b", "zamba2-7b", "whisper-small")
 QWEN15_PARAMS = 463_987_712
 
 
@@ -147,16 +147,14 @@ def test_configs_copy_the_reference():
         torch_dtype("int4")
 
 
-@pytest.mark.parametrize("arch", [a for a in jconfigs.ARCHS
-                                  if a not in PORTED])
-def test_unported_families_raise(arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        configs.get_config(arch)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        configs.get_smoke_config(arch)
-    kind = jconfigs.get_config(arch).kind
-    cfg = configs.get_smoke_config("qwen1.5-0.5b").scaled(kind=kind)
-    with pytest.raises(NotImplementedError):
+def test_every_arch_is_ported_and_unknown_ones_raise():
+    """Every architecture id of the reference has its config in the port;
+    an unknown id or kind raises, as in the reference."""
+    assert sorted(PORTED) == sorted(jconfigs.ARCHS)
+    with pytest.raises(KeyError):
+        configs.get_config("whisper-large")
+    cfg = configs.get_smoke_config("qwen1.5-0.5b").scaled(kind="encoder")
+    with pytest.raises(ValueError, match="encoder"):
         registry.param_specs(cfg)
 
 
