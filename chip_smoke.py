@@ -168,7 +168,16 @@ Phases, each fatal on failure:
      flash_attention_bwd_sm90, both with the window), with its bf16 and
      f32 gradient checks on the trained parameters' first group at 1 x
      8192; rwkv6's served decode step is profiled too (3k: wkv6_step's
-     own device time);
+     own device time); 3q: the (pod, data, model) mesh, gloo ranks sharing
+     the card (``run_mesh_phase``): qwen1.5-0.5b at full width, 4 of its
+     24 layers, trained on (2, 1, 2) with aggregate_gaussian fused b = 8
+     over the pods (params bitwise
+     across pods per model rank, each rank's launches per step), its f32
+     gradient on (1, 2, 2) against one rank (1e-6 / 1e-4), qwen1.5-0.5b
+     served uncut on (1, 1, 2) and starcoder2-3b at 5 of its 30 layers on
+     (1, 1, 4) (its KV heads cut
+     over the ranks, the cache split by sequence), their f32 tokens equal
+     to one rank's and their bf16 logits as close to f32 as one rank's;
   4. time each kernel (CUDA events, median of 10) beside its bound and
      its plain version (the flash kernels also beside
      ``scaled_dot_product_attention``, and the backward beside its
@@ -563,6 +572,18 @@ FLASH_CASES = (
     (2, 64, 192, 4, 4, 16, False),
     (1, 1000, 1000, 4, 4, 32, True),
     (2, 300, 130, 8, 2, 64, True),
+)
+# the mesh paths' per-rank shapes (phase 3q), from their own generator
+# (MESH_SEED): qwen1.5-0.5b's 8 / 8 heads of 64 on each of 2 model ranks
+# (the train microbatch and the serve prefill) and starcoder2-3b's 6 query
+# heads on each of 4 model ranks with the one KV head they read
+MESH_SEED = 41
+FLASH_MESH_CASES = (
+    (1, 2048, 2048, 8, 8, 64, True),
+    (1, 2048, 2048, 6, 1, 128, True),
+)
+BWD_MESH_CASES = (
+    (1, 2048, 2048, 8, 8, 64, True),
 )
 # the windowed and head-dim-112 cases, drawn from their own generator
 # (WINDOW_SEED) after the cases above, whose inputs stay what they were
@@ -4064,6 +4085,600 @@ def run_train_whisper_phase(device) -> dict:
     return out
 
 
+# ------------------------------------------------------------ phase 3q
+# the (pod, data, model) mesh: MESH_RANKS gloo ranks on the one card (NCCL
+# refuses two ranks on one card, see probe_nccl), so the times measure the
+# paths' correctness and launches, not tensor parallelism over NVLink
+MESH_RANKS = 4
+MESH_TRAIN = (2, 1, 2)      # (a): two pods (clients), TP 2, NO_FSDP_RULES
+MESH_TRAIN_LAYERS = 4       # (a)'s depth, cut from 24 (every leaf whole)
+MESH_TRAIN_BATCH = 4        # global rows of TRAIN_SEQ tokens
+MESH_TRAIN_ACCUM = 2        # microbatches per step on each rank
+MESH_TRAIN_STEPS = 2
+MESH_CHECK = (1, 2, 2)      # (b): FSDP 2 x TP 2, f32, 1 x TRAIN_CHECK_SEQ
+# (c) / (d): (arch, mesh, requests, tokens out, layers or None for all):
+# qwen1.5-0.5b's 16 / 16 heads split over 2 ranks, starcoder2-3b's 2 KV
+# heads over 4 (the cut-head gather, the decode cache split by sequence).
+# Cut from 8 requests of 64 out (and starcoder2-3b from 30 layers), and
+# (a) from 24 layers, so that the whole script ends within 1200 s on the
+# slowest hosts seen (with (a) at 12 layers, (c) at 8 requests and (d) at
+# 10 layers it took 912 s on one host and 1053 s on one 1.16x slower;
+# another host was 1.32x slower): every gloo op on the shared card costs
+# 1-12 ms, and a 30-layer starcoder2-3b decode step ran ~120 of them
+MESH_SERVE = (("qwen1.5-0.5b", (1, 1, 2), 4, 16, None),
+              ("starcoder2-3b", (1, 1, 4), 2, 16, 5))
+MESH_F32_PROMPT, MESH_F32_GEN = 512, 16
+# the bf16 forward on the mesh against one rank's: the last MESH_BF16_POS
+# positions of the first f32-check prompt; the mesh's distance from the
+# f32 logits at most MESH_BF16_FACTOR times the one-rank bf16 forward's
+# (tests/test_torch_mesh.py's BF16_FACTOR)
+MESH_BF16_POS = 32
+MESH_BF16_FACTOR = 1.5
+MESH_TIMEOUT = 420.0
+
+
+def mesh_train_config():
+    from repro_torch import configs
+
+    return configs.get_config(TRAIN_ARCH).scaled(n_layers=MESH_TRAIN_LAYERS)
+
+
+def mesh_serve_config(arch: str, layers):
+    from repro_torch import configs
+
+    cfg = configs.get_config(arch)
+    return cfg if layers is None else cfg.scaled(n_layers=layers)
+
+
+def _mesh_train(mesh, device) -> dict:
+    """(a) The compressed step on MESH_TRAIN: per step the wall between
+    two barriers, the loss, the digest of this rank's params; the
+    launches of both steps and the peak."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch import configs
+    from repro_torch.data import synthetic
+    from repro_torch.dist import collectives as coll
+    from repro_torch.dist import sharding
+    from repro_torch.train import steps
+
+    cfg = mesh_train_config()
+    tc = steps.TrainConfig(optimizer="adamw", lr=3e-4,
+                           grad_accum=MESH_TRAIN_ACCUM,
+                           compression=_train_comp("aggregate_gaussian",
+                                                   TRAIN_SIGMA))
+    state = steps.init_train_state(cfg, tc, 0, device, mesh=mesh)
+    step_fn = steps.build_train_step(cfg, tc, mesh=mesh)
+    dc = synthetic.DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                              global_batch=MESH_TRAIN_BATCH, kind="lm")
+    split = _time_calls(((steps, "loss_and_grads"),
+                         (steps.compress_mod, "compress_tree"),
+                         (sharding, "unshard"), (coll, "all_reduce"),
+                         (coll, "all_gather")))
+    out = {"walls": [], "losses": [], "digests": [], "cohort": None,
+           "split": [],
+           "rules": "NO_FSDP_RULES" if steps.state_rules(cfg, tc, mesh)
+           is sharding.NO_FSDP_RULES else "other",
+           "local_params": sum(t.numel() for t in _leaves(state["params"]))}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    dist.barrier()
+    reset_launches()
+    for i in range(MESH_TRAIN_STEPS):
+        batch = synthetic.lm_batch(dc, i, device=device)
+        dist.barrier()
+        split.clear()
+        t0 = time.perf_counter()
+        state, m = step_fn(state, batch, TRAIN_SEED)
+        torch.cuda.synchronize()
+        dist.barrier()
+        out["walls"].append(time.perf_counter() - t0)
+        out["split"].append(dict(split))
+        out["losses"].append(float(m["loss"]))
+        out["digests"].append(_digest(_leaves(state["params"])))
+        out["cohort"] = int(m["cohort"])
+    out["launches"] = read_launches()
+    out["peak_bytes"] = torch.cuda.max_memory_allocated()
+    del state
+    torch.cuda.empty_cache()
+    return out
+
+
+def _time_calls(targets) -> dict:
+    """Wrap each (owner, name) function so that its calls add their wall
+    seconds (between synchronizes) to the returned dict under ``name``:
+    a rank's split of its step (the wrapped calls nest: ``all_reduce`` and
+    ``all_gather`` inside ``loss_and_grads`` and ``unshard`` count in
+    both)."""
+    import torch
+
+    acc = {}
+
+    def wrap(owner, name):
+        fn = getattr(owner, name)
+
+        def run(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                torch.cuda.synchronize()
+                acc[name] = acc.get(name, 0.0) + time.perf_counter() - t0
+                acc[name + "_calls"] = acc.get(name + "_calls", 0) + 1
+
+        setattr(owner, name, run)
+
+    for owner, name in targets:
+        wrap(owner, name)
+    return acc
+
+
+def collective_ms(group, device) -> dict:
+    """ms a gloo all-reduce of the card's f32 tensors takes on ``group``:
+    a decode step's (8, 1024) and a 2048-token prefill's (2048, 1024),
+    the mean of 20 and of 5 after a warm-up of each."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.dist import collectives as coll
+
+    out = {}
+    for name, shape, reps in (("8x1024", (8, 1024), 20),
+                              ("2048x1024", (2048, 1024), 5)):
+        x = torch.ones(shape, device=device)
+        coll.all_reduce(x, group)
+        torch.cuda.synchronize()
+        dist.barrier()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            coll.all_reduce(x, group)
+        torch.cuda.synchronize()
+        out[name] = 1e3 * (time.perf_counter() - t0) / reps
+    return out
+
+
+def _mesh_check(mesh, device) -> dict:
+    """(b) f32 on MESH_CHECK, one microbatch of 1 x TRAIN_CHECK_SEQ: the
+    mesh's loss and gradient (each rank's blocks) against the one-rank
+    step's on the same params, computed on this rank and cut to its
+    blocks; errors reduced to their max over the ranks."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch import configs
+    from repro_torch.dist import collectives as coll
+    from repro_torch.dist import sharding
+    from repro_torch.models import nn, registry
+    from repro_torch.train import steps
+
+    cfg = configs.get_config(TRAIN_ARCH).scaled(compute_dtype="float32")
+    tc = steps.TrainConfig(optimizer="adamw", lr=3e-4)
+    shard = steps.train_state_shardings(cfg, tc, mesh)["params"]
+    gen = torch.Generator(device=device)
+    gen.manual_seed(0)
+    full = nn.init_params(registry.param_specs(cfg), gen, device)
+    local = sharding.shard_tree(full, shard)
+    batch = check_batch(cfg, device)
+    dist.barrier()
+    reset_launches()
+    t0 = time.perf_counter()
+    loss, g = steps.mesh_loss_and_grads(cfg, tc, mesh, local, batch, shard)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    del local
+    loss1, g1 = steps.loss_and_grads(cfg, tc, full, batch)
+    del full
+    worst = 0.0
+    for x, y, ns in zip(_leaves(g), _leaves(g1),
+                        sharding.tree_leaves(shard)):
+        err = (x - sharding.shard_tensor(y, ns.spec, mesh)).abs().max()
+        worst = max(worst, float(err) / max(float(y.abs().max()), 1e-30))
+    worst = float(coll.all_reduce_max(
+        torch.tensor(worst, dtype=torch.float64), dist.group.WORLD))
+    loss_rel = abs(float(loss) - float(loss1)) / abs(float(loss1))
+    del g, g1
+    torch.cuda.empty_cache()
+    return {"loss": float(loss), "loss_one": float(loss1),
+            "loss_rel": loss_rel, "grad_rel": worst, "wall": wall,
+            "launches": launches}
+
+
+def mesh_f32_prompts(cfg, device):
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(2)
+    return torch.as_tensor(rng.integers(
+        0, cfg.vocab, size=(2, MESH_F32_PROMPT), dtype=np.int32),
+        device=device)
+
+
+def mesh_engine_tokens(cfg, model, device, prompts):
+    """2 prompts at full occupancy through the engine (f32 check)."""
+    import torch
+
+    from repro_torch.serve import ServeEngine
+
+    engine = ServeEngine(cfg, max_slots=2, max_prefill_len=MESH_F32_PROMPT,
+                         max_gen_len=MESH_F32_GEN, device=device)
+    state = engine.init_state()
+    for i in range(2):
+        _, prefix = engine.prefill(model, prompts[i])
+        state = engine.insert(state, prefix, i, max_gen=MESH_F32_GEN)
+    outs = [state["tokens"].clone()]
+    for _ in range(MESH_F32_GEN - 1):
+        state, tok, _ = engine.generate_step(model, state)
+        outs.append(tok)
+    return torch.stack(outs, dim=1)
+
+
+def _mesh_serve(mesh, device, arch: str, n_requests: int, gen: int,
+                layers) -> dict:
+    """(c) / (d) The engine on the mesh: ``n_requests`` requests of
+    256-2048 prompt tokens, ``gen`` out, in bf16 (after a warm-up of 2),
+    with the launches; then the f32 engine's tokens on 2 x
+    MESH_F32_PROMPT."""
+    import statistics
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch import configs
+    from repro_torch.launch import serve as launch
+    from repro_torch.serve import ServeEngine
+
+    cfg = mesh_serve_config(arch, layers)
+    gloo_ms = collective_ms(mesh.group("model"), device)
+    model = launch.build_model(cfg, 0, device, mesh)
+    bf16_logits = mesh_bf16_logits(cfg, model, device)
+    engine = ServeEngine(cfg, max_slots=SERVE_SLOTS,
+                         max_prefill_len=SERVE_PREFILL,
+                         max_gen_len=gen, device=device)
+    launch.drive(engine, model, [(r, toks[:256], 4) for r, toks, _ in
+                                 serve_requests(cfg, 2, seed=9)])
+    requests = [(r, toks, min(g, gen)) for r, toks, g in
+                serve_requests(cfg, n_requests)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    dist.barrier()
+    reset_launches()
+    outputs, stats = launch.drive(engine, model, requests)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    out = {"launches": launches, "gloo_all_reduce_ms": gloo_ms, "stats": {
+        k: stats[k] for k in ("steps", "tokens_out", "wall_s",
+                              "tokens_per_s", "prefills", "prompt_tokens",
+                              "prefill_s", "mean_occupancy")},
+        "step_ms_median": statistics.median(stats["step_ms"]),
+        "peak_bytes": torch.cuda.max_memory_allocated(),
+        "outputs_digest": _json_digest(outputs),
+        "cache_seq_split": engine.family.seq is not None,
+        "cache_shape": list(engine.init_state()["cache"]["k"].shape),
+        "ok_tokens": all(len(outputs[r]) == g and all(
+            0 <= t < cfg.vocab for t in outputs[r]) for r, _, g in requests),
+        "bf16_logits": bf16_logits}
+    del engine, model
+    torch.cuda.empty_cache()
+    cfg32 = cfg.scaled(compute_dtype="float32")
+    model32 = launch.build_model(cfg32, 0, device, mesh)
+    reset_launches()
+    out["f32_tokens"] = mesh_engine_tokens(
+        cfg32, model32, device, mesh_f32_prompts(cfg32, device)).cpu().tolist()
+    out["f32_launches"] = read_launches()
+    del model32
+    torch.cuda.empty_cache()
+    return out
+
+
+def mesh_bf16_logits(cfg, model, device):
+    """The compute-dtype forward's logits (whole over the vocabulary, f32,
+    on the host) at the last MESH_BF16_POS positions of the first f32-check
+    prompt."""
+    import torch
+
+    from repro_torch.dist import collectives as coll
+    from repro_torch.models import parallel, registry
+
+    prompt = mesh_f32_prompts(cfg, device)[:1]
+    with torch.no_grad():
+        logits = registry.logits_fn(cfg, model, {"tokens": prompt})
+        logits = logits[:, -MESH_BF16_POS:].to(torch.float32)
+        logits = coll.all_gather(logits, -1,
+                                 parallel.vocab_group(cfg, logits))
+    return logits[..., :cfg.vocab].cpu().numpy()
+
+
+def _json_digest(obj) -> str:
+    import hashlib
+
+    return hashlib.sha256(json.dumps(obj, sort_keys=True).encode()).hexdigest()
+
+
+def mesh_rank_main(rank: int, n: int, port: int, device: str, jobs,
+                   results) -> None:
+    """One rank of phase 3q: the gloo group, then each (name, mesh shape,
+    args) of ``jobs`` on its mesh (``meshctx.make_mesh``, set as the
+    process's mesh): ``train`` (a), ``check`` (b) or ``serve`` (c / d)."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.dist import meshctx
+
+    try:
+        # the ranks' work is on the card; one intra-op thread each keeps
+        # the four from contending for the host's cores
+        torch.set_num_threads(1)
+        device = torch.device(device)
+        torch.cuda.set_device(device)
+        dist.init_process_group(RANK_BACKEND,
+                                init_method=f"tcp://localhost:{port}",
+                                rank=rank, world_size=n)
+        out = {"rank": rank, "backend": dist.get_backend(), "jobs": {}}
+        for name, shape, args in jobs:
+            mesh = meshctx.make_mesh(shape)
+            meshctx.set_mesh(mesh)
+            t0 = time.perf_counter()
+            if name == "train":
+                res = _mesh_train(mesh, device)
+            elif name == "check":
+                res = _mesh_check(mesh, device)
+            else:
+                res = _mesh_serve(mesh, device, *args)
+            res.update(coords=mesh.coords(),
+                       job_s=time.perf_counter() - t0)
+            out["jobs"][name] = res
+        results.put(out)
+    except BaseException:  # reported to the parent, then re-raised
+        import traceback
+
+        results.put({"rank": rank, "error": traceback.format_exc()})
+        raise
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def _mesh_spawn(n: int, jobs, device) -> dict:
+    """n ranks running ``jobs``: {job: {rank: result}}, and the wall from
+    spawn to exit; every process stopped."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    port = free_port()
+    t0 = time.perf_counter()
+    got = _spawn(mesh_rank_main, lambda r: (r, n, port, str(device), jobs),
+                 n, MESH_TIMEOUT)
+    wall = time.perf_counter() - t0
+    errors = [g["error"] for g in got if "error" in g]
+    check(not errors, "mesh rank failed:\n" + "\n".join(errors))
+    check(len(got) == n, f"mesh: {n - len(got)} ranks gave no result")
+    for g in got:
+        check(g["backend"] == RANK_BACKEND, f"backend {g['backend']}")
+    return {"jobs": {name: {g["rank"]: g["jobs"][name] for g in got}
+                     for name, _, _ in jobs}, "spawn_to_exit_s": wall}
+
+
+def mesh_one_rank_f32(arch: str, layers, device) -> dict:
+    """The one-rank f32 engine's tokens on the f32 check's prompts, and
+    the top-2 margins of a teacher-forced forward over them (a differing
+    mesh token is a tie only below MARGIN there)."""
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.launch import serve as launch
+    from repro_torch.models import registry
+
+    cfg = mesh_serve_config(arch, layers).scaled(compute_dtype="float32")
+    model = launch.build_model(cfg, 0, device)
+    prompts = mesh_f32_prompts(cfg, device)
+    toks = mesh_engine_tokens(cfg, model, device, prompts)
+    with torch.no_grad():
+        logits = registry.logits_fn(cfg, model, {"tokens": torch.cat(
+            [prompts, toks[:, :-1]], dim=1)})
+    margin = _margins(logits[:, MESH_F32_PROMPT - 1:]).cpu()
+    f32_logits = logits[:1, MESH_F32_PROMPT - MESH_BF16_POS:MESH_F32_PROMPT,
+                        :cfg.vocab].cpu().numpy()
+    del model, logits
+    cfg16 = mesh_serve_config(arch, layers)
+    model = launch.build_model(cfg16, 0, device)
+    bf16_logits = mesh_bf16_logits(cfg16, model, device)
+    del model
+    torch.cuda.empty_cache()
+    return {"tokens": toks.cpu().tolist(), "margin": margin.tolist(),
+            "f32_logits": f32_logits, "bf16_logits": bf16_logits}
+
+
+def run_mesh_phase(device) -> dict:
+    """Phase 3q: the dense transformer on the (pod, data, model) mesh,
+    gloo ranks sharing the card.
+
+    (a) qwen1.5-0.5b at full width, MESH_TRAIN_LAYERS of its 24 layers,
+    in bf16 on (2, 1, 2) under NO_FSDP_RULES,
+    aggregate_gaussian fused b = 8, MESH_TRAIN_STEPS steps of 4 x 2048 in
+    2 microbatches a rank: params bitwise equal across the pods for each
+    model rank after every step, finite losses equal on every rank, the
+    cohort 2, and each rank's launches per step (the flash kernels on its
+    8 heads per layer per microbatch, one fused encode and decode per
+    whole leaf); (b) f32 on (1, 2, 2), 1 x 2048: the loss within 1e-6
+    relative and every gradient leaf within 1e-4 max|g| of the one-rank
+    step; (c) qwen1.5-0.5b served tensor parallel on (1, 1, 2) and (d)
+    starcoder2-3b at full width (MESH_SERVE's depth) on (1, 1, 4), whose 2
+    KV heads do not split (each
+    rank gathers its query heads' KV head; the decode cache splits the
+    sequence): MESH_SERVE's requests in bf16 with tokens/s and step ms,
+    one flash_attention_sm90 launch a layer per prefill on every rank, the
+    same tokens on every rank; then f32 tokens on 2 x 512 x 16 equal to
+    the one-rank engine's (a differing token only at a tie), and the bf16
+    logits no further from the f32 ones than MESH_BF16_FACTOR times the
+    one-rank bf16 forward's.  (a), (b) and (d) run in one spawn of 4
+    ranks, (c) in one of 2."""
+    from repro_torch import configs
+
+    res = {}
+    cfg = mesh_train_config()
+    c_serve, d_serve = MESH_SERVE
+    one = {d_serve[0]: mesh_one_rank_f32(d_serve[0], d_serve[4], device)}
+    four = _mesh_spawn(MESH_RANKS, (
+        ("train", MESH_TRAIN, ()), ("check", MESH_CHECK, ()),
+        ("serve", d_serve[1], (d_serve[0],) + d_serve[2:])), device)
+    one[c_serve[0]] = mesh_one_rank_f32(c_serve[0], c_serve[4], device)
+    two = _mesh_spawn(math.prod(c_serve[1]), (
+        ("serve", c_serve[1], (c_serve[0],) + c_serve[2:]),), device)
+    res["spawn_to_exit_s"] = {"4 ranks: a, b, d": four["spawn_to_exit_s"],
+                              "2 ranks: c": two["spawn_to_exit_s"]}
+
+    ranks = four["jobs"]["train"]
+    per_step = train_launches_expected(cfg, MESH_TRAIN_ACCUM)
+    for r, g in ranks.items():
+        twin = next(o for o, h in ranks.items() if o != r and
+                    h["coords"]["model"] == g["coords"]["model"])
+        check(g["digests"] == ranks[twin]["digests"],
+              f"mesh train: rank {r}'s params differ from rank {twin}'s "
+              f"(the other pod, same model rank)")
+        check(g["losses"] == ranks[0]["losses"]
+              and all(math.isfinite(x) for x in g["losses"]),
+              f"mesh train rank {r}: losses {g['losses']}")
+        check(g["cohort"] == MESH_TRAIN[0], f"cohort {g['cohort']}")
+        check(g["rules"] == "NO_FSDP_RULES", f"rules {g['rules']}")
+        for k, v in g["launches"].items():
+            want = MESH_TRAIN_STEPS * per_step.get(k, 0)
+            check(v == want, f"mesh train rank {r}: {v} {k} launches, "
+                             f"expected {want}")
+    res["train"] = {
+        "mesh": MESH_TRAIN, "walls_s": {r: g["walls"] for r, g in
+                                        ranks.items()},
+        "losses": ranks[0]["losses"],
+        "peak_gib": {r: g["peak_bytes"] / 2**30 for r, g in ranks.items()},
+        "local_params": {r: g["local_params"] for r, g in ranks.items()},
+        "launches_per_rank": ranks[0]["launches"],
+        "split_s": ranks[0]["split"],
+        "job_s": {r: g["job_s"] for r, g in ranks.items()}}
+    log(f"mesh train {MESH_TRAIN} ({cfg.n_layers} layers, {RANK_BACKEND}, "
+        f"one card), "
+        f"aggregate_gaussian fused b = {BITS}, {MESH_TRAIN_BATCH} x "
+        f"{TRAIN_SEQ}: step walls per rank "
+        f"{json.dumps({r: [round(w, 3) for w in ws] for r, ws in res['train']['walls_s'].items()})}"
+        f" s, losses {res['train']['losses']}, peak "
+        f"{json.dumps({r: round(p, 2) for r, p in res['train']['peak_gib'].items()})}"
+        f" GiB, launches per rank {res['train']['launches_per_rank']}; "
+        f"params bitwise equal across pods per model rank; rank 0's split "
+        f"(s, nested) {json.dumps(res['train']['split_s'])}")
+
+    chk = four["jobs"]["check"]
+    c0 = chk[0]
+    for r, g in chk.items():
+        check(g["loss_rel"] <= 1e-6, f"mesh f32 check rank {r}: loss "
+              f"{g['loss']} vs one rank {g['loss_one']}")
+        check(g["grad_rel"] <= 1e-4, f"mesh f32 check: gradient "
+              f"{g['grad_rel']} of max|g|")
+        L = configs.get_config(TRAIN_ARCH).n_layers  # (b) runs all of them
+        check(g["launches"].get("flash_attention_f32", 0) == 2 * L
+              and g["launches"].get("flash_attention_bwd_f32_sm90", 0)
+              == L, f"mesh f32 check rank {r}: launches "
+              f"{g['launches']}")
+    res["check"] = {"mesh": MESH_CHECK, "loss_rel": c0["loss_rel"],
+                    "grad_rel": c0["grad_rel"],
+                    "walls_s": {r: g["wall"] for r, g in chk.items()},
+                    "job_s": {r: g["job_s"] for r, g in chk.items()},
+                    "launches_per_rank": c0["launches"]}
+    log(f"mesh f32 check {MESH_CHECK}: loss {c0['loss_rel']:.3g} relative, "
+        f"gradient {c0['grad_rel']:.3g} of max|g| from the one-rank step")
+
+    for (arch, shape, n_req, gen, layers), sr in zip(
+            MESH_SERVE, (two["jobs"]["serve"], four["jobs"]["serve"])):
+        scfg = mesh_serve_config(arch, layers)
+        s0 = sr[0]
+        ties = []
+        for r, g in sr.items():
+            check(g["ok_tokens"], f"mesh serve {arch} rank {r}: tokens")
+            check(g["outputs_digest"] == s0["outputs_digest"],
+                  f"mesh serve {arch}: rank {r}'s tokens differ from rank 0's")
+            want = {"flash_attention_sm90": scfg.n_layers
+                    * g["stats"]["prefills"]}
+            for k, v in g["launches"].items():
+                check(v == want.get(k, 0), f"mesh serve {arch} rank {r}: "
+                      f"{v} {k} launches, expected {want.get(k, 0)}")
+            check(g["f32_launches"].get("flash_attention_f32", 0)
+                  == 2 * scfg.n_layers, f"mesh serve {arch} f32 launches "
+                  f"{g['f32_launches']}")
+            check(g["f32_tokens"] == s0["f32_tokens"],
+                  f"mesh serve {arch}: f32 tokens differ across ranks")
+        check(s0["cache_seq_split"] == (scfg.n_kv_heads % shape[2] != 0),
+              f"mesh serve {arch}: cache layout {s0['cache_shape']}")
+        for b in range(2):
+            got, want = s0["f32_tokens"][b], one[arch]["tokens"][b]
+            diff = [t for t in range(len(want)) if got[t] != want[t]]
+            if diff:
+                m = one[arch]["margin"][b][diff[0]]
+                check(m < MARGIN, f"mesh serve {arch} f32 row {b} token "
+                      f"{diff[0]} differs with top-2 margin {m}")
+                ties.append({"row": b, "token": diff[0], "margin": m})
+        check(len(ties) <= 1, f"mesh serve {arch}: {len(ties)} ties")
+        bf16 = mesh_bf16_reading(one[arch], sr)
+        check(bf16["ratio"] <= MESH_BF16_FACTOR,
+              f"mesh serve {arch}: bf16 logits {bf16['mesh_err']} from "
+              f"f32, one rank's {bf16['one_err']}")
+        res[arch] = {
+            "mesh": shape, "requests": n_req, "gen": gen,
+            "layers": scfg.n_layers,
+            "tokens_per_s": s0["stats"]["tokens_per_s"],
+            "step_ms_median": s0["step_ms_median"], "stats": s0["stats"],
+            "peak_gib": {r: g["peak_bytes"] / 2**30 for r, g in sr.items()},
+            "cache_shape": s0["cache_shape"],
+            "cache_seq_split": s0["cache_seq_split"],
+            "launches_per_rank": s0["launches"],
+            "f32_launches_per_rank": s0["f32_launches"],
+            "f32_ties": ties,
+            "gloo_all_reduce_ms": s0["gloo_all_reduce_ms"],
+            "min_margin": min(min(m) for m in one[arch]["margin"]),
+            "bf16_logits": bf16,
+            "job_s": {r: g["job_s"] for r, g in sr.items()}}
+        log(f"mesh serve {arch} {shape} ({scfg.n_layers} layers, bf16, "
+            f"{n_req} requests, {gen} out): {s0['stats']['tokens_per_s']:.1f} tokens/s, median "
+            f"decode step {s0['step_ms_median']:.3f} ms, prefill "
+            f"{s0['stats']['prefill_s']:.3f} s for "
+            f"{s0['stats']['prompt_tokens']} prompt tokens; KV cache per "
+            f"rank {s0['cache_shape']} (sequence split: "
+            f"{s0['cache_seq_split']}); launches per rank {s0['launches']};"
+            f" f32 tokens on 2 x {MESH_F32_PROMPT} x {MESH_F32_GEN} equal "
+            f"to the one-rank engine's ({len(ties)} tie(s)); bf16 logits "
+            f"{json.dumps(bf16)}; a gloo "
+            f"all-reduce of f32 on the model group: "
+            f"{json.dumps(s0['gloo_all_reduce_ms'])} ms")
+    res["launches"] = {
+        k: sum(g["launches"].get(k, 0) for g in ranks.values())
+        + sum(g["launches"].get(k, 0) for g in chk.values())
+        + sum(g["launches"].get(k, 0) + g["f32_launches"].get(k, 0)
+              for sr in (two["jobs"]["serve"], four["jobs"]["serve"])
+              for g in sr.values())
+        for k in KERNELS}
+    return res
+
+
+def mesh_bf16_reading(one: dict, ranks: dict) -> dict:
+    """The mesh's bf16 logits (the same bits on every rank) against the
+    one-rank bf16 and f32 forwards': max |mesh - f32|, max |one - f32|,
+    their ratio, max |mesh - one| and the share of bitwise-equal logits."""
+    import numpy as np
+
+    mesh = ranks[0]["bf16_logits"]
+    for r, g in ranks.items():
+        check(np.array_equal(g["bf16_logits"], mesh),
+              f"mesh bf16 logits: rank {r}'s differ from rank 0's")
+    f32, one16 = one["f32_logits"], one["bf16_logits"]
+    mesh_err = float(np.abs(mesh - f32).max())
+    one_err = float(np.abs(one16 - f32).max())
+    return {"mesh_err": mesh_err, "one_err": one_err,
+            "ratio": mesh_err / max(one_err, 1e-30),
+            "mesh_vs_one": float(np.abs(mesh - one16).max()),
+            "equal_share": float((mesh == one16).mean()),
+            "f32_max": float(np.abs(f32).max())}
+
+
 def check_gaussian_law(mech: str, res: dict, sigma: float) -> dict:
     """KS of each round's error against N(0, sigma^2), below 1.95/sqrt(N)
     on the subsample."""
@@ -4753,10 +5368,15 @@ def main() -> int:
     dgen.manual_seed(DRIFT_SEED)
     drift = compare_flash_bwd(device, dgen, BWD_DRIFT_CASES,
                               (torch.bfloat16,))
-    worst.update({k: max(flash[k], flash_w[k], flash_wh[k]) for k in (
-        "flash_attention_sm90", "flash_attention_f32")})
-    worst.update({k: max(bwd[k], bwd_w[k], bwd_wh[k], drift[k]) for k in (
-        "flash_attention_bwd_sm90", "flash_attention_bwd_f32_sm90")})
+    mgen = torch.Generator(device=device)
+    mgen.manual_seed(MESH_SEED)
+    flash_m = compare_flash(device, mgen, FLASH_MESH_CASES)
+    bwd_m = compare_flash_bwd(device, mgen, BWD_MESH_CASES)
+    worst.update({k: max(flash[k], flash_w[k], flash_wh[k], flash_m[k])
+                  for k in ("flash_attention_sm90", "flash_attention_f32")})
+    worst.update({k: max(bwd[k], bwd_w[k], bwd_wh[k], drift[k], bwd_m[k])
+                  for k in ("flash_attention_bwd_sm90",
+                            "flash_attention_bwd_f32_sm90")})
     wkv = compare_wkv6(device, gen)
     worst.update({k: wkv[k] for k in ("wkv6_fwd", "wkv6_bwd", "wkv6_step")})
     done("2")
@@ -4861,6 +5481,9 @@ def main() -> int:
     train_whisper = run_train_whisper_phase(device)
     done("3p (train whisper)")
     held("after the whisper train phase")
+    mesh = run_mesh_phase(device)
+    done("3q (the mesh)")
+    held("after the mesh phase")
     done("3")
 
     # 4. times
@@ -4906,6 +5529,7 @@ def main() -> int:
                 + serve_whisper["f32"]["launches"][k]
                 + serve_whisper["f32"]["chain_launches"][k]
                 + train_whisper["launches"][k]
+                + mesh["launches"][k]
                 for k in KERNELS}
     kernels = []
     for kname, (src, replaces) in KERNELS.items():
@@ -4933,6 +5557,8 @@ def main() -> int:
               "flash_whisper_cases": flash_wh["flash_cases"],
               "bwd_whisper_cases": bwd_wh["bwd_cases"],
               "bwd_drift_cases": drift["bwd_cases"],
+              "flash_mesh_cases": flash_m["flash_cases"],
+              "bwd_mesh_cases": bwd_m["bwd_cases"],
               "flash_span": span_rows,
               "train": train, "train_f32": train_f32,
               "train_ranks": train_ranks,
@@ -4944,7 +5570,7 @@ def main() -> int:
               "serve_rwkv6": serve_rwkv, "train_rwkv6": train_rwkv,
               "serve_zamba2": serve_zamba, "train_zamba2": train_zamba,
               "serve_whisper": serve_whisper,
-              "train_whisper": train_whisper,
+              "train_whisper": train_whisper, "mesh": mesh,
               "kernels": kernels, "phase_s": phase_s, "seconds": total}
     out_dir = ROOT / "build"
     try:

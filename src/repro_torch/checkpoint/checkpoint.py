@@ -32,9 +32,16 @@ which is what lets the *last* shard to land perform the commit.
 
 Leaves are torch tensors (any device), numpy arrays or numpy scalars; a
 snapshot copies each to host numpy.  ``restore`` places leaves on the
-port's device as torch tensors.  The JAX package's ``shardings``
-argument, which places leaves onto a TPU mesh through its rule tables,
-has no counterpart: the port runs on one card.
+port's device as torch tensors.
+
+Elastic restore: a checkpoint stores whole leaves (host numpy) plus the
+mesh axis sizes as metadata.  On a mesh, ``AsyncCheckpointer`` given
+``shardings`` (a NamedSharding tree congruent with the state,
+``train.steps.train_state_shardings``) gather each leaf from the ranks'
+blocks first (a collective: every rank saves), and each rank writes its
+stripe of the keys; ``restore(..., shardings=)`` cuts each whole leaf to
+this rank's block under the *target* mesh's shardings, so a checkpoint
+written on one mesh restores onto another.
 """
 from __future__ import annotations
 
@@ -157,12 +164,41 @@ def _all_shards_landed(d: str, num_shards: int) -> bool:
     )
 
 
-def _commit(d: str, meta: Dict) -> None:
-    """Atomic commit marker: the checkpoint exists iff meta.json does."""
-    tmp = os.path.join(d, "meta.json.tmp")
+def _commit(d: str, meta: Dict, shard_index: int = 0) -> None:
+    """Atomic commit marker: the checkpoint exists iff meta.json does.
+    Two shards landing together may both commit (the same meta): each
+    writes its own temporary file."""
+    tmp = os.path.join(d, f"meta.json.{shard_index}.tmp")
     with open(tmp, "w") as f:
         json.dump(meta, f)
     os.replace(tmp, os.path.join(d, "meta.json"))
+
+
+def _snapshot(state: PyTree, shardings: Optional[PyTree], shard_index: int,
+              num_shards: int) -> Tuple[List[str], Dict[str, np.ndarray]]:
+    """(every leaf's key, this shard's stripe of them as host numpy).
+
+    With ``shardings`` each leaf is first gathered whole from the ranks'
+    blocks, one leaf at a time and in the same order on every rank (the
+    gathers are collectives), and dropped from the device at once unless
+    it is in this rank's stripe, whose copy goes to the host: a rank's
+    device holds at most one whole leaf beyond its own blocks."""
+    pairs = _flatten_with_path(state)
+    keys = sorted(_leaf_key(path) for path, _ in pairs)
+    mine = set(shard_keys(keys, shard_index, num_shards))
+    places = ([ns for _, ns in _flatten_with_path(shardings)]
+              if shardings is not None else [None] * len(pairs))
+    arrays = {}
+    for (path, leaf), ns in zip(pairs, places):
+        if ns is not None:
+            from repro_torch.dist import sharding
+
+            leaf = sharding.unshard(leaf, ns.spec, ns.mesh)
+        key = _leaf_key(path)
+        if key in mine:
+            arrays[key] = _to_numpy(leaf)
+        del leaf
+    return keys, arrays
 
 
 def save(directory: str, step: int, state: PyTree,
@@ -195,7 +231,7 @@ def save(directory: str, step: int, state: PyTree,
                if mesh_axes else {}),
             **(extra or {}),
         }
-        _commit(d, meta)
+        _commit(d, meta, shard_index)
     return d
 
 
@@ -262,11 +298,12 @@ def garbage_collect(directory: str, keep_last_k: Optional[int] = None,
 
 
 # -------------------------------------------------------------- restore
-def restore(directory: str, step: int, like: PyTree, device=None) -> PyTree:
+def restore(directory: str, step: int, like: PyTree, device=None,
+            shardings: Optional[PyTree] = None) -> PyTree:
     """Restore into the structure of ``like`` (only its structure is
     used) as torch tensors on ``device`` (CUDA unless "cpu" is asked
-    for).  The JAX package's ``shardings`` argument has no counterpart
-    (one card; see the module's docstring).
+    for); with ``shardings`` (a congruent NamedSharding tree) each leaf
+    is this rank's block of it on the target mesh.
 
     Raises ``CheckpointError`` when the on-disk keys disagree with
     ``meta.json`` (truncated shard set) or with ``like`` (foreign
@@ -301,8 +338,18 @@ def restore(directory: str, step: int, like: PyTree, device=None) -> PyTree:
             f"checkpoint-only keys {sorted(expected - want)[:5]}, "
             f"target-only keys {sorted(want - expected)[:5]}"
         )
-    return _unflatten(like, iter(
-        torch.from_numpy(np.array(data[k])).to(device) for k in paths))
+    places = ([ns for _, ns in _flatten_with_path(shardings)]
+              if shardings is not None else [None] * len(paths))
+
+    def place(k, ns):
+        x = torch.from_numpy(np.array(data[k]))
+        if ns is not None:
+            from repro_torch.dist import sharding
+
+            x = sharding.shard_tensor(x, ns.spec, ns.mesh)
+        return x.to(device)
+
+    return _unflatten(like, iter(place(k, ns) for k, ns in zip(paths, places)))
 
 
 # ------------------------------------------------------ async checkpointer
@@ -310,19 +357,28 @@ class AsyncCheckpointer:
     """Background-thread checkpointer with the commit barrier and
     keep-last-k retention.
 
-    ``save(step, state)`` snapshots the state to host numpy on the
-    *caller* thread (a consistent cut: the copy of a card's tensor waits
-    for the work producing it), then hands the file I/O to a daemon
-    worker: npz writes, the meta.json commit, and retention GC all
-    happen off the training loop.  ``wait()`` drains the queue;
-    worker failures surface on the next ``save``/``wait``.
+    ``save(step, state)`` snapshots this shard's stripe of the state to
+    host numpy on the *caller* thread (a consistent cut: the copy of a
+    card's tensor waits for the work producing it; with ``shardings``,
+    each leaf gathered whole from the mesh's ranks in turn, every rank
+    calling, each rank a shard: ``_snapshot``),
+    then hands the file I/O to a daemon worker: npz writes, the meta.json
+    commit, and retention GC all happen off the training loop.  ``wait()``
+    drains the queue; worker failures surface on the next
+    ``save``/``wait``.
     """
 
     def __init__(self, directory: str, *, keep_last_k: Optional[int] = 3,
                  shard_index: int = 0, num_shards: int = 1,
-                 mesh_axes: Optional[Dict[str, int]] = None):
+                 mesh_axes: Optional[Dict[str, int]] = None,
+                 shardings: Optional[PyTree] = None):
         self.directory = directory
         self.keep_last_k = keep_last_k
+        self.shardings = shardings
+        if shardings is not None:  # each rank of the mesh writes its stripe
+            mesh = _flatten_with_path(shardings)[0][1].mesh
+            shard_index, num_shards = mesh.rank, mesh.size
+            mesh_axes = mesh_axes or dict(mesh.shape)
         self.shard_index = int(shard_index)
         self.num_shards = int(num_shards)
         self.mesh_axes = dict(mesh_axes) if mesh_axes else None
@@ -343,21 +399,18 @@ class AsyncCheckpointer:
             try:
                 if item is None:
                     return
-                step, arrays, extra = item
+                step, keys, arrays, extra = item
                 try:
                     d = _step_dir(self.directory, step)
                     os.makedirs(d, exist_ok=True)
-                    keys = sorted(arrays)
-                    mine = set(shard_keys(keys, self.shard_index, self.num_shards))
-                    _write_shard(d, {k: arrays[k] for k in keys if k in mine},
-                                 self.shard_index, self.num_shards)
+                    _write_shard(d, arrays, self.shard_index, self.num_shards)
                     if _all_shards_landed(d, self.num_shards):
                         meta = {"step": int(step), "keys": keys,
                                 "num_shards": self.num_shards,
                                 **({"mesh_axes": self.mesh_axes}
                                    if self.mesh_axes else {}),
                                 **(extra or {})}
-                        _commit(d, meta)
+                        _commit(d, meta, self.shard_index)
                     with self._lock:
                         self._inflight.discard(step)
                         protect = tuple(self._inflight)
@@ -381,10 +434,12 @@ class AsyncCheckpointer:
              extra: Optional[Dict] = None) -> None:
         """Snapshot now, write in the background."""
         self._raise_pending()
-        arrays = _flatten(state)  # device -> host copy on the caller
+        # device -> host copy of this shard's stripe on the caller
+        keys, arrays = _snapshot(state, self.shardings, self.shard_index,
+                                 self.num_shards)
         with self._lock:
             self._inflight.add(int(step))
-        self._q.put((int(step), arrays, dict(extra) if extra else None))
+        self._q.put((int(step), keys, arrays, dict(extra) if extra else None))
 
     def wait(self, timeout: Optional[float] = None) -> None:
         """Block until every queued save has committed (or failed)."""

@@ -26,6 +26,14 @@ ARCHS: List[str] = [
     "llava-next-mistral-7b",
 ]
 
+# the reference's cells: (sequence length, global batch, step kind)
+SHAPES = {
+    "train_4k": dict(seq_len=4096, global_batch=256, step="train"),
+    "prefill_32k": dict(seq_len=32768, global_batch=32, step="prefill"),
+    "decode_32k": dict(seq_len=32768, global_batch=128, step="decode"),
+    "long_500k": dict(seq_len=524288, global_batch=1, step="decode"),
+}
+
 # each id's config module
 _MODULES: Dict[str, str] = {
     "dbrx-132b": "dbrx_132b",

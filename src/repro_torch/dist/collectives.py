@@ -1,0 +1,157 @@
+"""The collectives of the mesh paths, with their gradients: the port's
+stand-in for what XLA inserts between GSPMD-sharded ops.
+
+Autograd functions (a group of None, or of one rank, is the identity):
+
+  gather(x, dim, group)    all-gather of the ranks' blocks along ``dim``
+                           (FSDP's gather over ``data``; the column
+                           shards of a cut KV head over ``model``);
+                           backward: the reduce-scatter (sum, then this
+                           rank's block)
+  copy_to(x, group)        identity; backward: all-reduce (sum) — the
+                           entry of a tensor-parallel region, whose ranks
+                           each send back a partial gradient
+  reduce_from(x, group)    all-reduce (sum); backward: identity — the
+                           exit of a row-parallel product, the masked
+                           embedding lookup, the vocab-parallel softmax
+
+and their plain counterparts (``all_gather``, ``all_reduce``,
+``reduce_scatter``, ``all_reduce_max``) for the paths without gradients.
+
+Each is the backend's own collective: ``all_gather_into_tensor``,
+``reduce_scatter_tensor`` and ``all_reduce``.  NCCL carries them where
+each rank has its own card (``launch.mesh.launcher_mesh``); gloo where
+ranks share a card, which NCCL refuses (phases 3b, 3e and 3q of
+``chip_smoke.py``), and on the CPU.  torch 2.11's gloo takes the card's
+f32, bf16, int32 and uint8 tensors in all three (and in ``all_to_all``
+and ``broadcast``), with the results of their definitions: probed on an
+H100 with 2 and 4 ranks sharing it (``tools/torch_gloo_probe.py``).
+Floating sums run in f32 whatever the dtype (a bf16 or f16 tensor is
+widened, summed, and rounded once), and every rank of an all-reduce
+receives the same bits.  An op that a backend refuses raises from
+``torch.distributed``; nothing here falls back.
+"""
+from __future__ import annotations
+
+import torch
+import torch.distributed as dist
+
+_NARROW = (torch.bfloat16, torch.float16)
+# torch 2.13 renames the two single-tensor collectives
+_all_gather_single = getattr(dist, "all_gather_single",
+                             dist.all_gather_into_tensor)
+_reduce_scatter_single = getattr(dist, "reduce_scatter_single",
+                                 dist.reduce_scatter_tensor)
+
+
+def size(group) -> int:
+    return 1 if group is None else dist.get_world_size(group)
+
+
+def rank(group) -> int:
+    return 0 if group is None else dist.get_rank(group)
+
+
+# ------------------------------------------------------------ plain ops
+def _summand(x: torch.Tensor) -> torch.Tensor:
+    """``x`` contiguous, narrow floats widened to f32 (a copy, then)."""
+    dtype = torch.float32 if x.dtype in _NARROW else x.dtype
+    return x.to(dtype, memory_format=torch.contiguous_format)
+
+
+def all_reduce(x: torch.Tensor, group, op=dist.ReduceOp.SUM) -> torch.Tensor:
+    """The sum (or ``op``) of ``x`` over the group's ranks, a new tensor
+    of ``x``'s dtype; narrow floats are reduced in f32."""
+    if size(group) == 1:
+        return x
+    y = _summand(x)
+    if y is x:  # the collective writes in place
+        y = x.clone(memory_format=torch.contiguous_format)
+    dist.all_reduce(y, op=op, group=group)
+    return y.to(x.dtype)
+
+
+def all_reduce_max(x: torch.Tensor, group) -> torch.Tensor:
+    return all_reduce(x, group, dist.ReduceOp.MAX)
+
+
+def all_gather(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """The ranks' ``x`` (equal shapes) concatenated along ``dim`` in group
+    rank order, bits unchanged."""
+    n = size(group)
+    if n == 1:
+        return x
+    dim = dim % x.dim()
+    flat = x.contiguous().reshape(-1)
+    out = torch.empty(n * flat.numel(), dtype=x.dtype, device=x.device)
+    _all_gather_single(out, flat, group=group)
+    shape = x.shape[:dim] + (n * x.shape[dim],) + x.shape[dim + 1:]
+    return out.reshape((n,) + tuple(x.shape)).movedim(0, dim).reshape(shape)
+
+
+def reduce_scatter(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """This rank's block along ``dim`` of the sum of the ranks' ``x``
+    (narrow floats summed in f32)."""
+    n = size(group)
+    if n == 1:
+        return x
+    dim = dim % x.dim()
+    if x.shape[dim] % n:
+        raise ValueError(f"dim {dim} of {tuple(x.shape)} does not split "
+                         f"over {n} ranks")
+    y = _summand(x.movedim(dim, 0))
+    out = torch.empty(y.numel() // n, dtype=y.dtype, device=y.device)
+    _reduce_scatter_single(out, y.reshape(-1), group=group)
+    block_shape = (x.shape[dim] // n,) + tuple(y.shape[1:])
+    return out.reshape(block_shape).movedim(0, dim).to(x.dtype).contiguous()
+
+
+# ------------------------------------------------------ autograd functions
+class _Gather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.group = dim, group
+        return all_gather(x, dim, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return reduce_scatter(g, ctx.dim, ctx.group), None, None
+
+
+class _CopyTo(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce(g, ctx.group), None
+
+
+class _ReduceFrom(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        return all_reduce(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def gather(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    if size(group) == 1:
+        return x
+    return _Gather.apply(x, dim % x.dim(), group)
+
+
+def copy_to(x: torch.Tensor, group) -> torch.Tensor:
+    if size(group) == 1:
+        return x
+    return _CopyTo.apply(x, group)
+
+
+def reduce_from(x: torch.Tensor, group) -> torch.Tensor:
+    if size(group) == 1:
+        return x
+    return _ReduceFrom.apply(x, group)

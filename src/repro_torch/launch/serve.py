@@ -20,7 +20,10 @@ the config's compute dtype (``registry.init_model``), which gives the
 values the reference's cast at every use gives (rwkv6: the values it
 gives on parameters cast to that dtype, as its training casts them) and
 keeps the peak near the weights in that dtype (phi3.5-moe's 32 layers
-are 78 GiB in bf16).
+are 78 GiB in bf16).  Under a launcher that sets ``RANK`` / ``WORLD_SIZE``
+the engine runs on a ``make_host_mesh(data=world, model=1)`` mesh, as the
+reference's launcher does: weights resident on every rank
+(SERVE_RESIDENT_RULES), the slots split over the ranks.
 """
 from __future__ import annotations
 
@@ -30,9 +33,11 @@ from collections import deque
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch import configs, resolve_device
 from repro_torch.data import synthetic
+from repro_torch.launch.mesh import launcher_mesh
 from repro_torch.models import registry
 from repro_torch.serve import ServeEngine, naive_generate
 
@@ -110,13 +115,14 @@ def drive(engine: ServeEngine, model, requests, *, log=lambda *_: None):
     }
 
 
-def build_model(cfg, seed: int, device):
+def build_model(cfg, seed: int, device, mesh=None):
     """Random weights with the reference's init law from a generator on
-    ``device`` seeded with ``seed``, in the compute dtype."""
+    ``device`` seeded with ``seed``, in the compute dtype; on a ``mesh``,
+    this rank's blocks of them (SERVE_RESIDENT_RULES)."""
     dev = resolve_device(device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
-    return registry.init_model(cfg, gen, dev)
+    return registry.init_model(cfg, gen, dev, mesh)
 
 
 def main(argv=None):
@@ -144,7 +150,11 @@ def main(argv=None):
     if args.smoke:
         cfg = cfg.scaled(compute_dtype="float32")
     device = resolve_device(args.device)
-    model = build_model(cfg, 0, device)
+    mesh, device = launcher_mesh(device)
+    if mesh is not None and mesh.rank == 0:
+        print(f"[serve] mesh {mesh.shape} over {dist.get_backend()} on "
+              f"{device}")
+    model = build_model(cfg, 0, device, mesh)
     P = args.prompt_len
     rng = np.random.default_rng(1)
 
@@ -169,7 +179,12 @@ def main(argv=None):
         (r, rng.integers(0, cfg.vocab, size=(P,), dtype=np.int32), args.gen)
         for r in range(args.requests)
     ]
-    outputs, stats = drive(engine, model, requests, log=print)
+    log = print if mesh is None or mesh.rank == 0 else (lambda *_: None)
+    outputs, stats = drive(engine, model, requests, log=log)
+    if mesh is not None:  # every rank is past its last collective
+        dist.destroy_process_group()
+        if mesh.rank != 0:
+            return
     print(f"[serve] {args.requests} requests x {args.gen} tokens on "
           f"{args.slots} slots: {stats['tokens_out']} tokens, "
           f"{stats['steps']} steps in {stats['wall_s']:.2f}s "

@@ -23,7 +23,11 @@ processes exchange integer messages with a staleness-aware learner —
 
 As in the JAX launcher, whose host mesh has no ``pod`` axis, the sync
 loop runs the n = 1 step; the step across client ranks is
-``train.steps.build_train_step(..., group=)``.  The JAX launcher's
+``train.steps.build_train_step(..., group=)``.  Under a launcher that
+sets ``RANK`` / ``WORLD_SIZE`` the loop runs on a ``make_host_mesh(data=
+world, model=1)`` mesh (``launch.mesh.launcher_mesh``): FSDP over the
+ranks, each with its rows of every batch, checkpoints of whole leaves,
+and resume re-placing them on this mesh.  The JAX launcher's
 ``--compilation-cache`` has no counterpart: nothing is compiled at run
 time but the CUDA kernels, which ``kernels/build.py`` caches by source.
 """
@@ -34,11 +38,13 @@ import json
 import time
 
 import numpy as np
+import torch.distributed as dist
 
 from repro_torch import configs, resolve_device
 from repro_torch.checkpoint import checkpoint
 from repro_torch.data import synthetic
 from repro_torch.dist.compress import CompressionConfig
+from repro_torch.launch.mesh import launcher_mesh
 from repro_torch.train import steps
 
 
@@ -214,21 +220,30 @@ def main(argv=None):
                                  fused=args.fused, msg_bits=args.msg_bits)
     tc = steps.TrainConfig(optimizer="adamw", lr=args.lr,
                            grad_accum=args.grad_accum, compression=comp)
-    state = steps.init_train_state(cfg, tc, 0, device)
+    mesh, device = launcher_mesh(device)
+    log = print if mesh is None or mesh.rank == 0 else (lambda *_: None)
+    if mesh is not None:
+        log(f"[train] mesh {mesh.shape} over {dist.get_backend()} on "
+            f"{device}")
+    state = steps.init_train_state(cfg, tc, 0, device, mesh=mesh)
     if args.checkpoint_dir and (args.resume
                                 or checkpoint.latest_step(args.checkpoint_dir)
                                 is not None):
         if checkpoint.latest_step(args.checkpoint_dir) is not None:
+            # elastic: placement re-resolved for THIS mesh
             state, last = steps.restore_train_state(
-                args.checkpoint_dir, cfg, tc, device=device)
-            print(f"[train] resumed step {last}")
+                args.checkpoint_dir, cfg, tc, device=device, mesh=mesh)
+            log(f"[train] resumed step {last}"
+                + (f" onto mesh {mesh.shape}" if mesh is not None else ""))
 
     ckpt = None
     if args.checkpoint_dir:
-        ckpt = checkpoint.AsyncCheckpointer(args.checkpoint_dir,
-                                            keep_last_k=args.keep_last_k)
+        ckpt = checkpoint.AsyncCheckpointer(
+            args.checkpoint_dir, keep_last_k=args.keep_last_k,
+            shardings=(steps.train_state_shardings(cfg, tc, mesh)
+                       if mesh is not None else None))
 
-    step_fn = steps.build_train_step(cfg, tc)
+    step_fn = steps.build_train_step(cfg, tc, mesh=mesh)
     dc = synthetic.DataConfig(vocab=cfg.vocab, seq_len=seq, global_batch=batch,
                               kind=args.data)
     batch_fn = synthetic.batch_fn(dc)
@@ -241,15 +256,17 @@ def main(argv=None):
         state, m = step_fn(state, data, i)
         if i % 10 == 0 or i == first + args.steps - 1:
             dt = time.time() - t0
-            print(f"[train] step {i:6d} loss {float(m['loss']):.4f} "
-                  f"({(i - first + 1) * batch * seq / max(dt, 1e-9):,.0f} "
-                  f"tok/s)")
+            log(f"[train] step {i:6d} loss {float(m['loss']):.4f} "
+                f"({(i - first + 1) * batch * seq / max(dt, 1e-9):,.0f} "
+                f"tok/s)")
         if ckpt is not None and (i + 1) % args.checkpoint_every == 0:
             ckpt.save(i + 1, state)
-            print(f"[train] checkpoint {i + 1} queued (async)")
+            log(f"[train] checkpoint {i + 1} queued (async)")
     if ckpt is not None:
         ckpt.close()
-    print("[train] done")
+    if mesh is not None:  # every rank is past its last collective
+        dist.destroy_process_group()
+    log("[train] done")
 
 
 if __name__ == "__main__":

@@ -32,6 +32,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.dist import collectives as coll
 from repro_torch.kernels import ops, ref
 
 NEG_INF = -1e30
@@ -56,7 +57,7 @@ def flash_attention(q, k, v, *, causal: bool = True, q_offset=0,
 
 def decode_attention(q, k_cache, v_cache, new_k, new_v, *,
                      window: Optional[int] = None, valid_len=None,
-                     kv_pos=None, q_pos=None):
+                     kv_pos=None, q_pos=None, row0: int = 0, group=None):
     """Single-token decode: q (B, 1, HQ, D) attends to the full cache
     (B, S, HK, D) plus its own freshly computed (new_k, new_v).
 
@@ -69,6 +70,13 @@ def decode_attention(q, k_cache, v_cache, new_k, new_v, *,
     defaults to ``valid_len``).  Masked rows score -1e30 and contribute
     exactly 0.  Products are summed in f32 (the reference's
     ``preferred_element_type``), the result is cast to the cache's dtype.
+
+    ``group``: the cache holds rows [row0, row0 + S) of a longer sequence
+    split over the group's ranks (``valid_len`` and ``window`` count
+    global rows); each rank's (max, softmax sum, weighted values) against
+    its own max are gathered in one collective and combined, rescaled to
+    the global max (a shard wholly masked scales by exp(-1e30) = 0), and
+    the new token's term added once.
     """
     B, _, HQ, D = q.shape
     S, HK = k_cache.shape[1], k_cache.shape[2]
@@ -88,24 +96,38 @@ def decode_attention(q, k_cache, v_cache, new_k, new_v, *,
         if window is not None and q_pos is not None:
             mask = mask & (kv_pos > q_pos[:, None] - window)
     elif valid_len is not None:
-        idx = torch.arange(S, device=q.device)
+        idx = row0 + torch.arange(S, device=q.device)
         mask = idx[None, :] < valid_len[:, None]
         if window is not None and q_pos is not None:
             mask = mask & (idx[None, :] > q_pos[:, None] - window)
     elif window is not None and q_pos is not None:
-        idx = torch.arange(S, device=q.device)
+        idx = row0 + torch.arange(S, device=q.device)
         mask = idx[None, :] > q_pos[:, None] - window
     if mask is not None:
         s_cache = torch.where(mask[:, None, None, :], s_cache, NEG_INF)
     s_self = torch.einsum("bkgd,bkd->bkg", qg.to(f32),
                           new_k.reshape(B, HK, D).to(qg.dtype).to(f32))
     # two-part softmax: the cache and the new token, no concatenation
-    m = torch.maximum(s_cache.amax(dim=-1), s_self)
-    p_cache = torch.exp(s_cache - m[..., None])
+    if group is None:
+        m = torch.maximum(s_cache.amax(dim=-1), s_self)
+        p_cache = torch.exp(s_cache - m[..., None])
+        denom = p_cache.sum(dim=-1)
+        out = torch.einsum("bkgs,bskd->bkgd",
+                           p_cache.to(v_cache.dtype).to(f32), v_cache.to(f32))
+    else:  # each shard's (max, sum, values) gathered in one collective
+        m_l = s_cache.amax(dim=-1)
+        p_cache = torch.exp(s_cache - m_l[..., None])
+        o_l = torch.einsum("bkgs,bskd->bkgd",
+                           p_cache.to(v_cache.dtype).to(f32), v_cache.to(f32))
+        stats = coll.all_gather(torch.cat(
+            [m_l[..., None], p_cache.sum(dim=-1)[..., None], o_l], -1)[None],
+            0, group)
+        m = torch.maximum(stats[..., 0].amax(dim=0), s_self)
+        scale = torch.exp(stats[..., 0] - m)  # 0 for a shard wholly masked
+        denom = (stats[..., 1] * scale).sum(dim=0)
+        out = (stats[..., 2:] * scale[..., None]).sum(dim=0)
     p_self = torch.exp(s_self - m)
-    denom = p_cache.sum(dim=-1) + p_self
-    out = torch.einsum("bkgs,bskd->bkgd",
-                       p_cache.to(v_cache.dtype).to(f32), v_cache.to(f32))
+    denom = denom + p_self
     out = out + p_self[..., None] * new_v.reshape(B, HK, 1, D).to(f32)
     out = out / denom[..., None]
     return out.reshape(B, 1, HQ, D).to(v_cache.dtype)

@@ -10,8 +10,10 @@ splits them into one module per layer.  ``jax.random`` and
 ``torch.Generator`` give different numbers: tests carry the reference's
 parameters across as numpy arrays (``repro_torch.convert``).
 
-The reference's ``shard_activation`` has no counterpart: the port runs
-on one card, where the reference's own version returns its input.
+The reference's ``shard_activation`` (a GSPMD layout hint) has no
+counterpart: the port's layout on the mesh is explicit (``parallel``,
+the collectives of ``swiglu`` / ``gelu_mlp`` / ``cross_entropy_loss``
+given a ``group``).
 """
 from __future__ import annotations
 
@@ -23,6 +25,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch import resolve_device
+from repro_torch.dist import collectives as coll
 
 PyTree = Any
 
@@ -86,6 +89,17 @@ def init_params(specs: PyTree, generator: torch.Generator,
     return map_specs(lambda _, s: init_leaf(s, generator, dev), specs)
 
 
+def abstract_params(specs: PyTree) -> PyTree:
+    """Meta tensors of the specs' shapes and dtypes: the dry-run's
+    no-allocation stand-in."""
+    return map_specs(
+        lambda _, s: torch.empty(s.shape, dtype=s.dtype, device="meta"), specs)
+
+
+def logical_axes(specs: PyTree) -> PyTree:
+    return map_specs(lambda _, s: s.axes, specs)
+
+
 def spec_numel(specs: PyTree) -> int:
     """Total element count of a spec tree (nothing is allocated)."""
     total = 0
@@ -108,12 +122,27 @@ def cast_tree(tree: PyTree, dtype: torch.dtype) -> PyTree:
     return tree.to(dtype) if tree.is_floating_point() else tree
 
 
-def cross_entropy_loss(logits, labels, mask=None):
+def cross_entropy_loss(logits, labels, mask=None, group=None):
     """Mean token NLL: logits (..., V) cast to f32, logsumexp minus the
-    label's logit; labels int (...,)."""
+    label's logit; labels int (...,).  With ``group`` the logits are this
+    rank's block of the vocabulary (blocks in rank order) and the labels
+    global ids: the max and the sum of exps are reduced across the group,
+    and the label's logit comes from the block holding it."""
     logits = logits.to(torch.float32)
-    lse = torch.logsumexp(logits, dim=-1)
-    ll = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    if group is None:
+        lse = torch.logsumexp(logits, dim=-1)
+        ll = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    else:
+        V = logits.shape[-1]
+        m = coll.all_reduce_max(logits.detach().amax(dim=-1), group)
+        s = coll.reduce_from(torch.exp(logits - m[..., None]).sum(dim=-1),
+                             group)
+        lse = m + torch.log(s)
+        local = labels.long() - coll.rank(group) * V
+        inside = (local >= 0) & (local < V)
+        ll = torch.gather(logits, -1,
+                          torch.clamp(local, 0, V - 1)[..., None])[..., 0]
+        ll = coll.reduce_from(torch.where(inside, ll, 0.0), group)
     nll = lse - ll
     if mask is None:
         return torch.mean(nll)
@@ -145,15 +174,75 @@ def dense(x, w, b=None):
     return y
 
 
-def swiglu(x, w_gate, w_up, w_down):
+_NARROW = (torch.bfloat16, torch.float16)
+
+
+def _mm_f32(a, b):
+    """a @ b for 2-D narrow-float operands, accumulated and returned in
+    f32 (the products of bf16 / f16 values are exact in f32)."""
+    if a.is_cuda:
+        return torch.mm(a, b, out_dtype=torch.float32)
+    return torch.mm(a.to(torch.float32), b.to(torch.float32))
+
+
+class _PartialF32(torch.autograd.Function):
+    """x @ w in f32 for narrow x, w: a rank's partial product, kept in f32
+    until the sum over the ranks.  Its backward is ``dense``'s: the
+    gradient (f32 holding narrow values, from the cast after the sum) is
+    narrowed and multiplied in x's dtype."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        return _mm_f32(x.reshape(-1, x.shape[-1]), w).reshape(
+            x.shape[:-1] + (w.shape[-1],))
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        g = g.to(x.dtype)
+        dx = torch.matmul(g, w.T) if ctx.needs_input_grad[0] else None
+        dw = (torch.matmul(x.reshape(-1, x.shape[-1]).T,
+                           g.reshape(-1, g.shape[-1]))
+              if ctx.needs_input_grad[1] else None)
+        return dx, dw
+
+
+def row_parallel(x, w, group):
+    """``dense(x, w)`` with w's rows (and x's last dim) split over
+    ``group``: each rank's partial product summed over the group.  In a
+    narrow dtype the partials stay f32 through the sum, which is rounded
+    to x's dtype once, as the one-rank ``dense`` rounds its f32
+    accumulator once; a group of one rank is ``dense``."""
+    if coll.size(group) == 1:
+        return dense(x, w)
+    w = w.to(x.dtype)
+    if x.dtype not in _NARROW:
+        return coll.reduce_from(torch.matmul(x, w), group)
+    return coll.reduce_from(_PartialF32.apply(x, w), group).to(x.dtype)
+
+
+def swiglu(x, w_gate, w_up, w_down, group=None):
+    """With ``group``: the weights are the rank's block of ``d_ff``
+    (column-parallel gate and up, row-parallel down, summed over the
+    group)."""
+    if group is not None:
+        x = coll.copy_to(x, group)
     h = F.silu(dense(x, w_gate)) * dense(x, w_up)
-    return dense(h, w_down)
+    return row_parallel(h, w_down, group)
 
 
-def gelu_mlp(x, w_up, b_up, w_down, b_down):
+def gelu_mlp(x, w_up, b_up, w_down, b_down, group=None):
+    """As ``swiglu`` on a ``group``; ``b_down`` is added once, after the
+    sum."""
+    if group is not None:
+        x = coll.copy_to(x, group)
     # jax.nn.gelu defaults to the tanh approximation
-    return dense(F.gelu(dense(x, w_up, b_up), approximate="tanh"), w_down,
-                 b_down)
+    h = F.gelu(dense(x, w_up, b_up), approximate="tanh")
+    if group is None:
+        return dense(h, w_down, b_down)
+    y = row_parallel(h, w_down, group)
+    return y + b_down.to(y.dtype)
 
 
 # ---------------------------------------------------------------- RoPE

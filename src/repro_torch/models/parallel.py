@@ -1,0 +1,165 @@
+"""How the transformer runs on the mesh's ``data`` and ``model`` axes.
+
+The weights are stored by the rule tables (``dist.sharding``): each rank
+holds ``shard_tensor``'s block of every leaf.  The model code reads the
+active mesh (``meshctx.active_mesh``; none: one rank, every function
+here the identity) and each leaf's block shape against its spec's global
+shape, so one code path serves every rule table and mesh:
+
+  * FSDP: a dim of logical axis ``embed`` held in part is sharded over
+    ``data`` (the only axis the tables map ``embed`` to); ``gather_layer``
+    and ``gather_leaf`` all-gather it at use (backward: reduce-scatter),
+    in the dtype the caller cast the block to;
+  * tensor parallelism: a sub-block whose weight is held in part along
+    its ``heads`` / ``mlp`` / ``vocab`` / ``vocab_in`` dim runs on the
+    rank's columns (``copy_to`` at its entry) and, for a row-parallel
+    product, sums over ``model`` at its exit (``reduce_from``); a
+    sub-block whose weight is whole runs whole on every rank, with no
+    collective;
+  * attention runs on the rank's query heads, ``n_heads / model`` of
+    them, contiguous (the head count must divide: a cut query head
+    raises).  Its KV heads are the rank's own columns when ``n_kv_heads``
+    divides ``model``; otherwise the column blocks of ``wk`` / ``wv`` cut
+    heads (starcoder2-3b's 2 heads of 128 over 4 ranks: 64 columns each)
+    and the rank gathers the whole K / V over ``model`` and takes the
+    heads its query heads use (``kv_for_local``).
+"""
+from __future__ import annotations
+
+import dataclasses
+from types import SimpleNamespace
+from typing import Any, Optional
+
+import torch
+
+from repro_torch.dist import collectives as coll
+from repro_torch.dist import meshctx
+
+
+@dataclasses.dataclass(frozen=True)
+class TP:
+    """This rank's place on the ``model`` axis."""
+
+    group: Any
+    size: int
+    rank: int
+
+
+def tp() -> Optional[TP]:
+    """The model axis of the active mesh, or None when it has size 1."""
+    mesh = meshctx.active_mesh()
+    if mesh is None or mesh.shape.get("model", 1) == 1:
+        return None
+    return TP(mesh.group("model"), mesh.shape["model"], mesh.coord("model"))
+
+
+def data_group():
+    mesh = meshctx.active_mesh()
+    if mesh is None or mesh.shape.get("data", 1) == 1:
+        return None
+    return mesh.group("data")
+
+
+def held_in_part(t: torch.Tensor, dim: int, full: int) -> bool:
+    return t.shape[dim] < full
+
+
+# ------------------------------------------------------------------ FSDP
+def gather_leaf(t, spec):
+    """``t`` with each ``embed`` dim that the rank holds in part gathered
+    over ``data`` (autograd: the gradient is reduce-scattered back)."""
+    group = data_group()
+    if group is None:
+        return t
+    for dim, name in enumerate(spec.axes):
+        if name == "embed" and held_in_part(t, dim, spec.shape[dim]):
+            t = coll.gather(t, dim, group)
+    return t
+
+
+def gather_layer(lp, specs):
+    """A layer's leaves gathered over ``data`` (``specs``: the layer's
+    ParamSpec tree), as a namespace of the layer's names; the layer
+    itself when the mesh has no ``data`` axis."""
+    if data_group() is None:
+        return lp
+    out = {}
+    for name, spec in specs.items():
+        node = getattr(lp, name)
+        if isinstance(spec, dict):
+            out[name] = {k: gather_leaf(node[k], s) for k, s in spec.items()
+                         if k in node}
+        else:
+            out[name] = gather_leaf(node, spec)
+    return SimpleNamespace(**out)
+
+
+# ------------------------------------------------------------- attention
+def local_heads(cfg, t: TP) -> int:
+    if cfg.n_heads % t.size:
+        raise NotImplementedError(
+            f"{cfg.n_heads} query heads do not split over a model axis of "
+            f"{t.size}: tensor-parallel attention runs whole heads")
+    return cfg.n_heads // t.size
+
+
+def kv_heads_local(cfg, t: TP) -> bool:
+    """Whether the rank's KV heads are its own columns (n_kv_heads
+    divides the model axis); otherwise it works on all of them."""
+    return cfg.n_kv_heads % t.size == 0
+
+
+def kv_for_local(cfg, t: TP, x: torch.Tensor) -> torch.Tensor:
+    """The KV heads (dim 2 of ``x``, all ``n_kv_heads`` of them) that the
+    rank's query heads use, in an order the GQA grouping of the local
+    heads reads: a contiguous slice where the local heads cover whole
+    groups or lie in one, else one KV head per query head."""
+    hq_l = local_heads(cfg, t)
+    G = cfg.n_heads // cfg.n_kv_heads
+    q0 = t.rank * hq_l
+    lo, hi = q0 // G, (q0 + hq_l - 1) // G + 1
+    n = hi - lo
+    if hq_l % n == 0 and all((q0 + j) // G - lo == j // (hq_l // n)
+                             for j in range(hq_l)):
+        return x[:, :, lo:hi].contiguous()
+    idx = torch.tensor([(q0 + j) // G for j in range(hq_l)],
+                       device=x.device)
+    return x.index_select(2, idx)
+
+
+def gather_blocks(parts, group):
+    """Each of ``parts``, this rank's column blocks (..., c_i), gathered
+    whole over ``group`` in one collective: (..., n c_i) each, the blocks
+    in rank order (autograd: each part's gradient reduce-scattered)."""
+    sizes = [p.shape[-1] for p in parts]
+    g = coll.gather(torch.cat(parts, -1).unsqueeze(-2), -2, group)
+    return [y.reshape(y.shape[:-2] + (-1,)) for y in g.split(sizes, -1)]
+
+
+# ----------------------------------------------------------------- vocab
+def vocab_group(cfg, logits: torch.Tensor):
+    """The model group when ``logits`` hold this rank's block of the
+    padded vocabulary, else None."""
+    t = tp()
+    if t is None or logits.shape[-1] == cfg.padded_vocab:
+        return None
+    return t.group
+
+
+def argmax_vocab(cfg, logits: torch.Tensor) -> torch.Tensor:
+    """argmax over the last dim of logits whole or held in vocab blocks
+    over ``model``: each block's first maximal index, then the lowest
+    global index among the blocks holding the largest value, as
+    ``torch.argmax`` takes the first maximal index of the whole row."""
+    group = vocab_group(cfg, logits)
+    if group is None:
+        return torch.argmax(logits, dim=-1)
+    idx = torch.argmax(logits, dim=-1)
+    vals = torch.gather(logits, -1, idx[..., None])[..., 0].to(torch.float32)
+    V = logits.shape[-1]
+    vals_all = coll.all_gather(vals[None], 0, group)  # (n, ...)
+    idx_all = coll.all_gather(idx[None], 0, group)
+    best = vals_all.max(dim=0).values
+    owner = torch.argmax((vals_all == best).to(torch.int32), dim=0)
+    picked = torch.gather(idx_all, 0, owner[None])[0]
+    return picked + owner * V

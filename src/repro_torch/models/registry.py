@@ -8,6 +8,7 @@ llava), rwkv6, zamba2 and whisper:
   prefill_fn(cfg)(model, batch)       -> (last-token logits, caches)
   serve_fn(cfg)(model, batch, cache)  -> (logits, new kv)
   decode_state_specs(cfg, B, S)       -> cache tree of meta tensors
+  decode_state_shardings(cfg, mesh, B, S) -> the caches' placement
   init_decode_state(cfg, B, S, device)-> fresh cache tree
   init_model(cfg, generator, device)  -> random model in the compute dtype
 
@@ -35,7 +36,8 @@ from typing import Any, Callable, Dict
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.models import nn, rwkv6, transformer, whisper, zamba2
+from repro_torch.models import (nn, parallel, rwkv6, transformer, whisper,
+                                zamba2)
 from repro_torch.models.config import ModelConfig, torch_dtype
 
 DENSE_KINDS = transformer.KINDS
@@ -56,10 +58,17 @@ def param_specs(cfg: ModelConfig):
     return _FAMILIES.get(cfg.kind, transformer).param_specs(cfg)
 
 
-def init_model(cfg: ModelConfig, generator: torch.Generator, device=None):
+def init_model(cfg: ModelConfig, generator: torch.Generator, device=None,
+               mesh=None):
     """Random weights with the reference's init law, layer by layer in
-    the compute dtype (each family's ``init_model``)."""
+    the compute dtype (each family's ``init_model``); on a mesh (the
+    transformer's kinds) each rank's blocks under SERVE_RESIDENT_RULES."""
     _known(cfg)
+    if mesh is not None and mesh.size > 1:
+        if cfg.kind not in DENSE_KINDS:
+            raise NotImplementedError(
+                f"kind {cfg.kind!r} on a mesh is a later slice of the port")
+        return transformer.init_model(cfg, generator, device, mesh)
     return _FAMILIES.get(cfg.kind, transformer).init_model(cfg, generator,
                                                            device)
 
@@ -98,7 +107,9 @@ def loss_fn(cfg: ModelConfig) -> Callable:
         model = tree_model(cfg, params)
         logits = logits_fn(cfg, model, batch)
         tokens = batch["tokens"]
-        return nn.cross_entropy_loss(logits[:, :-1], tokens[:, 1:])
+        return nn.cross_entropy_loss(
+            logits[:, :-1], tokens[:, 1:],
+            group=parallel.vocab_group(cfg, logits))
 
     return loss
 
@@ -124,6 +135,38 @@ def decode_state_specs(cfg: ModelConfig, batch: int,
         specs.update({k: torch.empty(cross, dtype=dt, device="meta")
                       for k in ("cross_k", "cross_v")})
     return specs
+
+
+def decode_state_shardings(cfg: ModelConfig, mesh, batch: int,
+                           seq_len: int):
+    """NamedSharding tree for the decode caches of the transformer's kinds.
+
+    KV caches (L, B, S, HK, hd) split their heads over 'model' when HK
+    divides it, otherwise the *sequence* dim (decode attention scores
+    each rank's rows and combines the softmax across 'model';
+    ``transformer.attn_block_decode(seq=)``), otherwise stay replicated;
+    the slots split over the batch axes as ``batch_spec`` splits them.
+    rwkv6, zamba2 and whisper come with their mesh in a later slice."""
+    from repro_torch.dist import sharding as shd
+
+    if cfg.kind not in DENSE_KINDS:
+        raise NotImplementedError(
+            f"decode_state_shardings for kind {cfg.kind!r}: the mesh of "
+            f"rwkv6, zamba2 and whisper is a later slice of the port")
+    mdl = mesh.shape.get("model", 1)
+    P = shd.P
+
+    def kv_spec(shape):  # (L, B, S, HK, hd)
+        _, B, S, HK, _ = shape
+        b = shd.batch_spec(mesh, 1, B)[0]
+        if HK % mdl == 0:
+            return P(None, b, None, "model", None)
+        if S % mdl == 0:
+            return P(None, b, "model", None, None)
+        return P(None, b)
+
+    return {k: shd.NamedSharding(mesh, kv_spec(v.shape))
+            for k, v in decode_state_specs(cfg, batch, seq_len).items()}
 
 
 def init_decode_state(cfg: ModelConfig, batch: int, seq_len: int,
@@ -162,7 +205,7 @@ def serve_fn(cfg: ModelConfig) -> Callable:
         x = transformer.embed_tokens(cfg, model, batch["tokens"], dtype)
         y, new_kv = transformer.decoder_decode(cfg, model, x,
                                                (cache["k"], cache["v"]))
-        y = transformer._norm(cfg, y, model, "final")
+        y = transformer.final_norm(cfg, model, y)
         return transformer.unembed(cfg, model, y), new_kv
 
     return serve

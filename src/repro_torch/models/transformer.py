@@ -38,7 +38,8 @@ from torch import nn as tnn
 from torch.utils import checkpoint
 
 from repro_torch import resolve_device
-from repro_torch.models import attention, moe, nn
+from repro_torch.dist import collectives as coll
+from repro_torch.models import attention, moe, nn, parallel
 from repro_torch.models.config import ModelConfig, torch_dtype
 from repro_torch.models.nn import ParamSpec
 
@@ -223,17 +224,66 @@ def _norm(cfg: ModelConfig, x, p, name: str):
     return nn.rms_norm(x, getattr(p, f"{name}_w"))
 
 
-def _project_qkv(cfg: ModelConfig, lp: DecoderLayer, x):
+def _attn_tp(cfg: ModelConfig, lp):
+    """The model axis when attention runs on the rank's query heads
+    (``wq`` held in column blocks), else None."""
+    t = parallel.tp()
+    if t is None or not parallel.held_in_part(
+            lp.attn["wq"], 1, cfg.n_heads * cfg.hd):
+        return None
+    parallel.local_heads(cfg, t)
+    return t
+
+
+def _project_qkv(cfg: ModelConfig, lp: DecoderLayer, x, all_q=False):
+    """q (B, T, heads, hd) and k, v (B, T, kv heads, hd).  On the model
+    axis (``_attn_tp``) q holds the rank's heads (all of them with
+    ``all_q``), and k, v the rank's KV heads when they split, else all of
+    them: the column blocks of ``wk`` / ``wv`` then cut heads and are
+    gathered, with q's for ``all_q``, in one collective; from a whole
+    weight every rank computes all heads, its gradient summed at
+    ``copy_to`` (see ``parallel``)."""
     B, T = x.shape[:2]
     hq, hk, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     a = lp.attn
-    q = nn.dense(x, a["wq"], a.get("bq")).reshape(B, T, hq, hd)
-    k = nn.dense(x, a["wk"], a.get("bk")).reshape(B, T, hk, hd)
-    v = nn.dense(x, a["wv"], a.get("bv")).reshape(B, T, hk, hd)
-    if cfg.qk_norm:
-        q = nn.rms_norm(q, a["q_norm"])
-        k = nn.rms_norm(k, a["k_norm"])
+    t = _attn_tp(cfg, lp)
+    if t is None:
+        q = nn.dense(x, a["wq"], a.get("bq")).reshape(B, T, hq, hd)
+        k = nn.dense(x, a["wk"], a.get("bk")).reshape(B, T, hk, hd)
+        v = nn.dense(x, a["wv"], a.get("bv")).reshape(B, T, hk, hd)
+        if cfg.qk_norm:
+            q = nn.rms_norm(q, a["q_norm"])
+            k = nn.rms_norm(k, a["k_norm"])
+        return q, k, v
+    xm = coll.copy_to(x, t.group)
+    q = nn.dense(xm, a["wq"], a.get("bq"))
+    split = parallel.held_in_part(a["wk"], 1, hk * hd)
+    k, v = (nn.dense(xm, a[w], a.get(b)) if split
+            else coll.copy_to(nn.dense(x, a[w], a.get(b)), t.group)
+            for w, b in (("wk", "bk"), ("wv", "bv")))
+    if split and not parallel.kv_heads_local(cfg, t):
+        k, v, *qs = parallel.gather_blocks(
+            [k, v] + ([q] if all_q else []), t.group)
+        q = qs[0] if all_q else q
+    elif all_q:
+        q = coll.gather(q, -1, t.group)
+    q, k, v = (y.reshape(B, T, -1, hd) for y in (q, k, v))
+    if cfg.qk_norm:  # each rank norms its heads: the weight's gradient sums
+        q = nn.rms_norm(q, coll.copy_to(a["q_norm"], t.group))
+        k = nn.rms_norm(k, coll.copy_to(a["k_norm"], t.group))
     return q, k, v
+
+
+def _kv_sel(cfg: ModelConfig, t, x):
+    """The KV heads the rank's query heads read: ``x`` itself when it
+    holds the rank's own heads (or without a model axis)."""
+    if t is None or x.shape[2] < cfg.n_kv_heads:
+        return x
+    return parallel.kv_for_local(cfg, t, x)
+
+
+def _out_proj(lp, o, t):
+    return nn.row_parallel(o, lp.attn["wo"], None if t is None else t.group)
 
 
 def attn_block(cfg: ModelConfig, lp: DecoderLayer, x, rope, *, window=None):
@@ -243,50 +293,84 @@ def attn_block(cfg: ModelConfig, lp: DecoderLayer, x, rope, *, window=None):
     q, k, v = _project_qkv(cfg, lp, x)
     q = nn.apply_rope(q, cos, sin)
     k = nn.apply_rope(k, cos, sin)
-    o = attention.flash_attention(q, k, v, causal=True,
-                                  window=window or cfg.window,
+    t = _attn_tp(cfg, lp)
+    o = attention.flash_attention(q, _kv_sel(cfg, t, k), _kv_sel(cfg, t, v),
+                                  causal=True, window=window or cfg.window,
                                   kv_chunk=cfg.kv_chunk)
     B, T = x.shape[:2]
-    out = nn.dense(o.reshape(B, T, -1), lp.attn["wo"])
-    return out, (k, v)
+    return _out_proj(lp, o.reshape(B, T, -1), t), (k, v)
 
 
 def attn_block_decode(cfg: ModelConfig, lp: DecoderLayer, x, cache, *,
-                      pos=None, valid_len=None, kv_pos=None, window=None):
+                      pos=None, valid_len=None, kv_pos=None, window=None,
+                      seq=None):
     """Single-token decode against a cache (B, S, HK, hd).  Returns
     (out, (new_k, new_v)); the new KV is RoPE-rotated at ``pos`` (B, 1),
     which defaults to the cache length S (the naive loop's cache holds
-    exactly the S previous positions)."""
+    exactly the S previous positions).  ``seq``: (group, row0) when the
+    cache holds rows [row0, row0 + S) of all KV heads, the sequence split
+    over the model axis (``registry.decode_state_shardings`` where the KV
+    heads do not split): every rank scores all query heads on its rows,
+    the softmax is combined across the group, and each keeps its heads."""
     k_cache, v_cache = cache
     B = x.shape[0]
     if pos is None:
         pos = torch.full((B, 1), k_cache.shape[1], dtype=torch.int32,
                          device=x.device)
     cos, sin = nn.rope_at(cfg.hd, pos, cfg.rope_theta, x.dtype)
-    q, k, v = _project_qkv(cfg, lp, x)
+    t = _attn_tp(cfg, lp)
+    q, k, v = _project_qkv(cfg, lp, x, all_q=seq is not None)
     q = nn.apply_rope_direct(q, cos, sin)
     k = nn.apply_rope_direct(k, cos, sin)
-    o = attention.decode_attention(q, k_cache, v_cache, k, v, window=window,
-                                   valid_len=valid_len, kv_pos=kv_pos,
-                                   q_pos=pos[:, 0])
-    out = nn.dense(o.reshape(B, 1, -1), lp.attn["wo"])
-    return out, (k, v)
+    if seq is None:
+        o = attention.decode_attention(
+            q, _kv_sel(cfg, t, k_cache), _kv_sel(cfg, t, v_cache),
+            _kv_sel(cfg, t, k), _kv_sel(cfg, t, v), window=window,
+            valid_len=valid_len, kv_pos=kv_pos, q_pos=pos[:, 0])
+    else:
+        group, row0 = seq
+        o = attention.decode_attention(
+            q, k_cache, v_cache, k, v, window=window, valid_len=valid_len,
+            kv_pos=kv_pos, q_pos=pos[:, 0], row0=row0, group=group)
+        if t is not None:
+            hq_l = cfg.n_heads // t.size
+            o = o[:, :, t.rank * hq_l:(t.rank + 1) * hq_l]
+    return _out_proj(lp, o.reshape(B, 1, -1), t), (k, v)
 
 
 def mlp_block(cfg: ModelConfig, lp: DecoderLayer, x):
+    """The MLP; column- then row-parallel over the model axis when the
+    rank holds a block of ``d_ff``."""
     m = lp.mlp
+    t = parallel.tp()
+    group = (t.group if t is not None
+             and parallel.held_in_part(m["w_up"], 1, cfg.d_ff) else None)
     if cfg.act == "swiglu":
-        return nn.swiglu(x, m["w_gate"], m["w_up"], m["w_down"])
-    return nn.gelu_mlp(x, m["w_up"], m["b_up"], m["w_down"], m["b_down"])
+        return nn.swiglu(x, m["w_gate"], m["w_up"], m["w_down"], group=group)
+    return nn.gelu_mlp(x, m["w_up"], m["b_up"], m["w_down"], m["b_down"],
+                       group=group)
 
 
 def _ffn(cfg: ModelConfig, lp: DecoderLayer, x):
     if cfg.kind == "moe":
+        if parallel.tp() is not None:
+            raise NotImplementedError(
+                "moe on the model axis (moe_block's sum over d_ff-split "
+                "experts, expert parallelism) is a later slice of the port")
         return moe.moe_block(cfg, lp.moe, x)
     return mlp_block(cfg, lp, x)
 
 
+def _gathered(cfg: ModelConfig, lp):
+    """A layer's leaves gathered over the data axis (FSDP), or the layer
+    itself without one."""
+    if parallel.data_group() is None:
+        return lp
+    return parallel.gather_layer(lp, layer_specs(cfg))
+
+
 def _layer(cfg: ModelConfig, lp, h, rope):
+    lp = _gathered(cfg, lp)
     a, kv = attn_block(cfg, lp, _norm(cfg, h, lp, "norm1"), rope)
     h = h + a
     h = h + _ffn(cfg, lp, _norm(cfg, h, lp, "norm2"))
@@ -327,6 +411,7 @@ def decoder_decode(cfg: ModelConfig, model: Transformer, x, caches):
     h = x
     nks, nvs = [], []
     for i, lp in enumerate(model.layers):
+        lp = _gathered(cfg, lp)
         a, (nk, nv) = attn_block_decode(
             cfg, lp, _norm(cfg, h, lp, "norm1"), (k_all[i], v_all[i]),
             window=cfg.window)
@@ -338,7 +423,7 @@ def decoder_decode(cfg: ModelConfig, model: Transformer, x, caches):
 
 
 def decoder_decode_slots(cfg: ModelConfig, model: Transformer, x, caches,
-                         lengths, keep):
+                         lengths, keep, seq=None):
     """Slot-pool decode: one token per slot against a preallocated cache.
     x: (N, 1, D); caches: stacked (L, N, S_max, HK, hd) pair; lengths
     (N,): valid cache rows per slot (the absolute position of the
@@ -348,18 +433,28 @@ def decoder_decode_slots(cfg: ModelConfig, model: Transformer, x, caches,
     written IN PLACE into ``caches`` at row ``min(lengths, S_max - 1)``
     of each slot; slots with ``keep`` (N,) False get their old row written
     back, so their cache stays bitwise as it was (the engine's
-    ``select``).  Returns (y, caches)."""
+    ``select``).  ``seq``: (group, row0) when the caches hold rows [row0,
+    row0 + S) of a sequence of S x group-size rows split over the model
+    axis; only the rank holding a slot's row writes it.  Returns (y,
+    caches)."""
     k_all, v_all = caches
     N, S = x.shape[0], k_all.shape[2]
     pos = lengths[:, None]
-    write = torch.clamp(lengths, max=S - 1).long()
+    if seq is None:
+        write = torch.clamp(lengths, max=S - 1).long()
+    else:
+        row0 = seq[1]
+        w = torch.clamp(lengths, max=S * coll.size(seq[0]) - 1).long()
+        keep = keep & (w >= row0) & (w < row0 + S)
+        write = torch.clamp(w - row0, 0, S - 1)
     rows = torch.arange(N, device=x.device)
     h = x
     for i, lp in enumerate(model.layers):
+        lp = _gathered(cfg, lp)
         kc, vc = k_all[i], v_all[i]
         a, (nk, nv) = attn_block_decode(
             cfg, lp, _norm(cfg, h, lp, "norm1"), (kc, vc), pos=pos,
-            valid_len=lengths, window=cfg.window)
+            valid_len=lengths, window=cfg.window, seq=seq)
         for cache, new in ((kc, nk[:, 0]), (vc, nv[:, 0])):
             old = cache[rows, write]
             cache[rows, write] = torch.where(keep[:, None, None],
@@ -369,14 +464,46 @@ def decoder_decode_slots(cfg: ModelConfig, model: Transformer, x, caches,
     return h, caches
 
 
+def _top(cfg: ModelConfig, model, name: str):
+    """A top-level leaf, gathered over the data axis where it is held in
+    part."""
+    t = getattr(model, name)
+    if parallel.data_group() is None:
+        return t
+    return parallel.gather_leaf(t, param_specs(cfg)[name])
+
+
 def embed_tokens(cfg: ModelConfig, model: Transformer, tokens, dtype):
     # gather, then cast: the same values as the reference's cast-then-gather
-    return model.embed[tokens].to(dtype)
+    E = _top(cfg, model, "embed")
+    t = parallel.tp()
+    if t is None or not parallel.held_in_part(E, 0, cfg.padded_vocab):
+        return E[tokens].to(dtype)
+    # vocab-parallel: the rank's rows, zero elsewhere, summed over model
+    n = E.shape[0]
+    local = tokens.long() - t.rank * n
+    inside = (local >= 0) & (local < n)
+    x = E[torch.clamp(local, 0, n - 1)].to(dtype)
+    x = torch.where(inside[..., None], x, torch.zeros((), dtype=dtype,
+                                                      device=x.device))
+    return coll.reduce_from(x, t.group)
 
 
 def unembed(cfg: ModelConfig, model: Transformer, h):
-    w = model.embed.T if cfg.tie_embeddings else model.lm_head
+    """Logits over the padded vocabulary; on the model axis, the rank's
+    block of it when the weight is held in vocab blocks."""
+    w = (_top(cfg, model, "embed").T if cfg.tie_embeddings
+         else _top(cfg, model, "lm_head"))
+    t = parallel.tp()
+    if t is not None and parallel.held_in_part(w, 1, cfg.padded_vocab):
+        h = coll.copy_to(h, t.group)
     return nn.dense(h, w)
+
+
+def final_norm(cfg: ModelConfig, model: Transformer, y):
+    if parallel.data_group() is not None:
+        model = parallel.gather_layer(model, norm_specs(cfg, "final"))
+    return _norm(cfg, y, model, "final")
 
 
 def forward(cfg: ModelConfig, model: Transformer, tokens, *, patches=None,
@@ -389,32 +516,43 @@ def forward(cfg: ModelConfig, model: Transformer, tokens, *, patches=None,
     dtype = torch_dtype(cfg.compute_dtype)
     x = embed_tokens(cfg, model, tokens, dtype)
     if cfg.kind == "llava" and patches is not None:
-        proj = nn.dense(patches.to(dtype), model.patch_proj)
+        proj = nn.dense(patches.to(dtype), _top(cfg, model, "patch_proj"))
         x = torch.cat([proj, x], dim=1)
     rope = nn.rope_freqs(cfg.hd, x.shape[1] + 1, cfg.rope_theta, dtype,
                          device=x.device)
     y, caches = decoder(cfg, model, x, rope, caches=caches)
     if last_only:
         y = y[:, -1:]
-    y = _norm(cfg, y, model, "final")
+    y = final_norm(cfg, model, y)
     return unembed(cfg, model, y), caches
 
 
 def init_model(cfg: ModelConfig, generator: torch.Generator,
-               device=None) -> Transformer:
+               device=None, mesh=None, rules=None) -> Transformer:
     """Random weights with the reference's init law from ``generator``
     (on ``device``, CUDA unless "cpu"), layer by layer: each leaf is
     drawn in f32 (a layer's slice of a stack under the stack's law) and
     cast to the compute dtype as it is made, so the peak stays near the
     weights in that dtype.  Draw order: embed, each
-    layer's leaves, then the other top-level leaves."""
+    layer's leaves, then the other top-level leaves.  On a ``mesh`` each
+    leaf is cut to this rank's block under ``rules`` (default
+    SERVE_RESIDENT_RULES) as it is made: the same values as the whole
+    model's blocks."""
+    from repro_torch.dist import sharding
+
     dev = resolve_device(device)
     dt = torch_dtype(cfg.compute_dtype)
     specs = param_specs(cfg)
+    rules = sharding.SERVE_RESIDENT_RULES if rules is None else rules
 
     def draw(spec, per_layer=False):
         shape = spec.shape[1:] if per_layer else spec.shape
-        return nn.init_leaf(spec, generator, dev, shape).to(dt)
+        x = nn.init_leaf(spec, generator, dev, shape).to(dt)
+        if mesh is None or mesh.size == 1:
+            return x
+        axes = spec.axes[1:] if per_layer else spec.axes
+        return sharding.shard_tensor(
+            x, sharding.spec_for_axes(axes, shape, mesh, rules), mesh)
 
     tree: Dict[str, Any] = {"embed": draw(specs["embed"])}
     tree["layers"] = [nn.map_specs(lambda _, s: draw(s, True),

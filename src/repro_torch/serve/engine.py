@@ -28,6 +28,18 @@ SSD states and a per-group KV ring of ``min(window, max_seq_len)`` rows
 masked by absolute position; its prefill is ``zamba2.prefill``, a loop
 of one-token decodes).  whisper / llava need per-request side inputs
 and raise as in the reference.
+
+On a mesh (``mesh=``, else the active one; dense kind): the model's
+weights are resident by ``SERVE_RESIDENT_RULES`` (each rank holds its
+tensor-parallel blocks) and the KV cache follows
+``registry.decode_state_shardings``: the rank's KV heads, or its rows of
+the sequence when the heads do not split over 'model'.  Slots split over
+the batch axes as ``batch_spec`` splits them: each rank steps its own
+slots, and the tokens of all slots are gathered, so every rank runs the
+same loop (the bookkeeping is replicated; every rank prefills each
+prompt, and only the rank holding the slot keeps its cache).  Greedy
+tokens are an argmax over the vocabulary's blocks, ties to the lowest
+global index (``parallel.argmax_vocab``).
 """
 from __future__ import annotations
 
@@ -37,7 +49,9 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.models import registry, rwkv6, transformer, zamba2
+from repro_torch.dist import collectives as coll
+from repro_torch.dist import meshctx, sharding
+from repro_torch.models import parallel, registry, rwkv6, transformer, zamba2
 from repro_torch.models.config import ModelConfig, torch_dtype
 
 
@@ -68,17 +82,34 @@ class _DenseFamily:
     """dense and moe: preallocated (L, N, S_max, HK, hd) KV slot pool.
     ``decoder_decode_slots`` masks rows >= lengths[slot] with -1e30, so
     stale rows contribute exact-zero probability; per-slot RoPE comes
-    from position-direct ``rope_at``."""
+    from position-direct ``rope_at``.  On a mesh the pool is this rank's
+    block of it (``decode_state_shardings``)."""
 
     def __init__(self, cfg: ModelConfig, ecfg: EngineConfig,
-                 device: torch.device):
+                 device: torch.device, mesh=None):
         self.cfg, self.ecfg, self.device = cfg, ecfg, device
         self.capacity = ecfg.max_seq_len
+        self.seq = None  # (model group, first row) of a sequence split
+        self.spec = None
+        if mesh is not None:
+            self.spec = registry.decode_state_shardings(
+                cfg, mesh, ecfg.max_slots, ecfg.max_seq_len)["k"].spec
+            if "model" in sharding.spec_axes(self.spec[2:3]):
+                rows = ecfg.max_seq_len // mesh.shape["model"]
+                self.seq = (mesh.group("model"), mesh.coord("model") * rows)
+        self.mesh = mesh
 
     def init_cache(self) -> Dict[str, torch.Tensor]:
-        return registry.init_decode_state(
-            self.cfg, self.ecfg.max_slots, self.ecfg.max_seq_len,
-            self.device)
+        if self.spec is None:
+            return registry.init_decode_state(
+                self.cfg, self.ecfg.max_slots, self.ecfg.max_seq_len,
+                self.device)
+        specs = registry.decode_state_specs(
+            self.cfg, self.ecfg.max_slots, self.ecfg.max_seq_len)
+        return {k: torch.zeros(sharding.shard_shape(s.shape, self.spec,
+                                                    self.mesh),
+                               dtype=s.dtype, device=self.device)
+                for k, s in specs.items()}
 
     def prefill(self, model, tokens):
         logits, (k, v) = transformer.forward(self.cfg, model, tokens,
@@ -86,9 +117,16 @@ class _DenseFamily:
         return logits, {"k": k, "v": v}
 
     def insert(self, cache, prefix_cache, slot: int) -> None:
-        P = prefix_cache["k"].shape[2]
+        if self.seq is None:
+            P = prefix_cache["k"].shape[2]
+            for k in ("k", "v"):
+                cache[k][:, slot, :P] = prefix_cache[k][:, 0]
+            return
+        row0 = self.seq[1]  # this rank's rows of the prompt
+        rows = cache["k"].shape[2]
+        n = min(max(prefix_cache["k"].shape[2] - row0, 0), rows)
         for k in ("k", "v"):
-            cache[k][:, slot, :P] = prefix_cache[k][:, 0]
+            cache[k][:, slot, :n] = prefix_cache[k][:, 0, row0:row0 + n]
 
     def step(self, model, tokens, cache, lengths, keep):
         """Logits of one decode step; writes the kept slots' new rows
@@ -97,8 +135,9 @@ class _DenseFamily:
         x = transformer.embed_tokens(cfg, model, tokens,
                                      torch_dtype(cfg.compute_dtype))
         y, _ = transformer.decoder_decode_slots(
-            cfg, model, x, (cache["k"], cache["v"]), lengths, keep=keep)
-        y = transformer._norm(cfg, y, model, "final")
+            cfg, model, x, (cache["k"], cache["v"]), lengths, keep=keep,
+            seq=self.seq)
+        y = transformer.final_norm(cfg, model, y)
         return transformer.unembed(cfg, model, y)
 
 
@@ -178,9 +217,13 @@ class _Zamba2Family:
         return logits
 
 
-def _make_family(cfg: ModelConfig, ecfg: EngineConfig, device):
+def _make_family(cfg: ModelConfig, ecfg: EngineConfig, device, mesh=None):
     if cfg.kind in ("dense", "moe"):
-        return _DenseFamily(cfg, ecfg, device)
+        return _DenseFamily(cfg, ecfg, device, mesh)
+    if mesh is not None:
+        raise NotImplementedError(
+            f"serving kind {cfg.kind!r} on a mesh is a later slice of the "
+            f"port")
     if cfg.kind == "rwkv6":
         return _Rwkv6Family(cfg, ecfg, device)
     if cfg.kind == "zamba2":
@@ -197,12 +240,23 @@ class ServeEngine:
 
     def __init__(self, cfg: ModelConfig, *, max_slots: int = 4,
                  max_prefill_len: int = 64, max_gen_len: int = 32,
-                 eos_id: Optional[int] = None, device=None):
+                 eos_id: Optional[int] = None, device=None, mesh=None):
         self.cfg = cfg
         self.ecfg = EngineConfig(max_slots, max_prefill_len, max_gen_len,
                                  eos_id)
         self.device = resolve_device(device)
-        self.family = _make_family(cfg, self.ecfg, self.device)
+        mesh = meshctx.active_mesh() if mesh is None else mesh
+        self.mesh = mesh if mesh is not None and mesh.size > 1 else None
+        self.family = _make_family(cfg, self.ecfg, self.device, self.mesh)
+        # this rank's slots [lo, lo + n) and the group they split over
+        self.slots, self.slot_group = (0, max_slots), None
+        if self.mesh is not None:
+            axes = sharding.spec_axes(self.family.spec[1:2])
+            if axes:
+                names = tuple(a for a in self.mesh.axis_names if a in axes)
+                n = max_slots // self.mesh.axis_size(names)
+                self.slots = (self.mesh.coord(names) * n, n)
+                self.slot_group = self.mesh.group(names)
 
     # ---------------------------------------------------------- state
     def init_state(self) -> Dict[str, Any]:
@@ -229,7 +283,7 @@ class ServeEngine:
 
     def _greedy(self, logits) -> torch.Tensor:
         # argmax takes the first maximal index, as jnp.argmax does
-        tok = torch.argmax(logits[:, -1], dim=-1)
+        tok = parallel.argmax_vocab(self.cfg, logits[:, -1])
         return torch.clamp(tok, 0, self.cfg.vocab - 1).to(torch.int32)
 
     # -------------------------------------------------------- prefill
@@ -244,8 +298,9 @@ class ServeEngine:
         if not 0 < P <= self.ecfg.max_prefill_len:
             raise ValueError(
                 f"prompt length {P} not in (0, {self.ecfg.max_prefill_len}]")
-        logits, cache = self.family.prefill(model, tokens)
-        tok = self._greedy(logits)[0]
+        with meshctx.use_mesh(self.mesh):
+            logits, cache = self.family.prefill(model, tokens)
+            tok = self._greedy(logits)[0]
         return logits, Prefix(cache=cache, length=P, next_token=tok,
                               last_logits=logits)
 
@@ -259,7 +314,9 @@ class ServeEngine:
         clamped to the engine budget."""
         mg = self.ecfg.max_gen_len if max_gen is None else int(max_gen)
         mg = max(1, min(mg, self.ecfg.max_gen_len))
-        self.family.insert(state["cache"], prefix.cache, slot)
+        lo, n = self.slots
+        if lo <= slot < lo + n:  # the rank holding the slot keeps its cache
+            self.family.insert(state["cache"], prefix.cache, slot - lo)
         state["tokens"][slot] = prefix.next_token
         state["lengths"][slot] = prefix.length
         state["gen"][slot] = 1  # the prefill emitted one
@@ -277,9 +334,14 @@ class ServeEngine:
         in place and shared with the new state."""
         active = state["active"]
         cache = state["cache"]
-        logits = self.family.step(model, state["tokens"][:, None], cache,
-                                  state["lengths"], active)
-        tok = torch.where(active, self._greedy(logits), state["tokens"])
+        lo, n = self.slots
+        with meshctx.use_mesh(self.mesh):
+            logits = self.family.step(
+                model, state["tokens"][lo:lo + n, None], cache,
+                state["lengths"][lo:lo + n], active[lo:lo + n])
+            greedy = coll.all_gather(self._greedy(logits), 0,
+                                     self.slot_group)
+        tok = torch.where(active, greedy, state["tokens"])
         act = active.to(torch.int32)
         gen = state["gen"] + act
         lengths = state["lengths"] + act

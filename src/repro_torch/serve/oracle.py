@@ -9,7 +9,10 @@ run one serve call per prompt token and carry their recurrent state
 reference's).  ``ServeEngine``
 at full occupancy must be token-identical to this loop: same RoPE
 (``rope_at`` positions), same greedy argmax + clip, and the engine's
-padded cache rows contribute exact-zero probability.
+padded cache rows contribute exact-zero probability.  On a mesh (the
+active one, ``meshctx.use_mesh``) the loop runs tensor parallel, its
+growing cache holding the rank's KV heads, or all of them where they do
+not split.
 """
 from __future__ import annotations
 
@@ -17,12 +20,13 @@ from typing import Dict
 
 import torch
 
-from repro_torch.models import registry
+from repro_torch.models import parallel, registry
 from repro_torch.models.config import ModelConfig
 
 
 def _greedy(cfg: ModelConfig, logits) -> torch.Tensor:
-    tok = torch.argmax(logits[:, -1:], dim=-1).to(torch.int32)
+    # the vocabulary may be held in blocks over the mesh's model axis
+    tok = parallel.argmax_vocab(cfg, logits[:, -1:]).to(torch.int32)
     return torch.clamp(tok, 0, cfg.vocab - 1)
 
 
