@@ -77,6 +77,12 @@ Phases, each fatal on failure:
      and a non-causal case, and the windowed cases (f32 within 2e-5 max|g|; bf16 every output within
      one ulp + 2e-5 max|g|, dV also + 2^-9 max|dO| max_j sum_i P[i, j],
      and 99% within one ulp + 2e-5 max|g|), bitwise equal over two runs;
+     the mesh paths' per-rank shapes (the moe kind's 16 / 4, 8 / 2, 24 /
+     4 and 12 / 2 heads of 128 among them); the long sums of the bf16
+     backward (``BWD_DRIFT_CASES``) and of the f32 forward's running O
+     accumulator (``FWD_DRIFT_CASES``: T = 8192 and 16384 at 16 heads of
+     64, T = 4096 and 8192 at 64 / 8 of 128, within 2e-5), the worst
+     ratio of each to its bar logged;
      and the wkv6 kernels against ``ref.wkv6_ref`` / ``ref.wkv6_bwd_ref``
      at rwkv6's (1 and 2, 2048, 32, 64) in bf16 and f32, a ragged T = 700
      and the decode step (8, 1, 32, 64), the smoke config's heads of 16
@@ -178,6 +184,16 @@ Phases, each fatal on failure:
      (1, 1, 4) (its KV heads cut
      over the ranks, the cache split by sequence), their f32 tokens equal
      to one rank's and their bf16 logits as close to f32 as one rank's;
+     3r: the moe kind on the mesh (``run_moe_mesh_phase``): phi3.5-moe
+     at full width on (1, 1, 2), two gloo ranks sharing the card, under
+     the tensor-parallel branch (each expert's d_ff split) and the
+     expert-parallel one (``moe_ep``, two all-to-alls a layer): one
+     layer's MoE block routing bitwise and its f32 output within 1e-5
+     max|y| of one rank's from the same x (the ep branch also resharded
+     from SERVE_RESIDENT_RULES), a 4-layer bf16 engine's tokens equal on
+     both ranks and its logits as close to f32 as one rank's (the
+     routing choices that differ counted), and a 1-layer f32 gradient
+     within 1e-4 max|g| of one rank's, then one AdamW step;
   4. time each kernel (CUDA events, median of 10) beside its bound and
      its plain version (the flash kernels also beside
      ``scaled_dot_product_attention``, and the backward beside its
@@ -585,6 +601,21 @@ FLASH_MESH_CASES = (
 BWD_MESH_CASES = (
     (1, 2048, 2048, 8, 8, 64, True),
 )
+# the moe kind's per-rank attention on the mesh (phase 3r and
+# tools/torch_moe_mesh_check.py), from their own generator
+# (MOE_MESH_SEED), drawn after the cases above: phi3.5-moe's 32 / 8
+# heads of 128 over 2 and 4 model ranks (16 / 4, 8 / 2) and dbrx's 48 /
+# 8 (24 / 4, 12 / 2); the backward at phi3.5-moe's (1, 1, 2) train shape
+MOE_MESH_SEED = 47
+FLASH_MOE_MESH_CASES = (
+    (1, 2048, 2048, 16, 4, 128, True),
+    (1, 2048, 2048, 8, 2, 128, True),
+    (1, 2048, 2048, 24, 4, 128, True),
+    (1, 2048, 2048, 12, 2, 128, True),
+)
+BWD_MOE_MESH_CASES = (
+    (1, 2048, 2048, 16, 4, 128, True),
+)
 # the windowed and head-dim-112 cases, drawn from their own generator
 # (WINDOW_SEED) after the cases above, whose inputs stay what they were
 # before these cases were added: zamba2-7b's shared attention (32 / 32 heads of 112, window
@@ -800,6 +831,24 @@ BWD_DRIFT_CASES = (
     (1, 8192, 8192, 64, 8, 128, True),
     (8, 1500, 1500, 12, 12, 64, False),
 )
+# the f32 forward's long sums, from their own generator (FWD_DRIFT_SEED),
+# drawn after every case set above: the kernel adds each KV tile's P V
+# into one running wgmma accumulator, the pattern that drifted in the
+# bf16 backward's dK / dV; T = 8192 at 16 heads of 64 and T = 4096 at
+# qwen3-32b's 64 / 8 heads of 128 (three draws each), T = 16384 and T =
+# 8192 at 64 / 8 of 128 (one draw each).  f32, causal; the output within
+# FLASH_ATOL of the plain version's arithmetic (``f32_attention_rows``)
+FWD_DRIFT_SEED = 43
+FWD_DRIFT_CASES = (
+    (1, 8192, 8192, 16, 16, 64, True),
+    (1, 8192, 8192, 16, 16, 64, True),
+    (1, 8192, 8192, 16, 16, 64, True),
+    (1, 4096, 4096, 64, 8, 128, True),
+    (1, 4096, 4096, 64, 8, 128, True),
+    (1, 4096, 4096, 64, 8, 128, True),
+    (1, 16384, 16384, 16, 16, 64, True),
+    (1, 8192, 8192, 64, 8, 128, True),
+)
 # f32: within 2e-5 max|g| (the forward's bar, scaled by the gradient).
 # bf16: dV sums bf16(P) dO, and a p that rounds to the other bf16
 # neighbour moves dV[j] by at most 2^-9 P[i, j] |dO[i]|, so every dV
@@ -945,6 +994,66 @@ def compare_flash_bwd(device, gen, shapes=BWD_CASES, dtypes=None) -> dict:
     check(len(rows) == len(dtypes) * len(shapes),
           f"compare_flash_bwd ran {len(rows)} cases of {len(shapes)} shapes")
     return {**worst, "bwd_cases": rows}
+
+
+def f32_attention_rows(q, k, v, rows: int = 1024):
+    """Causal f32 attention with ``ref.flash_attention_ref``'s arithmetic
+    (q * D^-1/2 rounded to f32, scores masked to -1e30 above the diagonal,
+    P in f32, the sum clamped at 1e-30), one block of ``rows`` queries at
+    a time so that the scores of T = 16384 fit beside the rest; a block
+    reads only the keys its rows see (the others would add exact zeros)."""
+    import torch
+
+    from repro_torch.kernels import ref
+
+    B, T, H, D = q.shape
+    g = H // k.shape[2]
+    k32 = k.to(torch.float32).repeat_interleave(g, dim=2)
+    v32 = v.to(torch.float32).repeat_interleave(g, dim=2)
+    out = torch.empty_like(q)
+    for i0 in range(0, T, rows):
+        i1 = min(T, i0 + rows)
+        q32 = q[:, i0:i1].to(torch.float32) * (D ** -0.5)
+        sc = torch.einsum("bthd,bshd->bhts", q32, k32[:, :i1])
+        keep = (torch.arange(i1, device=q.device)[None, :]
+                <= torch.arange(i0, i1, device=q.device)[:, None])
+        sc = torch.where(keep, sc, ref.NEG_INF)
+        m = sc.amax(dim=-1, keepdim=True)
+        p = torch.exp(sc - m)
+        l = p.sum(dim=-1, keepdim=True)
+        o = torch.einsum("bhts,bshd->bthd", p, v32[:, :i1])
+        out[:, i0:i1] = o / l.clamp_min(1e-30).permute(0, 2, 1, 3)
+        del sc, p
+    return out
+
+
+def compare_flash_fwd_drift(device, gen, shapes=FWD_DRIFT_CASES) -> dict:
+    """flash_attention_f32 at ``shapes`` (FWD_DRIFT_CASES) against
+    ``f32_attention_rows`` within FLASH_ATOL, each case's max |diff| and
+    its ratio to the bar logged and kept."""
+    import torch
+
+    from repro_torch.kernels import flash_attention as fa
+
+    rows, worst = [], 0.0
+    for case in shapes:
+        q, k, v = flash_inputs(case, torch.float32, gen, device)
+        got = fa.flash_attention(q, k, v, True, kv_tile=CONFIG_KV_CHUNK)
+        want = f32_attention_rows(q, k, v)
+        torch.cuda.synchronize()
+        label = f"flash_attention_f32 drift {case}"
+        check(bool(torch.isfinite(got).all()), f"{label}: non-finite")
+        err = float((got - want).abs().max())
+        check(err <= FLASH_ATOL, f"{label}: max |diff| {err} > 2e-5")
+        rows.append({"case": list(case), "max_abs_err": err,
+                     "bar_ratio": err / FLASH_ATOL})
+        worst = max(worst, err)
+        log(f"{label}: max |diff| {err:.3g}, {err / FLASH_ATOL:.4f} of the "
+            f"2e-5 bar")
+        del q, k, v, got, want
+    torch.cuda.empty_cache()
+    return {"flash_attention_f32": worst, "fwd_drift_cases": rows,
+            "worst_ratio": worst / FLASH_ATOL}
 
 
 # the wkv6 kernels' cases: (B, T, H, K, input dtype, decay dtype[,
@@ -4399,9 +4508,11 @@ def _json_digest(obj) -> str:
 
 def mesh_rank_main(rank: int, n: int, port: int, device: str, jobs,
                    results) -> None:
-    """One rank of phase 3q: the gloo group, then each (name, mesh shape,
-    args) of ``jobs`` on its mesh (``meshctx.make_mesh``, set as the
-    process's mesh): ``train`` (a), ``check`` (b) or ``serve`` (c / d)."""
+    """One rank of phases 3q and 3r: the gloo group, then each (name, mesh
+    shape, args) of ``jobs`` on its mesh (``meshctx.make_mesh``, set as
+    the process's mesh), the function ``MESH_JOBS`` names by the part of
+    ``name`` before any "/": 3q's ``train`` (a), ``check`` (b) or
+    ``serve`` (c / d); 3r's ``moe_block``, ``moe_serve``, ``moe_train``."""
     import torch
     import torch.distributed as dist
 
@@ -4421,12 +4532,7 @@ def mesh_rank_main(rank: int, n: int, port: int, device: str, jobs,
             mesh = meshctx.make_mesh(shape)
             meshctx.set_mesh(mesh)
             t0 = time.perf_counter()
-            if name == "train":
-                res = _mesh_train(mesh, device)
-            elif name == "check":
-                res = _mesh_check(mesh, device)
-            else:
-                res = _mesh_serve(mesh, device, *args)
+            res = MESH_JOBS[name.split("/")[0]](mesh, device, *args)
             res.update(coords=mesh.coords(),
                        job_s=time.perf_counter() - t0)
             out["jobs"][name] = res
@@ -4677,6 +4783,380 @@ def mesh_bf16_reading(one: dict, ranks: dict) -> dict:
             "mesh_vs_one": float(np.abs(mesh - one16).max()),
             "equal_share": float((mesh == one16).mean()),
             "f32_max": float(np.abs(f32).max())}
+
+
+# ------------------------------------------------------------ phase 3r
+# the moe kind on the mesh: phi3.5-moe at full width (widths, heads, 16
+# experts, top 2, vocab as published) on (1, 1, 2), two gloo ranks sharing
+# the card (times measure the paths' correctness and launches, not tensor
+# or expert parallelism), under the tensor-parallel branch (each expert's
+# d_ff split over the 2 ranks) and the expert-parallel one (moe_ep: 8
+# experts a rank at full d_ff, two all-to-alls a layer).  Depth cut to
+# what keeps the phase near 90 s beside the earlier ones (every gloo op on
+# the shared card costs 1-12 ms, 3q): the block alone is one layer's MoE
+# FFN on 1 x MOE_MESH_BLOCK_T f32 tokens; the serve leg MOE_MESH_LAYERS
+# of 32 layers in bf16 (both ranks' halves 10.5 GiB); the train leg one
+# layer in f32, as phase 3i (each rank also holds the one-rank model and
+# its gradient for the check, 12.5 GiB)
+MOE_MESH_ARCH = "phi3.5-moe-42b-a6.6b"
+MOE_MESH = (1, 1, 2)
+MOE_MESH_BRANCHES = ("tp", "ep")
+MOE_MESH_BLOCK_T = 2048
+MOE_MESH_LAYERS = 4
+MOE_MESH_REQUESTS, MOE_MESH_GEN = 4, 16
+MOE_MESH_TRAIN_LAYERS = 1
+# the block's f32 output against one rank's, of max|y|; the f32 gradient
+# of every leaf against one rank's, of max|g| (the port's bars)
+MOE_MESH_OUT_REL, MOE_MESH_GRAD_REL = 1e-5, 1e-4
+
+
+def moe_mesh_config(layers: int, branch: str, dtype=None):
+    cfg = moe_config(MOE_MESH_ARCH, layers).scaled(moe_ep=branch == "ep")
+    return cfg if dtype is None else cfg.scaled(compute_dtype=dtype)
+
+
+class record_routes:
+    """Within the block, ``models.moe.route`` is wrapped so that every
+    call's experts, positions and keep mask are kept (on the host)."""
+
+    def __enter__(self):
+        from repro_torch.models import moe
+
+        self.calls, self._route = [], moe.route
+
+        def route(*args):
+            out = self._route(*args)
+            self.calls.append([t.cpu() for t in out[1:4]])
+            return out
+
+        moe.route = route
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import moe
+
+        moe.route = self._route
+        return False
+
+
+def _moe_block_check(mesh, device, branch: str) -> dict:
+    """One layer's MoE FFN at full width in f32 on 1 x MOE_MESH_BLOCK_T
+    tokens from a seeded generator: the one-rank block on the whole
+    weights, then ``moe.moe_block`` on this rank's blocks under each rule
+    table of the branch (tp: PARAM_RULES; ep: EP_PARAM_RULES, and
+    SERVE_RESIDENT_RULES, whose d_ff-split experts are resharded at use):
+    routing bitwise, the output's distance from one rank's in max|y|, the
+    call's wall."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.dist import sharding
+    from repro_torch.models import moe, nn
+
+    cfg = moe_mesh_config(1, branch, "float32")
+    specs = moe.moe_specs(cfg)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(5)
+    whole = {k: nn.init_leaf(sp, gen, device) for k, sp in specs.items()}
+    x = torch.randn((1, MOE_MESH_BLOCK_T, cfg.d_model), generator=gen,
+                    device=device)
+    with torch.no_grad(), record_routes() as one:
+        y1 = moe.local_moe(cfg, x, whole["router"], whole["w_gate"],
+                           whole["w_up"], whole["w_down"])
+    tables = (("PARAM_RULES",) if branch == "tp"
+              else ("EP_PARAM_RULES", "SERVE_RESIDENT_RULES"))
+    out = {"capacity": moe.capacity(MOE_MESH_BLOCK_T, cfg), "tables": {}}
+    for rules in tables:
+        shard = sharding.param_shardings(specs, mesh,
+                                         getattr(sharding, rules))
+        local = {k: sharding.shard_tensor(t, shard[k].spec, mesh)
+                 for k, t in whole.items()}
+        dist.barrier()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.no_grad(), record_routes() as rec:
+            y = moe.moe_block(cfg, local, x)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        same = (len(rec.calls) == 1 and all(
+            torch.equal(a, b) for a, b in zip(rec.calls[0], one.calls[0])))
+        out["tables"][rules] = {
+            "routing_bitwise": same, "wall_s": wall,
+            "dropped": int((~rec.calls[0][2]).sum()),
+            "w_gate": list(local["w_gate"].shape),
+            "out_rel": float((y - y1).abs().max() / y1.abs().max())}
+        del local, y
+    del whole, x, y1
+    torch.cuda.empty_cache()
+    return out
+
+
+def _moe_mesh_serve(mesh, device, branch: str) -> dict:
+    """The engine on the mesh in bf16 at MOE_MESH_LAYERS layers (tp: the
+    weights by SERVE_RESIDENT_RULES; ep: by EP_PARAM_RULES, the experts
+    resident a rank's 8 at full d_ff, as the reference's dry run places
+    them for serving): the check prompt's logits and routing, then
+    MOE_MESH_REQUESTS requests of 256-2048 prompt tokens, MOE_MESH_GEN
+    out, one request a prefill call (after a warm-up of 2), with the
+    launches."""
+    import statistics
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.dist import sharding
+    from repro_torch.launch import serve as launch
+    from repro_torch.serve import ServeEngine
+
+    cfg = moe_mesh_config(MOE_MESH_LAYERS, branch)
+    rules = sharding.EP_PARAM_RULES if branch == "ep" else None
+    model = launch.build_model(cfg, 0, device, mesh, rules)
+    with record_routes() as rec:
+        bf16_logits = mesh_bf16_logits(cfg, model, device)
+    engine = ServeEngine(cfg, max_slots=SERVE_SLOTS,
+                         max_prefill_len=SERVE_PREFILL,
+                         max_gen_len=MOE_MESH_GEN, device=device)
+    launch.drive(engine, model, [(r, toks[:256], 4) for r, toks, _ in
+                                 serve_requests(cfg, 2, seed=9)])
+    requests = [(r, toks, min(g, MOE_MESH_GEN)) for r, toks, g in
+                serve_requests(cfg, MOE_MESH_REQUESTS)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    dist.barrier()
+    reset_launches()
+    outputs, stats = launch.drive(engine, model, requests)
+    torch.cuda.synchronize()
+    out = {"launches": read_launches(), "stats": {
+        k: stats[k] for k in ("steps", "tokens_out", "wall_s",
+                              "tokens_per_s", "prefills", "prompt_tokens",
+                              "prefill_s", "mean_occupancy")},
+        "step_ms_median": statistics.median(stats["step_ms"]),
+        "peak_bytes": torch.cuda.max_memory_allocated(),
+        "outputs_digest": _json_digest(outputs),
+        "ok_tokens": all(len(outputs[r]) == g and all(
+            0 <= t < cfg.vocab for t in outputs[r]) for r, _, g in requests),
+        "w_gate": list(model.layers[0].moe["w_gate"].shape),
+        "bf16_logits": bf16_logits,
+        "top_e": [c[0].numpy() for c in rec.calls]}
+    del engine, model
+    torch.cuda.empty_cache()
+    return out
+
+
+def _moe_mesh_train(mesh, device, branch: str) -> dict:
+    """f32 at MOE_MESH_TRAIN_LAYERS layer, one microbatch of 1 x
+    TRAIN_CHECK_SEQ, the state under ``train_state_shardings`` (tp:
+    PARAM_RULES; ep: EP_PARAM_RULES): the mesh's loss and gradient
+    against the one-rank step's on the same params (errors reduced to
+    their max over the ranks), with the launches; then one uncompressed
+    AdamW step of ``build_train_step(mesh=)`` (its wall, loss, launches
+    and peak)."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.dist import collectives as coll
+    from repro_torch.dist import sharding
+    from repro_torch.models import nn, registry
+    from repro_torch.optim.optimizers import get_optimizer
+    from repro_torch.train import steps
+
+    cfg = moe_mesh_config(MOE_MESH_TRAIN_LAYERS, branch, "float32")
+    tc = steps.TrainConfig(optimizer="adamw", lr=3e-4)
+    shard = steps.train_state_shardings(cfg, tc, mesh)["params"]
+    gen = torch.Generator(device=device)
+    gen.manual_seed(0)
+    full = nn.init_params(registry.param_specs(cfg), gen, device)
+    local = sharding.shard_tree(full, shard)
+    batch = check_batch(cfg, device)
+    dist.barrier()
+    reset_launches()
+    t0 = time.perf_counter()
+    loss, g = steps.mesh_loss_and_grads(cfg, tc, mesh, local, batch, shard)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    loss1, g1 = steps.loss_and_grads(cfg, tc, full, batch)
+    del full
+    worst = 0.0
+    for x, y, ns in zip(_leaves(g), _leaves(g1),
+                        sharding.tree_leaves(shard)):
+        err = (x - sharding.shard_tensor(y, ns.spec, mesh)).abs().max()
+        worst = max(worst, float(err) / max(float(y.abs().max()), 1e-30))
+    worst = float(coll.all_reduce_max(
+        torch.tensor(worst, dtype=torch.float64, device=device),
+        dist.group.WORLD))
+    loss_rel = abs(float(loss) - float(loss1)) / abs(float(loss1))
+    del g, g1
+    torch.cuda.empty_cache()
+    state = {"params": local,
+             "opt_state": get_optimizer("adamw", 3e-4).init(local),
+             "step": torch.zeros((), dtype=torch.int32, device=device)}
+    step_fn = steps.build_train_step(cfg, tc, mesh=mesh)
+    torch.cuda.reset_peak_memory_stats()
+    dist.barrier()
+    reset_launches()
+    t0 = time.perf_counter()
+    state, m = step_fn(state, batch, TRAIN_SEED)
+    torch.cuda.synchronize()
+    out = {"loss": float(loss), "loss_one": float(loss1),
+           "loss_rel": loss_rel, "grad_rel": worst, "wall": wall,
+           "launches": launches, "step_wall": time.perf_counter() - t0,
+           "step_loss": float(m["loss"]), "step_launches": read_launches(),
+           "step_peak_bytes": torch.cuda.max_memory_allocated(),
+           "local_params": sum(t.numel() for t in _leaves(state["params"]))}
+    del state, local
+    torch.cuda.empty_cache()
+    return out
+
+
+MESH_JOBS = {"train": _mesh_train, "check": _mesh_check,
+             "serve": _mesh_serve, "moe_block": _moe_block_check,
+             "moe_serve": _moe_mesh_serve, "moe_train": _moe_mesh_train}
+
+
+def moe_mesh_one_rank(device) -> dict:
+    """One rank's check-prompt logits at MOE_MESH_LAYERS layers: in f32
+    and in bf16 (the same seeded weights), and the bf16 forward's
+    routing."""
+    import torch
+
+    from repro_torch.launch import serve as launch
+
+    cfg32 = moe_mesh_config(MOE_MESH_LAYERS, "tp", "float32")
+    model = launch.build_model(cfg32, 0, device)
+    f32_logits = mesh_bf16_logits(cfg32, model, device)
+    del model
+    torch.cuda.empty_cache()
+    cfg = moe_mesh_config(MOE_MESH_LAYERS, "tp")
+    model = launch.build_model(cfg, 0, device)
+    with record_routes() as rec:
+        bf16_logits = mesh_bf16_logits(cfg, model, device)
+    del model
+    torch.cuda.empty_cache()
+    return {"f32_logits": f32_logits, "bf16_logits": bf16_logits,
+            "top_e": [c[0].numpy() for c in rec.calls]}
+
+
+def run_moe_mesh_phase(device) -> dict:
+    """Phase 3r: phi3.5-moe on the (1, 1, 2) mesh, two gloo ranks sharing
+    the card, under both branches (MOE_MESH_BRANCHES), in one spawn:
+
+    the block alone (``_moe_block_check``): routing bitwise the one-rank
+    block's from the same x, the f32 output within MOE_MESH_OUT_REL
+    max|y| (tp under PARAM_RULES; ep under EP_PARAM_RULES and resharded
+    from SERVE_RESIDENT_RULES); the engine in bf16 (``_moe_mesh_serve``):
+    the check prompt's logits no further from one rank's f32 logits than
+    MESH_BF16_FACTOR times the one-rank bf16 forward's, the count of
+    routing choices that differ from the one-rank bf16 forward's, the
+    requests' tokens equal on both ranks, one flash_attention_sm90 launch
+    a layer per prefill; the train leg in f32 (``_moe_mesh_train``): the
+    loss within 1e-6 relative and every gradient leaf within
+    MOE_MESH_GRAD_REL max|g| of one rank's, 2 flash_attention_f32 and one
+    backward launch a layer (forward and remat), and one AdamW step."""
+    import numpy as np
+
+    res = {}
+    one = moe_mesh_one_rank(device)
+    jobs = tuple((f"{job}/{b}", MOE_MESH, (b,)) for b in MOE_MESH_BRANCHES
+                 for job in ("moe_block", "moe_serve", "moe_train"))
+    two = _mesh_spawn(math.prod(MOE_MESH), jobs, device)
+    res["spawn_to_exit_s"] = two["spawn_to_exit_s"]
+    launches = {k: 0 for k in KERNELS}
+    for b in MOE_MESH_BRANCHES:
+        blk = two["jobs"][f"moe_block/{b}"]
+        for r, g in blk.items():
+            for rules, row in g["tables"].items():
+                check(row["routing_bitwise"], f"moe mesh block {b} {rules} "
+                      f"rank {r}: routing differs from one rank's")
+                check(row["out_rel"] <= MOE_MESH_OUT_REL,
+                      f"moe mesh block {b} {rules} rank {r}: output "
+                      f"{row['out_rel']} of max|y| from one rank's")
+        res[f"block_{b}"] = blk[0]
+        log(f"moe mesh block {b} {MOE_MESH} (f32, 1 x {MOE_MESH_BLOCK_T} "
+            f"tokens, C = {blk[0]['capacity']}): routing bitwise the "
+            f"one-rank block's; " + "; ".join(
+                f"{rules}: w_gate block {row['w_gate']}, output "
+                f"{row['out_rel']:.3g} of max|y| from one rank's, "
+                f"{row['dropped']} choices dropped, call "
+                f"{row['wall_s']:.3f} s" for rules, row in
+                blk[0]["tables"].items()))
+
+        sr = two["jobs"][f"moe_serve/{b}"]
+        s0 = sr[0]
+        scfg = moe_mesh_config(MOE_MESH_LAYERS, b)
+        for r, g in sr.items():
+            check(g["ok_tokens"], f"moe mesh serve {b} rank {r}: tokens")
+            check(g["outputs_digest"] == s0["outputs_digest"],
+                  f"moe mesh serve {b}: rank {r}'s tokens differ")
+            want = {"flash_attention_sm90": scfg.n_layers
+                    * g["stats"]["prefills"]}
+            for k, v in g["launches"].items():
+                check(v == want.get(k, 0), f"moe mesh serve {b} rank {r}: "
+                      f"{v} {k} launches, expected {want.get(k, 0)}")
+                launches[k] += v
+        bf16 = mesh_bf16_reading(one, sr)
+        check(bf16["ratio"] <= MESH_BF16_FACTOR,
+              f"moe mesh serve {b}: bf16 logits {bf16['mesh_err']} from "
+              f"f32, one rank's {bf16['one_err']}")
+        check(len(s0["top_e"]) == len(one["top_e"]) == scfg.n_layers,
+              f"moe mesh serve {b}: {len(s0['top_e'])} route calls")
+        differ = sum(int((a != c).sum()) for a, c in
+                     zip(s0["top_e"], one["top_e"]))
+        total = sum(a.size for a in one["top_e"])
+        res[f"serve_{b}"] = {
+            "layers": scfg.n_layers, "requests": MOE_MESH_REQUESTS,
+            "gen": MOE_MESH_GEN, "stats": s0["stats"],
+            "tokens_per_s": s0["stats"]["tokens_per_s"],
+            "step_ms_median": s0["step_ms_median"],
+            "peak_gib": {r: g["peak_bytes"] / 2**30 for r, g in sr.items()},
+            "w_gate": s0["w_gate"], "launches_per_rank": s0["launches"],
+            "bf16_logits": bf16, "routing_differ": differ,
+            "routing_choices": total,
+            "job_s": {r: g["job_s"] for r, g in sr.items()}}
+        log(f"moe mesh serve {b} {MOE_MESH} ({scfg.n_layers} layers, bf16, "
+            f"{MOE_MESH_REQUESTS} requests, {MOE_MESH_GEN} out; w_gate "
+            f"block {s0['w_gate']}): {s0['stats']['tokens_per_s']:.1f} "
+            f"tokens/s, median decode step {s0['step_ms_median']:.3f} ms, "
+            f"prefill {s0['stats']['prefill_s']:.3f} s for "
+            f"{s0['stats']['prompt_tokens']} prompt tokens; launches per "
+            f"rank {s0['launches']}; bf16 logits {json.dumps(bf16)}; "
+            f"{differ} of {total} routing choices of the check prompt "
+            f"differ from the one-rank bf16 forward's")
+
+        tr = two["jobs"][f"moe_train/{b}"]
+        t0 = tr[0]
+        L = MOE_MESH_TRAIN_LAYERS
+        for r, g in tr.items():
+            check(g["loss_rel"] <= 1e-6, f"moe mesh train {b} rank {r}: "
+                  f"loss {g['loss']} vs one rank {g['loss_one']}")
+            check(g["grad_rel"] <= MOE_MESH_GRAD_REL, f"moe mesh train {b}:"
+                  f" gradient {g['grad_rel']} of max|g|")
+            check(math.isfinite(g["step_loss"]),
+                  f"moe mesh train {b} rank {r}: step loss {g['step_loss']}")
+            for ln in (g["launches"], g["step_launches"]):
+                check(ln.get("flash_attention_f32", 0) == 2 * L
+                      and ln.get("flash_attention_bwd_f32_sm90", 0) == L,
+                      f"moe mesh train {b} rank {r}: launches {ln}")
+                for k in KERNELS:
+                    launches[k] += ln.get(k, 0)
+        res[f"train_{b}"] = {
+            "loss_rel": t0["loss_rel"], "grad_rel": t0["grad_rel"],
+            "grad_wall_s": {r: g["wall"] for r, g in tr.items()},
+            "step_wall_s": {r: g["step_wall"] for r, g in tr.items()},
+            "step_peak_gib": {r: g["step_peak_bytes"] / 2**30
+                              for r, g in tr.items()},
+            "local_params": {r: g["local_params"] for r, g in tr.items()},
+            "launches_per_rank": t0["launches"],
+            "job_s": {r: g["job_s"] for r, g in tr.items()}}
+        log(f"moe mesh train {b} {MOE_MESH} (f32, {L} layer, 1 x "
+            f"{TRAIN_CHECK_SEQ}): loss {t0['loss_rel']:.3g} relative, "
+            f"gradient {t0['grad_rel']:.3g} of max|g| from the one-rank "
+            f"step; {t0['local_params']:,} parameters a rank; one AdamW "
+            f"step {t0['step_wall']:.3f} s (rank 0), peak "
+            f"{t0['step_peak_bytes'] / 2**30:.2f} GiB")
+    res["launches"] = launches
+    res["one_rank_choices"] = int(np.sum([a.size for a in one["top_e"]]))
+    return res
 
 
 def check_gaussian_law(mech: str, res: dict, sigma: float) -> dict:
@@ -5372,9 +5852,28 @@ def main() -> int:
     mgen.manual_seed(MESH_SEED)
     flash_m = compare_flash(device, mgen, FLASH_MESH_CASES)
     bwd_m = compare_flash_bwd(device, mgen, BWD_MESH_CASES)
-    worst.update({k: max(flash[k], flash_w[k], flash_wh[k], flash_m[k])
+    # the moe kind's per-rank shapes, then the f32 forward's long sums,
+    # each from its own generator
+    mmgen = torch.Generator(device=device)
+    mmgen.manual_seed(MOE_MESH_SEED)
+    flash_mm = compare_flash(device, mmgen, FLASH_MOE_MESH_CASES)
+    bwd_mm = compare_flash_bwd(device, mmgen, BWD_MOE_MESH_CASES)
+    fgen = torch.Generator(device=device)
+    fgen.manual_seed(FWD_DRIFT_SEED)
+    fwd_drift = compare_flash_fwd_drift(device, fgen)
+    bwd_ratio = max(r[f"{n}_bar_ratio"] for r in drift["bwd_cases"]
+                    for n in ("dq", "dk", "dv"))
+    log(f"drift: flash_attention_f32's worst case {fwd_drift['worst_ratio']:.4f}"
+        f" of its 2e-5 bar over {len(FWD_DRIFT_CASES)} cases; "
+        f"flash_attention_bwd_sm90's (BWD_DRIFT_CASES) {bwd_ratio:.4f} of "
+        f"its bar")
+    worst.update({k: max(flash[k], flash_w[k], flash_wh[k], flash_m[k],
+                         flash_mm[k])
                   for k in ("flash_attention_sm90", "flash_attention_f32")})
-    worst.update({k: max(bwd[k], bwd_w[k], bwd_wh[k], drift[k], bwd_m[k])
+    worst["flash_attention_f32"] = max(worst["flash_attention_f32"],
+                                       fwd_drift["flash_attention_f32"])
+    worst.update({k: max(bwd[k], bwd_w[k], bwd_wh[k], drift[k], bwd_m[k],
+                         bwd_mm[k])
                   for k in ("flash_attention_bwd_sm90",
                             "flash_attention_bwd_f32_sm90")})
     wkv = compare_wkv6(device, gen)
@@ -5484,6 +5983,9 @@ def main() -> int:
     mesh = run_mesh_phase(device)
     done("3q (the mesh)")
     held("after the mesh phase")
+    moe_mesh = run_moe_mesh_phase(device)
+    done("3r (moe on the mesh)")
+    held("after the moe mesh phase")
     done("3")
 
     # 4. times
@@ -5529,7 +6031,7 @@ def main() -> int:
                 + serve_whisper["f32"]["launches"][k]
                 + serve_whisper["f32"]["chain_launches"][k]
                 + train_whisper["launches"][k]
-                + mesh["launches"][k]
+                + mesh["launches"][k] + moe_mesh["launches"][k]
                 for k in KERNELS}
     kernels = []
     for kname, (src, replaces) in KERNELS.items():
@@ -5559,6 +6061,12 @@ def main() -> int:
               "bwd_drift_cases": drift["bwd_cases"],
               "flash_mesh_cases": flash_m["flash_cases"],
               "bwd_mesh_cases": bwd_m["bwd_cases"],
+              "flash_moe_mesh_cases": flash_mm["flash_cases"],
+              "bwd_moe_mesh_cases": bwd_mm["bwd_cases"],
+              "fwd_drift_cases": fwd_drift["fwd_drift_cases"],
+              "drift_worst_ratio": {"flash_attention_f32":
+                                    fwd_drift["worst_ratio"],
+                                    "flash_attention_bwd_sm90": bwd_ratio},
               "flash_span": span_rows,
               "train": train, "train_f32": train_f32,
               "train_ranks": train_ranks,
@@ -5571,6 +6079,7 @@ def main() -> int:
               "serve_zamba2": serve_zamba, "train_zamba2": train_zamba,
               "serve_whisper": serve_whisper,
               "train_whisper": train_whisper, "mesh": mesh,
+              "moe_mesh": moe_mesh,
               "kernels": kernels, "phase_s": phase_s, "seconds": total}
     out_dir = ROOT / "build"
     try:

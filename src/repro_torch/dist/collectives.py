@@ -14,18 +14,24 @@ Autograd functions (a group of None, or of one rank, is the identity):
   reduce_from(x, group)    all-reduce (sum); backward: identity — the
                            exit of a row-parallel product, the masked
                            embedding lookup, the vocab-parallel softmax
+  exchange(x, group)       all-to-all: block i of dim 0 to rank i, the
+                           received blocks stacked by sender (the MoE
+                           expert-parallel dispatch and its return);
+                           backward: the same exchange of the gradient
 
 and their plain counterparts (``all_gather``, ``all_reduce``,
-``reduce_scatter``, ``all_reduce_max``) for the paths without gradients.
+``reduce_scatter``, ``all_reduce_max``, ``all_to_all``) for the paths
+without gradients.
 
 Each is the backend's own collective: ``all_gather_into_tensor``,
-``reduce_scatter_tensor`` and ``all_reduce``.  NCCL carries them where
-each rank has its own card (``launch.mesh.launcher_mesh``); gloo where
-ranks share a card, which NCCL refuses (phases 3b, 3e and 3q of
-``chip_smoke.py``), and on the CPU.  torch 2.11's gloo takes the card's
-f32, bf16, int32 and uint8 tensors in all three (and in ``all_to_all``
-and ``broadcast``), with the results of their definitions: probed on an
-H100 with 2 and 4 ranks sharing it (``tools/torch_gloo_probe.py``).
+``reduce_scatter_tensor``, ``all_reduce`` and ``all_to_all_single``.
+NCCL carries them where each rank has its own card
+(``launch.mesh.launcher_mesh``); gloo where ranks share a card, which
+NCCL refuses (phases 3b, 3e, 3q and 3r of ``chip_smoke.py``), and on the
+CPU.  torch 2.11's gloo takes the card's f32, bf16, int32 and uint8
+tensors in all four (and in ``broadcast``), with the results of their
+definitions: probed on an H100 with 2 and 4 ranks sharing it
+(``tools/torch_gloo_probe.py``).
 Floating sums run in f32 whatever the dtype (a bf16 or f16 tensor is
 widened, summed, and rounded once), and every rank of an all-reduce
 receives the same bits.  An op that a backend refuses raises from
@@ -106,6 +112,23 @@ def reduce_scatter(x: torch.Tensor, dim: int, group) -> torch.Tensor:
     return out.reshape(block_shape).movedim(0, dim).to(x.dtype).contiguous()
 
 
+def all_to_all(x: torch.Tensor, group) -> torch.Tensor:
+    """The all-to-all of ``x`` (n, ...) over the group's n ranks: block i
+    of dim 0 goes to rank i, and block j of the result is what rank j
+    sent this rank (``jax.lax.all_to_all`` with split and concat axis 0,
+    untiled); bits unchanged."""
+    n = size(group)
+    if n == 1:
+        return x
+    if x.shape[0] != n:
+        raise ValueError(f"all_to_all of {tuple(x.shape)}: dim 0 must be "
+                         f"the group's {n} ranks")
+    flat = x.contiguous().reshape(-1)
+    out = torch.empty_like(flat)
+    dist.all_to_all_single(out, flat, group=group)
+    return out.reshape(x.shape)
+
+
 # ------------------------------------------------------ autograd functions
 class _Gather(torch.autograd.Function):
     @staticmethod
@@ -139,6 +162,17 @@ class _ReduceFrom(torch.autograd.Function):
         return g, None
 
 
+class _Exchange(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return all_to_all(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_to_all(g, ctx.group), None
+
+
 def gather(x: torch.Tensor, dim: int, group) -> torch.Tensor:
     if size(group) == 1:
         return x
@@ -155,3 +189,9 @@ def reduce_from(x: torch.Tensor, group) -> torch.Tensor:
     if size(group) == 1:
         return x
     return _ReduceFrom.apply(x, group)
+
+
+def exchange(x: torch.Tensor, group) -> torch.Tensor:
+    if size(group) == 1:
+        return x
+    return _Exchange.apply(x, group)

@@ -208,7 +208,10 @@ def shard_shape(shape: Sequence[int], spec: P, mesh: Mesh) -> Tuple[int, ...]:
 def shard_tensor(full: torch.Tensor, spec: P, mesh: Mesh,
                  axes: Optional[Iterable[str]] = None) -> torch.Tensor:
     """This rank's block of ``full`` under ``spec`` (only the mesh axes in
-    ``axes``, when given), a contiguous copy."""
+    ``axes``, when given), a contiguous copy that holds no more than the
+    block (a block of leading rows is a contiguous view of the whole
+    storage, which ``contiguous()`` would keep alive); ``full`` itself
+    where the spec splits nothing."""
     out = full
     for dim, names in _entries(spec, axes):
         n = mesh.axis_size(names)
@@ -217,7 +220,9 @@ def shard_tensor(full: torch.Tensor, spec: P, mesh: Mesh,
                              f"split over {names} ({n} ranks)")
         b = out.shape[dim] // n
         out = out.narrow(dim, mesh.coord(names) * b, b)
-    return out.contiguous() if out is not full else full
+    if out is full:
+        return full
+    return out.clone(memory_format=torch.contiguous_format)
 
 
 def unshard(local: torch.Tensor, spec: P, mesh: Mesh,

@@ -115,14 +115,15 @@ def drive(engine: ServeEngine, model, requests, *, log=lambda *_: None):
     }
 
 
-def build_model(cfg, seed: int, device, mesh=None):
+def build_model(cfg, seed: int, device, mesh=None, rules=None):
     """Random weights with the reference's init law from a generator on
     ``device`` seeded with ``seed``, in the compute dtype; on a ``mesh``,
-    this rank's blocks of them (SERVE_RESIDENT_RULES)."""
+    this rank's blocks of them under ``rules`` (default
+    SERVE_RESIDENT_RULES)."""
     dev = resolve_device(device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
-    return registry.init_model(cfg, gen, dev, mesh)
+    return registry.init_model(cfg, gen, dev, mesh, rules)
 
 
 def main(argv=None):

@@ -5,11 +5,29 @@ tokens.
 Top-k routing, each choice's position within its expert from a one-hot
 cumsum (sort-free), the kept choices placed in an (E, C, D) buffer, the
 batched expert FFN on the whole zero-padded buffer, then gather and
-combine.  The reference wraps this block (``_local_moe``) in a
-``shard_map`` with a ``psum`` over its ``model`` axis and has an
-expert-parallel variant (``_local_moe_ep``, an ``all_to_all`` over that
-axis); one card has no such axis, so the port calls the local block
-directly (see the README).
+combine (``route``, ``dispatch``, ``expert_ffn``, ``combine``).
+
+On the active mesh (``models.parallel``) the block routes the rank's own
+tokens, its rows of the batch, with the capacity of their count, as the
+reference's ``shard_map`` hands each (pod, data) shard its rows; a batch
+that no batch axis divides is whole on every rank.  On a ``model`` axis
+it takes the reference's branches:
+
+  * tensor parallel (``_local_moe``): the rank's block of each expert's
+    d_ff; the tokens enter through ``copy_to`` and the down-projection's
+    partials are summed over ``model`` (``nn.row_parallel``: f32
+    partials, one rounding after the sum, as XLA compiles the
+    reference's bf16 ``psum``);
+  * expert parallel (``_local_moe_ep``, for ``cfg.moe_ep`` when the
+    experts divide the axis): the (E, C, D) buffer goes out in ``model``
+    blocks of E / model experts (``coll.exchange``), each rank runs its
+    experts at full d_ff on the (E / model, model C, D) rows it receives,
+    and the outputs come back by the same exchange.  The tokens are
+    replicated over ``model``, so every peer sends the same rows and the
+    rank computes each of them ``model`` times, as the reference does
+    (``parallel.rank_experts`` scales the experts' gradient back).
+
+Without a model axis (or one rank) the block is the one-card block.
 
 Bits follow the reference's jitted block:
 
@@ -37,8 +55,11 @@ from typing import Dict
 import torch
 import torch.nn.functional as F
 
+from repro_torch.dist import collectives as coll
+from repro_torch.models import nn, parallel
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.nn import ParamSpec
+
 
 def moe_specs(cfg: ModelConfig) -> Dict[str, ParamSpec]:
     d, f, e = cfg.d_model, cfg.d_ff, cfg.n_experts
@@ -79,28 +100,70 @@ def route(cfg: ModelConfig, tokens: torch.Tensor, router: torch.Tensor):
     return top_w, top_e, flat_pos, flat_pos < C, C
 
 
-def local_moe(cfg: ModelConfig, x, router, w_gate, w_up, w_down):
-    """The MoE FFN of ``x`` (B, T, D) in x's dtype (the reference's
-    ``_local_moe`` on one device)."""
-    B, T, D = x.shape
+def dispatch(cfg: ModelConfig, tokens: torch.Tensor, top_e, flat_pos,
+             keep, C: int):
+    """The (E, C, D) buffer of the kept choices' tokens (zero rows where
+    no choice is placed) and ``slot`` (N K,): each choice's row in the
+    flattened buffer, E C for a dropped one."""
+    N, D = tokens.shape
     E, K = cfg.n_experts, cfg.top_k
-    tokens = x.reshape(B * T, D)
-    N = B * T
-    top_w, top_e, flat_pos, keep, C = route(cfg, tokens, router)
     # slot of each choice in the flattened (E C) buffer; dropped choices
     # point at one extra slot past the end, which stays empty
     slot = torch.where(keep, top_e.reshape(-1) * C + flat_pos, E * C)
     # the inverse map: the choice filling each slot, N K where none does
-    src = torch.full((E * C + 1,), N * K, dtype=torch.long, device=x.device)
-    src[slot] = torch.arange(N * K, device=x.device)
+    src = torch.full((E * C + 1,), N * K, dtype=torch.long,
+                     device=tokens.device)
+    src[slot] = torch.arange(N * K, device=tokens.device)
     src_tok = torch.where(src < N * K, src // K, N)[:E * C]
-    buf = F.pad(tokens, (0, 0, 0, 1))[src_tok].view(E, C, D)
+    return F.pad(tokens, (0, 0, 0, 1))[src_tok].view(E, C, D), slot
 
-    h = (F.silu(torch.matmul(buf, w_gate.to(x.dtype)))
-         * torch.matmul(buf, w_up.to(x.dtype)))
-    out = torch.matmul(h, w_down.to(x.dtype)).view(E * C, D)
 
-    return combine(out, slot, top_w).reshape(B, T, D)
+def expert_ffn(buf, w_gate, w_up, w_down, group=None):
+    """silu(buf @ w_gate) * (buf @ w_up) @ w_down, batched over the
+    experts, in buf's dtype.  With ``group`` the weights are the rank's
+    block of d_ff and the down-projection's partials are summed over the
+    group (``nn.row_parallel``)."""
+    dt = buf.dtype
+    h = (F.silu(torch.matmul(buf, w_gate.to(dt)))
+         * torch.matmul(buf, w_up.to(dt)))
+    if group is None:
+        return torch.matmul(h, w_down.to(dt))
+    return nn.row_parallel(h, w_down.to(dt), group)
+
+
+def local_moe(cfg: ModelConfig, x, router, w_gate, w_up, w_down,
+              group=None):
+    """The MoE FFN of ``x`` (B, T, D) in x's dtype (the reference's
+    ``_local_moe``): on one rank with whole weights, or with ``group``
+    (the model axis) on the rank's d_ff block of every expert."""
+    B, T, D = x.shape
+    tokens = x.reshape(B * T, D)
+    top_w, top_e, flat_pos, keep, C = route(cfg, tokens, router)
+    if group is not None:  # each rank's d_ff block sends back a partial
+        tokens = coll.copy_to(tokens, group)
+    buf, slot = dispatch(cfg, tokens, top_e, flat_pos, keep, C)
+    out = expert_ffn(buf, w_gate, w_up, w_down, group)
+    return combine(out.reshape(-1, D), slot, top_w).reshape(B, T, D)
+
+
+def local_moe_ep(cfg: ModelConfig, x, router, w_gate, w_up, w_down, t):
+    """The expert-parallel MoE FFN of ``x`` (B, T, D) (the reference's
+    ``_local_moe_ep``) on the model axis ``t``: ``w_*`` are this rank's E
+    / model experts at full d_ff (``parallel.rank_experts``)."""
+    B, T, D = x.shape
+    E, n = cfg.n_experts, t.size
+    tokens = x.reshape(B * T, D)
+    top_w, top_e, flat_pos, keep, C = route(cfg, tokens, router)
+    buf, slot = dispatch(cfg, tokens, top_e, flat_pos, keep, C)
+    e_loc = E // n
+    # (E, C, D) -> (model, E / model, C, D): block i to rank i, which
+    # returns the rows for its experts from every peer, stacked by peer
+    recv = coll.exchange(buf.view(n, e_loc, C, D), t.group)
+    recv = recv.transpose(0, 1).reshape(e_loc, n * C, D)
+    out = expert_ffn(recv, w_gate, w_up, w_down)
+    out = out.view(e_loc, n, C, D).transpose(0, 1)
+    back = coll.exchange(out, t.group).reshape(E * C, D)
+    return combine(back, slot, top_w).reshape(B, T, D)
 
 
 def combine(out: torch.Tensor, slot: torch.Tensor,
@@ -122,6 +185,25 @@ def combine(out: torch.Tensor, slot: torch.Tensor,
 
 def moe_block(cfg: ModelConfig, m, x):
     """``m``: the layer's ``moe`` parameters (router, w_gate, w_up,
-    w_down), a dict or ParameterDict."""
+    w_down; a dict or ParameterDict), each this rank's block on the
+    active mesh, gathered over ``data`` by the caller (FSDP).  The
+    branch follows the reference's ``moe_block``: expert parallel for
+    ``cfg.moe_ep`` on a model axis the experts divide, else tensor
+    parallel where the rank holds a d_ff block of the experts, else the
+    whole block on every rank."""
+    t = parallel.tp()
+    if parallel.moe_expert_parallel(cfg, t):
+        ws = [parallel.rank_experts(cfg, t, m[k], f_dim)
+              for k, f_dim in (("w_gate", 2), ("w_up", 2), ("w_down", 1))]
+        return local_moe_ep(cfg, x, m["router"], *ws, t)
+    if t is not None and parallel.held_in_part(m["w_gate"], 0,
+                                               cfg.n_experts):
+        raise NotImplementedError(
+            "expert leaves split over the model axis (EP_PARAM_RULES) "
+            "under a config that does not take the expert-parallel "
+            "branch (cfg.moe_ep off): place them by the config's rule "
+            "table")
+    group = (t.group if t is not None and parallel.held_in_part(
+        m["w_gate"], 2, cfg.d_ff) else None)
     return local_moe(cfg, x, m["router"], m["w_gate"], m["w_up"],
-                     m["w_down"])
+                     m["w_down"], group)

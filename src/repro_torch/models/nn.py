@@ -178,22 +178,27 @@ _NARROW = (torch.bfloat16, torch.float16)
 
 
 def _mm_f32(a, b):
-    """a @ b for 2-D narrow-float operands, accumulated and returned in
-    f32 (the products of bf16 / f16 values are exact in f32)."""
+    """a @ b for 2-D (or batched 3-D) narrow-float operands, accumulated
+    and returned in f32 (the products of bf16 / f16 values are exact in
+    f32)."""
+    mm = torch.bmm if a.dim() == 3 else torch.mm
     if a.is_cuda:
-        return torch.mm(a, b, out_dtype=torch.float32)
-    return torch.mm(a.to(torch.float32), b.to(torch.float32))
+        return mm(a, b, out_dtype=torch.float32)
+    return mm(a.to(torch.float32), b.to(torch.float32))
 
 
 class _PartialF32(torch.autograd.Function):
     """x @ w in f32 for narrow x, w: a rank's partial product, kept in f32
-    until the sum over the ranks.  Its backward is ``dense``'s: the
-    gradient (f32 holding narrow values, from the cast after the sum) is
-    narrowed and multiplied in x's dtype."""
+    until the sum over the ranks.  w is 2-D, or 3-D with x (n, m, k)
+    batched alike (the MoE experts' down-projection).  Its backward is
+    ``dense``'s: the gradient (f32 holding narrow values, from the cast
+    after the sum) is narrowed and multiplied in x's dtype."""
 
     @staticmethod
     def forward(ctx, x, w):
         ctx.save_for_backward(x, w)
+        if w.dim() == 3:
+            return _mm_f32(x, w)
         return _mm_f32(x.reshape(-1, x.shape[-1]), w).reshape(
             x.shape[:-1] + (w.shape[-1],))
 
@@ -201,11 +206,14 @@ class _PartialF32(torch.autograd.Function):
     def backward(ctx, g):
         x, w = ctx.saved_tensors
         g = g.to(x.dtype)
-        dx = torch.matmul(g, w.T) if ctx.needs_input_grad[0] else None
-        dw = (torch.matmul(x.reshape(-1, x.shape[-1]).T,
-                           g.reshape(-1, g.shape[-1]))
-              if ctx.needs_input_grad[1] else None)
-        return dx, dw
+        dx = (torch.matmul(g, w.transpose(-1, -2))
+              if ctx.needs_input_grad[0] else None)
+        if not ctx.needs_input_grad[1]:
+            return dx, None
+        if w.dim() == 3:
+            return dx, torch.matmul(x.transpose(-1, -2), g)
+        return dx, torch.matmul(x.reshape(-1, x.shape[-1]).T,
+                                g.reshape(-1, g.shape[-1]))
 
 
 def row_parallel(x, w, group):
@@ -213,7 +221,10 @@ def row_parallel(x, w, group):
     ``group``: each rank's partial product summed over the group.  In a
     narrow dtype the partials stay f32 through the sum, which is rounded
     to x's dtype once, as the one-rank ``dense`` rounds its f32
-    accumulator once; a group of one rank is ``dense``."""
+    accumulator once (and as XLA compiles the reference's ``psum`` of a
+    bf16 product on the CPU: an f32 dot, an all-reduce promoted to f32,
+    one convert after it); a group of one rank is ``dense``.  A 3-D w
+    (experts, rows, cols) takes x (experts, ..., rows) batched alike."""
     if coll.size(group) == 1:
         return dense(x, w)
     w = w.to(x.dtype)

@@ -16,6 +16,19 @@ shape, so one code path serves every rule table and mesh:
     product, sums over ``model`` at its exit (``reduce_from``); a
     sub-block whose weight is whole runs whole on every rank, with no
     collective;
+  * the MoE FFN (``models.moe``) routes the rank's own tokens (its rows
+    of the batch, replicated over ``model``) with the capacity of their
+    count, as the reference's ``shard_map`` does, and takes one of two
+    branches on a model axis: tensor parallel (the experts' ``mlp`` dim
+    split; the tokens enter through ``copy_to`` and the down-projection's
+    f32 partials are summed over ``model``), or, for ``cfg.moe_ep`` with
+    the experts dividing the axis, expert parallel (each rank's
+    ``n_experts / model`` experts at full d_ff, the dispatch buffer
+    exchanged both ways by ``coll.exchange``).  Its expert leaves are
+    stored whole along ``expert`` and split along ``mlp`` under
+    PARAM_RULES, NO_FSDP_RULES and SERVE_RESIDENT_RULES, and split along
+    ``expert`` at full ``mlp`` under EP_PARAM_RULES; ``rank_experts``
+    reshards the first layout to the expert-parallel one at use;
   * attention runs on the rank's query heads, ``n_heads / model`` of
     them, contiguous (the head count must divide: a cut query head
     raises).  Its KV heads are the rank's own columns when ``n_kv_heads``
@@ -92,6 +105,50 @@ def gather_layer(lp, specs):
         else:
             out[name] = gather_leaf(node, spec)
     return SimpleNamespace(**out)
+
+
+# ------------------------------------------------------------------- MoE
+def moe_expert_parallel(cfg, t: Optional[TP]) -> bool:
+    """The reference's test for its expert-parallel branch
+    (``repro.models.moe.moe_block``): ``cfg.moe_ep``, a model axis, and
+    the experts dividing it."""
+    return (t is not None and cfg.moe_ep
+            and cfg.n_experts % t.size == 0)
+
+
+class _ScaleGrad(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, s):
+        ctx.s = s
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g * ctx.s, None
+
+
+def rank_experts(cfg, t: TP, w: torch.Tensor, f_dim: int) -> torch.Tensor:
+    """This rank's ``n_experts / model`` experts of an expert weight (E,
+    ..., d_ff at ``f_dim``, ...) at full d_ff, from the block it stores:
+    its experts already (EP_PARAM_RULES); a block of d_ff, gathered over
+    ``model`` first (the other tables; the reference's ``shard_map``
+    reshards at its boundary); or the whole weight.  The expert-parallel
+    branch computes each expert's rows once for every peer (the tokens
+    are replicated over ``model``, so every peer sends the same ones),
+    so the gradient reaching these experts is ``model`` times their own:
+    it is scaled back by 1 / model here, then summed back to the stored
+    block (the gather's reduce-scatter, ``copy_to``'s all-reduce)."""
+    E = cfg.n_experts
+    e = E // t.size
+    if held_in_part(w, 0, E):
+        mine = w
+    else:
+        if held_in_part(w, f_dim, cfg.d_ff):
+            w = coll.gather(w, f_dim, t.group)
+        else:
+            w = coll.copy_to(w, t.group)
+        mine = w.narrow(0, t.rank * e, e)
+    return _ScaleGrad.apply(mine, 1.0 / t.size)
 
 
 # ------------------------------------------------------------- attention

@@ -10,7 +10,8 @@ llava), rwkv6, zamba2 and whisper:
   decode_state_specs(cfg, B, S)       -> cache tree of meta tensors
   decode_state_shardings(cfg, mesh, B, S) -> the caches' placement
   init_decode_state(cfg, B, S, device)-> fresh cache tree
-  init_model(cfg, generator, device)  -> random model in the compute dtype
+  init_model(cfg, generator, device, mesh, rules)
+                                      -> random model in the compute dtype
 
 ``batch`` is a dict with tokens (B, T) int, for llava patches (B, P,
 D) and for whisper frames (B, encoder_len, D)
@@ -59,16 +60,18 @@ def param_specs(cfg: ModelConfig):
 
 
 def init_model(cfg: ModelConfig, generator: torch.Generator, device=None,
-               mesh=None):
+               mesh=None, rules=None):
     """Random weights with the reference's init law, layer by layer in
     the compute dtype (each family's ``init_model``); on a mesh (the
-    transformer's kinds) each rank's blocks under SERVE_RESIDENT_RULES."""
+    transformer's kinds: dense, moe, llava) each rank's blocks under
+    ``rules`` (default SERVE_RESIDENT_RULES; EP_PARAM_RULES places the
+    moe experts over ``model``)."""
     _known(cfg)
     if mesh is not None and mesh.size > 1:
         if cfg.kind not in DENSE_KINDS:
             raise NotImplementedError(
                 f"kind {cfg.kind!r} on a mesh is a later slice of the port")
-        return transformer.init_model(cfg, generator, device, mesh)
+        return transformer.init_model(cfg, generator, device, mesh, rules)
     return _FAMILIES.get(cfg.kind, transformer).init_model(cfg, generator,
                                                            device)
 
@@ -139,7 +142,8 @@ def decode_state_specs(cfg: ModelConfig, batch: int,
 
 def decode_state_shardings(cfg: ModelConfig, mesh, batch: int,
                            seq_len: int):
-    """NamedSharding tree for the decode caches of the transformer's kinds.
+    """NamedSharding tree for the decode caches of the transformer's kinds
+    (dense, moe, llava).
 
     KV caches (L, B, S, HK, hd) split their heads over 'model' when HK
     divides it, otherwise the *sequence* dim (decode attention scores

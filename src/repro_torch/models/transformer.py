@@ -352,11 +352,9 @@ def mlp_block(cfg: ModelConfig, lp: DecoderLayer, x):
 
 
 def _ffn(cfg: ModelConfig, lp: DecoderLayer, x):
+    """The layer's FFN: the MLP, or for the moe kind ``moe.moe_block``
+    (its tensor- or expert-parallel branch on a model axis)."""
     if cfg.kind == "moe":
-        if parallel.tp() is not None:
-            raise NotImplementedError(
-                "moe on the model axis (moe_block's sum over d_ff-split "
-                "experts, expert parallelism) is a later slice of the port")
         return moe.moe_block(cfg, lp.moe, x)
     return mlp_block(cfg, lp, x)
 

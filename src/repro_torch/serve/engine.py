@@ -29,15 +29,19 @@ masked by absolute position; its prefill is ``zamba2.prefill``, a loop
 of one-token decodes).  whisper / llava need per-request side inputs
 and raise as in the reference.
 
-On a mesh (``mesh=``, else the active one; dense kind): the model's
-weights are resident by ``SERVE_RESIDENT_RULES`` (each rank holds its
-tensor-parallel blocks) and the KV cache follows
+On a mesh (``mesh=``, else the active one; the dense and moe kinds):
+the model's weights are resident by ``SERVE_RESIDENT_RULES`` (each rank
+holds its tensor-parallel blocks; a moe config with ``moe_ep`` reshards
+the experts at use, ``parallel.rank_experts``) and the KV cache follows
 ``registry.decode_state_shardings``: the rank's KV heads, or its rows of
 the sequence when the heads do not split over 'model'.  Slots split over
 the batch axes as ``batch_spec`` splits them: each rank steps its own
 slots, and the tokens of all slots are gathered, so every rank runs the
 same loop (the bookkeeping is replicated; every rank prefills each
-prompt, and only the rank holding the slot keeps its cache).  Greedy
+prompt, and only the rank holding the slot keeps its cache).  A moe
+decode step routes the rank's slots as one call, with their capacity,
+as the reference's ``shard_map`` routes its shard's; a prefill, one
+prompt, is routed whole on every rank.  Greedy
 tokens are an argmax over the vocabulary's blocks, ties to the lowest
 global index (``parallel.argmax_vocab``).
 """

@@ -8,8 +8,9 @@ package's structure: the parameter tree in its layout (layer stacks on
 a leading axis), the optimizer's state (AdamW ``(m, v, count)``) and an
 int32 step, so a checkpoint reads the same in both packages.  On a mesh
 each rank holds its block of every leaf under ``train_state_shardings``
-(``PARAM_RULES``; ``NO_FSDP_RULES`` for a compressed step over a ``pod``
-axis), the optimizer's leaves as their parameter.
+(``PARAM_RULES``; ``EP_PARAM_RULES`` for a moe config with ``moe_ep``;
+``NO_FSDP_RULES`` for a compressed step over a ``pod`` axis), the
+optimizer's leaves as their parameter.
 
 ``build_train_step(cfg, tc, group=None, mesh=None)`` returns
 ``step(state, batch, seed) -> (state, metrics)``:

@@ -242,6 +242,26 @@ def test_shard_tensor_is_the_reference_block(shape):
                                                             mesh)
 
 
+@pytest.mark.parametrize("shape", SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_shard_tensor_holds_only_its_block(shape):
+    """A rank's block is a contiguous tensor whose storage is the block's
+    own bytes, whichever dims the spec splits (a block of leading rows,
+    a view of the whole, would keep the whole tensor alive: every leaf a
+    mesh splits along its first dim, the embedding, wo, EP_PARAM_RULES'
+    experts); a spec that splits nothing returns the tensor itself."""
+    x = torch.arange(8 * 12 * 4, dtype=torch.float32).reshape(8, 12, 4)
+    for spec in (sharding.P(("pod", "data"), "model", None),
+                 sharding.P("model", None, None), sharding.P(None, "data"),
+                 sharding.P(("data", "model"))):
+        for r in range(int(np.prod(shape))):
+            got = sharding.shard_tensor(x, spec, meshctx.Mesh(shape, rank=r))
+            assert got.is_contiguous()
+            assert got.untyped_storage().nbytes() == (got.numel()
+                                                      * got.element_size())
+    assert sharding.shard_tensor(x, sharding.P(None, None),
+                                 meshctx.Mesh(shape)) is x
+
+
 def test_abstract_params_and_logical_axes():
     cfg = configs.get_config("qwen3-32b")
     specs = registry.param_specs(cfg)

@@ -166,8 +166,10 @@ def _leaves(tree):
 
 def train_side(rank: int, n: int, group, shape, arch: str, params, tokens,
                comp_kw, grad_accum: int, gather_once: bool, n_steps: int,
-               seed: int, ckpt_dir, optimizer: str = "adamw") -> dict:
-    """The train step on ``shape`` from the reference's params.
+               seed: int, ckpt_dir, optimizer: str = "adamw",
+               cfg_kw=None) -> dict:
+    """The train step on ``shape`` from the reference's params (the smoke
+    config of ``arch`` in f32, scaled by ``cfg_kw``).
 
     Uncompressed: the mean loss and gradient (``mesh_loss_and_grads``,
     each leaf gathered whole), then ``n_steps`` steps.  Compressed (a
@@ -185,7 +187,7 @@ def train_side(rank: int, n: int, group, shape, arch: str, params, tokens,
     from repro_torch.train import steps
 
     mesh = _mesh(shape)
-    cfg = _cfg(arch)
+    cfg = _cfg(arch).scaled(**(cfg_kw or {}))
     comp = None if comp_kw is None else dcompress.CompressionConfig(**comp_kw)
     tc = steps.TrainConfig(optimizer=optimizer, lr=3e-3,
                            grad_accum=grad_accum, compression=comp,
@@ -248,15 +250,16 @@ def train_side(rank: int, n: int, group, shape, arch: str, params, tokens,
 
 
 def restore_side(rank: int, n: int, group, shape, arch: str, comp_kw,
-                 ckpt_dir) -> dict:
+                 ckpt_dir, cfg_kw=None) -> dict:
     """Restore the checkpoint onto ``shape`` (placement from this mesh's
-    rules) and gather every leaf of the state whole."""
+    rules, for the smoke config scaled by ``cfg_kw``) and gather every
+    leaf of the state whole."""
     from repro_torch.dist import compress as dcompress
     from repro_torch.dist import sharding
     from repro_torch.train import steps
 
     mesh = _mesh(shape)
-    cfg = _cfg(arch)
+    cfg = _cfg(arch).scaled(**(cfg_kw or {}))
     comp = None if comp_kw is None else dcompress.CompressionConfig(**comp_kw)
     tc = steps.TrainConfig(optimizer="adamw", lr=3e-3, compression=comp)
     state, step = steps.restore_train_state(ckpt_dir, cfg, tc, device="cpu",
