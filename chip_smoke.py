@@ -38,9 +38,10 @@ naive loop take the decode path, one wkv6_step launch a layer per token;
 ``registry.prefill_fn`` the scan path, one chunked wkv6_fwd a layer) and
 checked in f32, and trained at 16 of its 24 layers.  zamba2-7b (Mamba2
 blocks and one shared attention block with a sliding window of 4096 at
-head dim 112) is served uncut through the engine and the scan-path
+head dim 112) is served at 13 of its 81 layers through the engine and
+the scan-path
 prefill, whose shared attention runs flash_attention_sm90 with the
-window, checked in f32 at 7 layers, and trained at 14 of its 81 layers
+window, checked in f32 at 7 layers, and trained at 7 of its 81 layers
 on sequences of 8192 tokens, where both backwards mask by the window.
 Phases, each fatal on failure:
 
@@ -78,14 +79,16 @@ Phases, each fatal on failure:
      one ulp + 2e-5 max|g|, dV also + 2^-9 max|dO| max_j sum_i P[i, j],
      and 99% within one ulp + 2e-5 max|g|), bitwise equal over two runs;
      the mesh paths' per-rank shapes (the moe kind's 16 / 4, 8 / 2, 24 /
-     4 and 12 / 2 heads of 128 among them); the long sums of the bf16
+     4 and 12 / 2 heads of 128 among them; zamba2's 16 / 16 of 112 with
+     its window and whisper's 6 / 6 of 64, ``FLASH_FAMILY_MESH_CASES``); the long sums of the bf16
      backward (``BWD_DRIFT_CASES``) and of the f32 forward's running O
      accumulator (``FWD_DRIFT_CASES``: T = 8192 and 16384 at 16 heads of
      64, T = 4096 and 8192 at 64 / 8 of 128, within 2e-5), the worst
      ratio of each to its bar logged;
      and the wkv6 kernels against ``ref.wkv6_ref`` / ``ref.wkv6_bwd_ref``
      at rwkv6's (1 and 2, 2048, 32, 64) in bf16 and f32, a ragged T = 700
-     and the decode step (8, 1, 32, 64), the smoke config's heads of 16
+     and the decode step (8, 1, 32, 64), its 16 heads a rank on the mesh
+     (``WKV_FAMILY_MESH_CASES``), the smoke config's heads of 16
      (1, 300, 2, 16) in each dtype pair, and two extreme decays (w = 0, w
      = 1, a log decay summed past -88 within a chunk), with a nonzero
      first state and u: each output (y, the final state, every saved
@@ -160,7 +163,8 @@ Phases, each fatal on failure:
      max|logit| of the plain versions; 3l: the rwkv6 train step at 16
      layers as phase 3i (per step 2 x 16 x 2 wkv6_fwd and 16 x 2
      wkv6_bwd), with its bf16 and f32 gradient checks on the trained
-     parameters' first 2 layers; 3m: zamba2 uncut in bf16, 8 requests of
+     parameters' first 2 layers; 3m: zamba2 at 13 layers in bf16, 8
+     requests of
      16-64 prompt tokens through ``run_serve`` (no kernel launch: its
      decode attention and Mamba2 steps are plain PyTorch, as the
      reference's), one served decode step profiled, ``registry.
@@ -169,7 +173,7 @@ Phases, each fatal on failure:
      f32 the engine equal to the naive loop one request per call, its
      prefill bitwise its own decode chain, and the scan path's last logits
      past the window within 1e-4 max|logit| of the plain versions; 3n: the
-     zamba2 train step at 14 layers on 2 x 8192 tokens in 2 microbatches
+     zamba2 train step at 7 layers on 2 x 8192 tokens in 2 microbatches
      (per step 2 x 2 x 2 flash_attention_sm90 and 2 x 2
      flash_attention_bwd_sm90, both with the window), with its bf16 and
      f32 gradient checks on the trained parameters' first group at 1 x
@@ -193,7 +197,20 @@ Phases, each fatal on failure:
      from SERVE_RESIDENT_RULES), a 4-layer bf16 engine's tokens equal on
      both ranks and its logits as close to f32 as one rank's (the
      routing choices that differ counted), and a 1-layer f32 gradient
-     within 1e-4 max|g| of one rank's, then one AdamW step;
+     within 1e-4 max|g| of one rank's, then one AdamW step; 3s: rwkv6,
+     zamba2 and whisper on the mesh (``run_family_mesh_phase``, gloo ranks
+     sharing the card): rwkv6-1.6b uncut and zamba2-7b at 13 layers
+     served on (1, 1, 2) through ``ServeEngine(mesh=)`` (tokens equal on
+     both ranks, wkv6_step once a layer per decode call) and prefilled on
+     the scan path (wkv6_fwd once a layer; the flash kernel once a group
+     past the window), their f32 tokens one rank's and bf16 logits as
+     close to f32 as one rank's at 4 and 7 layers; whisper-small uncut
+     through a ``serve_fn`` chain on (1, 1, 2) (the steps' cross-attention
+     on the flash kernel), checked alike; f32 gradients on (1, 2, 2) of
+     rwkv6 at 4 layers, zamba2 at 7 and whisper uncut, loss within 1e-6
+     relative and every leaf within 1e-4 max|g| of one rank (or, past
+     that, within twice one rank's error from the f64 gradient); whisper's
+     compressed step on (2, 1, 2), params bitwise across pods;
   4. time each kernel (CUDA events, median of 10) beside its bound and
      its plain version (the flash kernels also beside
      ``scaled_dot_product_attention``, and the backward beside its
@@ -642,6 +659,26 @@ FLASH_WHISPER_CASES = (
     (8, 448, 1500, 12, 12, 64, False),
     (8, 1, 1500, 12, 12, 64, False),
 )
+# the per-rank shapes of rwkv6, zamba2 and whisper on a model axis of 2
+# (phase 3s), from their own generator (FAMILY_MESH_SEED), drawn after
+# every case set above (the wkv6 cases last): zamba2-7b's shared
+# attention at 16 / 16 heads of 112 (window 4096) over 3s's 5120-token
+# scan prefill and a 2048-token gradient; whisper-small's 6 / 6
+# heads of 64: the encoder over its 1500 frames, the decoder's
+# cross-attention of 448 tokens over them at the serve path's 8 rows, and
+# the decode step's one query
+FAMILY_MESH_SEED = 53
+FLASH_FAMILY_MESH_CASES = (
+    (1, 5120, 5120, 16, 16, 112, True, 4096),
+    (1, 1500, 1500, 6, 6, 64, False),
+    (8, 448, 1500, 6, 6, 64, False),
+    (8, 1, 1500, 6, 6, 64, False),
+)
+BWD_FAMILY_MESH_CASES = (
+    (1, 2048, 2048, 16, 16, 112, True, 4096),
+    (1, 1500, 1500, 6, 6, 64, False),
+    (8, 448, 1500, 6, 6, 64, False),
+)
 FLASH_ATOL = 2e-5  # the reference's own bar (tests/test_kernels.py)
 # bf16: a p that rounds to the other bf16 neighbour moves an output by at
 # most 2^-9 max|v|; the kernel and its plain version round P against the
@@ -1078,6 +1115,13 @@ WKV_CASES = (
     (1, 700, 32, 64, "bfloat16", "bfloat16", "extreme"),
     (1, 300, 2, 16, "float32", "float32", "extreme"),
 )
+# rwkv6-1.6b's 16 heads of 64 a rank on a model axis of 2 (phase 3s): the
+# train microbatch of 2 x 2048 and the decode step of 8 slots
+# (FAMILY_MESH_SEED's generator, after the flash cases above)
+WKV_FAMILY_MESH_CASES = (
+    (2, 2048, 16, 64, "bfloat16", "bfloat16"),
+    (8, 1, 16, 64, "bfloat16", "float32"),
+)
 # the bar: each output's error against an f64 run of the same recurrence
 # (max |diff| over max |f64|) at most WKV_RATIO times the plain f32
 # version's (the kernels sum in another order)
@@ -1121,8 +1165,9 @@ def _f64_err(a, want) -> float:
                  / want.abs().max().clamp_min(1e-300))
 
 
-def compare_wkv6(device, gen) -> dict:
-    """The wkv6 kernels against their plain versions at WKV_CASES, with a
+def compare_wkv6(device, gen, cases=WKV_CASES) -> dict:
+    """The wkv6 kernels against their plain versions at ``cases``
+    (WKV_CASES; WKV_FAMILY_MESH_CASES), with a
     nonzero first state, u and final-state gradient, each case through the
     forward ``wkv6.uses_step`` picks (the step kernel at T = 1, the
     chunked forward otherwise) and the chunked backward: each output (y,
@@ -1141,7 +1186,7 @@ def compare_wkv6(device, gen) -> dict:
 
     worst = {"wkv6_fwd": 0.0, "wkv6_bwd": 0.0, "wkv6_step": 0.0}
     rows = []
-    for case in WKV_CASES:
+    for case in cases:
         r, k, v, w, u, s0, dy, ds = wkv_inputs(case, gen, device)
         T = case[1]
         step = wk.uses_step(T, s0)
@@ -2172,18 +2217,18 @@ TRAIN_F32_LOSS_REL = 1e-6
 
 def f64_attention(q, k, v, causal: bool = True, *, kv_tile, window=0):
     """``ops.flash_attention``'s signature over attention computed in f64
-    and differentiated by autograd (no window: no caller of the f64
-    yardstick has one)."""
+    and differentiated by autograd; a window (causal, T = S) keeps the
+    keys j with 0 <= i - j < window."""
     import torch
 
-    check(not window, "f64_attention takes no window")
     D = q.shape[-1]
     g = q.shape[2] // k.shape[2]
     k, v = (x.repeat_interleave(g, dim=2) for x in (k, v))
     s = torch.einsum("bthd,bshd->bhts", q, k) * D ** -0.5
     if causal:
-        keep = torch.ones(s.shape[-2:], dtype=torch.bool,
-                          device=q.device).tril()
+        i = torch.arange(s.shape[-1], device=q.device)
+        d = i[:, None] - i[None, :]
+        keep = (d >= 0) & (d < window) if window else d >= 0
         s = s.masked_fill(~keep, float("-inf"))
     return torch.einsum("bhts,bshd->bthd", s.softmax(-1), v)
 
@@ -2191,20 +2236,27 @@ def f64_attention(q, k, v, causal: bool = True, *, kv_tile, window=0):
 def f64_gradient(cfg, params, device, seq: int = TRAIN_CHECK_SEQ,
                  rows: int = 1) -> tuple:
     """(loss, gradient) of the model in f64 (``f64_attention`` in place of
-    the flash attention; the loss's logits are cast to f32, as
+    the flash attention, rwkv6's recurrence ``ref.wkv6_ref`` in f64 under
+    autograd; the loss's logits are cast to f32, as
     ``nn.cross_entropy_loss`` casts them) at ``check_batch``: the
     yardstick of the f32 gradient check where the f32 plain path itself
     is further from the exact gradient than that check's bar."""
-    from repro_torch.kernels import ops
+    import torch
+
+    from repro_torch.kernels import ops, ref
     from repro_torch.train import steps
 
-    saved, ops.flash_attention = ops.flash_attention, f64_attention
+    def wkv6(r, k, v, w, u, state=None):
+        return ref.wkv6_ref(r, k, v, w, u, state, dtype=torch.float64)
+
+    saved = ops.flash_attention, ops.wkv6
+    ops.flash_attention, ops.wkv6 = f64_attention, wkv6
     try:
         return steps.value_and_grad(cfg.scaled(compute_dtype="float64"),
                                     params,
                                     check_batch(cfg, device, seq, rows))
     finally:
-        ops.flash_attention = saved
+        ops.flash_attention, ops.wkv6 = saved
 
 
 def check_train_gradient_f32(cfg, params, device, plain=None,
@@ -3492,10 +3544,12 @@ def profile_decode_steps(cfg, model, device, tags: tuple, n_steps: int = 4,
 
 
 # ------------------------------------------------------------ phase 3m
-# zamba2-7b served uncut in bf16 (81 layers: 13 groups of 5 Mamba2 layers
-# and the shared attention block, a tail of 3; 5,735.2 M parameters, 10.68
-# GiB): the engine's prefill is a chain of one-token 81-layer decodes, so
-# the prompts are short (ZAMBA_REQUESTS of ZAMBA_PROMPT tokens, SERVE_GEN
+# zamba2-7b served in bf16 at full width, its depth cut to ZAMBA_SERVE_LAYERS
+# of 81 (2 groups of 5 Mamba2 layers and the shared attention block, a
+# tail of 1; uncut, 81 layers, 5,735.2 M parameters, 10.68 GiB, until
+# phase 3s was added: the whole run would otherwise pass 1150 s): the
+# engine's prefill is a chain of one-token decodes, so the prompts are
+# short (ZAMBA_REQUESTS of ZAMBA_PROMPT tokens, SERVE_GEN
 # out, the KV rings min(window, 128) rows); its decode attention and
 # Mamba2 steps are plain PyTorch, as the reference's (no kernel launches).
 # Then ``registry.prefill_fn`` (the scan path: the SSD blocks and the
@@ -3504,6 +3558,7 @@ def profile_decode_steps(cfg, model, device, tags: tuple, n_steps: int = 4,
 # past the window and multiples of the SSD chunk (128); and the f32 checks
 # at ZAMBA_F32_LAYERS layers (one group and a tail of one)
 ZAMBA_ARCH = "zamba2-7b"
+ZAMBA_SERVE_LAYERS = 13
 ZAMBA_REQUESTS = 8
 ZAMBA_PROMPT = (16, 64)
 ZAMBA_PREFILLS = 4
@@ -3727,7 +3782,8 @@ def check_serve_zamba2_f32(device) -> dict:
 
 
 def run_serve_zamba2_phase(device) -> dict:
-    """Phase 3m: zamba2 uncut in bf16 served by ``run_serve`` (its
+    """Phase 3m: zamba2 at ZAMBA_SERVE_LAYERS in bf16 served by
+    ``run_serve`` (its
     ZAMBA_REQUESTS requests of ZAMBA_PROMPT tokens, no kernel launches),
     one served decode step profiled (``profile_decode_steps``), prefilled
     by ``registry.prefill_fn`` (``run_zamba2_prefill``), then the f32
@@ -3735,7 +3791,7 @@ def run_serve_zamba2_phase(device) -> dict:
     import torch
 
     t0 = time.perf_counter()
-    cfg = zamba2_config()
+    cfg = zamba2_config(ZAMBA_SERVE_LAYERS)
     model = build_checked(cfg, device)
     requests = [(r, p, SERVE_GEN) for r, p in enumerate(
         rwkv6_prompts(cfg, ZAMBA_REQUESTS, ZAMBA_PROMPT, seed=1))]
@@ -3756,15 +3812,15 @@ def run_serve_zamba2_phase(device) -> dict:
 
 
 # ------------------------------------------------------------ phase 3n
-# zamba2 trained at full width, depth cut to TRAIN_ZAMBA_LAYERS of 81: 14
-# layers (2 groups of 5 Mamba2 layers and the shared block, a tail of 2)
-# are 1,370.2 M parameters, near rwkv6's 1,208.3 M (48.7 GiB in phase 3l)
-# and phi3.5-moe's 1,563.5 M (70.0 GiB in 3i).  bf16, remat full, AdamW lr
+# zamba2 trained at full width, depth cut to TRAIN_ZAMBA_LAYERS of 81: 7
+# layers (1 group of 5 Mamba2 layers and the shared block, a tail of 1;
+# 14 layers, 2 groups and a tail of 2, 1,370.2 M parameters, 67.86 GiB,
+# until phase 3s was added: the whole run would otherwise pass 1150 s).  bf16, remat full, AdamW lr
 # 3e-4, lm data seed 0, global batch 2 x 8192 in 2 microbatches (both past
 # the window: the backward kernels mask by it), aggregate_gaussian fused
 # b = 8 per-tensor, TRAIN_STEPS steps.  The gradient checks take the
 # trained parameters' first group (ZAMBA_CHECK_LAYERS layers) at 1 x 8192
-TRAIN_ZAMBA_LAYERS = 14
+TRAIN_ZAMBA_LAYERS = 7
 TRAIN_ZAMBA_BATCH = 2
 TRAIN_ZAMBA_SEQ = 8192
 ZAMBA_CHECK_LAYERS = 6
@@ -3852,17 +3908,15 @@ def whisper_batch(cfg, tokens, key: int, device) -> dict:
 def whisper_cross_kv(cfg, model, frames):
     """The decode cache's cross K / V, (L, B, 1500, HK, hd) each: each
     decoder layer's ``cross.wk`` / ``cross.wv`` over the encoder memory,
-    as the reference's ``_cross_attend`` projects them; and the memory."""
+    as the reference's ``_cross_attend`` projects them (``whisper.
+    cross_kv``: on a model axis the rank's heads); and the memory."""
     import torch
 
-    from repro_torch.models import nn, whisper
+    from repro_torch.models import whisper
 
     memory = whisper.encode(cfg, model, frames)
-    B, S = memory.shape[:2]
-    shape = (B, S, cfg.n_kv_heads, cfg.hd)
-    return tuple(torch.stack([nn.dense(memory, lp.cross[w]).reshape(shape)
-                              for lp in model.dec_layers])
-                 for w in ("wk", "wv")), memory
+    kv = [whisper.cross_kv(cfg, lp, memory) for lp in model.dec_layers]
+    return tuple(torch.stack([c[i] for c in kv]) for i in (0, 1)), memory
 
 
 def whisper_self_cache(cfg, model, tokens, memory):
@@ -3871,9 +3925,8 @@ def whisper_self_cache(cfg, model, tokens, memory):
     import torch
 
     from repro_torch.models import nn, whisper
-    from repro_torch.models.config import torch_dtype
 
-    x = model.embed[tokens].to(torch_dtype(cfg.compute_dtype))
+    x = whisper._embed(cfg, model, tokens)
     rope = nn.rope_freqs(cfg.hd, x.shape[1] + 1, cfg.rope_theta, x.dtype,
                          device=x.device)
     ks, vs = [], []
@@ -3892,11 +3945,12 @@ def whisper_chain(cfg, model, prompt, frames, n_steps: int,
     its new K / V.  The launch counts are set to 0 just before the steps
     and read just after (the decode step's cross-attention:
     flash_attention_* once a layer).  Returns tokens (B, n_steps), the
-    steps' logits (B, n_steps, V), the launches and, with ``timed``, each
-    step's wall on the host clock after a synchronize."""
+    steps' logits (B, n_steps, V; on a model axis the rank's vocab
+    block), the launches and, with ``timed``, each step's wall on the
+    host clock after a synchronize."""
     import torch
 
-    from repro_torch.models import registry
+    from repro_torch.models import parallel, registry
 
     serve = registry.serve_fn(cfg)
     with torch.no_grad():
@@ -3912,7 +3966,7 @@ def whisper_chain(cfg, model, prompt, frames, n_steps: int,
                                  {"k": k, "v": v, "cross_k": ck,
                                   "cross_v": cv})
             k, v = torch.cat([k, nk], 2), torch.cat([v, nv], 2)
-            tok = lg.argmax(-1).to(torch.int32)
+            tok = parallel.argmax_vocab(cfg, lg).to(torch.int32)
             out.append(tok)
             logits.append(lg)
             if timed:
@@ -4405,20 +4459,22 @@ def mesh_f32_prompts(cfg, device):
         device=device)
 
 
-def mesh_engine_tokens(cfg, model, device, prompts):
-    """2 prompts at full occupancy through the engine (f32 check)."""
+def mesh_engine_tokens(cfg, model, device, prompts,
+                       gen: int = MESH_F32_GEN):
+    """2 prompts at full occupancy through the engine (f32 check), ``gen``
+    tokens each."""
     import torch
 
     from repro_torch.serve import ServeEngine
 
-    engine = ServeEngine(cfg, max_slots=2, max_prefill_len=MESH_F32_PROMPT,
-                         max_gen_len=MESH_F32_GEN, device=device)
+    engine = ServeEngine(cfg, max_slots=2, max_prefill_len=prompts.shape[1],
+                         max_gen_len=gen, device=device)
     state = engine.init_state()
     for i in range(2):
         _, prefix = engine.prefill(model, prompts[i])
-        state = engine.insert(state, prefix, i, max_gen=MESH_F32_GEN)
+        state = engine.insert(state, prefix, i, max_gen=gen)
     outs = [state["tokens"].clone()]
-    for _ in range(MESH_F32_GEN - 1):
+    for _ in range(gen - 1):
         state, tok, _ = engine.generate_step(model, state)
         outs.append(tok)
     return torch.stack(outs, dim=1)
@@ -4508,11 +4564,13 @@ def _json_digest(obj) -> str:
 
 def mesh_rank_main(rank: int, n: int, port: int, device: str, jobs,
                    results) -> None:
-    """One rank of phases 3q and 3r: the gloo group, then each (name, mesh
-    shape, args) of ``jobs`` on its mesh (``meshctx.make_mesh``, set as
-    the process's mesh), the function ``MESH_JOBS`` names by the part of
-    ``name`` before any "/": 3q's ``train`` (a), ``check`` (b) or
-    ``serve`` (c / d); 3r's ``moe_block``, ``moe_serve``, ``moe_train``."""
+    """One rank of phases 3q, 3r and 3s: the gloo group, then each (name,
+    mesh shape, args) of ``jobs`` on its mesh (``meshctx.make_mesh``, set
+    as the process's mesh), the function ``MESH_JOBS`` names by the part
+    of ``name`` before any "/": 3q's ``train`` (a), ``check`` (b) or
+    ``serve`` (c / d); 3r's ``moe_block``, ``moe_serve``, ``moe_train``;
+    3s's ``family_serve``, ``whisper_serve``, ``family_train``,
+    ``whisper_pods``."""
     import torch
     import torch.distributed as dist
 
@@ -4598,7 +4656,15 @@ def mesh_one_rank_f32(arch: str, layers, device) -> dict:
             "f32_logits": f32_logits, "bf16_logits": bf16_logits}
 
 
-def run_mesh_phase(device) -> dict:
+def mesh_phase_jobs() -> tuple:
+    """3q's rank sides: ((a), (b), (d)) on 4 ranks, ((c),) on 2."""
+    c_serve, d_serve = MESH_SERVE
+    return ((("train", MESH_TRAIN, ()), ("check", MESH_CHECK, ()),
+             ("serve", d_serve[1], (d_serve[0],) + d_serve[2:])),
+            (("serve", c_serve[1], (c_serve[0],) + c_serve[2:]),))
+
+
+def run_mesh_phase(device, four: dict, two: dict) -> dict:
     """Phase 3q: the dense transformer on the (pod, data, model) mesh,
     gloo ranks sharing the card.
 
@@ -4620,22 +4686,17 @@ def run_mesh_phase(device) -> dict:
     same tokens on every rank; then f32 tokens on 2 x 512 x 16 equal to
     the one-rank engine's (a differing token only at a tie), and the bf16
     logits no further from the f32 ones than MESH_BF16_FACTOR times the
-    one-rank bf16 forward's.  (a), (b) and (d) run in one spawn of 4
-    ranks, (c) in one of 2."""
+    one-rank bf16 forward's.  (a), (b) and (d) ran in ``four``, the
+    spawn of 4 ranks, (c) in ``two``, that of 2 (``run_mesh_spawns``)."""
     from repro_torch import configs
 
     res = {}
     cfg = mesh_train_config()
     c_serve, d_serve = MESH_SERVE
-    one = {d_serve[0]: mesh_one_rank_f32(d_serve[0], d_serve[4], device)}
-    four = _mesh_spawn(MESH_RANKS, (
-        ("train", MESH_TRAIN, ()), ("check", MESH_CHECK, ()),
-        ("serve", d_serve[1], (d_serve[0],) + d_serve[2:])), device)
-    one[c_serve[0]] = mesh_one_rank_f32(c_serve[0], c_serve[4], device)
-    two = _mesh_spawn(math.prod(c_serve[1]), (
-        ("serve", c_serve[1], (c_serve[0],) + c_serve[2:]),), device)
-    res["spawn_to_exit_s"] = {"4 ranks: a, b, d": four["spawn_to_exit_s"],
-                              "2 ranks: c": two["spawn_to_exit_s"]}
+    one = {arch: mesh_one_rank_f32(arch, layers, device)
+           for arch, _, _, _, layers in (d_serve, c_serve)}
+    res["spawn_to_exit_s"] = {"4 ranks": four["spawn_to_exit_s"],
+                              "2 ranks": two["spawn_to_exit_s"]}
 
     ranks = four["jobs"]["train"]
     per_step = train_launches_expected(cfg, MESH_TRAIN_ACCUM)
@@ -5037,7 +5098,13 @@ def moe_mesh_one_rank(device) -> dict:
             "top_e": [c[0].numpy() for c in rec.calls]}
 
 
-def run_moe_mesh_phase(device) -> dict:
+def moe_mesh_jobs() -> tuple:
+    """3r's rank sides, on the 2 ranks of MOE_MESH."""
+    return tuple((f"{job}/{b}", MOE_MESH, (b,)) for b in MOE_MESH_BRANCHES
+                 for job in ("moe_block", "moe_serve", "moe_train"))
+
+
+def run_moe_mesh_phase(device, two: dict) -> dict:
     """Phase 3r: phi3.5-moe on the (1, 1, 2) mesh, two gloo ranks sharing
     the card, under both branches (MOE_MESH_BRANCHES), in one spawn:
 
@@ -5057,9 +5124,6 @@ def run_moe_mesh_phase(device) -> dict:
 
     res = {}
     one = moe_mesh_one_rank(device)
-    jobs = tuple((f"{job}/{b}", MOE_MESH, (b,)) for b in MOE_MESH_BRANCHES
-                 for job in ("moe_block", "moe_serve", "moe_train"))
-    two = _mesh_spawn(math.prod(MOE_MESH), jobs, device)
     res["spawn_to_exit_s"] = two["spawn_to_exit_s"]
     launches = {k: 0 for k in KERNELS}
     for b in MOE_MESH_BRANCHES:
@@ -5157,6 +5221,670 @@ def run_moe_mesh_phase(device) -> dict:
     res["launches"] = launches
     res["one_rank_choices"] = int(np.sum([a.size for a in one["top_e"]]))
     return res
+
+
+# ------------------------------------------------------------ phase 3s
+# rwkv6, zamba2 and whisper on the (pod, data, model) mesh, gloo ranks
+# sharing the card, as 3q and 3r: the times measure the paths'
+# correctness and launches, not tensor parallelism (every gloo op on the
+# shared card costs 1-12 ms).  (a) rwkv6-1.6b uncut served on (1, 1, 2):
+# each prompt token is a 24-layer decode step of three all-reduces a
+# layer (250 ms a call on the card), so the requests are few and short
+# (cut from 8 of 16-64 tokens, 32 out; (b), (d) and (e) hold the f32
+# gradient without the AdamW steps after it, and (e)'s pods take one step,
+# not two, to keep the phase near 120 s); (c) zamba2-7b at 13 of its 81
+# layers (2 groups and a tail of 1: groups, shared block and tail all
+# run); the f32 token checks and the bf16 logits at FM_*_F32_LAYERS; (b),
+# (d) and whisper's f32 gradient at the depth where each rank also holds
+# the one-rank model and its gradient beside its blocks, on sequences of
+# FM_TRAIN_SEQ (cut from 2048)
+FM_SERVE = (1, 1, 2)
+FM_TRAIN = (1, 2, 2)
+FM_PODS = (2, 1, 2)
+FM_RWKV_REQUESTS, FM_RWKV_PROMPT, FM_RWKV_GEN = 2, (8, 8), 8
+FM_RWKV_SCAN = 2000          # (a)'s scan-path prefill
+FM_RWKV_F32_LAYERS = 4
+FM_RWKV_TRAIN_LAYERS = 4     # (b): f32, 2 x FM_TRAIN_SEQ
+FM_TRAIN_SEQ = 1024          # (b) and (d)'s sequence
+FM_ZAMBA_LAYERS = 13         # (c)
+FM_ZAMBA_REQUESTS, FM_ZAMBA_PROMPT, FM_ZAMBA_GEN = 2, (8, 8), 8
+FM_ZAMBA_SCAN = 5120         # past the window of 4096
+FM_ZAMBA_F32_LAYERS = 7
+FM_ZAMBA_TRAIN_LAYERS = 7    # (d): 1 group and a tail of 1, f32
+FM_F32_PROMPT, FM_F32_GEN = 8, 8    # the f32 token checks: 2 prompts
+FM_WHISPER_ROWS, FM_WHISPER_STEPS = 8, 16
+FM_WHISPER_F32_ROWS, FM_WHISPER_F32_STEPS = 2, 16
+FM_WHISPER_TRAIN = (2, 448)  # global rows x decoder tokens (1500 frames)
+FM_WHISPER_POD_STEPS = 1
+FM_GRAD_REL = 1e-4           # of max|g|, every leaf, against one rank
+FM_LOSS_REL = 1e-6
+
+
+def family_config(kind: str, layers=None, dtype=None):
+    if kind == "whisper":
+        return whisper_config(dtype)
+    return {"rwkv6": rwkv6_config, "zamba2": zamba2_config}[kind](layers,
+                                                                 dtype)
+
+
+def family_f32_prompts(cfg, device):
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(4)
+    return torch.as_tensor(rng.integers(
+        0, cfg.vocab, size=(2, FM_F32_PROMPT), dtype=np.int32), device=device)
+
+
+def whisper_mesh_inputs(cfg, device, rows: int):
+    """``rows`` prompts of WHISPER_PROMPT tokens and their frames stub."""
+    import numpy as np
+
+    rng = np.random.default_rng(5)
+    b = whisper_batch(cfg, rng.integers(0, cfg.vocab,
+                                        size=(rows, WHISPER_PROMPT),
+                                        dtype=np.int32), 6, device)
+    return b["tokens"], b["frames"]
+
+
+def whisper_mesh_logits(cfg, model, device):
+    """``registry.logits_fn`` over the first f32-check row's prompt and
+    frames: the last MESH_BF16_POS positions, whole over the vocabulary,
+    f32 on the host."""
+    import torch
+
+    from repro_torch.dist import collectives as coll
+    from repro_torch.models import parallel, registry
+
+    tokens, frames = whisper_mesh_inputs(cfg, device, FM_WHISPER_F32_ROWS)
+    with torch.no_grad():
+        logits = registry.logits_fn(cfg, model, {"tokens": tokens[:1],
+                                                 "frames": frames[:1]})
+        logits = logits[:, -MESH_BF16_POS:].to(torch.float32)
+        logits = coll.all_gather(logits, -1,
+                                 parallel.vocab_group(cfg, logits))
+    return logits[..., :cfg.vocab].cpu().numpy()
+
+
+def family_f32_tokens(kind: str, cfg32, model, device) -> dict:
+    """The f32 token check's tokens (the engine for rwkv6 and zamba2, 2
+    prompts of FM_F32_PROMPT, FM_F32_GEN out; whisper's ``serve_fn``
+    chain of FM_WHISPER_F32_ROWS x FM_WHISPER_F32_STEPS) and its
+    launches."""
+    reset_launches()
+    if kind == "whisper":
+        tokens, frames = whisper_mesh_inputs(cfg32, device,
+                                             FM_WHISPER_F32_ROWS)
+        ch = whisper_chain(cfg32, model, tokens, frames,
+                           FM_WHISPER_F32_STEPS)
+        return {"tokens": ch["tokens"].cpu().tolist(),
+                "launches": ch["launches"], "logits": ch["logits"]}
+    toks = mesh_engine_tokens(cfg32, model, device,
+                              family_f32_prompts(cfg32, device), FM_F32_GEN)
+    return {"tokens": toks.cpu().tolist(), "launches": read_launches(),
+            "engine_tokens": toks}
+
+
+def family_one_rank(kind: str, device) -> dict:
+    """One rank's f32 tokens with their top-2 margins, and its f32 and
+    bf16 logits of the bf16 check (``mesh_bf16_logits``, whisper's
+    ``whisper_mesh_logits``), at the f32 check's depth."""
+    import torch
+
+    from repro_torch.launch import serve as launch
+    from repro_torch.models import registry
+
+    layers = {"rwkv6": FM_RWKV_F32_LAYERS, "zamba2": FM_ZAMBA_F32_LAYERS,
+              "whisper": None}[kind]
+    logits_of = (whisper_mesh_logits if kind == "whisper"
+                 else mesh_bf16_logits)
+    cfg32 = family_config(kind, layers, "float32")
+    model = launch.build_model(cfg32, 0, device)
+    got = family_f32_tokens(kind, cfg32, model, device)
+    if kind == "whisper":
+        margin = _margins(got["logits"]).cpu()
+    else:
+        prompts = family_f32_prompts(cfg32, device)
+        # the last token too, so that zamba2's scan sees P + gen tokens,
+        # a multiple of the smoke config's SSD chunk of 8
+        with torch.no_grad():
+            logits = registry.logits_fn(cfg32, model, {"tokens": torch.cat(
+                [prompts, got["engine_tokens"]], dim=1)})
+        margin = _margins(logits[:, FM_F32_PROMPT - 1:-1]).cpu()
+    f32_logits = logits_of(cfg32, model, device)
+    del model
+    torch.cuda.empty_cache()
+    cfg16 = family_config(kind, layers)
+    model = launch.build_model(cfg16, 0, device)
+    bf16_logits = logits_of(cfg16, model, device)
+    del model
+    torch.cuda.empty_cache()
+    return {"tokens": got["tokens"], "margin": margin.tolist(),
+            "f32_logits": f32_logits, "bf16_logits": bf16_logits}
+
+
+def _family_serve(mesh, device, kind: str) -> dict:
+    """(a) / (c) The engine on the mesh in bf16 (rwkv6 uncut, zamba2 at
+    FM_ZAMBA_LAYERS): the requests after a warm-up of one, with the
+    launches and the pool's local shapes; one scan-path prefill
+    (``registry.prefill_fn``) with its launches; then at the f32 check's
+    depth the bf16 check's logits and the f32 engine's tokens."""
+    import statistics
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.launch import serve as launch
+    from repro_torch.models import registry
+    from repro_torch.serve import ServeEngine
+
+    rw = kind == "rwkv6"
+    cfg = family_config(kind, None if rw else FM_ZAMBA_LAYERS)
+    n_req, lengths, gen = ((FM_RWKV_REQUESTS, FM_RWKV_PROMPT, FM_RWKV_GEN)
+                           if rw else (FM_ZAMBA_REQUESTS, FM_ZAMBA_PROMPT,
+                                       FM_ZAMBA_GEN))
+    model = launch.build_model(cfg, 0, device, mesh)
+    engine = ServeEngine(cfg, max_slots=SERVE_SLOTS,
+                         max_prefill_len=lengths[1], max_gen_len=gen,
+                         device=device)
+    launch.drive(engine, model, [(0, rwkv6_prompts(cfg, 1, (4, 4),
+                                                   seed=9)[0], 2)])
+    requests = [(r, p, gen) for r, p in enumerate(
+        rwkv6_prompts(cfg, n_req, lengths, seed=1))]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    dist.barrier()
+    reset_launches()
+    outputs, stats = launch.drive(engine, model, requests)
+    torch.cuda.synchronize()
+    out = {"launches": read_launches(),
+           "expected": serve_launches_expected(cfg, stats),
+           "stats": {k: stats[k] for k in (
+               "steps", "tokens_out", "wall_s", "tokens_per_s", "prefills",
+               "prompt_tokens", "prefill_s", "mean_occupancy")},
+           "step_ms_median": statistics.median(stats["step_ms"]),
+           "peak_bytes": torch.cuda.max_memory_allocated(),
+           "outputs_digest": _json_digest(outputs),
+           "ok_tokens": all(len(outputs[r]) == g and all(
+               0 <= t < cfg.vocab for t in outputs[r])
+               for r, _, g in requests),
+           "pool": {k: list(v.shape) for k, v in
+                    engine.init_state()["cache"].items()}}
+    del engine
+    n_scan = FM_RWKV_SCAN if rw else FM_ZAMBA_SCAN
+    scan = torch.as_tensor(rwkv6_prompts(cfg, 1, (n_scan, n_scan),
+                                         seed=3)[0][None], device=device)
+    dist.barrier()
+    reset_launches()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        logits, cache = registry.prefill_fn(cfg)(model, {"tokens": scan})
+    torch.cuda.synchronize()
+    out["scan"] = {"tokens": n_scan, "wall_s": time.perf_counter() - t0,
+                   "launches": read_launches(),
+                   "ok": cache is None and bool(torch.isfinite(
+                       logits).all()) and tuple(logits.shape) == (
+                       1, 1, cfg.padded_vocab // mesh.shape["model"])}
+    del model, logits
+    torch.cuda.empty_cache()
+    layers = FM_RWKV_F32_LAYERS if rw else FM_ZAMBA_F32_LAYERS
+    model = launch.build_model(family_config(kind, layers), 0, device, mesh)
+    out["bf16_logits"] = mesh_bf16_logits(family_config(kind, layers),
+                                          model, device)
+    del model
+    cfg32 = family_config(kind, layers, "float32")
+    model = launch.build_model(cfg32, 0, device, mesh)
+    got = family_f32_tokens(kind, cfg32, model, device)
+    out["f32_tokens"], out["f32_launches"] = got["tokens"], got["launches"]
+    del model
+    torch.cuda.empty_cache()
+    return out
+
+
+def _whisper_mesh_serve(mesh, device) -> dict:
+    """(e) whisper uncut on the mesh in bf16: ``whisper_chain`` of
+    FM_WHISPER_ROWS rows, a WHISPER_PROMPT-token prompt each and
+    FM_WHISPER_STEPS steps (its launches: the steps' cross-attention),
+    the bf16 check's logits; then the f32 chain's tokens."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.launch import serve as launch
+
+    cfg = family_config("whisper")
+    model = launch.build_model(cfg, 0, device, mesh)
+    tokens, frames = whisper_mesh_inputs(cfg, device, FM_WHISPER_ROWS)
+    dist.barrier()
+    t0 = time.perf_counter()
+    ch = whisper_chain(cfg, model, tokens, frames, FM_WHISPER_STEPS,
+                       timed=True)
+    out = {"wall_s": time.perf_counter() - t0, "launches": ch["launches"],
+           "step_ms_median": 1e3 * sorted(ch["walls_s"])[
+               len(ch["walls_s"]) // 2],
+           "tokens_digest": _json_digest(ch["tokens"].cpu().tolist()),
+           "ok_tokens": bool(((ch["tokens"] >= 0)
+                              & (ch["tokens"] < cfg.vocab)).all()),
+           "logits_block": list(ch["logits"].shape)}
+    out["bf16_logits"] = whisper_mesh_logits(cfg, model, device)
+    del model, ch
+    torch.cuda.empty_cache()
+    cfg32 = family_config("whisper", dtype="float32")
+    model = launch.build_model(cfg32, 0, device, mesh)
+    got = family_f32_tokens("whisper", cfg32, model, device)
+    out["f32_tokens"], out["f32_launches"] = got["tokens"], got["launches"]
+    del model, got
+    torch.cuda.empty_cache()
+    return out
+
+
+def _family_train(mesh, device, kind: str) -> dict:
+    """(b) / (d) / (e) f32 on FM_TRAIN, the state under
+    ``train_state_shardings`` (PARAM_RULES: FSDP over data, tensor
+    parallel over model): the mesh's loss and gradient on its check batch
+    (rwkv6 2 x FM_TRAIN_SEQ, zamba2 1 x FM_TRAIN_SEQ, whisper
+    FM_WHISPER_TRAIN) against
+    the one-rank step's on the same params (errors reduced to their max
+    over the ranks), with the launches, the wall and the peak of the
+    mesh's pass.  (The step around this gradient, ``build_train_step(
+    mesh=)``, runs in the compressed pods, ``_whisper_pods``.)"""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.dist import collectives as coll
+    from repro_torch.dist import sharding
+    from repro_torch.models import nn, registry
+    from repro_torch.train import steps
+
+    layers = {"rwkv6": FM_RWKV_TRAIN_LAYERS,
+              "zamba2": FM_ZAMBA_TRAIN_LAYERS, "whisper": None}[kind]
+    cfg = family_config(kind, layers, "float32")
+    tc = steps.TrainConfig(optimizer="adamw", lr=3e-4)
+    shard = steps.train_state_shardings(cfg, tc, mesh)["params"]
+    gen = torch.Generator(device=device)
+    gen.manual_seed(0)
+    full = nn.init_params(registry.param_specs(cfg), gen, device)
+    local = sharding.shard_tree(full, shard)
+    rows, seq = {"rwkv6": (2, FM_TRAIN_SEQ), "zamba2": (1, FM_TRAIN_SEQ),
+                 "whisper": FM_WHISPER_TRAIN}[kind]
+    batch = check_batch(cfg, device, seq, rows)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    dist.barrier()
+    reset_launches()
+    t0 = time.perf_counter()
+    loss, g = steps.mesh_loss_and_grads(cfg, tc, mesh, local, batch, shard)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    loss1, g1 = steps.loss_and_grads(cfg, tc, full, batch)
+    del full
+    specs = sharding.tree_leaves(shard)
+    errs = [float((x - sharding.shard_tensor(y, ns.spec, mesh)).abs().max())
+            / max(float(y.abs().max()), 1e-30)
+            for x, y, ns in zip(_leaves(g), _leaves(g1), specs)]
+    errs = coll.all_reduce_max(torch.tensor(
+        errs, dtype=torch.float64, device=device), dist.group.WORLD).tolist()
+    worst = max(errs)
+    loss_rel = abs(float(loss) - float(loss1)) / abs(float(loss1))
+    exact = family_f64_check(cfg, mesh, device, g, g1, errs, specs, rows,
+                             seq)
+    out = {"loss": float(loss), "loss_one": float(loss1),
+           "loss_rel": loss_rel, "grad_rel": worst, "wall": wall,
+           "exact": exact, "launches": launches, "peak_bytes": peak,
+           "local_params": sum(t.numel() for t in _leaves(local)),
+           "rows": rows, "seq": seq}
+    del g, g1, local
+    torch.cuda.empty_cache()
+    return out
+
+
+def family_f64_check(cfg, mesh, device, g, g1, errs, specs, rows: int,
+                     seq: int) -> dict:
+    """Where a leaf of the mesh's f32 gradient ``g`` (the rank's blocks)
+    lies further than FM_GRAD_REL max|g| from one rank's ``g1`` (``errs``,
+    each leaf's maximum over the ranks), the f64 gradient decides, as
+    ``check_train_gradient_f32`` does: the leaves over the bar are
+    gathered whole, rank 0 alone computes the f64 gradient
+    (``f64_gradient`` on the same seeded params and batch) while the
+    others wait, and each such leaf's error from it (of max|f64|) is
+    returned for the mesh and for one rank: {leaf index: (mesh, one)}."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.dist import sharding
+    from repro_torch.models import nn, registry
+
+    over = [i for i, e in enumerate(errs) if e > FM_GRAD_REL]
+    if not over:
+        return {}
+    mesh_leaves = [sharding.unshard(_leaves(g)[i], specs[i].spec, mesh)
+                   for i in over]
+    one_leaves = [_leaves(g1)[i] for i in over]
+    out = {}
+    if dist.get_rank() == 0:
+        gen = torch.Generator(device=device)
+        gen.manual_seed(0)
+        full = nn.init_params(registry.param_specs(cfg), gen, device)
+        _, g64 = f64_gradient(cfg, full, device, seq, rows)
+        del full
+        for i, a, b in zip(over, mesh_leaves, one_leaves):
+            e = _leaves(g64)[i].double()
+            emax = max(float(e.abs().max()), 1e-300)
+            out[i] = (float((a.double() - e).abs().max()) / emax,
+                      float((b.double() - e).abs().max()) / emax)
+        del g64
+    del mesh_leaves, one_leaves
+    torch.cuda.empty_cache()
+    dist.barrier()
+    return out
+
+
+def _whisper_pods(mesh, device) -> dict:
+    """(e) whisper uncut in bf16 on FM_PODS, NO_FSDP_RULES,
+    aggregate_gaussian fused b = 8 over the pods: FM_WHISPER_POD_STEPS
+    steps of FM_WHISPER_TRAIN, each step's wall, loss and the digest of
+    this rank's params; the launches and the peak."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.train import steps
+
+    cfg = family_config("whisper")
+    tc = steps.TrainConfig(optimizer="adamw", lr=3e-4,
+                           compression=_train_comp("aggregate_gaussian",
+                                                   TRAIN_SIGMA))
+    state = steps.init_train_state(cfg, tc, 0, device, mesh=mesh)
+    step_fn = steps.build_train_step(cfg, tc, mesh=mesh)
+    rows, seq = FM_WHISPER_TRAIN
+    out = {"walls": [], "losses": [], "digests": [],
+           "leaves": len(_leaves(state["params"]))}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    dist.barrier()
+    reset_launches()
+    for i in range(FM_WHISPER_POD_STEPS):
+        batch = check_batch(cfg, device, seq, rows)
+        dist.barrier()
+        t0 = time.perf_counter()
+        state, m = step_fn(state, batch, TRAIN_SEED + i)
+        torch.cuda.synchronize()
+        out["walls"].append(time.perf_counter() - t0)
+        out["losses"].append(float(m["loss"]))
+        out["digests"].append(_digest(_leaves(state["params"])))
+        out["cohort"] = int(m["cohort"])
+    out["launches"] = read_launches()
+    out["peak_bytes"] = torch.cuda.max_memory_allocated()
+    del state
+    torch.cuda.empty_cache()
+    return out
+
+
+def _f32_ties(label: str, got: list, one: dict) -> list:
+    """Rows of f32 tokens against one rank's: a differing token allowed
+    only where one rank's top-2 margin there is below MARGIN, once."""
+    ties = []
+    for b, want in enumerate(one["tokens"]):
+        diff = [t for t in range(len(want)) if got[b][t] != want[t]]
+        if diff:
+            m = one["margin"][b][diff[0]]
+            check(m < MARGIN, f"{label} f32 row {b} token {diff[0]} differs "
+                              f"with top-2 margin {m}")
+            ties.append({"row": b, "token": diff[0], "margin": m})
+    check(len(ties) <= 1, f"{label}: {len(ties)} ties")
+    return ties
+
+
+def _check_train_job(label: str, ranks: dict, want: dict) -> dict:
+    """(b) / (d) / (e)'s f32 gradient: the loss and gradient bars (a leaf
+    over FM_GRAD_REL from one rank passes if its error from the f64
+    gradient is at most twice one rank's, ``family_f64_check``) and the
+    launches of the mesh's pass as ``want`` (per rank)."""
+    g0 = ranks[0]
+    for i, (em, eo) in g0["exact"].items():
+        check(em <= 2 * eo, f"{label} leaf {i}: {em:.3e} of max|g| from the "
+              f"f64 gradient, one rank {eo:.3e}")
+    for r, g in ranks.items():
+        check(g["loss_rel"] <= FM_LOSS_REL, f"{label} rank {r}: loss "
+              f"{g['loss']} vs one rank {g['loss_one']}")
+        check(g["grad_rel"] <= FM_GRAD_REL or g0["exact"], f"{label}: "
+              f"gradient {g['grad_rel']} of max|g|")
+        check(math.isfinite(g["loss"]), f"{label} rank {r}: loss {g['loss']}")
+        for k in KERNELS:
+            check(g["launches"].get(k, 0) == want.get(k, 0),
+                  f"{label} rank {r}: {g['launches'].get(k, 0)} {k} "
+                  f"launches, expected {want.get(k, 0)}")
+    return {"loss_rel": g0["loss_rel"], "grad_rel": g0["grad_rel"],
+            "loss": g0["loss"], "leaves_held_to_f64": g0["exact"],
+            "grad_wall_s": {r: g["wall"] for r, g in ranks.items()},
+            "peak_gib": {r: g["peak_bytes"] / 2**30
+                         for r, g in ranks.items()},
+            "local_params": {r: g["local_params"] for r, g in ranks.items()},
+            "launches_per_rank": g0["launches"],
+            "batch": [g0["rows"], g0["seq"]],
+            "job_s": {r: g["job_s"] for r, g in ranks.items()}}
+
+
+def family_mesh_jobs() -> tuple:
+    """3s's rank sides: (b), (d) and (e)'s training on 4 ranks, (a), (c)
+    and (e)'s serving on the 2 of FM_SERVE."""
+    return ((("family_train/rwkv6", FM_TRAIN, ("rwkv6",)),
+             ("family_train/zamba2", FM_TRAIN, ("zamba2",)),
+             ("family_train/whisper", FM_TRAIN, ("whisper",)),
+             ("whisper_pods", FM_PODS, ())),
+            (("family_serve/rwkv6", FM_SERVE, ("rwkv6",)),
+             ("family_serve/zamba2", FM_SERVE, ("zamba2",)),
+             ("whisper_serve", FM_SERVE, ())))
+
+
+def run_mesh_spawns(device) -> tuple:
+    """The rank sides of phases 3q, 3r and 3s in two spawns, one of 4
+    ranks and one of 2 (each spawn costs its ranks' start, ~12 s on the
+    card): each ``_mesh_spawn``'s result."""
+    q4, q2 = mesh_phase_jobs()
+    s4, s2 = family_mesh_jobs()
+    four = _mesh_spawn(MESH_RANKS, q4 + s4, device)
+    two = _mesh_spawn(2, q2 + moe_mesh_jobs() + s2, device)
+    return four, two
+
+
+def run_family_mesh_phase(device, four: dict, two: dict) -> dict:
+    """Phase 3s: rwkv6, zamba2 and whisper on the (pod, data, model) mesh,
+    gloo ranks sharing the card: (a), (c) and (e)'s serving ran in
+    ``two``, the spawn of 2 ranks, (b), (d) and (e)'s training in
+    ``four`` (``run_mesh_spawns``).
+
+    (a) rwkv6-1.6b uncut, bf16, ``ServeEngine(mesh=)``: FM_RWKV_REQUESTS
+    requests of FM_RWKV_PROMPT tokens, FM_RWKV_GEN out, the same tokens on
+    both ranks, wkv6_step once per layer per decode call on each rank
+    (each prompt token is one); the pool holding the rank's 16 heads of
+    wkv and its 1024 of D of the shift tokens; one scan-path prefill of
+    FM_RWKV_SCAN tokens (wkv6_fwd once per layer); at FM_RWKV_F32_LAYERS
+    the f32 tokens one rank's (a differing token only at a tie) and the
+    bf16 logits no further from f32 than MESH_BF16_FACTOR times one
+    rank's.  (b) rwkv6 at FM_RWKV_TRAIN_LAYERS on FM_TRAIN in f32, 2 x
+    FM_TRAIN_SEQ: the loss within 1e-6 relative and every leaf within
+    1e-4 max|g| of one rank's (2 L wkv6_fwd and L wkv6_bwd a rank,
+    remat).  (c) zamba2-7b at FM_ZAMBA_LAYERS, as (a) (no kernel in the
+    engine: its decode is plain PyTorch, as the reference's), its
+    scan-path prefill of FM_ZAMBA_SCAN tokens past the window (the flash
+    kernel once per group), the f32 and bf16 checks at
+    FM_ZAMBA_F32_LAYERS.  (d) zamba2 at FM_ZAMBA_TRAIN_LAYERS on
+    FM_TRAIN, 1 x FM_TRAIN_SEQ, as (b) (the f32 flash kernels, window
+    4096).  (e) whisper-small uncut: the f32 gradient on FM_TRAIN as (b);
+    the compressed step on FM_PODS (params bitwise across pods per model
+    rank, one fused encode and decode per leaf a step); a ``serve_fn``
+    chain on FM_SERVE of FM_WHISPER_ROWS x FM_WHISPER_STEPS (the steps'
+    cross-attention: flash_attention_sm90 once per layer), its f32 tokens
+    one rank's and its bf16 logits by MESH_BF16_FACTOR."""
+    from repro_torch.models import zamba2
+
+    t0 = time.perf_counter()
+    one = {k: family_one_rank(k, device)
+           for k in ("rwkv6", "zamba2", "whisper")}
+    res = {"one_rank_s": time.perf_counter() - t0,
+           "job_s": {name: max(got["jobs"][name][r]["job_s"]
+                               for r in got["jobs"][name])
+                     for got, jobs in zip((four, two), family_mesh_jobs())
+                     for name, _, _ in jobs}}
+    launches = {k: 0 for k in KERNELS}
+
+    def add(ln):
+        for k in KERNELS:
+            launches[k] += ln.get(k, 0)
+
+    for kind in ("rwkv6", "zamba2"):
+        sr = two["jobs"][f"family_serve/{kind}"]
+        s0 = sr[0]
+        cfg = family_config(kind, None if kind == "rwkv6"
+                            else FM_ZAMBA_LAYERS)
+        L = cfg.n_layers
+        for r, g in sr.items():
+            check(g["ok_tokens"], f"mesh serve {kind} rank {r}: tokens")
+            check(g["outputs_digest"] == s0["outputs_digest"],
+                  f"mesh serve {kind}: rank {r}'s tokens differ")
+            for k in KERNELS:
+                check(g["launches"].get(k, 0) == g["expected"].get(k, 0),
+                      f"mesh serve {kind} rank {r}: {g['launches'].get(k, 0)}"
+                      f" {k} launches, expected {g['expected'].get(k, 0)}")
+            scan_want = ({"wkv6_fwd": L} if kind == "rwkv6" else
+                         {"flash_attention_sm90": zamba2.layout(cfg)[0]})
+            check(g["scan"]["ok"], f"mesh {kind} scan prefill rank {r}")
+            for k in KERNELS:
+                check(g["scan"]["launches"].get(k, 0) == scan_want.get(k, 0),
+                      f"mesh {kind} scan prefill rank {r}: launches "
+                      f"{g['scan']['launches']}")
+            check(g["f32_tokens"] == s0["f32_tokens"],
+                  f"mesh serve {kind}: f32 tokens differ across ranks")
+            add(g["launches"])
+            add(g["scan"]["launches"])
+            add(g["f32_launches"])
+        if kind == "rwkv6":
+            H, D = cfg.n_heads, cfg.d_model
+            check(s0["pool"]["wkv"][2] == H // 2 and s0["pool"][
+                "prev_tm"][3] == D // 2, f"mesh rwkv6 pool {s0['pool']}")
+        ties = _f32_ties(f"mesh serve {kind}", s0["f32_tokens"], one[kind])
+        bf16 = mesh_bf16_reading(one[kind], sr)
+        check(bf16["ratio"] <= MESH_BF16_FACTOR,
+              f"mesh serve {kind}: bf16 logits {bf16['mesh_err']} from f32, "
+              f"one rank's {bf16['one_err']}")
+        res[f"serve_{kind}"] = {
+            "mesh": FM_SERVE, "layers": L, "stats": s0["stats"],
+            "tokens_per_s": s0["stats"]["tokens_per_s"],
+            "step_ms_median": s0["step_ms_median"],
+            "peak_gib": {r: g["peak_bytes"] / 2**30 for r, g in sr.items()},
+            "pool": s0["pool"], "launches_per_rank": s0["launches"],
+            "scan": s0["scan"], "f32_ties": ties, "bf16_logits": bf16,
+            "job_s": {r: g["job_s"] for r, g in sr.items()}}
+        log(f"mesh serve {kind} {FM_SERVE} ({L} layers, bf16): "
+            f"{s0['stats']['prefills']} requests, "
+            f"{s0['stats']['prompt_tokens']} prompt tokens, "
+            f"{s0['stats']['tokens_out']} out in {s0['stats']['wall_s']:.3f} "
+            f"s ({s0['stats']['tokens_per_s']:.2f} tokens/s, median decode "
+            f"step {s0['step_ms_median']:.3f} ms); pool per rank "
+            f"{json.dumps(s0['pool'])}; launches per rank "
+            f"{s0['launches']}; scan prefill of {s0['scan']['tokens']} "
+            f"tokens {s0['scan']['wall_s']:.3f} s, launches "
+            f"{s0['scan']['launches']}; f32 tokens one rank's "
+            f"({len(ties)} tie(s)); bf16 logits {json.dumps(bf16)}")
+
+    wr = two["jobs"]["whisper_serve"]
+    w0 = wr[0]
+    wcfg = family_config("whisper")
+    for r, g in wr.items():
+        check(g["ok_tokens"] and g["tokens_digest"] == w0["tokens_digest"],
+              f"mesh whisper chain rank {r}: tokens")
+        want = {"flash_attention_sm90": wcfg.n_layers * FM_WHISPER_STEPS}
+        for k in KERNELS:
+            check(g["launches"].get(k, 0) == want.get(k, 0),
+                  f"mesh whisper chain rank {r}: launches {g['launches']}")
+        check(g["f32_launches"].get("flash_attention_f32", 0)
+              == wcfg.n_layers * FM_WHISPER_F32_STEPS,
+              f"mesh whisper f32 chain rank {r}: {g['f32_launches']}")
+        check(g["f32_tokens"] == w0["f32_tokens"],
+              "mesh whisper: f32 tokens differ across ranks")
+        add(g["launches"])
+        add(g["f32_launches"])
+    ties = _f32_ties("mesh whisper chain", w0["f32_tokens"], one["whisper"])
+    bf16 = mesh_bf16_reading(one["whisper"], wr)
+    check(bf16["ratio"] <= MESH_BF16_FACTOR,
+          f"mesh whisper: bf16 logits {bf16['mesh_err']} from f32, one "
+          f"rank's {bf16['one_err']}")
+    res["serve_whisper"] = {
+        "mesh": FM_SERVE, "rows": FM_WHISPER_ROWS,
+        "steps": FM_WHISPER_STEPS, "wall_s": w0["wall_s"],
+        "step_ms_median": w0["step_ms_median"],
+        "logits_block": w0["logits_block"],
+        "launches_per_rank": w0["launches"], "f32_ties": ties,
+        "bf16_logits": bf16, "job_s": {r: g["job_s"] for r, g in wr.items()}}
+    log(f"mesh whisper chain {FM_SERVE} (bf16, {FM_WHISPER_ROWS} rows x "
+        f"{FM_WHISPER_STEPS} steps): {w0['wall_s']:.3f} s with the caches' "
+        f"build, median step {w0['step_ms_median']:.3f} ms, logits block "
+        f"{w0['logits_block']}, launches per rank {w0['launches']}; f32 "
+        f"tokens one rank's ({len(ties)} tie(s)); bf16 logits "
+        f"{json.dumps(bf16)}")
+
+    for kind in ("rwkv6", "zamba2", "whisper"):
+        tr = four["jobs"][f"family_train/{kind}"]
+        layers = {"rwkv6": FM_RWKV_TRAIN_LAYERS,
+                  "zamba2": FM_ZAMBA_TRAIN_LAYERS, "whisper": None}[kind]
+        want = {k: v for k, v in train_launches_expected(
+            family_config(kind, layers, "float32"), 1).items()
+            if not k.startswith("fused")}
+        res[f"train_{kind}"] = _check_train_job(f"mesh train {kind}", tr,
+                                                want)
+        for g in tr.values():
+            add(g["launches"])
+        t = res[f"train_{kind}"]
+        log(f"mesh train {kind} {FM_TRAIN} (f32, {t['batch'][0]} x "
+            f"{t['batch'][1]}): loss {t['loss_rel']:.3g} relative, gradient "
+            f"{t['grad_rel']:.3g} of max|g| from one rank; leaves over "
+            f"{FM_GRAD_REL:g} held to 2x one rank's error from f64 (leaf: "
+            f"mesh, one rank) {json.dumps(t['leaves_held_to_f64'])}; the "
+            f"mesh's pass {t['grad_wall_s'][0]:.3f} s (rank 0), peak "
+            f"{t['peak_gib'][0]:.2f} GiB, launches per rank "
+            f"{t['launches_per_rank']}")
+
+    pods = four["jobs"]["whisper_pods"]
+    pod_want = train_launches_expected(wcfg, 1)
+    for r, g in pods.items():
+        twin = next(o for o, h in pods.items() if o != r and
+                    h["coords"]["model"] == g["coords"]["model"])
+        check(g["digests"] == pods[twin]["digests"],
+              f"mesh whisper pods: rank {r}'s params differ from rank "
+              f"{twin}'s (the other pod, same model rank)")
+        check(g["losses"] == pods[0]["losses"] and all(
+            math.isfinite(x) for x in g["losses"]),
+            f"mesh whisper pods rank {r}: losses {g['losses']}")
+        check(g["cohort"] == FM_PODS[0], f"cohort {g['cohort']}")
+        for k in KERNELS:
+            check(g["launches"].get(k, 0)
+                  == FM_WHISPER_POD_STEPS * pod_want.get(k, 0),
+                  f"mesh whisper pods rank {r}: launches {g['launches']}")
+        add(g["launches"])
+    p0 = pods[0]
+    res["pods_whisper"] = {
+        "mesh": FM_PODS, "walls_s": {r: g["walls"] for r, g in pods.items()},
+        "losses": p0["losses"], "leaves": p0["leaves"],
+        "peak_gib": {r: g["peak_bytes"] / 2**30 for r, g in pods.items()},
+        "launches_per_rank": p0["launches"],
+        "job_s": {r: g["job_s"] for r, g in pods.items()}}
+    log(f"mesh whisper pods {FM_PODS} (bf16, aggregate_gaussian fused b = "
+        f"{BITS}, {FM_WHISPER_TRAIN[0]} x {FM_WHISPER_TRAIN[1]}): step walls "
+        f"(rank 0) {[round(w, 3) for w in p0['walls']]} s, losses "
+        f"{p0['losses']}, params bitwise equal across pods per model rank; "
+        f"launches per rank {p0['launches']}")
+    res["launches"] = launches
+    log(f"phase 3s: one-rank references {res['one_rank_s']:.1f} s; its "
+        f"jobs in the shared spawns (s, slowest rank) "
+        f"{json.dumps(res['job_s'])}")
+    return res
+
+
+MESH_JOBS.update({"family_serve": _family_serve,
+                  "whisper_serve": _whisper_mesh_serve,
+                  "family_train": _family_train,
+                  "whisper_pods": _whisper_pods})
 
 
 def check_gaussian_law(mech: str, res: dict, sigma: float) -> dict:
@@ -5877,7 +6605,19 @@ def main() -> int:
                   for k in ("flash_attention_bwd_sm90",
                             "flash_attention_bwd_f32_sm90")})
     wkv = compare_wkv6(device, gen)
-    worst.update({k: wkv[k] for k in ("wkv6_fwd", "wkv6_bwd", "wkv6_step")})
+    # the per-rank shapes of rwkv6, zamba2 and whisper on the mesh (3s),
+    # from their own generator
+    fmgen = torch.Generator(device=device)
+    fmgen.manual_seed(FAMILY_MESH_SEED)
+    flash_fm = compare_flash(device, fmgen, FLASH_FAMILY_MESH_CASES)
+    bwd_fm = compare_flash_bwd(device, fmgen, BWD_FAMILY_MESH_CASES)
+    wkv_fm = compare_wkv6(device, fmgen, WKV_FAMILY_MESH_CASES)
+    for k in ("flash_attention_sm90", "flash_attention_f32"):
+        worst[k] = max(worst[k], flash_fm[k])
+    for k in ("flash_attention_bwd_sm90", "flash_attention_bwd_f32_sm90"):
+        worst[k] = max(worst[k], bwd_fm[k])
+    worst.update({k: max(wkv[k], wkv_fm[k])
+                  for k in ("wkv6_fwd", "wkv6_bwd", "wkv6_step")})
     done("2")
 
     # 3. the main path: each path with its launch counts
@@ -5980,12 +6720,16 @@ def main() -> int:
     train_whisper = run_train_whisper_phase(device)
     done("3p (train whisper)")
     held("after the whisper train phase")
-    mesh = run_mesh_phase(device)
+    four, two = run_mesh_spawns(device)
+    done("3q-3s ranks (two spawns)")
+    mesh = run_mesh_phase(device, four, two)
     done("3q (the mesh)")
-    held("after the mesh phase")
-    moe_mesh = run_moe_mesh_phase(device)
+    moe_mesh = run_moe_mesh_phase(device, two)
     done("3r (moe on the mesh)")
-    held("after the moe mesh phase")
+    family_mesh = run_family_mesh_phase(device, four, two)
+    done("3s (rwkv6, zamba2 and whisper on the mesh)")
+    del four, two
+    held("after the mesh phases")
     done("3")
 
     # 4. times
@@ -6032,6 +6776,7 @@ def main() -> int:
                 + serve_whisper["f32"]["chain_launches"][k]
                 + train_whisper["launches"][k]
                 + mesh["launches"][k] + moe_mesh["launches"][k]
+                + family_mesh["launches"][k]
                 for k in KERNELS}
     kernels = []
     for kname, (src, replaces) in KERNELS.items():
@@ -6064,6 +6809,9 @@ def main() -> int:
               "flash_moe_mesh_cases": flash_mm["flash_cases"],
               "bwd_moe_mesh_cases": bwd_mm["bwd_cases"],
               "fwd_drift_cases": fwd_drift["fwd_drift_cases"],
+              "flash_family_mesh_cases": flash_fm["flash_cases"],
+              "bwd_family_mesh_cases": bwd_fm["bwd_cases"],
+              "wkv_family_mesh_cases": wkv_fm["wkv_cases"],
               "drift_worst_ratio": {"flash_attention_f32":
                                     fwd_drift["worst_ratio"],
                                     "flash_attention_bwd_sm90": bwd_ratio},
@@ -6079,7 +6827,7 @@ def main() -> int:
               "serve_zamba2": serve_zamba, "train_zamba2": train_zamba,
               "serve_whisper": serve_whisper,
               "train_whisper": train_whisper, "mesh": mesh,
-              "moe_mesh": moe_mesh,
+              "moe_mesh": moe_mesh, "family_mesh": family_mesh,
               "kernels": kernels, "phase_s": phase_s, "seconds": total}
     out_dir = ROOT / "build"
     try:

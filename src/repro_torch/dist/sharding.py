@@ -197,10 +197,12 @@ def _entries(spec: P, axes: Optional[Iterable[str]]):
             yield dim, names
 
 
-def shard_shape(shape: Sequence[int], spec: P, mesh: Mesh) -> Tuple[int, ...]:
-    """The block shape of a tensor of ``shape`` under ``spec``."""
+def shard_shape(shape: Sequence[int], spec: P, mesh: Mesh,
+                axes: Optional[Iterable[str]] = None) -> Tuple[int, ...]:
+    """The block shape of a tensor of ``shape`` under ``spec`` (only the
+    mesh axes in ``axes``, when given)."""
     out = list(shape)
-    for dim, names in _entries(spec, None):
+    for dim, names in _entries(spec, axes):
         out[dim] //= mesh.axis_size(names)
     return tuple(out)
 

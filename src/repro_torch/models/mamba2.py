@@ -43,6 +43,17 @@ mamba2 gradient is NaN at every full config, and the port's is finite
 ``gate_norm``): a ``zamba2.Mamba2Layer`` or a namespace of a parameter
 tree's slices.  ``norm_w`` is in the reference's tree and unused by its
 block, as here.
+
+On a model axis (``parallel.tp``) where ``out_proj`` / ``gate_norm`` hold
+blocks of d_in and the heads divide the axis, the SSD runs on the rank's
+``H / model`` heads: the fused ``in_proj`` (whose column blocks cut its
+segments) is multiplied by the rank's block and the product gathered
+over ``model``, the rank takes its heads of z, x and dt and the whole B
+and C, its slice of the whole per-head ``A_log`` / ``D`` / ``dt_bias``
+(gradient summed over ``model``), ``gate_norm`` normalises the whole
+width and ``out_proj`` is row-parallel.  Where the heads do not divide
+(zamba2's smoke config on 4 ranks) the SSD runs whole on every rank and
+only ``gate_norm`` / ``out_proj`` run split; a whole layer runs whole.
 """
 from __future__ import annotations
 
@@ -50,7 +61,8 @@ from typing import Dict
 
 import torch
 
-from repro_torch.models import nn
+from repro_torch.dist import collectives as coll
+from repro_torch.models import nn, parallel
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.nn import ParamSpec
 
@@ -78,24 +90,82 @@ def heads(cfg: ModelConfig) -> tuple:
     return cfg.ssm_expand * cfg.d_model // P_HEAD, P_HEAD, cfg.ssm_state
 
 
-def _split_proj(cfg: ModelConfig, x, p):
+def _mode(cfg: ModelConfig, p):
+    """(the model axis or None, whether the SSD runs on the rank's heads,
+    whether ``out_proj`` / ``gate_norm`` hold the rank's block of d_in).
+    On a model axis, where ``out_proj`` and ``gate_norm`` hold blocks of
+    d_in (a table splitting one splits the other: both are ``mlp``), the
+    heads split where they divide it; where they are whole the block
+    runs whole (a whole model on the mesh, as the one-rank checks run
+    it)."""
+    t = parallel.tp()
+    if t is None:
+        return None, False, False
+    H, P, _ = heads(cfg)
+    split_out = parallel.held_in_part(p.out_proj, 0, H * P)
+    if split_out != parallel.held_in_part(p.gate_norm, 0, H * P):
+        raise ValueError("out_proj and gate_norm split alike over model")
+    return t, split_out and H % t.size == 0, split_out
+
+
+def _split_proj(cfg: ModelConfig, x, p, mode=(None, False, False)):
     """The input projection split into z, x, B, C (x's dtype) and dt
-    (f32, softplus'd with its bias)."""
+    (f32, softplus'd with its bias), and the heads they cover (H, or the
+    rank's H / model).
+
+    On the model axis the fused ``in_proj`` columns [z | x | B | C | dt]
+    held in blocks do not split along its segments: the rank multiplies
+    by its block and the product's columns are gathered over ``model``
+    (backward: reduce-scatter), then the rank takes its heads of z, x
+    and dt and the whole B and C; a whole ``in_proj`` gives the whole
+    product on every rank.  Where the heads do not divide the axis every
+    rank runs them all."""
     d_in = cfg.ssm_expand * cfg.d_model
-    H, _, n = heads(cfg)
-    zxbcdt = nn.dense(x, p.in_proj)
+    H, P, n = heads(cfg)
+    t, local, _ = mode
+    A_log, dt_bias, D = p.A_log, p.dt_bias, p.D
+    if t is None:
+        zxbcdt = nn.dense(x, p.in_proj)
+    elif parallel.held_in_part(p.in_proj, 1, 2 * d_in + 2 * n + H):
+        part = nn.dense(coll.copy_to(x, t.group), p.in_proj)
+        zxbcdt = (coll.gather(part, -1, t.group) if local
+                  else parallel.gather_whole(part, -1, t.group))
+    else:
+        zxbcdt = nn.dense(x, p.in_proj)
+        if local:  # the rank reads a part: its gradient summed over model
+            zxbcdt = coll.copy_to(zxbcdt, t.group)
     z, xs, B, C, dt = torch.split(zxbcdt, [d_in, d_in, n, n, H], dim=-1)
-    dt = dt.to(torch.float32) + p.dt_bias.to(torch.float32)
+    if local:
+        h = H // t.size
+        z, xs = (y.narrow(-1, t.rank * h * P, h * P) for y in (z, xs))
+        dt = dt.narrow(-1, t.rank * h, h)
+        A_log, dt_bias, D = (parallel.rank_slice(v, 0, t, h)
+                             for v in (A_log, dt_bias, D))
+        H = h
+    dt = dt.to(torch.float32) + dt_bias.to(torch.float32)
     dt = torch.logaddexp(dt, torch.zeros((), dtype=dt.dtype,
                                          device=dt.device))
-    return z, xs, B, C, dt
+    return z, xs, B, C, dt, (H, A_log, D)
 
 
-def _gate_out(cfg: ModelConfig, p, y, xs, z):
-    """y + D x, gated RMS norm, output projection."""
-    y = y + xs * p.D.to(xs.dtype).repeat_interleave(P_HEAD)
-    y = nn.rms_norm(y, p.gate_norm) * torch.nn.functional.silu(z)
-    return nn.dense(y, p.out_proj)
+def _gate_out(cfg: ModelConfig, p, y, xs, z, D, mode=(None, False, False)):
+    """y + D x, gated RMS norm, output projection.  On the model axis,
+    with ``out_proj`` / ``gate_norm`` held in blocks of d_in, the norm
+    runs over the whole width (``nn.rms_norm(group=)``) and ``out_proj``
+    is row-parallel; whole heads are first cut to the rank's block of
+    d_in (its gradient summed over model)."""
+    t, local, split_out = mode
+    y = y + xs * D.to(xs.dtype).repeat_interleave(P_HEAD)
+    if not split_out:
+        y = nn.rms_norm(y, p.gate_norm) * torch.nn.functional.silu(z)
+        return nn.dense(y, p.out_proj)
+    if not local:
+        b = p.out_proj.shape[0]
+        y, z = (coll.copy_to(v, t.group).narrow(-1, t.rank * b, b)
+                for v in (y, z))
+    y = nn.rms_norm(y, p.gate_norm, group=t.group) * \
+        torch.nn.functional.silu(z)
+    return nn.row_parallel(y, p.out_proj, t.group)
 
 
 def mamba2_block(cfg: ModelConfig, p, x):
@@ -110,8 +180,9 @@ def mamba2_block(cfg: ModelConfig, p, x):
                          f"{Q} (ssm_chunk {cfg.ssm_chunk})")
     nq = T // Q
     f32, dt_ = torch.float32, x.dtype
-    z, xs, Bm, Cm, dt = _split_proj(cfg, x, p)
-    A = -torch.exp(p.A_log.to(f32))  # (H,), negative
+    mode = _mode(cfg, p)
+    z, xs, Bm, Cm, dt, (H, A_log, D) = _split_proj(cfg, x, p, mode)
+    A = -torch.exp(A_log.to(f32))  # (H,), negative
 
     xh = xs.reshape(Bsz, nq, Q, H, P)
     dtc = dt.reshape(Bsz, nq, Q, H)
@@ -155,16 +226,17 @@ def mamba2_block(cfg: ModelConfig, p, x):
     del ec, h_prev
 
     y = (y_intra + y_cross).reshape(Bsz, T, H * P)
-    return _gate_out(cfg, p, y, xs, z), h
+    return _gate_out(cfg, p, y, xs, z, D, mode), h
 
 
 def mamba2_decode(cfg: ModelConfig, p, x, state):
     """One step: x (B, 1, D), state (B, H, P, N) f32 -> (y (B, 1, D),
     the new state)."""
-    H, P, N = heads(cfg)
     f32, dt_ = torch.float32, x.dtype
-    z, xs, Bm, Cm, dt = _split_proj(cfg, x, p)
-    A = -torch.exp(p.A_log.to(f32))
+    mode = _mode(cfg, p)
+    z, xs, Bm, Cm, dt, (H, A_log, D) = _split_proj(cfg, x, p, mode)
+    P = P_HEAD
+    A = -torch.exp(A_log.to(f32))
     a = torch.exp(dt[:, 0] * A)  # (B, H)
     xh = xs.reshape(-1, H, P)
     db = dt[:, 0].to(dt_)[:, :, None] * Bm[:, 0].to(dt_)[:, None, :]
@@ -173,4 +245,4 @@ def mamba2_decode(cfg: ModelConfig, p, x, state):
                  + inc.to(state.dtype))
     y = torch.einsum("bhpn,bn->bhp", new_state.to(dt_), Cm[:, 0].to(dt_))
     y = y.reshape(x.shape[0], 1, H * P)
-    return _gate_out(cfg, p, y, xs, z), new_state
+    return _gate_out(cfg, p, y, xs, z, D, mode), new_state

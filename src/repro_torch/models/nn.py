@@ -151,10 +151,20 @@ def cross_entropy_loss(logits, labels, mask=None, group=None):
 
 
 # ---------------------------------------------------------------- layers
-def rms_norm(x, weight, eps: float = 1e-6):
+def rms_norm(x, weight, eps: float = 1e-6, group=None):
+    """RMS norm over the last dim.  With ``group`` the last dim is this
+    rank's block of a dim split evenly over the group's ranks (``weight``
+    its block too): the f32 sum of squares is summed over the group and
+    divided by the whole width, and its gradient, partial on each rank,
+    is summed back (``reduce_from`` then ``copy_to``)."""
     dt = x.dtype
     x32 = x.to(torch.float32)
-    var = torch.mean(x32 * x32, dim=-1, keepdim=True)
+    if coll.size(group) == 1:
+        var = torch.mean(x32 * x32, dim=-1, keepdim=True)
+    else:
+        ss = torch.sum(x32 * x32, dim=-1, keepdim=True)
+        var = (coll.copy_to(coll.reduce_from(ss, group), group)
+               / (x.shape[-1] * coll.size(group)))
     return (x32 * torch.rsqrt(var + eps)).to(dt) * weight.to(dt)
 
 

@@ -35,7 +35,21 @@ shape, so one code path serves every rule table and mesh:
     divides ``model``; otherwise the column blocks of ``wk`` / ``wv`` cut
     heads (starcoder2-3b's 2 heads of 128 over 4 ranks: 64 columns each)
     and the rank gathers the whole K / V over ``model`` and takes the
-    heads its query heads use (``kv_for_local``).
+    heads its query heads use (``kv_for_local``);
+  * rwkv6, zamba2 and whisper: the embedding is vocab-parallel and the
+    logits the rank's vocab block (``embed_lookup``, ``unembed``); a norm
+    over a dim split over ``model`` (rwkv6's ``ln_x``, mamba2's
+    ``gate_norm``) sums its f32 squares over the group
+    (``nn.rms_norm(group=)``); a per-head vector stored whole (mamba2's
+    ``A_log``, ``D``, ``dt_bias``) is sliced to the rank's heads with its
+    gradient summed over ``model`` (``rank_slice``); mamba2's fused
+    ``in_proj``, whose column blocks cut its segments, is multiplied by
+    the rank's block and its product gathered over ``model``
+    (``coll.gather``, or ``gather_whole`` where every rank then runs all
+    heads).
+
+``leaf_drawer`` draws each family's random weights a leaf at a time, cut
+to the rank's block on a mesh.
 """
 from __future__ import annotations
 
@@ -46,7 +60,9 @@ from typing import Any, Optional
 import torch
 
 from repro_torch.dist import collectives as coll
-from repro_torch.dist import meshctx
+from repro_torch.dist import meshctx, sharding
+from repro_torch.models import nn
+from repro_torch.models.config import torch_dtype
 
 
 @dataclasses.dataclass(frozen=True)
@@ -105,6 +121,62 @@ def gather_layer(lp, specs):
         else:
             out[name] = gather_leaf(node, spec)
     return SimpleNamespace(**out)
+
+
+def leaf_drawer(cfg, generator: torch.Generator, device, mesh=None,
+                rules=None):
+    """``draw(spec, lead=0)``: one leaf of ``spec``'s law without its
+    first ``lead`` dims (a layer's slice of a stack, under the stack's
+    law), drawn in f32 from ``generator`` on ``device`` and cast to the
+    compute dtype as it is made; on a ``mesh`` of more than one rank,
+    this rank's block of it under ``rules`` (default
+    SERVE_RESIDENT_RULES): the same values as the whole model's
+    blocks."""
+    dt = torch_dtype(cfg.compute_dtype)
+    rules = sharding.SERVE_RESIDENT_RULES if rules is None else rules
+
+    def draw(spec, lead: int = 0):
+        shape = spec.shape[lead:]
+        x = nn.init_leaf(spec, generator, device, shape).to(dt)
+        if mesh is None or mesh.size == 1:
+            return x
+        return sharding.shard_tensor(
+            x, sharding.spec_for_axes(spec.axes[lead:], shape, mesh, rules),
+            mesh)
+
+    return draw
+
+
+# ------------------------------------------------------ split widths
+def rank_slice(v: torch.Tensor, dim: int, t: TP, n: int) -> torch.Tensor:
+    """This rank's ``n`` entries along ``dim`` of ``v``, a leaf stored
+    whole on every model rank (mamba2's per-head ``A_log``, ``D``,
+    ``dt_bias``): the rank's gradient covers only its part, so it is
+    summed over ``model`` (``copy_to``), and every rank holds the whole
+    leaf's gradient."""
+    return coll.copy_to(v, t.group).narrow(dim, t.rank * n, n)
+
+
+class _GatherWhole(torch.autograd.Function):
+    """All-gather of the ranks' blocks along ``dim``, used where every
+    rank then computes the same from the whole (so the gradient arriving
+    is the same on every rank): backward, this rank's block of it."""
+
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.n = dim, x.shape[dim]
+        ctx.r = coll.rank(group)
+        return coll.all_gather(x, dim, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.narrow(ctx.dim, ctx.r * ctx.n, ctx.n).contiguous(), None, None
+
+
+def gather_whole(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    if coll.size(group) == 1:
+        return x
+    return _GatherWhole.apply(x, dim % x.dim(), group)
 
 
 # ------------------------------------------------------------------- MoE
@@ -194,6 +266,34 @@ def gather_blocks(parts, group):
 
 
 # ----------------------------------------------------------------- vocab
+def embed_lookup(cfg, E: torch.Tensor, tokens, dtype) -> torch.Tensor:
+    """The embedding rows of ``tokens`` in ``dtype`` from ``E`` (padded
+    vocab, d), whole over ``data``; vocab-parallel where the rank holds a
+    block of its rows: the rank's rows, zero elsewhere, summed over
+    ``model`` (gather, then cast: the reference's cast-then-gather
+    values)."""
+    t = tp()
+    if t is None or not held_in_part(E, 0, cfg.padded_vocab):
+        return E[tokens].to(dtype)
+    n = E.shape[0]
+    local = tokens.long() - t.rank * n
+    inside = (local >= 0) & (local < n)
+    x = E[torch.clamp(local, 0, n - 1)].to(dtype)
+    x = torch.where(inside[..., None], x, torch.zeros((), dtype=dtype,
+                                                      device=x.device))
+    return coll.reduce_from(x, t.group)
+
+
+def unembed(cfg, h: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Logits ``h @ w`` over the padded vocabulary (w (d, V), whole over
+    ``data``); on the model axis, the rank's block of them where w holds
+    a block of the vocabulary."""
+    t = tp()
+    if t is not None and held_in_part(w, 1, cfg.padded_vocab):
+        h = coll.copy_to(h, t.group)
+    return nn.dense(h, w)
+
+
 def vocab_group(cfg, logits: torch.Tensor):
     """The model group when ``logits`` hold this rank's block of the
     padded vocabulary, else None."""

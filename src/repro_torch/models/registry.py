@@ -12,6 +12,7 @@ llava), rwkv6, zamba2 and whisper:
   init_decode_state(cfg, B, S, device)-> fresh cache tree
   init_model(cfg, generator, device, mesh, rules)
                                       -> random model in the compute dtype
+                                         (on a mesh, the rank's blocks)
 
 ``batch`` is a dict with tokens (B, T) int, for llava patches (B, P,
 D) and for whisper frames (B, encoder_len, D)
@@ -62,18 +63,12 @@ def param_specs(cfg: ModelConfig):
 def init_model(cfg: ModelConfig, generator: torch.Generator, device=None,
                mesh=None, rules=None):
     """Random weights with the reference's init law, layer by layer in
-    the compute dtype (each family's ``init_model``); on a mesh (the
-    transformer's kinds: dense, moe, llava) each rank's blocks under
-    ``rules`` (default SERVE_RESIDENT_RULES; EP_PARAM_RULES places the
-    moe experts over ``model``)."""
+    the compute dtype (each family's ``init_model``); on a mesh each
+    rank's blocks under ``rules`` (default SERVE_RESIDENT_RULES;
+    EP_PARAM_RULES places the moe experts over ``model``)."""
     _known(cfg)
-    if mesh is not None and mesh.size > 1:
-        if cfg.kind not in DENSE_KINDS:
-            raise NotImplementedError(
-                f"kind {cfg.kind!r} on a mesh is a later slice of the port")
-        return transformer.init_model(cfg, generator, device, mesh, rules)
-    return _FAMILIES.get(cfg.kind, transformer).init_model(cfg, generator,
-                                                           device)
+    return _FAMILIES.get(cfg.kind, transformer).init_model(
+        cfg, generator, device, mesh, rules)
 
 
 def tree_model(cfg: ModelConfig, params):
@@ -142,48 +137,80 @@ def decode_state_specs(cfg: ModelConfig, batch: int,
 
 def decode_state_shardings(cfg: ModelConfig, mesh, batch: int,
                            seq_len: int):
-    """NamedSharding tree for the decode caches of the transformer's kinds
-    (dense, moe, llava).
+    """NamedSharding tree for the decode caches, per family (the
+    reference's placement).
 
-    KV caches (L, B, S, HK, hd) split their heads over 'model' when HK
+    KV caches (L, B, S, HK, hd) of the transformer's kinds and whisper
+    (its self and cross caches) split their heads over 'model' when HK
     divides it, otherwise the *sequence* dim (decode attention scores
     each rank's rows and combines the softmax across 'model';
-    ``transformer.attn_block_decode(seq=)``), otherwise stay replicated;
-    the slots split over the batch axes as ``batch_spec`` splits them.
-    rwkv6, zamba2 and whisper come with their mesh in a later slice."""
+    ``transformer.attn_block_decode(seq=)``), otherwise stay replicated.
+    rwkv6's ``wkv`` (L, B, H, K, K) splits its heads and the shift tokens
+    (L, B, 1, D) their D; zamba2's SSD states and KV rings split their
+    heads, ``kv_pos`` and ``pos`` only their slots.  The slots split over
+    the batch axes as ``batch_spec`` splits them."""
     from repro_torch.dist import sharding as shd
 
-    if cfg.kind not in DENSE_KINDS:
-        raise NotImplementedError(
-            f"decode_state_shardings for kind {cfg.kind!r}: the mesh of "
-            f"rwkv6, zamba2 and whisper is a later slice of the port")
     mdl = mesh.shape.get("model", 1)
     P = shd.P
 
+    def b_axis(bsz):
+        return shd.batch_spec(mesh, 1, bsz)[0]
+
     def kv_spec(shape):  # (L, B, S, HK, hd)
         _, B, S, HK, _ = shape
-        b = shd.batch_spec(mesh, 1, B)[0]
         if HK % mdl == 0:
-            return P(None, b, None, "model", None)
+            return P(None, b_axis(B), None, "model", None)
         if S % mdl == 0:
-            return P(None, b, "model", None, None)
-        return P(None, b)
+            return P(None, b_axis(B), "model", None, None)
+        return P(None, b_axis(B))
 
-    return {k: shd.NamedSharding(mesh, kv_spec(v.shape))
+    def split(n):
+        return "model" if n % mdl == 0 else None
+
+    def rwkv6_spec(k, s):
+        if k == "wkv":  # (L, B, H, K, K)
+            return P(None, b_axis(s[1]), split(s[2]), None, None)
+        return P(None, b_axis(s[1]), None, split(s[3]))  # (L, B, 1, D)
+
+    def zamba2_spec(k, s):
+        if k == "ssm_groups":  # (G, pg, B, H, P, N)
+            return P(None, None, b_axis(s[2]), split(s[3]), None, None)
+        if k == "ssm_tail":  # (tail, B, H, P, N)
+            return P(None, b_axis(s[1]), split(s[2]), None, None)
+        if k in ("attn_k", "attn_v"):  # (G, B, W, HK, hd)
+            return P(None, b_axis(s[1]), None, split(s[3]), None)
+        if k == "kv_pos":  # (B, W)
+            return P(b_axis(s[0]), None)
+        return P(b_axis(s[0]))  # pos (B,)
+
+    spec = {"rwkv6": rwkv6_spec, "zamba2": zamba2_spec}.get(
+        cfg.kind, lambda k, s: kv_spec(s))
+    return {k: shd.NamedSharding(mesh, spec(k, tuple(v.shape)))
             for k, v in decode_state_specs(cfg, batch, seq_len).items()}
 
 
 def init_decode_state(cfg: ModelConfig, batch: int, seq_len: int,
-                      device=None) -> Dict[str, torch.Tensor]:
+                      device=None, mesh=None,
+                      axes=None) -> Dict[str, torch.Tensor]:
     """A fresh decode cache on ``device`` (CUDA unless "cpu"): zeros, and
-    zamba2's empty ring rows at position -1."""
+    zamba2's empty ring rows at position -1.  On a ``mesh`` of more than
+    one rank, each leaf is this rank's block under
+    ``decode_state_shardings`` (split only over the mesh axes in
+    ``axes``, when given: ``("model",)`` for a batch every rank runs
+    whole)."""
+    from repro_torch.dist import sharding as shd
+
     dev = resolve_device(device)
-    if cfg.kind == "rwkv6":
-        return rwkv6.init_state(cfg, batch, dev)
-    if cfg.kind == "zamba2":
-        return zamba2.init_state(cfg, batch, _ring(cfg, seq_len), dev)
-    return {k: torch.zeros(s.shape, dtype=s.dtype, device=dev)
-            for k, s in decode_state_specs(cfg, batch, seq_len).items()}
+    shards = (decode_state_shardings(cfg, mesh, batch, seq_len)
+              if mesh is not None and mesh.size > 1 else None)
+    out = {}
+    for k, s in decode_state_specs(cfg, batch, seq_len).items():
+        shape = (s.shape if shards is None else
+                 shd.shard_shape(s.shape, shards[k].spec, mesh, axes))
+        fill = -1 if k == "kv_pos" else 0
+        out[k] = torch.full(shape, fill, dtype=s.dtype, device=dev)
+    return out
 
 
 def _ring(cfg: ModelConfig, seq_len: int) -> int:

@@ -36,6 +36,17 @@ step's compute copy) with the module's attribute names.  ``cfg.remat``
 other than ``none`` recomputes each layer in the backward
 (``torch.utils.checkpoint``), as the reference's ``jax.checkpoint`` of
 the layer scan does.
+
+On the mesh (``models.parallel``) each layer is gathered over ``data``
+where its leaves are held in part (FSDP); over ``model`` the time mix
+runs on the rank's ``H / model`` heads (``wr`` ... ``w_decay``
+column-parallel, ``u_bonus`` and ``decay_bias`` the rank's blocks, the
+wkv6 kernels at the rank's head count, ``ln_x`` normalising the whole
+width, ``wo`` row-parallel), the channel mix's ``ck`` / ``cv`` are column-
+/ row-parallel with ``cr`` whole, the embedding is vocab-parallel and
+the logits are the rank's vocab block.  The decode state holds the
+rank's heads of ``wkv``; its shift tokens may be held as the rank's block
+of D (the engine's pool), gathered for each step.
 """
 from __future__ import annotations
 
@@ -48,8 +59,9 @@ from torch import nn as tnn
 from torch.utils import checkpoint
 
 from repro_torch import resolve_device
+from repro_torch.dist import collectives as coll
 from repro_torch.kernels import ops
-from repro_torch.models import nn
+from repro_torch.models import nn, parallel
 from repro_torch.models.config import ModelConfig, torch_dtype
 from repro_torch.models.nn import ParamSpec
 
@@ -174,25 +186,48 @@ def _token_shift(x, prev=None):
     return prev
 
 
-def _mixes(x, xp, mix):
+def _mixes(x, xp, mix, group=None):
     """x (1 - m_i) + xp m_i for each row m_i of ``mix`` (n, D), as one
     (n, ...) tensor's slices: each product and the sum rounded in x's
     dtype, as the reference's bf16 fusion rounds after every op (four
-    launches for all n, where a decode step is host-bound)."""
+    launches for all n, where a decode step is host-bound).  With
+    ``group`` they enter a tensor-parallel region (``copy_to``: one
+    all-reduce of their gradient)."""
     m = mix.reshape((mix.shape[0],) + (1,) * (x.dim() - 1) + mix.shape[1:])
-    return (x * (1 - m) + xp * m).unbind(0)
+    return coll.copy_to(x * (1 - m) + xp * m, group).unbind(0)
+
+
+def _tm_tp(cfg: ModelConfig, p):
+    """The model axis when the time mix runs on the rank's heads (``wr``
+    held in column blocks), else None."""
+    t = parallel.tp()
+    if t is None or not parallel.held_in_part(p.wr, 1, cfg.d_model):
+        return None
+    if heads(cfg)[0] % t.size:
+        raise NotImplementedError(
+            f"{heads(cfg)[0]} rwkv6 heads do not split over a model axis "
+            f"of {t.size}: the time mix runs whole heads")
+    return t
 
 
 def time_mix(cfg: ModelConfig, p, x, state=None, prev_token=None):
     """state: (B, H, K, K) f32 or None.  Returns (out, new_state,
     last_token).  One token with a state takes the decode path (w in
     f32, the state carried); otherwise the scan path (w rounded to x's
-    dtype, a zero state)."""
+    dtype, a zero state).  On the model axis (``_tm_tp``) the receptance,
+    key, value, gate and decay are column-parallel, the recurrence runs
+    on the rank's ``H / model`` heads (``state`` holds them), ``ln_x``
+    normalises over the whole width (``nn.rms_norm(group=)``) and ``wo``
+    is row-parallel."""
     H, K = heads(cfg)
     B, T = x.shape[:2]
+    t = _tm_tp(cfg, p)
+    group = None if t is None else t.group
+    if t is not None:
+        H //= t.size
     xp = _token_shift(x, prev_token)
     mix = torch.sigmoid(p.tm_mix).to(x.dtype)  # (5, D)
-    xr, xk, xv, xg, xw = _mixes(x, xp, mix)
+    xr, xk, xv, xg, xw = _mixes(x, xp, mix, group)
     r = nn.dense(xr, p.wr).reshape(B, T, H, K)
     k = nn.dense(xk, p.wk).reshape(B, T, H, K)
     v = nn.dense(xv, p.wv).reshape(B, T, H, K)
@@ -204,21 +239,31 @@ def time_mix(cfg: ModelConfig, p, x, state=None, prev_token=None):
         y, new_state = ops.wkv6(r, k, v, w, u, state)
     else:
         y, new_state = ops.wkv6(r, k, v, w.to(x.dtype), u)
-    y = nn.rms_norm(y.reshape(B, T, -1).to(x.dtype), p.ln_x) * g
-    return nn.dense(y, p.wo), new_state, x[:, -1:, :]
+    y = nn.rms_norm(y.reshape(B, T, -1).to(x.dtype), p.ln_x,
+                    group=group) * g
+    return nn.row_parallel(y, p.wo, group), new_state, x[:, -1:, :]
 
 
 def channel_mix(cfg: ModelConfig, p, x, prev_token=None):
+    """On the model axis, where ``ck`` is held in column blocks, the key
+    is column-parallel and ``cv`` row-parallel; ``cr`` runs whole."""
     xp = _token_shift(x, prev_token)
     mix = torch.sigmoid(p.cm_mix).to(x.dtype)
     xk, xr = _mixes(x, xp, mix)
-    k = torch.square(F.relu(nn.dense(xk, p.ck)))
-    return (torch.sigmoid(nn.dense(xr, p.cr)) * nn.dense(k, p.cv),
+    t = parallel.tp()
+    group = (t.group if t is not None
+             and parallel.held_in_part(p.ck, 1, cfg.d_ff) else None)
+    k = torch.square(F.relu(nn.dense(coll.copy_to(xk, group), p.ck)))
+    return (torch.sigmoid(nn.dense(xr, p.cr)) * nn.row_parallel(k, p.cv,
+                                                                 group),
             x[:, -1:, :])
 
 
 def rwkv6_layer(cfg: ModelConfig, p, x, state=None, prev_tm=None,
                 prev_cm=None):
+    """One layer; its leaves gathered over ``data`` first where they are
+    held in part (FSDP)."""
+    p = parallel.gather_layer(p, rwkv6_specs(cfg))
     a, new_state, last_tm = time_mix(cfg, p, nn.rms_norm(x, p.norm1_w),
                                      state, prev_tm)
     x = x + a
@@ -228,8 +273,19 @@ def rwkv6_layer(cfg: ModelConfig, p, x, state=None, prev_tm=None,
 
 # ----------------------------------------------------------- full model
 def _embed(cfg: ModelConfig, model, tokens):
-    # gather, then cast: the same values as the reference's cast-then-gather
-    return model.embed[tokens].to(torch_dtype(cfg.compute_dtype))
+    return parallel.embed_lookup(
+        cfg, parallel.gather_leaf(model.embed, param_specs(cfg)["embed"]),
+        tokens, torch_dtype(cfg.compute_dtype))
+
+
+def _head(cfg: ModelConfig, model, x):
+    """The final norm and the logits (the rank's vocab block on the
+    model axis)."""
+    specs = param_specs(cfg)
+    x = nn.rms_norm(x, parallel.gather_leaf(model.final_w,
+                                            specs["final_w"]))
+    return parallel.unembed(cfg, x, parallel.gather_leaf(model.lm_head,
+                                                         specs["lm_head"]))
 
 
 def forward(cfg: ModelConfig, model, tokens, last_only: bool = False):
@@ -248,8 +304,7 @@ def forward(cfg: ModelConfig, model, tokens, last_only: bool = False):
             x = rwkv6_layer(cfg, lp, x)[0]
     if last_only:
         x = x[:, -1:]
-    x = nn.rms_norm(x, model.final_w)
-    return nn.dense(x, model.lm_head)
+    return _head(cfg, model, x)
 
 
 def init_state(cfg: ModelConfig, batch: int, device=None):
@@ -271,29 +326,43 @@ def init_state(cfg: ModelConfig, batch: int, device=None):
 
 def decode(cfg: ModelConfig, model, tokens, state):
     """One-token decode carrying per-layer (wkv state, shift tokens):
-    tokens (B, 1) -> (logits (B, 1, V), new state)."""
+    tokens (B, 1) -> (logits (B, 1, V), new state).  On the model axis
+    ``wkv`` holds the rank's heads, and the shift tokens may be held as
+    the rank's block of D (``registry.decode_state_shardings``): they are
+    gathered whole over ``model`` for the step, and the new ones are
+    returned as the rank's block."""
     x = _embed(cfg, model, tokens)
+    ptm_all, pcm_all = state["prev_tm"], state["prev_cm"]
+    t = parallel.tp()
+    split = t is not None and ptm_all.shape[-1] < cfg.d_model
+    if split:
+        ptm_all = coll.all_gather(ptm_all, -1, t.group)
+        pcm_all = coll.all_gather(pcm_all, -1, t.group)
     wkv, ptm, pcm = [], [], []
     for i, lp in enumerate(model.layers):
         x, s, ltm, lcm = rwkv6_layer(cfg, lp, x, state=state["wkv"][i],
-                                     prev_tm=state["prev_tm"][i],
-                                     prev_cm=state["prev_cm"][i])
+                                     prev_tm=ptm_all[i], prev_cm=pcm_all[i])
         wkv.append(s)
         ptm.append(ltm)
         pcm.append(lcm)
-    x = nn.rms_norm(x, model.final_w)
-    return nn.dense(x, model.lm_head), {
-        "wkv": torch.stack(wkv), "prev_tm": torch.stack(ptm),
-        "prev_cm": torch.stack(pcm)}
+    ptm, pcm = torch.stack(ptm), torch.stack(pcm)
+    if split:
+        n = cfg.d_model // t.size
+        ptm, pcm = (y.narrow(-1, t.rank * n, n).contiguous()
+                    for y in (ptm, pcm))
+    return _head(cfg, model, x), {
+        "wkv": torch.stack(wkv), "prev_tm": ptm, "prev_cm": pcm}
 
 
-def prefill(cfg: ModelConfig, model, tokens):
+def prefill(cfg: ModelConfig, model, tokens, state=None):
     """Prompt prefill as a loop of single-token decodes, bitwise stepping
-    ``decode`` token by token (the slot-pool engine's oracle guarantee).
-    Returns (last-token logits (B, 1, V), decode state after the
-    prompt)."""
+    ``decode`` token by token (the slot-pool engine's oracle guarantee),
+    from ``state`` (default ``init_state``'s zeros; on a mesh the rank's
+    blocks of them, ``registry.init_decode_state(mesh=)``).  Returns
+    (last-token logits (B, 1, V), decode state after the prompt)."""
     B, T = tokens.shape
-    state = init_state(cfg, B, tokens.device)
+    if state is None:
+        state = init_state(cfg, B, tokens.device)
     logits = None
     for t in range(T):
         logits, state = decode(cfg, model, tokens[:, t:t + 1], state)
@@ -301,22 +370,18 @@ def prefill(cfg: ModelConfig, model, tokens):
 
 
 def init_model(cfg: ModelConfig, generator: torch.Generator,
-               device=None) -> Rwkv6:
+               device=None, mesh=None, rules=None) -> Rwkv6:
     """Random weights with the reference's init law from ``generator``
     (on ``device``, CUDA unless "cpu"), layer by layer: each leaf drawn in
     f32 (a layer's slice of a stack under the stack's law) and cast to
     the compute dtype as it is made.  Draw order: embed, each layer's
-    leaves, then final_w and lm_head."""
-    dev = resolve_device(device)
-    dt = torch_dtype(cfg.compute_dtype)
+    leaves, then final_w and lm_head.  On a ``mesh`` each leaf is this
+    rank's block under ``rules`` (``parallel.leaf_drawer``)."""
     specs = param_specs(cfg)
-
-    def draw(spec, per_layer=False):
-        shape = spec.shape[1:] if per_layer else spec.shape
-        return nn.init_leaf(spec, generator, dev, shape).to(dt)
-
+    draw = parallel.leaf_drawer(cfg, generator, resolve_device(device),
+                                mesh, rules)
     tree: Dict[str, Any] = {"embed": draw(specs["embed"])}
-    tree["layers"] = [{k: draw(s, True) for k, s in specs["layers"].items()}
+    tree["layers"] = [{k: draw(s, 1) for k, s in specs["layers"].items()}
                       for _ in range(cfg.n_layers)]
     for name, spec in specs.items():
         if name not in tree:

@@ -472,19 +472,8 @@ def _top(cfg: ModelConfig, model, name: str):
 
 
 def embed_tokens(cfg: ModelConfig, model: Transformer, tokens, dtype):
-    # gather, then cast: the same values as the reference's cast-then-gather
-    E = _top(cfg, model, "embed")
-    t = parallel.tp()
-    if t is None or not parallel.held_in_part(E, 0, cfg.padded_vocab):
-        return E[tokens].to(dtype)
-    # vocab-parallel: the rank's rows, zero elsewhere, summed over model
-    n = E.shape[0]
-    local = tokens.long() - t.rank * n
-    inside = (local >= 0) & (local < n)
-    x = E[torch.clamp(local, 0, n - 1)].to(dtype)
-    x = torch.where(inside[..., None], x, torch.zeros((), dtype=dtype,
-                                                      device=x.device))
-    return coll.reduce_from(x, t.group)
+    return parallel.embed_lookup(cfg, _top(cfg, model, "embed"), tokens,
+                                 dtype)
 
 
 def unembed(cfg: ModelConfig, model: Transformer, h):
@@ -492,10 +481,7 @@ def unembed(cfg: ModelConfig, model: Transformer, h):
     block of it when the weight is held in vocab blocks."""
     w = (_top(cfg, model, "embed").T if cfg.tie_embeddings
          else _top(cfg, model, "lm_head"))
-    t = parallel.tp()
-    if t is not None and parallel.held_in_part(w, 1, cfg.padded_vocab):
-        h = coll.copy_to(h, t.group)
-    return nn.dense(h, w)
+    return parallel.unembed(cfg, h, w)
 
 
 def final_norm(cfg: ModelConfig, model: Transformer, y):
@@ -536,24 +522,12 @@ def init_model(cfg: ModelConfig, generator: torch.Generator,
     leaf is cut to this rank's block under ``rules`` (default
     SERVE_RESIDENT_RULES) as it is made: the same values as the whole
     model's blocks."""
-    from repro_torch.dist import sharding
-
-    dev = resolve_device(device)
-    dt = torch_dtype(cfg.compute_dtype)
     specs = param_specs(cfg)
-    rules = sharding.SERVE_RESIDENT_RULES if rules is None else rules
-
-    def draw(spec, per_layer=False):
-        shape = spec.shape[1:] if per_layer else spec.shape
-        x = nn.init_leaf(spec, generator, dev, shape).to(dt)
-        if mesh is None or mesh.size == 1:
-            return x
-        axes = spec.axes[1:] if per_layer else spec.axes
-        return sharding.shard_tensor(
-            x, sharding.spec_for_axes(axes, shape, mesh, rules), mesh)
+    draw = parallel.leaf_drawer(cfg, generator, resolve_device(device),
+                                mesh, rules)
 
     tree: Dict[str, Any] = {"embed": draw(specs["embed"])}
-    tree["layers"] = [nn.map_specs(lambda _, s: draw(s, True),
+    tree["layers"] = [nn.map_specs(lambda _, s: draw(s, 1),
                                    specs["layers"])
                       for _ in range(cfg.n_layers)]
     for name, spec in specs.items():

@@ -32,7 +32,16 @@ each layer scan.
 cross-attention's (k, v) stacked (L, B, encoder_len, HK, hd); it returns
 the logits and the new token's self K / V, (L, B, 1, HK, hd) each.  As
 in the reference, nothing here fills either cache: a caller projects the
-cross K / V from ``encode`` with each layer's ``cross.wk`` / ``cross.wv``.
+cross K / V from ``encode`` with each layer's ``cross.wk`` / ``cross.wv``
+(``cross_kv``).
+
+On the mesh each layer is gathered over ``data`` where held in part
+(``enc_pos`` too); over ``model`` every attention (the encoder's, the
+decoder's self- and cross-attention, the decode step's) runs on the
+rank's heads with a row-parallel ``wo``, the MLPs column- then
+row-parallel, and the tied embedding is vocab-parallel: the lookup and
+the unembedding read, and send their gradients to, the rank's vocab
+block.  Its caches hold the rank's heads.
 """
 from __future__ import annotations
 
@@ -44,7 +53,8 @@ from torch import nn as tnn
 from torch.utils import checkpoint
 
 from repro_torch import resolve_device
-from repro_torch.models import attention, nn, transformer
+from repro_torch.dist import collectives as coll
+from repro_torch.models import attention, nn, parallel, transformer
 from repro_torch.models.config import ModelConfig, torch_dtype
 from repro_torch.models.nn import ParamSpec
 
@@ -175,46 +185,109 @@ def _run(cfg: ModelConfig, fn, h):
 
 
 def _enc_layer(cfg: ModelConfig, lp, h):
+    lp = parallel.gather_layer(lp, _enc_layer_specs(cfg))
     q, k, v = transformer._project_qkv(cfg, lp, _norm(cfg, h, lp, "norm1"))
     o = attention.flash_attention(q, k, v, causal=False,
                                   kv_chunk=cfg.kv_chunk)
     B, T = h.shape[:2]
-    h = h + nn.dense(o.reshape(B, T, -1), lp.attn["wo"])
+    t = transformer._attn_tp(cfg, lp)
+    h = h + transformer._out_proj(lp, o.reshape(B, T, -1), t)
     return h + transformer.mlp_block(cfg, lp, _norm(cfg, h, lp, "norm2"))
+
+
+def _top(cfg: ModelConfig, model, name: str):
+    return parallel.gather_leaf(getattr(model, name), param_specs(cfg)[name])
+
+
+def _final_norm(cfg: ModelConfig, model, x, name: str):
+    """The ``enc_final`` or ``final`` norm, its leaves gathered over
+    ``data`` where held in part."""
+    return _norm(cfg, x, parallel.gather_layer(
+        model, transformer.norm_specs(cfg, name)), name)
 
 
 def encode(cfg: ModelConfig, model, frames):
     """frames (B, encoder_len, d) stub embeddings -> the encoder memory
     (B, encoder_len, d) in the compute dtype."""
     dtype = torch_dtype(cfg.compute_dtype)
-    x = frames.to(dtype) + model.enc_pos.to(dtype)[None]
+    x = frames.to(dtype) + _top(cfg, model, "enc_pos").to(dtype)[None]
     for lp in model.enc_layers:
         x = _run(cfg, lambda h, lp=lp: _enc_layer(cfg, lp, h), x)
-    return _norm(cfg, x, model, "enc_final")
+    return _final_norm(cfg, model, x, "enc_final")
+
+
+def _cross_tp(cfg: ModelConfig, lp):
+    """The model axis when the cross-attention runs on the rank's heads
+    (its ``wq`` held in column blocks), else None."""
+    t = parallel.tp()
+    if t is None or not parallel.held_in_part(
+            lp.cross["wq"], 1, cfg.n_heads * cfg.hd):
+        return None
+    parallel.local_heads(cfg, t)
+    if not parallel.held_in_part(lp.cross["wk"], 1, cfg.n_kv_heads * cfg.hd):
+        raise NotImplementedError(
+            "whisper's cross-attention on a model axis splits its KV heads "
+            "with its query heads")
+    return t
+
+
+def cross_kv(cfg: ModelConfig, lp, memory):
+    """The cross-attention's K / V over the encoder memory (B, S, d) ->
+    (B, S, heads, hd) each: column-parallel on the model axis (the
+    rank's heads)."""
+    B, S = memory.shape[:2]
+    a = lp.cross
+    if _cross_tp(cfg, lp) is not None:
+        memory = coll.copy_to(memory, parallel.tp().group)
+    return (nn.dense(memory, a["wk"]).reshape(B, S, -1, cfg.hd),
+            nn.dense(memory, a["wv"]).reshape(B, S, -1, cfg.hd))
+
+
+def _cross_out(cfg: ModelConfig, lp, x, k, v):
+    """The cross-attention of decoder states x (B, T, d) over K / V:
+    column-parallel ``wq`` and row-parallel ``wo`` on the model axis."""
+    B, T = x.shape[:2]
+    a = lp.cross
+    t = _cross_tp(cfg, lp)
+    if t is not None:
+        x = coll.copy_to(x, t.group)
+    q = nn.dense(x, a["wq"]).reshape(B, T, -1, cfg.hd)
+    o = attention.flash_attention(q, k, v, causal=False,
+                                  kv_chunk=cfg.kv_chunk)
+    return nn.row_parallel(o.reshape(B, T, -1), a["wo"],
+                           None if t is None else t.group)
 
 
 def _cross_attend(cfg: ModelConfig, lp, x, memory):
     """Cross-attention of decoder states x over the encoder memory."""
-    B, T = x.shape[:2]
-    hq, hk, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    a = lp.cross
-    q = nn.dense(x, a["wq"]).reshape(B, T, hq, hd)
-    k = nn.dense(memory, a["wk"]).reshape(B, memory.shape[1], hk, hd)
-    v = nn.dense(memory, a["wv"]).reshape(B, memory.shape[1], hk, hd)
-    o = attention.flash_attention(q, k, v, causal=False,
-                                  kv_chunk=cfg.kv_chunk)
-    return nn.dense(o.reshape(B, T, -1), a["wo"])
+    k, v = cross_kv(cfg, lp, memory)
+    return _cross_out(cfg, lp, x, k, v)
 
 
 def _dec_layer(cfg: ModelConfig, lp, h, memory, rope):
     """One decoder layer -> (h, (k, v)): its self-attention's RoPE-rotated
-    K / V, (B, T, HK, hd) each, beside the output."""
+    K / V, (B, T, HK, hd) each (the rank's heads on the model axis),
+    beside the output."""
+    lp = parallel.gather_layer(lp, _dec_layer_specs(cfg))
     a, kv = transformer.attn_block(cfg, lp, _norm(cfg, h, lp, "norm1"),
                                    rope)
     h = h + a
     h = h + _cross_attend(cfg, lp, _norm(cfg, h, lp, "norm_cross"), memory)
     h = h + transformer.mlp_block(cfg, lp, _norm(cfg, h, lp, "norm2"))
     return h, kv
+
+
+def _embed(cfg: ModelConfig, model, tokens):
+    return parallel.embed_lookup(cfg, _top(cfg, model, "embed"), tokens,
+                                 torch_dtype(cfg.compute_dtype))
+
+
+def _logits(cfg: ModelConfig, model, x):
+    """The final norm and the tied unembedding ``embed.T`` (the rank's
+    vocab block on the model axis, whose gradient lands on the same
+    block of ``embed`` as the lookup's)."""
+    x = _final_norm(cfg, model, x, "final")
+    return parallel.unembed(cfg, x, _top(cfg, model, "embed").T)
 
 
 def forward(cfg: ModelConfig, model, tokens, frames,
@@ -224,8 +297,7 @@ def forward(cfg: ModelConfig, model, tokens, frames,
     (B, 1, V) with ``last_only``."""
     dtype = torch_dtype(cfg.compute_dtype)
     memory = encode(cfg, model, frames)
-    # gather, then cast: the same values as the reference's cast-then-gather
-    x = model.embed[tokens].to(dtype)
+    x = _embed(cfg, model, tokens)
     rope = nn.rope_freqs(cfg.hd, x.shape[1] + 1, cfg.rope_theta, dtype,
                          device=x.device)
     for lp in model.dec_layers:
@@ -233,57 +305,50 @@ def forward(cfg: ModelConfig, model, tokens, frames,
                                                   rope)[0], x)
     if last_only:
         x = x[:, -1:]
-    x = _norm(cfg, x, model, "final")
-    return nn.dense(x, model.embed.T)  # tied
+    return _logits(cfg, model, x)
 
 
 def decode_step(cfg: ModelConfig, model, tokens, self_cache, cross_kv):
     """One-token decode: tokens (B, 1); self_cache (k, v) stacked (L, B,
     S, HK, hd), the S previous positions; cross_kv (k, v) stacked (L, B,
-    encoder_len, HK, hd).  Returns (logits (B, 1, V), new (k, v) stacked
-    (L, B, 1, HK, hd)); the caller appends."""
-    dtype = torch_dtype(cfg.compute_dtype)
-    x = model.embed[tokens].to(dtype)
+    encoder_len, HK, hd) (the rank's heads on the model axis, as
+    ``registry.decode_state_shardings`` places them).  Returns (logits
+    (B, 1, V), new (k, v) stacked (L, B, 1, HK, hd)); the caller
+    appends."""
+    x = _embed(cfg, model, tokens)
     k_all, v_all = self_cache
     ck_all, cv_all = cross_kv
-    B = x.shape[0]
     nks, nvs = [], []
     h = x
     for i, lp in enumerate(model.dec_layers):
+        lp = parallel.gather_layer(lp, _dec_layer_specs(cfg))
         a, (nk, nv) = transformer.attn_block_decode(
             cfg, lp, _norm(cfg, h, lp, "norm1"), (k_all[i], v_all[i]))
         h = h + a
-        hn = _norm(cfg, h, lp, "norm_cross")
-        q = nn.dense(hn, lp.cross["wq"]).reshape(B, 1, cfg.n_heads, cfg.hd)
-        o = attention.flash_attention(q, ck_all[i], cv_all[i], causal=False,
-                                      kv_chunk=cfg.kv_chunk)
-        h = h + nn.dense(o.reshape(B, 1, -1), lp.cross["wo"])
+        h = h + _cross_out(cfg, lp, _norm(cfg, h, lp, "norm_cross"),
+                           ck_all[i], cv_all[i])
         h = h + transformer.mlp_block(cfg, lp, _norm(cfg, h, lp, "norm2"))
         nks.append(nk)
         nvs.append(nv)
-    h = _norm(cfg, h, model, "final")
-    return nn.dense(h, model.embed.T), (torch.stack(nks), torch.stack(nvs))
+    return _logits(cfg, model, h), (torch.stack(nks), torch.stack(nvs))
 
 
 def init_model(cfg: ModelConfig, generator: torch.Generator,
-               device=None) -> Whisper:
+               device=None, mesh=None, rules=None) -> Whisper:
     """Random weights with the reference's init law from ``generator``
     (on ``device``, CUDA unless "cpu"), layer by layer: each leaf drawn in
     f32 (a layer's slice of a stack under the stack's law) and cast to
     the compute dtype as it is made.  Draw order: embed, enc_pos, the
-    encoder's layers, the decoder's, then the final norms."""
-    dev = resolve_device(device)
-    dt = torch_dtype(cfg.compute_dtype)
+    encoder's layers, the decoder's, then the final norms.  On a ``mesh``
+    each leaf is this rank's block under ``rules``
+    (``parallel.leaf_drawer``)."""
     specs = param_specs(cfg)
-
-    def draw(spec, per_layer=False):
-        shape = spec.shape[1:] if per_layer else spec.shape
-        return nn.init_leaf(spec, generator, dev, shape).to(dt)
-
+    draw = parallel.leaf_drawer(cfg, generator, resolve_device(device),
+                                mesh, rules)
     tree: Dict[str, Any] = {name: draw(specs[name])
                             for name in ("embed", "enc_pos")}
     for stack in STACKS:
-        tree[stack] = [nn.map_specs(lambda _, s: draw(s, True), specs[stack])
+        tree[stack] = [nn.map_specs(lambda _, s: draw(s, 1), specs[stack])
                        for _ in range(_depth(cfg, stack))]
     for name, spec in specs.items():
         if name not in tree:

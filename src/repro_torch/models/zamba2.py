@@ -24,6 +24,13 @@ group, so their gradient sums over the applications.  ``cfg.remat``
 other than ``none`` recomputes each Mamba2 layer and each application of
 the shared block in the backward (``torch.utils.checkpoint``), as the
 reference's nested ``jax.checkpoint`` does.
+
+On the mesh each Mamba2 layer and the shared block are gathered over
+``data`` where held in part; over ``model`` the Mamba2 layers run as
+``models.mamba2`` says, the shared block through the transformer's
+tensor-parallel attention and MLP, the embedding vocab-parallel and the
+logits the rank's vocab block.  The decode state holds the rank's heads
+of the SSD states and KV rings (``registry.decode_state_shardings``).
 """
 from __future__ import annotations
 
@@ -35,7 +42,7 @@ from torch import nn as tnn
 from torch.utils import checkpoint
 
 from repro_torch import resolve_device
-from repro_torch.models import mamba2, nn, transformer
+from repro_torch.models import mamba2, nn, parallel, transformer
 from repro_torch.models.config import ModelConfig, torch_dtype
 from repro_torch.models.nn import ParamSpec
 
@@ -177,16 +184,39 @@ class TreeModel:
 
 # --------------------------------------------------------------- forward
 def _embed(cfg: ModelConfig, model, tokens):
-    # gather, then cast: the same values as the reference's cast-then-gather
-    return model.embed[tokens].to(torch_dtype(cfg.compute_dtype))
+    return parallel.embed_lookup(
+        cfg, parallel.gather_leaf(model.embed, param_specs(cfg)["embed"]),
+        tokens, torch_dtype(cfg.compute_dtype))
+
+
+def _head(cfg: ModelConfig, model, x):
+    """The final norm and the logits (the rank's vocab block on the
+    model axis)."""
+    specs = param_specs(cfg)
+    x = nn.rms_norm(x, parallel.gather_leaf(model.final_w,
+                                            specs["final_w"]))
+    return parallel.unembed(cfg, x, parallel.gather_leaf(model.lm_head,
+                                                         specs["lm_head"]))
+
+
+def _mamba_gathered(cfg: ModelConfig, lp):
+    """A Mamba2 layer's leaves, gathered over ``data`` where held in
+    part (FSDP)."""
+    return parallel.gather_layer(lp, mamba_layer_specs(cfg))
+
+
+def _shared_gathered(cfg: ModelConfig, sp):
+    return parallel.gather_layer(sp, shared_specs(cfg))
 
 
 def _mamba_layer(cfg: ModelConfig, lp, x):
+    lp = _mamba_gathered(cfg, lp)
     y, _ = mamba2.mamba2_block(cfg, lp, nn.rms_norm(x, lp.norm_in))
     return x + y
 
 
 def _shared_attn(cfg: ModelConfig, sp, x, rope):
+    sp = _shared_gathered(cfg, sp)
     a, _ = transformer.attn_block(cfg, sp, nn.rms_norm(x, sp.norm1_w), rope,
                                   window=cfg.window)
     x = x + a
@@ -216,8 +246,7 @@ def forward(cfg: ModelConfig, model, tokens, last_only: bool = False):
         x = run(lambda h, lp=lp: _mamba_layer(cfg, lp, h), x)
     if last_only:
         x = x[:, -1:]
-    x = nn.rms_norm(x, model.final_w)
-    return nn.dense(x, model.lm_head)
+    return _head(cfg, model, x)
 
 
 def init_state(cfg: ModelConfig, batch: int, window_cache: int,
@@ -258,13 +287,14 @@ def decode(cfg: ModelConfig, model, tokens, state):
     W = state["attn_k"].shape[2]
     write = (pos % W).long()
     rows = torch.arange(B, device=x.device)
-    sp = model.shared_attn
+    sp = _shared_gathered(cfg, model.shared_attn)
     ssm_groups: List[torch.Tensor] = []
     ks: List[torch.Tensor] = []
     vs: List[torch.Tensor] = []
     for g, group in enumerate(model.groups):
         states = []
         for i, lp in enumerate(group):
+            lp = _mamba_gathered(cfg, lp)
             y, s = mamba2.mamba2_decode(cfg, lp, nn.rms_norm(x, lp.norm_in),
                                         state["ssm_groups"][g, i])
             x = x + y
@@ -285,12 +315,12 @@ def decode(cfg: ModelConfig, model, tokens, state):
         x = x + transformer.mlp_block(cfg, sp, nn.rms_norm(x, sp.norm2_w))
     tail_states = []
     for i, lp in enumerate(model.tail):
+        lp = _mamba_gathered(cfg, lp)
         y, s = mamba2.mamba2_decode(cfg, lp, nn.rms_norm(x, lp.norm_in),
                                     state["ssm_tail"][i])
         x = x + y
         tail_states.append(s)
-    x = nn.rms_norm(x, model.final_w)
-    logits = nn.dense(x, model.lm_head)
+    logits = _head(cfg, model, x)
     new_kv_pos = kv_pos.clone()
     new_kv_pos[rows, write] = pos
     return logits, {
@@ -304,12 +334,16 @@ def decode(cfg: ModelConfig, model, tokens, state):
     }
 
 
-def prefill(cfg: ModelConfig, model, tokens, window_cache: int):
+def prefill(cfg: ModelConfig, model, tokens, window_cache: int,
+            state=None):
     """Prompt prefill as a loop of one-token decodes, bitwise stepping
-    ``decode`` (the slot-pool engine's oracle guarantee).  Returns
-    (last-token logits (B, 1, V), the decode state at position T)."""
+    ``decode`` (the slot-pool engine's oracle guarantee), from ``state``
+    (default ``init_state``'s; on a mesh the rank's blocks of it,
+    ``registry.init_decode_state(mesh=)``).  Returns (last-token logits
+    (B, 1, V), the decode state at position T)."""
     B, T = tokens.shape
-    state = init_state(cfg, B, window_cache, tokens.device)
+    if state is None:
+        state = init_state(cfg, B, window_cache, tokens.device)
     logits = None
     for t in range(T):
         logits, state = decode(cfg, model, tokens[:, t:t + 1], state)
@@ -317,21 +351,18 @@ def prefill(cfg: ModelConfig, model, tokens, window_cache: int):
 
 
 def init_model(cfg: ModelConfig, generator: torch.Generator,
-               device=None) -> Zamba2:
+               device=None, mesh=None, rules=None) -> Zamba2:
     """Random weights with the reference's init law from ``generator``
     (on ``device``, CUDA unless "cpu"), layer by layer: each leaf drawn in
     f32 (a layer's slice of a stack under the stack's law) and cast to the
     compute dtype as it is made.  Draw order: embed, the groups' layers,
-    the tail's, then the shared block, final_w and lm_head."""
-    dev = resolve_device(device)
-    dt = torch_dtype(cfg.compute_dtype)
+    the tail's, then the shared block, final_w and lm_head.  On a
+    ``mesh`` each leaf is this rank's block under ``rules``
+    (``parallel.leaf_drawer``)."""
     specs = param_specs(cfg)
     G, pg, tail = layout(cfg)
-
-    def draw(spec, per_layer=0):
-        return nn.init_leaf(spec, generator, dev,
-                            spec.shape[per_layer:]).to(dt)
-
+    draw = parallel.leaf_drawer(cfg, generator, resolve_device(device),
+                                mesh, rules)
     tree: Dict[str, Any] = {"embed": draw(specs["embed"])}
     tree["groups"] = [[{k: draw(s, 2) for k, s in specs["groups"].items()}
                        for _ in range(pg)] for _ in range(G)]

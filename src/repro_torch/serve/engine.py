@@ -29,12 +29,15 @@ masked by absolute position; its prefill is ``zamba2.prefill``, a loop
 of one-token decodes).  whisper / llava need per-request side inputs
 and raise as in the reference.
 
-On a mesh (``mesh=``, else the active one; the dense and moe kinds):
-the model's weights are resident by ``SERVE_RESIDENT_RULES`` (each rank
-holds its tensor-parallel blocks; a moe config with ``moe_ep`` reshards
-the experts at use, ``parallel.rank_experts``) and the KV cache follows
-``registry.decode_state_shardings``: the rank's KV heads, or its rows of
-the sequence when the heads do not split over 'model'.  Slots split over
+On a mesh (``mesh=``, else the active one; every kind the engine
+serves): the model's weights are resident by ``SERVE_RESIDENT_RULES``
+(each rank holds its tensor-parallel blocks; a moe config with
+``moe_ep`` reshards the experts at use, ``parallel.rank_experts``) and
+the cache follows ``registry.decode_state_shardings``: the rank's KV
+heads, or its rows of the sequence when the heads do not split over
+'model'; rwkv6's and zamba2's state the rank's heads (rwkv6's shift
+tokens its block of D, gathered for each step), a prompt prefilled from
+a one-slot state split over 'model' alone.  Slots split over
 the batch axes as ``batch_spec`` splits them: each rank steps its own
 slots, and the tokens of all slots are gathered, so every rank runs the
 same loop (the bookkeeping is replicated; every rank prefills each
@@ -95,9 +98,11 @@ class _DenseFamily:
         self.capacity = ecfg.max_seq_len
         self.seq = None  # (model group, first row) of a sequence split
         self.spec = None
+        self.slot_axes = set()
         if mesh is not None:
             self.spec = registry.decode_state_shardings(
                 cfg, mesh, ecfg.max_slots, ecfg.max_seq_len)["k"].spec
+            self.slot_axes = sharding.spec_axes(self.spec[1:2])
             if "model" in sharding.spec_axes(self.spec[2:3]):
                 rows = ecfg.max_seq_len // mesh.shape["model"]
                 self.seq = (mesh.group("model"), mesh.coord("model") * rows)
@@ -145,37 +150,70 @@ class _DenseFamily:
         return transformer.unembed(cfg, model, y)
 
 
-class _Rwkv6Family:
-    """rwkv6: constant-size recurrent state per slot (the wkv matrices
-    and the two shift tokens, (L, N, ...) each); no capacity limit."""
+class _Recurrent:
+    """rwkv6 and zamba2 on one rank or a mesh: the state's leaves are
+    this rank's blocks under ``registry.decode_state_shardings`` (its
+    slots, its heads), and a prompt is prefilled on every rank from the
+    blocks of a one-slot state split only over 'model'."""
+
+    _AXES: Dict[str, int] = {}  # the slot axis of each state leaf
 
     def __init__(self, cfg: ModelConfig, ecfg: EngineConfig,
-                 device: torch.device):
-        self.cfg, self.ecfg, self.device = cfg, ecfg, device
-        self.capacity = None  # recurrent: no cache-length limit
+                 device: torch.device, mesh=None):
+        self.cfg, self.ecfg, self.device, self.mesh = cfg, ecfg, device, mesh
+        self.slot_axes = (set() if mesh is None else sharding.spec_axes(
+            sharding.batch_spec(mesh, 1, ecfg.max_slots)))
 
     def init_cache(self) -> Dict[str, torch.Tensor]:
-        return rwkv6.init_state(self.cfg, self.ecfg.max_slots, self.device)
+        return registry.init_decode_state(
+            self.cfg, self.ecfg.max_slots, self.ecfg.max_seq_len,
+            self.device, self.mesh)
 
-    def prefill(self, model, tokens):
-        return rwkv6.prefill(self.cfg, model, tokens)
+    def _prefill_state(self):
+        return registry.init_decode_state(
+            self.cfg, 1, self.ecfg.max_seq_len, self.device, self.mesh,
+            axes=("model",))
 
     def insert(self, cache, prefix_cache, slot: int) -> None:
         for k, c in cache.items():
-            c[:, slot] = prefix_cache[k][:, 0]
+            a = self._AXES[k]
+            c.select(a, slot).copy_(prefix_cache[k].select(a, 0))
+
+    def _select(self, cache, new, keep) -> None:
+        """Each kept slot's new state written into ``cache``, the others'
+        left as they were (the reference's select along each leaf's slot
+        axis)."""
+        for k, c in cache.items():
+            a = self._AXES[k]
+            sel = keep.reshape((1,) * a + (-1,) + (1,) * (c.dim() - a - 1))
+            c.copy_(torch.where(sel, new[k], c))
+
+
+class _Rwkv6Family(_Recurrent):
+    """rwkv6: constant-size recurrent state per slot (the wkv matrices
+    and the two shift tokens, (L, N, ...) each); no capacity limit.  On a
+    mesh the shift tokens are held as the rank's block of D and gathered
+    whole for each step (``rwkv6.decode``)."""
+
+    _AXES = {"wkv": 1, "prev_tm": 1, "prev_cm": 1}
+
+    def __init__(self, cfg: ModelConfig, ecfg: EngineConfig,
+                 device: torch.device, mesh=None):
+        super().__init__(cfg, ecfg, device, mesh)
+        self.capacity = None  # recurrent: no cache-length limit
+
+    def prefill(self, model, tokens):
+        return rwkv6.prefill(self.cfg, model, tokens, self._prefill_state())
 
     def step(self, model, tokens, cache, lengths, keep):
-        """Logits of one decode step; each kept slot's new state is
-        written into ``cache``, the others' left as they were (the
-        reference's select along axis 1)."""
+        """Logits of one decode step; the kept slots' new state written
+        into ``cache``."""
         logits, new = rwkv6.decode(self.cfg, model, tokens, cache)
-        for k, c in cache.items():
-            sel = keep.reshape((1, -1) + (1,) * (c.dim() - 2))
-            c.copy_(torch.where(sel, new[k], c))
+        self._select(cache, new, keep)
         return logits
 
 
-class _Zamba2Family:
+class _Zamba2Family(_Recurrent):
     """zamba2: per-layer SSD states and a per-group shared-attention KV
     ring, masked by each row's absolute position (``kv_pos``).  The state
     carries each slot's own ``pos``; the engine's ``lengths`` mirror it.
@@ -183,13 +221,12 @@ class _Zamba2Family:
     (no capacity limit); without one it is max_seq_len rows and must not
     wrap."""
 
-    # the slot axis of each state leaf
     _AXES = {"ssm_groups": 2, "ssm_tail": 1, "attn_k": 1, "attn_v": 1,
              "kv_pos": 0, "pos": 0}
 
     def __init__(self, cfg: ModelConfig, ecfg: EngineConfig,
-                 device: torch.device):
-        self.cfg, self.ecfg, self.device = cfg, ecfg, device
+                 device: torch.device, mesh=None):
+        super().__init__(cfg, ecfg, device, mesh)
         if cfg.window:
             self.window_cache = min(cfg.window, ecfg.max_seq_len)
             self.capacity = None  # the ring slides under the window
@@ -197,41 +234,25 @@ class _Zamba2Family:
             self.window_cache = ecfg.max_seq_len  # the ring must not wrap
             self.capacity = ecfg.max_seq_len
 
-    def init_cache(self) -> Dict[str, torch.Tensor]:
-        return zamba2.init_state(self.cfg, self.ecfg.max_slots,
-                                 self.window_cache, self.device)
-
     def prefill(self, model, tokens):
-        return zamba2.prefill(self.cfg, model, tokens, self.window_cache)
-
-    def insert(self, cache, prefix_cache, slot: int) -> None:
-        for k, c in cache.items():
-            a = self._AXES[k]
-            c.select(a, slot).copy_(prefix_cache[k].select(a, 0))
+        return zamba2.prefill(self.cfg, model, tokens, self.window_cache,
+                              self._prefill_state())
 
     def step(self, model, tokens, cache, lengths, keep):
-        """Logits of one decode step; each kept slot's new state is
-        written into ``cache``, the others' left as they were (the
-        reference's select along each leaf's slot axis)."""
+        """Logits of one decode step; the kept slots' new state written
+        into ``cache``."""
         logits, new = zamba2.decode(self.cfg, model, tokens, cache)
-        for k, c in cache.items():
-            a = self._AXES[k]
-            sel = keep.reshape((1,) * a + (-1,) + (1,) * (c.dim() - a - 1))
-            c.copy_(torch.where(sel, new[k], c))
+        self._select(cache, new, keep)
         return logits
 
 
 def _make_family(cfg: ModelConfig, ecfg: EngineConfig, device, mesh=None):
     if cfg.kind in ("dense", "moe"):
         return _DenseFamily(cfg, ecfg, device, mesh)
-    if mesh is not None:
-        raise NotImplementedError(
-            f"serving kind {cfg.kind!r} on a mesh is a later slice of the "
-            f"port")
     if cfg.kind == "rwkv6":
-        return _Rwkv6Family(cfg, ecfg, device)
+        return _Rwkv6Family(cfg, ecfg, device, mesh)
     if cfg.kind == "zamba2":
-        return _Zamba2Family(cfg, ecfg, device)
+        return _Zamba2Family(cfg, ecfg, device, mesh)
     raise NotImplementedError(
         f"serve engine does not support kind={cfg.kind!r} "
         "(whisper/llava need per-request frames/patches)")
@@ -255,7 +276,7 @@ class ServeEngine:
         # this rank's slots [lo, lo + n) and the group they split over
         self.slots, self.slot_group = (0, max_slots), None
         if self.mesh is not None:
-            axes = sharding.spec_axes(self.family.spec[1:2])
+            axes = self.family.slot_axes
             if axes:
                 names = tuple(a for a in self.mesh.axis_names if a in axes)
                 n = max_slots // self.mesh.axis_size(names)

@@ -12,7 +12,9 @@ at full occupancy must be token-identical to this loop: same RoPE
 padded cache rows contribute exact-zero probability.  On a mesh (the
 active one, ``meshctx.use_mesh``) the loop runs tensor parallel, its
 growing cache holding the rank's KV heads, or all of them where they do
-not split.
+not split; rwkv6's and zamba2's state holds the rank's blocks of it
+(``registry.decode_state_shardings`` over 'model' alone: every rank runs
+the whole batch).
 """
 from __future__ import annotations
 
@@ -20,6 +22,7 @@ from typing import Dict
 
 import torch
 
+from repro_torch.dist import meshctx
 from repro_torch.models import parallel, registry
 from repro_torch.models.config import ModelConfig
 
@@ -49,7 +52,9 @@ def naive_generate(cfg: ModelConfig, model, prompts: Dict,
         tokens = prompts["tokens"]
         cache = registry.init_decode_state(cfg, tokens.shape[0],
                                            tokens.shape[1] + n_tokens,
-                                           tokens.device)
+                                           tokens.device,
+                                           meshctx.active_mesh(),
+                                           axes=("model",))
         logits = None
         for t in range(tokens.shape[1]):
             logits, cache = serve(model, {"tokens": tokens[:, t:t + 1]},

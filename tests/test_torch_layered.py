@@ -10,7 +10,11 @@ and decodes (``LayeredQuantizer.__call__``), XLA rounds the decode's
 multiply-add twice, where the decode alone (the codec's server side)
 rounds it once, as the port does; messages are equal either way.
 
-Inputs are numpy arrays made from a seed, or keys both packages share."""
+Inputs are numpy arrays made from a seed, or keys both packages share.
+The bitwise sets of the distributions and the quantizers live in
+tests/test_torch_layered_samples.py and
+tests/test_torch_layered_quantizer.py (``--dist loadfile`` runs a file
+on one worker), which import this file's helpers."""
 import math
 
 import jax
@@ -53,69 +57,6 @@ def _eq(ref_arr, got):
 
 def _keys(seed):
     return jax.random.PRNGKey(seed), prng.PRNGKey(seed)
-
-
-@pytest.mark.parametrize("family,sigma", DISTS)
-def test_geometry_bitwise(family, sigma):
-    """pdf, b+, and the direct / shifted steps and offsets."""
-    jdist, tdist = _dists(family, sigma)
-    rng = np.random.default_rng(1)
-    v = (rng.uniform(0, 1, N) * jdist.peak).astype(np.float32)
-    x = rng.normal(0, 3 * sigma, N).astype(np.float32)
-    tv, tx = torch.from_numpy(v), torch.from_numpy(x)
-    assert tdist.peak == jdist.peak
-    assert tdist.min_step_shifted == jdist.min_step_shifted
-    _eq(jax.jit(jdist.pdf)(x), tdist.pdf(tx))
-    for name in ("b_plus", "step_direct", "step_shifted", "offset_shifted"):
-        _eq(jax.jit(getattr(jdist, name))(v), getattr(tdist, name)(tv))
-    _eq(jax.jit(jdist.offset_direct)(v), tdist.offset_direct(tv))
-
-
-@pytest.mark.parametrize("family,sigma", DISTS)
-def test_layer_samples_bitwise(family, sigma):
-    """sample, layer_sample_direct / _shifted with the reference's key
-    splits (kz, ku; kd, kf)."""
-    jdist, tdist = _dists(family, sigma)
-    jk, tk = _keys(3)
-    _eq(jax.jit(lambda k: jdist.sample(k, (N,)))(jk), tdist.sample(tk, (N,)))
-    _eq(jax.jit(lambda k: jd.layer_sample_direct(jdist, k, (N,)))(jk),
-        td.layer_sample_direct(tdist, tk, (N,)))
-    _eq(jax.jit(lambda k: jd.layer_sample_shifted(jdist, k, (N,)))(jk),
-        td.layer_sample_shifted(tdist, tk, (N,)))
-
-
-def test_bernoulli_bitwise():
-    jk, tk = _keys(9)
-    for p in (0.5, 0.3, 0.999):
-        ref_b = np.asarray(jax.random.bernoulli(jk, p, (5, 2001)))
-        assert np.array_equal(ref_b, prng.bernoulli(tk, p, (5, 2001)).numpy())
-
-
-@pytest.mark.parametrize("family,sigma", DISTS)
-@pytest.mark.parametrize("shifted", [False, True])
-def test_quantizer_bitwise(family, sigma, shifted):
-    """randomness, encode and decode, each jitted on its own as the codec
-    runs them, and the messages of the jitted __call__."""
-    jdist, tdist = _dists(family, sigma)
-    jq, tq = jl.LayeredQuantizer(jdist, shifted), tl.LayeredQuantizer(
-        tdist, shifted)
-    jk, tk = _keys(4)
-    x = np.random.default_rng(2).normal(0, 3 * sigma, N).astype(np.float32)
-    tx = torch.from_numpy(x)
-    ju, jlay = jax.jit(lambda k: jq.randomness(k, (N,)))(jk)
-    tu, tlay = tq.randomness(tk, (N,))
-    _eq(ju, tu)
-    _eq(jlay, tlay)
-    jm = jax.jit(jq.encode)(x, (ju, jlay))
-    tm = tq.encode(tx, (tu, tlay))
-    _eq(jm, tm)
-    _eq(jax.jit(jq.decode)(jm, (ju, jlay)), tq.decode(tm, (tu, tlay)))
-    jy, jm2, _ = jax.jit(jq.__call__)(jk, x)
-    ty, tm2, _ = tq(tk, tx)
-    _eq(jm2, tm2)
-    # one jit both encoding and decoding rounds the decode twice
-    np.testing.assert_allclose(ty.numpy(), np.asarray(jy), rtol=0,
-                               atol=2e-7 * max(1.0, 60 * sigma))
 
 
 def test_randomness_chunks_match_one_draw(monkeypatch):

@@ -7,8 +7,9 @@ process group: ``Mesh`` shapes (no groups) beside ``jax.make_mesh`` over the
     (1, 1, 4) meshes: the port's spec equals the reference's;
   * ``batch_spec``, ``batch_axes`` inside and outside ``manual_axes``,
     ``model_axis``, the ``default_mesh`` sizing of 1, 2, 4 and 8 ranks,
-    the row-major rank layout, the production shapes, and the dense
-    kinds' ``decode_state_shardings`` (the cases of tests/test_dist.py);
+    the row-major rank layout, the production shapes, and every kind's
+    ``decode_state_shardings`` (the dense kinds at the cases of
+    tests/test_dist.py, rwkv6, zamba2 and whisper at the same);
   * ``shard_tensor`` / ``shard_shape`` against the blocks the
     reference's ``NamedSharding`` gives each device."""
 import jax
@@ -212,12 +213,24 @@ def test_dense_decode_state_shardings(shape, arch):
                                                                    seq)
 
 
-def test_decode_state_shardings_of_other_kinds_raise():
-    mesh = meshctx.Mesh((1, 1, 2))
-    for arch in ("rwkv6-1.6b", "zamba2-7b", "whisper-small"):
-        with pytest.raises(NotImplementedError, match="later slice"):
-            registry.decode_state_shardings(configs.get_smoke_config(arch),
-                                            mesh, 2, 8)
+@pytest.mark.parametrize("shape", SHAPES, ids=lambda s: "x".join(map(str, s)))
+@pytest.mark.parametrize("arch", ["rwkv6-1.6b", "zamba2-7b",
+                                  "whisper-small"])
+def test_family_decode_state_shardings(shape, arch):
+    """rwkv6 (wkv by heads, the shift tokens by D), zamba2 (SSD states
+    and KV rings by heads, kv_pos and pos by slots) and whisper (self and
+    cross caches as the dense kinds'): every leaf's spec is the
+    reference's, full and smoke configs, slots over the batch axes."""
+    jmesh, mesh = _meshes(shape)
+    for get in ("get_config", "get_smoke_config"):
+        jcfg, cfg = getattr(jconfigs, get)(arch), getattr(configs, get)(arch)
+        for batch, seq in ((8, 64), (3, 30), (2, 6), (1, 4)):
+            want = jregistry.decode_state_shardings(jcfg, jmesh, batch, seq)
+            got = registry.decode_state_shardings(cfg, mesh, batch, seq)
+            assert sorted(got) == sorted(want)
+            for k in want:
+                assert tuple(got[k].spec) == tuple(want[k].spec), (k, batch,
+                                                                   seq)
 
 
 @pytest.mark.parametrize("shape", SHAPES, ids=lambda s: "x".join(map(str, s)))

@@ -167,7 +167,7 @@ def _leaves(tree):
 def train_side(rank: int, n: int, group, shape, arch: str, params, tokens,
                comp_kw, grad_accum: int, gather_once: bool, n_steps: int,
                seed: int, ckpt_dir, optimizer: str = "adamw",
-               cfg_kw=None) -> dict:
+               cfg_kw=None, frames=None) -> dict:
     """The train step on ``shape`` from the reference's params (the smoke
     config of ``arch`` in f32, scaled by ``cfg_kw``).
 
@@ -177,7 +177,8 @@ def train_side(rank: int, n: int, group, shape, arch: str, params, tokens,
     gradients this pod hands ``compress_tree`` and the summed words.
     Returns the gathered state's digest after each step and, with
     ``ckpt_dir``, saves the last state there through the
-    AsyncCheckpointer."""
+    AsyncCheckpointer.  ``frames``: whisper's stub frame embeddings, a
+    batch input beside the tokens."""
     import torch
 
     from repro_torch.checkpoint import checkpoint
@@ -198,6 +199,8 @@ def train_side(rank: int, n: int, group, shape, arch: str, params, tokens,
     state = {"params": p, "opt_state": opt.init(p),
              "step": torch.zeros((), dtype=torch.int32)}
     batch = {"tokens": torch.from_numpy(tokens)}
+    if frames is not None:
+        batch["frames"] = torch.from_numpy(frames)
     out = {"rank": rank, "coords": mesh.coords(), "losses": [],
            "digests": [], "local_digest": []}
 
