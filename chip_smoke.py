@@ -104,7 +104,8 @@ Phases, each fatal on failure:
      one individual_direct round at 2^24 coordinates (no layered
      launches: the configuration picks the plain path); 4 client ranks
      (3b: an NCCL probe of 2 ranks on the card, recorded only, then
-     compress_tree across 4 gloo ranks for aggregate_gaussian and
+     compress_tree across 4 gloo ranks, each client's update shaped as
+     qwen1.5-0.5b's tree at 8 of its 24 layers, for aggregate_gaussian and
      irwin_hall fused b = 8 and layered_shifted: outputs bitwise equal
      across ranks, each case's two kernels once per leaf on every rank,
      the summed words equal to the one-process sum of the clients'
@@ -1408,6 +1409,25 @@ RANK_CASES = (  # (mechanism, sigma, fused)
 )
 RANK_KEY = 11  # compress_tree's key: PRNGKey(RANK_KEY)
 RANK_TIMEOUT = 420.0
+# each client's update is qwen1.5-0.5b's parameter tree at full width with
+# its depth cut to RANK_LAYERS of 24 (181,283,840 of 463,987,712 entries,
+# 155,582,464 of them the embedding), to keep the whole run inside its
+# limit on slow hosts; the tree keeps its leaves (each stacks its layers),
+# so each case's launches are unchanged
+RANK_LAYERS = 2
+
+
+def rank_config():
+    from repro_torch import configs
+
+    return configs.get_config(SERVE_ARCH).scaled(n_layers=RANK_LAYERS)
+
+
+def rank_d() -> int:
+    """Entries of a client's update (``rank_config``'s parameters)."""
+    from repro_torch.models import nn, registry
+
+    return nn.spec_numel(registry.param_specs(rank_config()))
 
 
 def held(where: str) -> None:
@@ -1434,7 +1454,7 @@ def client_flat(c: int, device):
 
     gen = torch.Generator(device=device)
     gen.manual_seed(2_000 + c)
-    return torch.randn(D_FULL, generator=gen, device=device) * 0.5
+    return torch.randn(rank_d(), generator=gen, device=device) * 0.5
 
 
 def _views(node, flat, off: int):
@@ -1452,13 +1472,11 @@ def _views(node, flat, off: int):
 
 
 def tree_of(flat):
-    """Views of ``flat`` shaped as qwen1.5-0.5b's parameter tree, in the
-    JAX package's leaf order (dict keys sorted)."""
-    from repro_torch import configs
+    """Views of ``flat`` shaped as ``rank_config``'s parameter tree, in
+    the JAX package's leaf order (dict keys sorted)."""
     from repro_torch.models import registry
 
-    tree, end = _views(
-        registry.param_specs(configs.get_config(SERVE_ARCH)), flat, 0)
+    tree, end = _views(registry.param_specs(rank_config()), flat, 0)
     check(end == flat.numel(), f"tree holds {end} of {flat.numel()}")
     return tree
 
@@ -1507,7 +1525,8 @@ def rank_main(rank: int, n: int, port: int, device: str, results) -> None:
                                 rank=rank, world_size=n)
         group = dist.group.WORLD
         tree = tree_of(client_flat(rank, device))
-        sample_idx = torch.arange(0, D_FULL, D_FULL // KS_SAMPLE,
+        d = rank_d()
+        sample_idx = torch.arange(0, d, d // KS_SAMPLE,
                                   device=device)[:KS_SAMPLE]
         out = {"rank": rank, "backend": dist.get_backend(group), "cases": {}}
         psum = dcompress._psum_msg
@@ -1588,8 +1607,16 @@ def nccl_probe_main(rank: int, port: int, results) -> None:
 def _spawn(target, args_of, n: int, timeout: float) -> list:
     """``n`` spawned processes of ``target(*args_of(i), results)``; their
     results, and every process stopped."""
+    return _spawn_collect(_spawn_start(target, args_of, n), n, timeout)
+
+
+def _spawn_start(target, args_of, n: int):
+    """Start ``n`` spawned processes of ``target(*args_of(i), results)``
+    and return at once: (processes, results queue) for
+    ``_spawn_collect``.  Any still running when this process exits (a
+    failed check before their collection) are killed then."""
+    import atexit
     import multiprocessing
-    import queue
 
     ctx = multiprocessing.get_context("spawn")
     results = ctx.Queue()
@@ -1597,6 +1624,16 @@ def _spawn(target, args_of, n: int, timeout: float) -> list:
              for i in range(n)]
     for p in procs:
         p.start()
+    atexit.register(lambda: [p.kill() for p in procs if p.is_alive()])
+    return procs, results
+
+
+def _spawn_collect(started, n: int, timeout: float) -> list:
+    """The results of ``_spawn_start``'s processes within ``timeout``
+    seconds, and every process stopped (killed if still running then)."""
+    import queue
+
+    procs, results = started
     got = []
     deadline = time.monotonic() + timeout
     try:
@@ -1616,18 +1653,28 @@ def _spawn(target, args_of, n: int, timeout: float) -> list:
     return got
 
 
-def probe_nccl() -> str:
-    """Whether NCCL takes two ranks on one card (it is expected to
-    refuse a duplicate GPU); runs apart from the phase, which uses
-    RANK_BACKEND whatever this says."""
+NCCL_PROBE_TIMEOUT = 120.0
+
+
+def start_nccl_probe():
+    """Start the probe's 2 NCCL ranks (``probe_nccl`` collects them); they
+    run beside the FL rounds, and the phase uses RANK_BACKEND whatever
+    they say."""
     port = free_port()
-    got = _spawn(nccl_probe_main, lambda i: (i, port), 2, 120.0)
+    return _spawn_start(nccl_probe_main, lambda i: (i, port), 2)
+
+
+def probe_nccl(started) -> str:
+    """Whether NCCL took ``start_nccl_probe``'s two ranks on one card (it
+    is expected to refuse a duplicate GPU)."""
+    got = _spawn_collect(started, 2, NCCL_PROBE_TIMEOUT)
     if len(got) < 2:
-        return f"no answer from {2 - len(got)} of 2 ranks within 120 s"
+        return (f"no answer from {2 - len(got)} of 2 ranks within "
+                f"{NCCL_PROBE_TIMEOUT:.0f} s")
     return "; ".join(f"rank {r}: {msg}" for r, msg in sorted(got))
 
 
-def run_ranks_phase(device) -> dict:
+def run_ranks_phase(device, nccl_started) -> dict:
     """The process-group path on one card: RANKS client ranks, each with
     its own client's update at full width, one compress_tree per case.
     Checks: every rank's output bitwise equal to rank 0's; each kernel of
@@ -1635,7 +1682,8 @@ def run_ranks_phase(device) -> dict:
     fused cases, the summed words equal the sum of the four clients'
     words computed in this process by the codec (bitwise, by digest);
     the error law on a 2^20 subsample (KS against N(0, sigma^2); for
-    irwin_hall its support and std)."""
+    irwin_hall its support and std).  ``nccl_started`` is
+    ``start_nccl_probe``'s, collected here."""
     import numpy as np
     import torch
 
@@ -1644,7 +1692,7 @@ def run_ranks_phase(device) -> dict:
 
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
-    nccl = probe_nccl()
+    nccl = probe_nccl(nccl_started)
     log(f"NCCL with 2 ranks on one card: {nccl}")
     port = free_port()
     t0 = time.perf_counter()
@@ -2402,24 +2450,31 @@ def train_rank_main(rank: int, n: int, port: int, device: str,
             dist.destroy_process_group()
 
 
-def run_train_ranks_phase(device) -> dict:
-    """TRAIN_RANKS client ranks on the card, TRAIN_RANK_STEPS steps each.
-    Checks: every rank's params bitwise equal to rank 0's after each step
-    (and at the start), finite losses, the cohort, each rank's launches
-    (one microbatch a step: per layer forward, remat forward and backward
-    flash launches; one fused encode and decode per leaf)."""
+def start_train_ranks(device) -> dict:
+    """Spawn TRAIN_RANKS client ranks on the card, TRAIN_RANK_STEPS steps
+    each (2 x 21.6 GiB, mostly on the card), to run beside phases 3o and
+    3p (whisper, 10 GiB at most) until ``run_train_ranks_phase``."""
     import torch
-
-    from repro_torch import configs
 
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     port = free_port()
-    t0 = time.perf_counter()
-    got = _spawn(train_rank_main,
-                 lambda r: (r, TRAIN_RANKS, port, str(device)), TRAIN_RANKS,
-                 TRAIN_RANK_TIMEOUT)
-    spawn_wall = time.perf_counter() - t0
+    return {"t0": time.perf_counter(),
+            "started": _spawn_start(
+                train_rank_main,
+                lambda r: (r, TRAIN_RANKS, port, str(device)), TRAIN_RANKS)}
+
+
+def run_train_ranks_phase(spawn: dict) -> dict:
+    """``start_train_ranks``'s ranks collected.  Checks: every rank's
+    params bitwise equal to rank 0's after each step (and at the start),
+    finite losses, the cohort, each rank's launches (one microbatch a
+    step: per layer forward, remat forward and backward flash launches;
+    one fused encode and decode per leaf)."""
+    from repro_torch import configs
+
+    got = _spawn_collect(spawn["started"], TRAIN_RANKS, TRAIN_RANK_TIMEOUT)
+    spawn_wall = time.perf_counter() - spawn["t0"]
     errors = [g["error"] for g in got if "error" in g]
     check(not errors, "train rank failed:\n" + "\n".join(errors))
     check(len(got) == TRAIN_RANKS, f"{TRAIN_RANKS - len(got)} train ranks "
@@ -4562,7 +4617,7 @@ def _json_digest(obj) -> str:
     return hashlib.sha256(json.dumps(obj, sort_keys=True).encode()).hexdigest()
 
 
-def mesh_rank_main(rank: int, n: int, port: int, device: str, jobs,
+def mesh_rank_main(rank: int, n: int, port: int, device: str, jobs, gate,
                    results) -> None:
     """One rank of phases 3q, 3r and 3s: the gloo group, then each (name,
     mesh shape, args) of ``jobs`` on its mesh (``meshctx.make_mesh``, set
@@ -4570,7 +4625,8 @@ def mesh_rank_main(rank: int, n: int, port: int, device: str, jobs,
     of ``name`` before any "/": 3q's ``train`` (a), ``check`` (b) or
     ``serve`` (c / d); 3r's ``moe_block``, ``moe_serve``, ``moe_train``;
     3s's ``family_serve``, ``whisper_serve``, ``family_train``,
-    ``whisper_pods``."""
+    ``whisper_pods``.  A job named in GATED_JOBS starts only once the
+    parent has set ``gate`` (an Event; None where no job waits)."""
     import torch
     import torch.distributed as dist
 
@@ -4587,6 +4643,11 @@ def mesh_rank_main(rank: int, n: int, port: int, device: str, jobs,
                                 rank=rank, world_size=n)
         out = {"rank": rank, "backend": dist.get_backend(), "jobs": {}}
         for name, shape, args in jobs:
+            if name.split("/")[0] in GATED_JOBS:
+                t0 = time.perf_counter()
+                if not gate.wait(GATE_TIMEOUT):
+                    raise RuntimeError(f"{name}: the gate stayed shut")
+                out.setdefault("gate_wait_s", time.perf_counter() - t0)
             mesh = meshctx.make_mesh(shape)
             meshctx.set_mesh(mesh)
             t0 = time.perf_counter()
@@ -4594,6 +4655,7 @@ def mesh_rank_main(rank: int, n: int, port: int, device: str, jobs,
             res.update(coords=mesh.coords(),
                        job_s=time.perf_counter() - t0)
             out["jobs"][name] = res
+            torch.cuda.empty_cache()  # other processes share the card
         results.put(out)
     except BaseException:  # reported to the parent, then re-raised
         import traceback
@@ -4605,25 +4667,36 @@ def mesh_rank_main(rank: int, n: int, port: int, device: str, jobs,
             dist.destroy_process_group()
 
 
-def _mesh_spawn(n: int, jobs, device) -> dict:
-    """n ranks running ``jobs``: {job: {rank: result}}, and the wall from
-    spawn to exit; every process stopped."""
+def _mesh_spawn_start(n: int, jobs, device, gate=None) -> dict:
+    """Start n ranks running ``jobs`` and return at once, for
+    ``_mesh_spawn_collect``."""
     import torch
 
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     port = free_port()
-    t0 = time.perf_counter()
-    got = _spawn(mesh_rank_main, lambda r: (r, n, port, str(device), jobs),
-                 n, MESH_TIMEOUT)
-    wall = time.perf_counter() - t0
+    return {"n": n, "jobs": jobs, "t0": time.perf_counter(),
+            "started": _spawn_start(
+                mesh_rank_main,
+                lambda r: (r, n, port, str(device), jobs, gate), n)}
+
+
+def _mesh_spawn_collect(spawn: dict) -> dict:
+    """``_mesh_spawn_start``'s ranks: {job: {rank: result}}, the wall from
+    spawn to exit and each rank's wait at the gate; every process
+    stopped."""
+    n, jobs = spawn["n"], spawn["jobs"]
+    got = _spawn_collect(spawn["started"], n, MESH_TIMEOUT)
+    wall = time.perf_counter() - spawn["t0"]
     errors = [g["error"] for g in got if "error" in g]
     check(not errors, "mesh rank failed:\n" + "\n".join(errors))
     check(len(got) == n, f"mesh: {n - len(got)} ranks gave no result")
     for g in got:
         check(g["backend"] == RANK_BACKEND, f"backend {g['backend']}")
     return {"jobs": {name: {g["rank"]: g["jobs"][name] for g in got}
-                     for name, _, _ in jobs}, "spawn_to_exit_s": wall}
+                     for name, _, _ in jobs}, "spawn_to_exit_s": wall,
+            "gate_wait_s": {g["rank"]: g["gate_wait_s"] for g in got
+                            if "gate_wait_s" in g}}
 
 
 def mesh_one_rank_f32(arch: str, layers, device) -> dict:
@@ -4687,7 +4760,7 @@ def run_mesh_phase(device, four: dict, two: dict) -> dict:
     the one-rank engine's (a differing token only at a tie), and the bf16
     logits no further from the f32 ones than MESH_BF16_FACTOR times the
     one-rank bf16 forward's.  (a), (b) and (d) ran in ``four``, the
-    spawn of 4 ranks, (c) in ``two``, that of 2 (``run_mesh_spawns``)."""
+    spawn of 4 ranks, (c) in ``two``, that of 2 (``start_mesh_spawns``)."""
     from repro_torch import configs
 
     res = {}
@@ -5477,21 +5550,15 @@ def _whisper_mesh_serve(mesh, device) -> dict:
     return out
 
 
-def _family_train(mesh, device, kind: str) -> dict:
-    """(b) / (d) / (e) f32 on FM_TRAIN, the state under
-    ``train_state_shardings`` (PARAM_RULES: FSDP over data, tensor
-    parallel over model): the mesh's loss and gradient on its check batch
-    (rwkv6 2 x FM_TRAIN_SEQ, zamba2 1 x FM_TRAIN_SEQ, whisper
-    FM_WHISPER_TRAIN) against
-    the one-rank step's on the same params (errors reduced to their max
-    over the ranks), with the launches, the wall and the peak of the
-    mesh's pass.  (The step around this gradient, ``build_train_step(
-    mesh=)``, runs in the compressed pods, ``_whisper_pods``.)"""
-    import torch
-    import torch.distributed as dist
+FM_ONE_DIR = ROOT / "build" / "3s_one_rank"  # the one-rank gradients
 
-    from repro_torch.dist import collectives as coll
-    from repro_torch.dist import sharding
+
+def family_train_inputs(kind: str, device):
+    """(b) / (d) / (e)'s f32 config, train config, seeded whole params
+    and check batch (rwkv6 2 x FM_TRAIN_SEQ, zamba2 1 x FM_TRAIN_SEQ,
+    whisper FM_WHISPER_TRAIN), the same in every process."""
+    import torch
+
     from repro_torch.models import nn, registry
     from repro_torch.train import steps
 
@@ -5499,14 +5566,58 @@ def _family_train(mesh, device, kind: str) -> dict:
               "zamba2": FM_ZAMBA_TRAIN_LAYERS, "whisper": None}[kind]
     cfg = family_config(kind, layers, "float32")
     tc = steps.TrainConfig(optimizer="adamw", lr=3e-4)
-    shard = steps.train_state_shardings(cfg, tc, mesh)["params"]
     gen = torch.Generator(device=device)
     gen.manual_seed(0)
     full = nn.init_params(registry.param_specs(cfg), gen, device)
-    local = sharding.shard_tree(full, shard)
     rows, seq = {"rwkv6": (2, FM_TRAIN_SEQ), "zamba2": (1, FM_TRAIN_SEQ),
                  "whisper": FM_WHISPER_TRAIN}[kind]
-    batch = check_batch(cfg, device, seq, rows)
+    return cfg, tc, full, check_batch(cfg, device, seq, rows), rows, seq
+
+
+def family_one_rank_grads(device) -> float:
+    """The one-rank f32 loss and gradient of (b), (d) and (e), computed
+    once here on the whole card before the ranks start (each rank used to
+    compute its own) and written to FM_ONE_DIR, which ``_family_train``
+    reads by memory map; the seconds it took."""
+    import torch
+
+    from repro_torch.train import steps
+
+    t0 = time.perf_counter()
+    FM_ONE_DIR.mkdir(parents=True, exist_ok=True)
+    for kind in ("rwkv6", "zamba2", "whisper"):
+        cfg, tc, full, batch, _, _ = family_train_inputs(kind, device)
+        loss1, g1 = steps.loss_and_grads(cfg, tc, full, batch)
+        del full
+        torch.save({"loss": float(loss1),
+                    "grads": [x.cpu() for x in _leaves(g1)],
+                    "scales": [float(x.abs().max()) for x in _leaves(g1)]},
+                   FM_ONE_DIR / f"{kind}.pt")
+        del g1
+        torch.cuda.empty_cache()
+    return time.perf_counter() - t0
+
+
+def _family_train(mesh, device, kind: str) -> dict:
+    """(b) / (d) / (e) f32 on FM_TRAIN, the state under
+    ``train_state_shardings`` (PARAM_RULES: FSDP over data, tensor
+    parallel over model): the mesh's loss and gradient on its check batch
+    (``family_train_inputs``) against the one-rank step's on the same
+    params (``family_one_rank_grads``; errors reduced to their max over
+    the ranks), with the launches, the wall and the peak of the mesh's
+    pass.  (The step around this gradient, ``build_train_step(mesh=)``,
+    runs in the compressed pods, ``_whisper_pods``.)"""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.dist import collectives as coll
+    from repro_torch.dist import sharding
+    from repro_torch.train import steps
+
+    cfg, tc, full, batch, rows, seq = family_train_inputs(kind, device)
+    shard = steps.train_state_shardings(cfg, tc, mesh)["params"]
+    local = sharding.shard_tree(full, shard)
+    del full
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     dist.barrier()
@@ -5517,12 +5628,12 @@ def _family_train(mesh, device, kind: str) -> dict:
     wall = time.perf_counter() - t0
     launches = read_launches()
     peak = torch.cuda.max_memory_allocated()
-    loss1, g1 = steps.loss_and_grads(cfg, tc, full, batch)
-    del full
+    one = torch.load(FM_ONE_DIR / f"{kind}.pt", mmap=True)
+    loss1, g1 = one["loss"], one["grads"]
     specs = sharding.tree_leaves(shard)
-    errs = [float((x - sharding.shard_tensor(y, ns.spec, mesh)).abs().max())
-            / max(float(y.abs().max()), 1e-30)
-            for x, y, ns in zip(_leaves(g), _leaves(g1), specs)]
+    errs = [float((x - sharding.shard_tensor(y, ns.spec, mesh).to(device))
+                  .abs().max()) / max(scale, 1e-30)
+            for x, y, ns, scale in zip(_leaves(g), g1, specs, one["scales"])]
     errs = coll.all_reduce_max(torch.tensor(
         errs, dtype=torch.float64, device=device), dist.group.WORLD).tolist()
     worst = max(errs)
@@ -5534,7 +5645,7 @@ def _family_train(mesh, device, kind: str) -> dict:
            "exact": exact, "launches": launches, "peak_bytes": peak,
            "local_params": sum(t.numel() for t in _leaves(local)),
            "rows": rows, "seq": seq}
-    del g, g1, local
+    del g, g1, one, local
     torch.cuda.empty_cache()
     return out
 
@@ -5542,7 +5653,8 @@ def _family_train(mesh, device, kind: str) -> dict:
 def family_f64_check(cfg, mesh, device, g, g1, errs, specs, rows: int,
                      seq: int) -> dict:
     """Where a leaf of the mesh's f32 gradient ``g`` (the rank's blocks)
-    lies further than FM_GRAD_REL max|g| from one rank's ``g1`` (``errs``,
+    lies further than FM_GRAD_REL max|g| from one rank's ``g1`` (its
+    leaves, on the host; ``errs``,
     each leaf's maximum over the ranks), the f64 gradient decides, as
     ``check_train_gradient_f32`` does: the leaves over the bar are
     gathered whole, rank 0 alone computes the f64 gradient
@@ -5560,7 +5672,7 @@ def family_f64_check(cfg, mesh, device, g, g1, errs, specs, rows: int,
         return {}
     mesh_leaves = [sharding.unshard(_leaves(g)[i], specs[i].spec, mesh)
                    for i in over]
-    one_leaves = [_leaves(g1)[i] for i in over]
+    one_leaves = [g1[i].to(device) for i in over]
     out = {}
     if dist.get_rank() == 0:
         gen = torch.Generator(device=device)
@@ -5677,14 +5789,46 @@ def family_mesh_jobs() -> tuple:
              ("whisper_serve", FM_SERVE, ())))
 
 
-def run_mesh_spawns(device) -> tuple:
-    """The rank sides of phases 3q, 3r and 3s in two spawns, one of 4
-    ranks and one of 2 (each spawn costs its ranks' start, ~12 s on the
-    card): each ``_mesh_spawn``'s result."""
+# 3r's jobs (up to 2 x 35.8 GiB) start only once the 4 ranks and 3b's
+# ranks have ended and this process holds nothing
+GATED_JOBS = ("moe_block", "moe_serve", "moe_train")
+GATE_TIMEOUT = 900.0  # their wait: the FL rounds, 3b and the 4 ranks
+
+
+def start_mesh_spawns(device) -> dict:
+    """Start the rank sides of phases 3q, 3r and 3s in two spawns, one of
+    4 ranks and one of 2, which run beside the FL rounds and 3b (their
+    ranks wait on gloo and the host, those phases on the card's draws;
+    together ~60 GiB at most).  The 2 ranks take 3r's jobs last, behind a
+    gate that ``finish_mesh_spawns`` opens once the 4 ranks and 3b's ranks
+    have ended.  The one-rank f32 gradients of 3s come first, on the whole
+    card."""
+    import multiprocessing
+
     q4, q2 = mesh_phase_jobs()
     s4, s2 = family_mesh_jobs()
-    four = _mesh_spawn(MESH_RANKS, q4 + s4, device)
-    two = _mesh_spawn(2, q2 + moe_mesh_jobs() + s2, device)
+    one_s = family_one_rank_grads(device)
+    log(f"phase 3s: the one-rank f32 gradients once, {one_s:.1f} s")
+    gate = multiprocessing.get_context("spawn").Event()
+    return {"gate": gate,
+            "four": _mesh_spawn_start(MESH_RANKS, q4 + s4, device),
+            "two": _mesh_spawn_start(2, q2 + s2 + moe_mesh_jobs(), device,
+                                     gate)}
+
+
+def finish_mesh_spawns(spawns: dict) -> tuple:
+    """``start_mesh_spawns``'s results, (four, two): the 4 ranks, then the
+    gate opened, then the 2."""
+    try:
+        four = _mesh_spawn_collect(spawns["four"])
+    except BaseException:
+        _spawn_collect(spawns["two"]["started"], 0, 0.0)  # stop the 2
+        raise
+    spawns["gate"].set()
+    two = _mesh_spawn_collect(spawns["two"])
+    log(f"mesh spawns: 4 ranks {four['spawn_to_exit_s']:.1f} s from spawn "
+        f"to exit, 2 ranks {two['spawn_to_exit_s']:.1f} s, of which "
+        f"{max(two['gate_wait_s'].values()):.1f} s at the gate")
     return four, two
 
 
@@ -5692,7 +5836,7 @@ def run_family_mesh_phase(device, four: dict, two: dict) -> dict:
     """Phase 3s: rwkv6, zamba2 and whisper on the (pod, data, model) mesh,
     gloo ranks sharing the card: (a), (c) and (e)'s serving ran in
     ``two``, the spawn of 2 ranks, (b), (d) and (e)'s training in
-    ``four`` (``run_mesh_spawns``).
+    ``four`` (``start_mesh_spawns``).
 
     (a) rwkv6-1.6b uncut, bf16, ``ServeEngine(mesh=)``: FM_RWKV_REQUESTS
     requests of FM_RWKV_PROMPT tokens, FM_RWKV_GEN out, the same tokens on
@@ -5885,6 +6029,380 @@ MESH_JOBS.update({"family_serve": _family_serve,
                   "whisper_serve": _whisper_mesh_serve,
                   "family_train": _family_train,
                   "whisper_pods": _whisper_pods})
+
+
+# ------------------------------------------------------------ phase 3t
+# The dry run (``launch.dryrun``) of three cells on the production meshes:
+# rank 0's program on meta tensors (its own process, off the card, started
+# at the top of the run) and replayed on the card at its block shapes over
+# the same recording groups; then the cut query heads held numerically.
+#   (a) starcoder2-3b train_4k on (16, 16), grad_accum 8: 24 query heads
+#       cut by the model axis (1.5 a rank), the flash kernels on all heads
+#       at (2, 4096, 24 / 2, 128) a microbatch;
+#   (b) minitron-4b decode_32k on (16, 16): the cut heads on the cache
+#       split over the sequence (8 KV heads over 16);
+#   (c) qwen1.5-0.5b train_4k on (2, 16, 16), irwin_hall over the pods:
+#       the pods' aggregation and the compressed step's whole-leaf gathers;
+#   (d) whisper-small uncut on (1, 1, 8) gloo ranks sharing the card (12
+#       heads over 8): one f32 forward of HS_ROWS x (1500, HS_TOKENS)
+#       within HS_LOGIT_REL max|logit| of one rank, and a ``serve_fn``
+#       chain of HS_CHAIN_ROWS x HS_CHAIN_STEPS whose f32 tokens are one
+#       rank's.
+DRYRUN_CELLS = (("a", "starcoder2-3b", "train_4k", False, "none"),
+                ("b", "minitron-4b", "decode_32k", False, "none"),
+                ("c", "qwen1.5-0.5b", "train_4k", True, "irwin_hall"))
+DRYRUN_DIR = ROOT / "build" / "dryrun_3t"
+DRYRUN_PEAK = (0.8, 1.25)    # the card's peak over the meta prediction
+ALLOC_ROUND = 512            # the caching allocator's rounding, a tensor
+# (B, T, S, H, HK) at which the dry run's flash-backward scratch (meta's
+# ``flash_attention.bwd_work_bytes``) is held to the built libraries'
+# ``<name>_work_bytes``, at every head dim: (a)'s microbatch, (c)'s,
+# whisper's cross-attention chain and training, zamba2's, ragged lengths
+SCRATCH_SHAPES = ((2, 4096, 4096, 24, 2), (1, 4096, 4096, 16, 16),
+                  (8, 1, 1500, 12, 12), (8, 448, 1500, 12, 12),
+                  (1, 8192, 8192, 32, 32), (3, 127, 129, 24, 8))
+HS_MESH = (1, 1, 8)
+HS_ROWS, HS_TOKENS = 2, 448
+HS_CHAIN_ROWS, HS_CHAIN_STEPS = 8, 16
+HS_LOGIT_REL = 1e-5          # of max|logit|
+HS_TIMEOUT = 300.0
+
+
+def start_dryrun_meta():
+    """The meta runs of DRYRUN_CELLS (``dryrun.run_cell``, their JSON in
+    DRYRUN_DIR) in a process of their own that sees no card, started now
+    so that they overlap the card's phases: the Popen (``finish_dryrun_
+    meta`` waits for it)."""
+    import atexit
+    import os
+    import shutil
+
+    shutil.rmtree(DRYRUN_DIR, ignore_errors=True)
+    DRYRUN_DIR.mkdir(parents=True)
+    cells = [(a, s, mp, c) for _, a, s, mp, c in DRYRUN_CELLS]
+    code = ("import sys\n"
+            "from repro_torch.launch import dryrun\n"
+            f"for a, s, mp, c in {cells!r}:\n"
+            f"    dryrun.run_cell(a, s, mp, {str(DRYRUN_DIR)!r}, c)\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               CUDA_VISIBLE_DEVICES="")
+    out = open(DRYRUN_DIR / "meta.log", "w")
+    proc = subprocess.Popen([sys.executable, "-c", code], env=env,
+                            stdout=out, stderr=subprocess.STDOUT)
+    # stopped however the run ends
+    atexit.register(lambda: proc.poll() is None and proc.kill())
+    return proc
+
+
+def finish_dryrun_meta(proc) -> dict:
+    """Wait for the meta runs; their records by cell label."""
+    rc = proc.wait(timeout=600)
+    text = (DRYRUN_DIR / "meta.log").read_text()
+    check(rc == 0, f"dry run on meta exited {rc}:\n{text[-3000:]}")
+    out = {}
+    for label, arch, shape, mp, _ in DRYRUN_CELLS:
+        path = DRYRUN_DIR / f"{arch}_{shape}{'_mp' if mp else ''}.json"
+        out[label] = json.loads(path.read_text())
+    return out
+
+
+def dryrun_replay(arch: str, shape: str, multi_pod: bool, compress: str,
+                  device) -> dict:
+    """Rank 0's program of a cell on the card (``dryrun.run_replay``)
+    over a fresh recording mesh: its record."""
+    from repro_torch import configs
+    from repro_torch.dist import collectives as coll
+    from repro_torch.dist import meshctx
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_production_mesh
+
+    record = coll.new_record()
+    mesh = make_production_mesh(multi_pod=multi_pod, record=record)
+    fn, args, shardings = dryrun.build_cell(arch, shape, mesh, compress)
+    try:
+        got = dryrun.run_replay(fn, args, shardings,
+                                configs.SHAPES[shape]["step"],
+                                configs.get_config(arch), device)
+    finally:
+        meshctx.set_mesh(None)
+    got["collective_bytes"], got["collective_counts"] = \
+        dryrun.collective_bytes(record)
+    return got
+
+
+def check_bwd_scratch() -> int:
+    """The dry run's flash-backward scratch on meta
+    (``flash_attention.bwd_work_bytes``) equals what each built backward
+    library's ``<name>_work_bytes`` asks for at SCRATCH_SHAPES and every
+    head dim; the number of cases held."""
+    import ctypes
+
+    from repro_torch.kernels import build
+    from repro_torch.kernels import flash_attention as fa
+
+    n = 0
+    for dtype, name in fa.BWD_KERNELS.items():
+        fn = getattr(build.load(name), name + "_work_bytes")
+        fn.argtypes = [ctypes.c_int] * 6
+        fn.restype = ctypes.c_size_t
+        for shape in SCRATCH_SHAPES:
+            for d in fa.HEAD_DIMS:
+                want = fn(*shape, d)
+                got = fa.bwd_work_bytes(dtype, *shape, d)
+                check(got == want, f"3t: {name} scratch at {shape}, D = "
+                                   f"{d}: meta {got} bytes, library {want}")
+                n += 1
+    log(f"3t: the flash backwards' scratch on meta equals the libraries' "
+        f"<name>_work_bytes at all {n} cases")
+    return n
+
+
+def check_dryrun_cell(label: str, meta: dict, card: dict) -> dict:
+    """(a)-(c): the collectives by kind equal the meta run's; the bytes
+    the card's allocator was asked for while placing the inputs equal the
+    argument bytes, and the bytes it allocated exceed them by at most its
+    rounding, ALLOC_ROUND a tensor (with expandable segments, as ``main``
+    sets them: a fixed segment may leave a block of over 1 MiB an unsplit
+    rest of up to 1 MiB); the card's peak within DRYRUN_PEAK of the
+    prediction (arguments + temp); the launches the meta run's kernel
+    calls; the outputs finite.  Every reading is logged before the first
+    check."""
+    mem = meta["memory"]
+    predicted = mem["argument_size_in_bytes"] + mem["temp_size_in_bytes"]
+    ratio = card["peak_bytes"] / predicted
+    slack = card["allocated_after_placing"] - card["argument_bytes"]
+    out = {"peak_ratio": ratio, "predicted_bytes": predicted,
+           "alloc_slack_bytes": slack}
+    log(f"3t ({label}) readings: {json.dumps(out)}")
+    for key in ("collective_bytes", "collective_counts"):
+        check(card[key] == meta[key], f"3t ({label}) {key}: card "
+              f"{card[key]}, meta {meta[key]}")
+    check(card["argument_bytes"] == mem["argument_size_in_bytes"]
+          == card["requested_after_placing"],
+          f"3t ({label}): arguments {card['argument_bytes']} on the card, "
+          f"{card['requested_after_placing']} requested of its allocator, "
+          f"{mem['argument_size_in_bytes']} on meta")
+    check(0 <= slack <= ALLOC_ROUND * card["argument_tensors"],
+          f"3t ({label}): {card['allocated_after_placing']} bytes allocated "
+          f"for {card['argument_bytes']} of arguments")
+    check(DRYRUN_PEAK[0] <= ratio <= DRYRUN_PEAK[1],
+          f"3t ({label}): peak {card['peak_bytes']} on the card, "
+          f"{predicted} predicted ({ratio:.3f}x)")
+    check(card["launches"] == meta["kernel_calls"],
+          f"3t ({label}): launches {card['launches']}, meta kernel calls "
+          f"{meta['kernel_calls']}")
+    check(card["finite"], f"3t ({label}): non-finite outputs")
+    return out
+
+
+def hs_inputs(cfg, device, rows: int, length: int, seed: int):
+    """``rows`` random prompts of ``length`` tokens and their frames
+    stub."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    b = whisper_batch(cfg, rng.integers(0, cfg.vocab, size=(rows, length),
+                                        dtype=np.int32), seed, device)
+    return b["tokens"], b["frames"]
+
+
+def hs_one_rank(device) -> dict:
+    """(d) on one rank: the f32 forward's logits (saved for the ranks,
+    which read their vocab block by memory map) and the chain's tokens."""
+    import os
+
+    import numpy as np
+    import torch
+
+    from repro_torch.launch import serve as launch
+    from repro_torch.models import registry
+
+    cfg = whisper_config("float32")
+    model = launch.build_model(cfg, 0, device)
+    tokens, frames = hs_inputs(cfg, device, HS_ROWS, HS_TOKENS, 11)
+    with torch.no_grad():
+        logits = registry.logits_fn(cfg, model, {"tokens": tokens,
+                                                 "frames": frames})
+    part = DRYRUN_DIR / "hs_logits.part.npy"  # renamed whole: the ranks
+    np.save(part, logits.cpu().numpy())       # wait for the name
+    os.replace(part, DRYRUN_DIR / "hs_logits.npy")
+    scale = float(logits.abs().max())
+    del logits
+    tokens, frames = hs_inputs(cfg, device, HS_CHAIN_ROWS, WHISPER_PROMPT,
+                               12)
+    ch = whisper_chain(cfg, model, tokens, frames, HS_CHAIN_STEPS)
+    del model
+    torch.cuda.empty_cache()
+    return {"scale": scale, "tokens": ch["tokens"].cpu().tolist()}
+
+
+def hs_rank_main(rank: int, n: int, port: int, device: str, results) -> None:
+    """One rank of 3t (d): whisper-small f32 on HS_MESH, its weights the
+    rank's blocks (SERVE_RESIDENT_RULES, ``launch.build_model``): the
+    forward's error from one rank's logits (its vocab block of them) and
+    the chain's tokens, with the launches."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.dist import meshctx
+    from repro_torch.launch import serve as launch
+    from repro_torch.models import parallel, registry
+
+    try:
+        torch.set_num_threads(1)
+        device = torch.device(device)
+        torch.cuda.set_device(device)
+        dist.init_process_group(RANK_BACKEND,
+                                init_method=f"tcp://localhost:{port}",
+                                rank=rank, world_size=n)
+        mesh = meshctx.make_mesh(HS_MESH)
+        meshctx.set_mesh(mesh)
+        cfg = whisper_config("float32")
+        t0 = time.perf_counter()
+        model = launch.build_model(cfg, 0, device, mesh)
+        cut = (parallel.local_heads(cfg, parallel.tp()) == 0)
+        tokens, frames = hs_inputs(cfg, device, HS_ROWS, HS_TOKENS, 11)
+        reset_launches()
+        with torch.no_grad():
+            logits = registry.logits_fn(cfg, model, {"tokens": tokens,
+                                                     "frames": frames})
+        V = logits.shape[-1]
+        t_fwd = time.perf_counter() - t0
+        path = DRYRUN_DIR / "hs_logits.npy"  # one rank's, made meanwhile
+        deadline = time.monotonic() + HS_TIMEOUT
+        while not path.exists():
+            check(time.monotonic() < deadline, "3t (d): no one-rank logits")
+            time.sleep(0.05)
+        one = np.load(path, mmap_mode="r")
+        want = torch.from_numpy(np.ascontiguousarray(
+            one[..., mesh.coord("model") * V:(mesh.coord("model") + 1) * V]))
+        err = float((logits - want.to(device)).abs().max())
+        del logits, want
+        fwd_launches = read_launches()
+        tokens, frames = hs_inputs(cfg, device, HS_CHAIN_ROWS,
+                                   WHISPER_PROMPT, 12)
+        ch = whisper_chain(cfg, model, tokens, frames, HS_CHAIN_STEPS)
+        results.put({"rank": rank, "err": err, "cut": cut,
+                     "tokens": ch["tokens"].cpu().tolist(),
+                     "fwd_launches": fwd_launches,
+                     "chain_launches": ch["launches"],
+                     "forward_s": t_fwd,
+                     "job_s": time.perf_counter() - t0})
+    except BaseException:  # reported to the parent, then re-raised
+        import traceback
+
+        results.put({"rank": rank, "error": traceback.format_exc()})
+        raise
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def start_dryrun_ranks(device) -> dict:
+    """3t (d)'s one-rank reference, then its ranks spawned, which run on
+    beside phases 3c-3f (they spend most of their time in gloo on the
+    host, ~20 GiB in all) until ``run_dryrun_phase`` collects them."""
+    import torch
+
+    (DRYRUN_DIR / "hs_logits.npy").unlink(missing_ok=True)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    one = hs_one_rank(device)
+    t1 = time.perf_counter()
+    n = math.prod(HS_MESH)
+    port = free_port()
+    return {"one": one, "one_rank_s": t1 - t0, "t_spawn": t1,
+            "started": _spawn_start(hs_rank_main,
+                                    lambda r: (r, n, port, str(device)), n)}
+
+
+def run_dryrun_phase(device, meta_proc, hs: dict) -> dict:
+    """Phase 3t (see DRYRUN_CELLS): the replays of (a)-(c) against their
+    meta runs, then (d)'s ranks (``start_dryrun_ranks``) collected and
+    held against one rank's."""
+    import torch
+
+    from repro_torch.launch import dryrun
+
+    t0 = time.perf_counter()
+    meta = finish_dryrun_meta(meta_proc)
+    t_meta = time.perf_counter() - t0
+    res = {"card": dryrun.card_name(), "cells": {}}
+    launches = {k: 0 for k in KERNELS}
+    n = math.prod(HS_MESH)
+    one, started = hs["one"], hs["started"]
+    try:
+        t1 = time.perf_counter()
+        for label, arch, shape, mp, comp in DRYRUN_CELLS:
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            card = dryrun_replay(arch, shape, mp, comp, device)
+            torch.cuda.empty_cache()
+            got = check_dryrun_cell(label, meta[label], card)
+            m = meta[label]
+            res["cells"][label] = {
+                "arch": arch, "shape": shape, "mesh": m["mesh"],
+                "compress": comp, "meta": m, "replay": card, **got}
+            for k, v in card["launches"].items():
+                launches[k] += v
+            log(f"3t ({label}) {arch} x {shape} on {m['mesh']} (compress "
+                f"{comp}), rank 0: meta run {m['compile_s']} s, predicted "
+                f"peak {got['predicted_bytes'] / 2**30:.3f} GiB (arguments "
+                f"{m['memory']['argument_size_in_bytes'] / 2**30:.3f}), the "
+                f"card's {card['peak_bytes'] / 2**30:.3f} GiB "
+                f"({got['peak_ratio']:.3f}x); collectives equal "
+                f"{json.dumps(card['collective_counts'])}; launches "
+                f"{card['launches']}; one-rank replay wall "
+                f"{card['wall_s']:.3f} s (no communication)")
+        check(res["cells"]["a"]["replay"]["launches"].get(
+            "flash_attention_sm90", 0) > 0 and res["cells"]["a"]["replay"][
+            "launches"].get("flash_attention_bwd_sm90", 0) > 0,
+            "3t (a): the flash kernels did not launch")
+        res["bwd_scratch_cases"] = check_bwd_scratch()
+        t2 = time.perf_counter()
+    finally:
+        got = _spawn_collect(started, n, HS_TIMEOUT)
+    errors = [g["error"] for g in got if "error" in g]
+    check(not errors, "3t (d) rank failed:\n" + "\n".join(errors))
+    check(len(got) == n, f"3t (d): {n - len(got)} ranks gave no result")
+    cfg = whisper_config("float32")
+    worst = max(g["err"] for g in got) / one["scale"]
+    for g in got:
+        check(g["cut"], "3t (d): the model axis does not cut whisper's "
+                        "heads")
+        check(g["tokens"] == one["tokens"],
+              f"3t (d) rank {g['rank']}: f32 tokens differ from one rank's")
+        check(g["chain_launches"].get("flash_attention_f32", 0)
+              == cfg.n_layers * HS_CHAIN_STEPS,
+              f"3t (d) rank {g['rank']}: chain launches "
+              f"{g['chain_launches']}")
+        for ln in (g["fwd_launches"], g["chain_launches"]):
+            for k, v in ln.items():
+                if k in launches:
+                    launches[k] += v
+    check(worst <= HS_LOGIT_REL, f"3t (d): f32 logits {worst:.3e} of "
+                                 f"max|logit| from one rank's")
+    res["whisper_cut_heads"] = {
+        "mesh": HS_MESH, "logit_rel": worst, "rows": HS_ROWS,
+        "tokens": HS_TOKENS, "chain": [HS_CHAIN_ROWS, HS_CHAIN_STEPS],
+        "job_s": max(g["job_s"] for g in got),
+        "fwd_launches_per_rank": got[0]["fwd_launches"]}
+    res["launches"] = launches
+    res["split_s"] = {"meta_wait": t_meta, "one_rank_d": hs["one_rank_s"],
+                      "replays": t2 - t1,
+                      "whisper_wait": time.perf_counter() - t2,
+                      "d_ranks_forward": max(g["forward_s"] for g in got),
+                      "d_ranks_job": max(g["job_s"] for g in got),
+                      "d_spawn_to_collected": time.perf_counter()
+                      - hs["t_spawn"]}
+    log(f"3t (d) whisper-small f32 on {HS_MESH} (12 heads over 8: cut): "
+        f"logits {worst:.3e} of max|logit| from one rank's over "
+        f"{HS_ROWS} x (1500, {HS_TOKENS}); the chain's {HS_CHAIN_ROWS} x "
+        f"{HS_CHAIN_STEPS} tokens one rank's on all {n} ranks; split (s) "
+        f"{json.dumps(res['split_s'])}")
+    return res
 
 
 def check_gaussian_law(mech: str, res: dict, sigma: float) -> dict:
@@ -6522,6 +7040,8 @@ def main() -> int:
     # 1. build
     secs = build.build_all()
     log(f"build: {json.dumps(secs)} s")
+    # phase 3t's meta runs, in a process off the card meanwhile
+    meta_proc = start_dryrun_meta()
     for lib, text in build.BUILD_LOG.items():
         for line in text.splitlines():
             if ("registers" in line or "spill" in line
@@ -6620,8 +7140,13 @@ def main() -> int:
                   for k in ("wkv6_fwd", "wkv6_bwd", "wkv6_step")})
     done("2")
 
-    # 3. the main path: each path with its launch counts
+    # 3. the main path: each path with its launch counts.  The mesh
+    # phases' ranks (3q-3s) and the NCCL probe start first and run beside
+    # the FL rounds and 3b; their checks come after 3p
     from repro_torch.dist import compress as dcompress
+
+    mesh_spawns = start_mesh_spawns(device)
+    nccl_started = start_nccl_probe()
 
     sample_idx = torch.arange(0, D_FULL, D_FULL // KS_SAMPLE,
                               device=device)[:KS_SAMPLE]
@@ -6663,9 +7188,13 @@ def main() -> int:
             f" s, peak memory {r['peak_bytes'] / 2**30:.2f} GiB")
     done("3 (FL rounds)")
     held("after the FL rounds")
-    ranks = run_ranks_phase(device)
+    ranks = run_ranks_phase(device, nccl_started)
     done("3b (client ranks)")
     held("after the client ranks")
+    four, two = finish_mesh_spawns(mesh_spawns)
+    done("3q-3s ranks (two spawns, beside the FL rounds and 3b)")
+    hs = start_dryrun_ranks(device)
+    done("3t (d)'s one rank; its ranks run beside 3c-3f")
     async_res = run_async_phase(device)
     done("3c (async runtime)")
     held("after the async runtime")
@@ -6675,9 +7204,6 @@ def main() -> int:
     train_f32 = run_train_f32_phase(device)
     done("3f (train in f32)")
     held("after the f32 train phase")
-    train_ranks = run_train_ranks_phase(device)
-    done("3e (train across ranks)")
-    held("after the train ranks")
     dpath = run_dither_pack(device, gen)
     held("after the dither_pack path")
     cfg, model32 = serve_model(device)
@@ -6714,14 +7240,16 @@ def main() -> int:
     train_zamba = run_train_zamba2_phase(device)
     done("3n (train zamba2)")
     held("after the zamba2 train phase")
+    train_ranks_started = start_train_ranks(device)
     serve_whisper = run_serve_whisper_phase(device)
     done("3o (serve whisper)")
     held("after the whisper serve phase")
     train_whisper = run_train_whisper_phase(device)
     done("3p (train whisper)")
     held("after the whisper train phase")
-    four, two = run_mesh_spawns(device)
-    done("3q-3s ranks (two spawns)")
+    train_ranks = run_train_ranks_phase(train_ranks_started)
+    done("3e (train across ranks, beside 3o and 3p)")
+    held("after the train ranks")
     mesh = run_mesh_phase(device, four, two)
     done("3q (the mesh)")
     moe_mesh = run_moe_mesh_phase(device, two)
@@ -6730,6 +7258,8 @@ def main() -> int:
     done("3s (rwkv6, zamba2 and whisper on the mesh)")
     del four, two
     held("after the mesh phases")
+    dry = run_dryrun_phase(device, meta_proc, hs)
+    done("3t")
     done("3")
 
     # 4. times
@@ -6776,7 +7306,7 @@ def main() -> int:
                 + serve_whisper["f32"]["chain_launches"][k]
                 + train_whisper["launches"][k]
                 + mesh["launches"][k] + moe_mesh["launches"][k]
-                + family_mesh["launches"][k]
+                + family_mesh["launches"][k] + dry["launches"][k]
                 for k in KERNELS}
     kernels = []
     for kname, (src, replaces) in KERNELS.items():
@@ -6828,6 +7358,7 @@ def main() -> int:
               "serve_whisper": serve_whisper,
               "train_whisper": train_whisper, "mesh": mesh,
               "moe_mesh": moe_mesh, "family_mesh": family_mesh,
+              "dryrun": dry,
               "kernels": kernels, "phase_s": phase_s, "seconds": total}
     out_dir = ROOT / "build"
     try:

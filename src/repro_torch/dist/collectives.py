@@ -36,6 +36,16 @@ Floating sums run in f32 whatever the dtype (a bf16 or f16 tensor is
 widened, summed, and rounded once), and every rank of an all-reduce
 receives the same bits.  An op that a backend refuses raises from
 ``torch.distributed``; nothing here falls back.
+
+A ``RecordingGroup`` stands for a group of ranks without a process
+group: the dry run (``launch.dryrun``) builds the production meshes of
+them and runs rank 0's program.  ``size`` and ``rank`` answer for it
+(rank 0 of ``n``), and each collective on it moves nothing: it fills its
+result as if every rank held this rank's tensor (a sum is ``n`` times
+it, a gather ``n`` copies of it), on the input's device, meta tensors
+included, and adds its kind and its result's bytes to the group's
+``record`` (the reference's buckets, ``COLLECTIVES``: result-shape bytes
+per device in the dtype moved, so a bf16 sum counts its f32 buffer).
 """
 from __future__ import annotations
 
@@ -50,12 +60,89 @@ _reduce_scatter_single = getattr(dist, "reduce_scatter_single",
                                  dist.reduce_scatter_tensor)
 
 
+# the reference's collective kinds (``repro.launch.dryrun``'s buckets)
+COLLECTIVES = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all",
+               "collective-permute")
+
+
+def new_record() -> dict:
+    """{"bytes": {kind: 0}, "counts": {kind: 0}} over ``COLLECTIVES``."""
+    return {"bytes": dict.fromkeys(COLLECTIVES, 0),
+            "counts": dict.fromkeys(COLLECTIVES, 0)}
+
+
+class RecordingGroup:
+    """A group of ``n`` ranks of which this process is rank 0, with no
+    process group behind it: its collectives record themselves into
+    ``record`` (``new_record``; one record may serve many groups) and fill
+    their results as if every rank held this rank's tensor."""
+
+    def __init__(self, n: int, record: dict):
+        self.n, self.record = int(n), record
+
+    def note(self, kind: str, out: torch.Tensor) -> None:
+        self.record["counts"][kind] += 1
+        self.record["bytes"][kind] += out.numel() * out.element_size()
+
+    def __repr__(self) -> str:
+        return f"RecordingGroup({self.n})"
+
+
+def is_group(group) -> bool:
+    return isinstance(group, (dist.ProcessGroup, RecordingGroup))
+
+
 def size(group) -> int:
-    return 1 if group is None else dist.get_world_size(group)
+    if group is None:
+        return 1
+    if isinstance(group, RecordingGroup):
+        return group.n
+    return dist.get_world_size(group)
 
 
 def rank(group) -> int:
-    return 0 if group is None else dist.get_rank(group)
+    if group is None or isinstance(group, RecordingGroup):
+        return 0
+    return dist.get_rank(group)
+
+
+def _reduce_(y: torch.Tensor, op, group) -> None:
+    """The backend's in-place all-reduce of ``y`` (contiguous)."""
+    if isinstance(group, RecordingGroup):
+        group.note("all-reduce", y)
+        if op == dist.ReduceOp.SUM:
+            y.mul_(group.n)
+        return
+    dist.all_reduce(y, op=op, group=group)
+
+
+def _gather_(out: torch.Tensor, flat: torch.Tensor, group) -> None:
+    """The backend's gather of every rank's ``flat`` into ``out``."""
+    if isinstance(group, RecordingGroup):
+        group.note("all-gather", out)
+        out.view(group.n, -1).copy_(flat.reshape(1, -1).expand(group.n, -1))
+        return
+    _all_gather_single(out, flat, group=group)
+
+
+def _scatter_(out: torch.Tensor, flat: torch.Tensor, group) -> None:
+    """The backend's reduce-scatter of every rank's ``flat`` (a sum) into
+    this rank's block ``out``."""
+    if isinstance(group, RecordingGroup):
+        group.note("reduce-scatter", out)
+        out.copy_(flat[:out.numel()]).mul_(group.n)
+        return
+    _reduce_scatter_single(out, flat, group=group)
+
+
+def _exchange_(out: torch.Tensor, flat: torch.Tensor, group) -> None:
+    """The backend's all-to-all of ``flat``'s n blocks into ``out``."""
+    if isinstance(group, RecordingGroup):
+        group.note("all-to-all", out)
+        n = group.n
+        out.view(n, -1).copy_(flat.view(n, -1)[:1].expand(n, -1))
+        return
+    dist.all_to_all_single(out, flat, group=group)
 
 
 # ------------------------------------------------------------ plain ops
@@ -73,7 +160,7 @@ def all_reduce(x: torch.Tensor, group, op=dist.ReduceOp.SUM) -> torch.Tensor:
     y = _summand(x)
     if y is x:  # the collective writes in place
         y = x.clone(memory_format=torch.contiguous_format)
-    dist.all_reduce(y, op=op, group=group)
+    _reduce_(y, op, group)
     return y.to(x.dtype)
 
 
@@ -90,7 +177,7 @@ def all_gather(x: torch.Tensor, dim: int, group) -> torch.Tensor:
     dim = dim % x.dim()
     flat = x.contiguous().reshape(-1)
     out = torch.empty(n * flat.numel(), dtype=x.dtype, device=x.device)
-    _all_gather_single(out, flat, group=group)
+    _gather_(out, flat, group)
     shape = x.shape[:dim] + (n * x.shape[dim],) + x.shape[dim + 1:]
     return out.reshape((n,) + tuple(x.shape)).movedim(0, dim).reshape(shape)
 
@@ -107,7 +194,7 @@ def reduce_scatter(x: torch.Tensor, dim: int, group) -> torch.Tensor:
                          f"over {n} ranks")
     y = _summand(x.movedim(dim, 0))
     out = torch.empty(y.numel() // n, dtype=y.dtype, device=y.device)
-    _reduce_scatter_single(out, y.reshape(-1), group=group)
+    _scatter_(out, y.reshape(-1), group)
     block_shape = (x.shape[dim] // n,) + tuple(y.shape[1:])
     return out.reshape(block_shape).movedim(0, dim).to(x.dtype).contiguous()
 
@@ -125,7 +212,7 @@ def all_to_all(x: torch.Tensor, group) -> torch.Tensor:
                          f"the group's {n} ranks")
     flat = x.contiguous().reshape(-1)
     out = torch.empty_like(flat)
-    dist.all_to_all_single(out, flat, group=group)
+    _exchange_(out, flat, group)
     return out.reshape(x.shape)
 
 

@@ -25,9 +25,11 @@ rank encodes with its group rank as the client index, an int32
 ``psum``), and every rank decodes the sum, recomputing the other
 clients' dithers from the shared key; the layered mechanisms and
 ``none_`` average floats with an ``all_reduce(SUM)`` and a division (its
-``pmean``).  The result is the same on every rank.  The group's backend
-is the caller's choice (gloo on the CPU; on one card the ranks share a
-device, which NCCL refuses, so gloo carries the CUDA tensors there too).
+``pmean``).  Both go through ``dist.collectives`` (a group there may be
+the dry run's ``RecordingGroup``).  The result is the same on every
+rank.  The group's backend is the caller's choice (gloo on the CPU; on
+one card the ranks share a device, which NCCL refuses, so gloo carries
+the CUDA tensors there too).
 
 Two wire formats:
 
@@ -49,7 +51,6 @@ from typing import Any, Optional, Tuple
 
 import numpy as np
 import torch
-import torch.distributed as dist
 
 from repro_torch import debug, resolve_device
 from repro_torch.core import coding, dither, prng
@@ -59,6 +60,7 @@ from repro_torch.core.f32 import rcp_mul, true_div
 from repro_torch.core.irwin_hall import IrwinHallMechanism
 from repro_torch.core.layered import LayeredQuantizer
 from repro_torch.core.packing import PackGeometry, geometry_for_range
+from repro_torch.dist import collectives as coll
 from repro_torch.kernels import ops
 
 PyTree = Any
@@ -262,7 +264,7 @@ def _layered_q(comp: CompressionConfig, n: int) -> LayeredQuantizer:
 
 
 def _client_index(group) -> int:
-    return 0 if group is None else dist.get_rank(group)
+    return coll.rank(group)
 
 
 def _dither_sum(ks, n: int, shape, device) -> torch.Tensor:
@@ -286,8 +288,7 @@ def _psum_msg(m, comp: CompressionConfig, group) -> torch.Tensor:
         m = m.to(_MSG_DTYPES[comp.msg_dtype]).to(torch.int32)
     if group is None:
         return m
-    m = m.contiguous()
-    dist.all_reduce(m, op=dist.ReduceOp.SUM, group=group)
+    m = coll.all_reduce(m, group)
     if not comp.fused:
         m = m.to(_MSG_DTYPES[comp.msg_dtype]).to(torch.int32)
     return m
@@ -297,9 +298,7 @@ def _pmean(y, group, n: int) -> torch.Tensor:
     """The JAX package's ``pmean``: a float sum across ranks, divided by
     the group's size, a constant, which XLA compiles as a multiply by its
     f32 reciprocal."""
-    y = y.contiguous()
-    dist.all_reduce(y, op=dist.ReduceOp.SUM, group=group)
-    return rcp_mul(y, n)
+    return rcp_mul(coll.all_reduce(y, group), n)
 
 
 def _compress_leaf(x, comp: CompressionConfig, key, n: int, device,
@@ -375,15 +374,15 @@ def compress_tree(grads: PyTree, comp: CompressionConfig, key,
     Runs on the card unless ``device="cpu"``."""
     device = resolve_device(device)
     n = max(int(n_clients), 1)
-    if axis is not None and not isinstance(axis, dist.ProcessGroup):
+    if axis is not None and not coll.is_group(axis):
         raise TypeError(
             f"axis must be a torch.distributed ProcessGroup of the client "
             f"ranks (the JAX package's mesh axis name has no counterpart), "
             f"got {axis!r}")
-    if axis is not None and dist.get_world_size(axis) != n:
+    if axis is not None and coll.size(axis) != n:
         raise ValueError(
             f"n_clients={n} but the process group has "
-            f"{dist.get_world_size(axis)} ranks")
+            f"{coll.size(axis)} ranks")
     leaves, rebuild = _flatten(grads)
     return rebuild([
         _compress_leaf(g, comp, prng.fold_in(key, i), n, device, axis)

@@ -169,6 +169,23 @@ def make_mesh(sizes: Sequence[int], axis_names: Sequence[str] = AXES) -> Mesh:
     return mesh
 
 
+def recording_mesh(sizes: Sequence[int], axis_names: Sequence[str] = AXES,
+                   record: Optional[dict] = None) -> Mesh:
+    """Rank 0 of a mesh of ``sizes`` whose groups are
+    ``collectives.RecordingGroup``s sharing ``record``: no process group
+    exists, and each collective records its kind and bytes (the dry run,
+    ``launch.dryrun``)."""
+    from repro_torch.dist import collectives
+
+    record = collectives.new_record() if record is None else record
+    mesh = Mesh(sizes, axis_names, rank=0, groups={})
+    for axes in GROUP_AXES:
+        if set(axes) <= set(mesh.axis_names) and mesh.axis_size(axes) > 1:
+            mesh._groups[axes] = collectives.RecordingGroup(
+                mesh.axis_size(axes), record)
+    return mesh
+
+
 def default_mesh_shape(n: int) -> Tuple[int, int, int]:
     """The reference's sizing of n ranks: (pod, data, model) as close to
     uniform as n allows."""

@@ -122,12 +122,13 @@
 // equal.  Softmax and products do not overlap inside a warpgroup, only
 // across the two.  The build passes --fmad=false: the multiply-adds are
 // written as fmaf.
+#include "flash_bwd_work.cuh"
 #include "sm90_common.cuh"
 #include "sm90_tf32.cuh"
 
 namespace {
 
-constexpr int kRowPad = 128;     // T_pad, S_pad: lengths rounded up to this
+constexpr int kRowPad = FA_BWD_ROW_PAD;  // T_pad, S_pad: lengths rounded up
 constexpr int kPrepRows = 32;    // rows of one head a preprocess block
 constexpr int kPrepThreads = 256;
 constexpr float kLog2e = 1.44269504088896340736f;
@@ -314,7 +315,7 @@ __host__ __device__ __forceinline__ int pad_of(int len) {
 }
 
 // the scratch's width for a head dim: 112 runs the 128 instances
-int scratch_dim(int head_dim) { return head_dim == 112 ? 128 : head_dim; }
+int scratch_dim(int head_dim) { return fa_bwd_f32_scratch_dim(head_dim); }
 
 Work carve(void* work, int batch, int t_len, int s_len, int heads,
            int kv_heads, int head_dim) {
@@ -337,14 +338,8 @@ Work carve(void* work, int batch, int t_len, int s_len, int heads,
 
 size_t work_floats(int batch, int t_len, int s_len, int heads, int kv_heads,
                    int head_dim) {
-  head_dim = scratch_dim(head_dim);
-  const size_t rows = (size_t)batch * heads * pad_of(t_len);
-  const size_t qn = 2 * (size_t)batch * t_len * heads * head_dim;
-  const size_t qtn = 2 * (size_t)batch * heads * head_dim * pad_of(t_len);
-  const size_t kn = 2 * (size_t)batch * s_len * kv_heads * head_dim;
-  const size_t ktn =
-      2 * (size_t)batch * kv_heads * head_dim * pad_of(s_len);
-  return 2 * rows + 2 * qn + 2 * qtn + 2 * kn + ktn;
+  return fa_bwd_f32_work_floats(batch, t_len, s_len, heads, kv_heads,
+                                head_dim);
 }
 
 // --------------------------------------------------------- preprocess

@@ -118,6 +118,7 @@
 #include <cuda_bf16.h>
 
 #include "sm90_bf16.cuh"
+#include "flash_bwd_work.cuh"
 #include "sm90_common.cuh"
 
 namespace {
@@ -129,7 +130,7 @@ constexpr int kStages = 4;
 // step it + kAhead - kStages held (two steps back: every warp must have
 // released it, and the other warpgroup may still be one step behind)
 constexpr int kAhead = kStages - 2;
-constexpr int kRowPad = 128;       // T_pad: T rounded up to this
+constexpr int kRowPad = FA_BWD_ROW_PAD;  // T_pad: T rounded up to this
 constexpr int kPrepThreads = 256;
 constexpr float kLog2e = 1.44269504088896340736f;
 
@@ -817,9 +818,8 @@ extern "C" {
 size_t flash_attention_bwd_sm90_work_bytes(int batch, int t_len, int s_len,
                                            int heads, int kv_heads,
                                            int head_dim) {
-  const size_t rows = (size_t)batch * heads * t_pad_of(t_len);
-  return 2 * rows * sizeof(float) +
-         (size_t)batch * t_len * heads * head_dim * 2;
+  return fa_bwd_bf16_work_bytes(batch, t_len, s_len, heads, kv_heads,
+                                head_dim);
 }
 
 // q, o, dout, dq: (batch, t_len, heads, head_dim); k, v, dk, dv: (batch,

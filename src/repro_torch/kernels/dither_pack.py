@@ -12,7 +12,9 @@ They replace the Pallas TPU kernels of the JAX package's
 Inputs are (R, G, 128) f32 rows and (R, 128) int32 words on a CUDA
 device, b in {4, 8, 16}.  Each wrapper checks its inputs, allocates its
 output, launches on the current stream, raises if the launch failed, and
-adds one to its count in ``LAUNCHES``.  The plain versions are
+adds one to its count in ``LAUNCHES``; on meta tensors (the dry run) it
+checks and allocates alike and charges its bytes to ``kernels.meta`` in
+place of the launch.  The plain versions are
 ``ref.dither_pack_ref`` / ``ref.unpack_decode_ref``; ``ops`` picks
 between the two by device.
 """
@@ -23,8 +25,8 @@ import ctypes
 import numpy as np
 import torch
 
-from repro_torch.kernels import build
-from repro_torch.kernels.fused_agg import _check
+from repro_torch.kernels import build, meta
+from repro_torch.kernels.fused_agg import _check, on_card
 
 LANES = 128
 
@@ -58,13 +60,15 @@ def dither_pack(x: torch.Tensor, s: torch.Tensor, w: float,
     """x, s: (R, G, 128) f32 CUDA with G = 32 // bits -> packed int32
     words (R, 128)."""
     g = _group(bits)
-    if x.device.type != "cuda":
-        raise ValueError(f"dither_pack launches on CUDA, got {x.device}")
+    on_card("dither_pack", x)
     R = x.shape[0]
     shape = (R, g, LANES)
     _check("x", x, torch.float32, shape, x.device)
     _check("s", s, torch.float32, shape, x.device)
     out = torch.empty((R, LANES), dtype=torch.int32, device=x.device)
+    if x.device.type == "meta":  # the dry run: no launch, the cost charged
+        meta.charge("dither_pack", 0, (x, s), (out,))
+        return out
     # the reference multiplies by the python float 1.0 / w, cast to f32
     inv_w = float(np.float32(1.0 / w))
     with torch.cuda.device(x.device):
@@ -82,13 +86,15 @@ def unpack_decode(word: torch.Tensor, s: torch.Tensor, w: float,
     """Packed int32 words (R, 128) + dither s (R, G, 128) -> f32
     (R, G, 128)."""
     g = _group(bits)
-    if word.device.type != "cuda":
-        raise ValueError(f"unpack_decode launches on CUDA, got {word.device}")
+    on_card("unpack_decode", word)
     R = word.shape[0]
     shape = (R, g, LANES)
     _check("word", word, torch.int32, (R, LANES), word.device)
     _check("s", s, torch.float32, shape, word.device)
     out = torch.empty(shape, dtype=torch.float32, device=word.device)
+    if word.device.type == "meta":
+        meta.charge("unpack_decode", 0, (word, s), (out,))
+        return out
     with torch.cuda.device(word.device):
         stream = torch.cuda.current_stream(word.device).cuda_stream
         err = _lib().unpack_decode_launch(word.data_ptr(), s.data_ptr(),

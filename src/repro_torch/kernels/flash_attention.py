@@ -61,7 +61,10 @@ checks its inputs, allocates the outputs, launches on the current
 stream, raises if the launch failed, and adds one to its kernel's
 ``LAUNCHES`` entry.  ``FlashAttention`` is the autograd function over
 them: the kernels for CUDA tensors, the plain versions for CPU tensors,
-nothing in between; ``ops.flash_attention`` goes through it.
+nothing in between; ``ops.flash_attention`` goes through it.  On meta
+tensors (the dry run, ``launch.dryrun``) the wrappers check and allocate
+as on the card and, in place of the launch, charge the kernel's cost to
+``kernels.meta``.
 """
 from __future__ import annotations
 
@@ -69,7 +72,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import build, ref
+from repro_torch.kernels import build, meta, ref
 
 HEAD_DIMS = (16, 32, 64, 112, 128)
 # dtype -> (kernel name, C library, launch function)
@@ -101,6 +104,8 @@ F32_BWD_TILES = {16: (64, 64), 32: (64, 64), 64: (32, 32), 112: (32, 16),
 # ``<name>_work_bytes``, one signature each for both)
 BWD_KERNELS = {torch.bfloat16: "flash_attention_bwd_sm90",
                torch.float32: "flash_attention_bwd_f32_sm90"}
+# the backwards' scratch pads T and S to this (csrc/flash_bwd_work.cuh)
+_ROW_PAD = 128
 # rows of the backward's smallest grid tile (the bf16 kernels' 128; the f32
 # preprocess's 32), which bound T and S by the grid's 65535 tiles
 _BWD_ROWS = {torch.bfloat16: 128, torch.float32: 32}
@@ -140,19 +145,40 @@ def _bwd_launcher(dtype: torch.dtype):
     return fn
 
 
+def bwd_work_bytes(dtype: torch.dtype, B: int, T: int, S: int, H: int,
+                   HK: int, D: int) -> int:
+    """The backward kernel's scratch bytes where no library is built (meta
+    tensors): ``csrc/flash_bwd_work.cuh``'s formulas, which the libraries'
+    ``<name>_work_bytes`` return and tests/test_torch_dryrun.py compiles
+    to hold this to.  bf16: Drow and lse, (B, H, T_pad) f32 each, and the
+    scaled q; f32: also the TF32 halves and the transposed operands, at
+    head dim 128 for 112."""
+    pad_t = -(-T // _ROW_PAD) * _ROW_PAD
+    if dtype == torch.bfloat16:
+        return 2 * B * H * pad_t * 4 + B * T * H * D * 2
+    D = 128 if D == 112 else D
+    pad_s = -(-S // _ROW_PAD) * _ROW_PAD
+    rows = B * H * pad_t
+    qn, qtn = 2 * B * T * H * D, 2 * B * H * D * pad_t
+    kn, ktn = 2 * B * S * HK * D, 2 * B * HK * D * pad_s
+    return 4 * (2 * rows + 2 * qn + 2 * qtn + 2 * kn + ktn)
+
+
 def _bwd_scratch(q: torch.Tensor, B: int, T: int, S: int, H: int, HK: int,
                  D: int) -> torch.Tensor:
     """The backward kernel's scratch: the bytes its library's
-    ``<name>_work_bytes`` asks for (Drow and lse, padded, and the scaled q;
-    for f32 also the split and transposed operands)."""
-    name = BWD_KERNELS[q.dtype]
-    fn = getattr(build.load(name), name + "_work_bytes")
-    if id(fn) not in _TYPED:
-        fn.argtypes = [_I] * 6
-        fn.restype = ctypes.c_size_t
-        _TYPED.add(id(fn))
-    return torch.empty(fn(B, T, S, H, HK, D), dtype=torch.uint8,
-                       device=q.device)
+    ``<name>_work_bytes`` asks for (``bwd_work_bytes`` on meta)."""
+    if q.device.type == "meta":
+        n = bwd_work_bytes(q.dtype, B, T, S, H, HK, D)
+    else:
+        name = BWD_KERNELS[q.dtype]
+        fn = getattr(build.load(name), name + "_work_bytes")
+        if id(fn) not in _TYPED:
+            fn.argtypes = [_I] * 6
+            fn.restype = ctypes.c_size_t
+            _TYPED.add(id(fn))
+        n = fn(B, T, S, H, HK, D)
+    return torch.empty(n, dtype=torch.uint8, device=q.device)
 
 
 def span_tiles(kv_tile: int, S: int) -> int:
@@ -212,15 +238,17 @@ def check_window(window, causal: bool, T: int, S: int) -> int:
 
 
 def _check_cuda(q, named) -> None:
+    """Every tensor on q's device, CUDA (or meta: the dry run), contiguous
+    and, on CUDA, 16-byte aligned."""
     for name, t in named:
-        if t.device.type != "cuda":
+        if t.device.type not in ("cuda", "meta"):
             raise ValueError(f"{name}: flash attention launches on CUDA, "
                              f"got {t.device}")
         if t.device != q.device:
             raise ValueError(f"{name} is on {t.device}, expected {q.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-        if t.data_ptr() % 16:
+        if t.device.type == "cuda" and t.data_ptr() % 16:
             raise ValueError(f"{name} must be 16-byte aligned")
 
 
@@ -263,6 +291,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = torch.empty_like(q)
     lse = (torch.empty((B, H, T), dtype=torch.float32, device=q.device)
            if with_lse else None)
+    if q.device.type == "meta":  # the dry run: no launch, the cost charged
+        meta.charge(name, 4 * B * H * D
+                    * meta.attended_pairs(T, S, causal, window),
+                    (q, k, v), (out, lse))
+        return (out, lse) if with_lse else out
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = _launcher(q.dtype)(
@@ -297,8 +330,13 @@ def flash_attention_bwd(q, k, v, o, lse, dout, causal: bool = True,
         raise ValueError(f"B * (H + HK) = {B * (H + HK)}, T = {T} or S = "
                          f"{S} exceeds the grid's limits")
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    scratch = _bwd_scratch(q, B, T, S, H, HK, D)
+    if q.device.type == "meta":
+        meta.charge(name, 2.5 * 4 * B * H * D
+                    * meta.attended_pairs(T, S, causal, window),
+                    (q, k, v, o, lse, dout), (dq, dk, dv))
+        return dq, dk, dv
     with torch.cuda.device(q.device):
-        scratch = _bwd_scratch(q, B, T, S, H, HK, D)
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = _bwd_launcher(q.dtype)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
@@ -336,7 +374,8 @@ class FlashAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, causal, kv_tile, window=0):
         need = any(ctx.needs_input_grad[:3])
-        run = flash_attention if _on_cuda(q) else _plain_forward
+        run = (flash_attention if q.device.type == "meta" or _on_cuda(q)
+               else _plain_forward)
         res = run(q, k, v, causal, kv_tile=kv_tile, with_lse=need,
                   window=window)
         if not need:
@@ -350,7 +389,8 @@ class FlashAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dout):
         q, k, v, o, lse = ctx.saved_tensors
-        run = flash_attention_bwd if _on_cuda(q) else ref.flash_attention_bwd_ref
+        run = (flash_attention_bwd if q.device.type == "meta" or _on_cuda(q)
+               else ref.flash_attention_bwd_ref)
         dq, dk, dv = run(q, k, v, o, lse, dout.contiguous(), ctx.causal,
                          window=ctx.window)
         return dq, dk, dv, None, None, None

@@ -16,7 +16,9 @@ Both take (R, G, 128) f32 rows and (R, 128) int32 words on a CUDA
 device; the step is a python scalar (a kernel argument) or an (R, G, 128)
 tensor.  Each wrapper checks its inputs, allocates its output, launches
 on the current stream, raises if the launch failed, and adds one to its
-count in ``LAUNCHES``.  The plain versions are ``ref.fused_encode_ref`` /
+count in ``LAUNCHES``; on meta tensors (the dry run) it checks and
+allocates alike and charges its bytes to ``kernels.meta`` in place of the
+launch.  The plain versions are ``ref.fused_encode_ref`` /
 ``ref.fused_decode_ref``; ``ops`` picks between the two by device.
 """
 from __future__ import annotations
@@ -27,7 +29,7 @@ from typing import Optional, Union
 import torch
 
 from repro_torch.core.f32 import rcp
-from repro_torch.kernels import build
+from repro_torch.kernels import build, meta
 
 LANES = 128
 
@@ -68,11 +70,21 @@ def _check(name: str, t: torch.Tensor, dtype, shape, device) -> None:
 
 
 def _step_args(step, shape, device):
-    """(pointer, scalar) pair of a scalar or (R, G, 128) tensor step."""
+    """(tensor, scalar) pair of a scalar or (R, G, 128) tensor step."""
     if isinstance(step, torch.Tensor):
         _check("step", step, torch.float32, shape, device)
-        return step.data_ptr(), 0.0
+        return step, 0.0
     return None, float(step)
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def on_card(name: str, t: torch.Tensor) -> None:
+    """Raise unless ``t`` is on CUDA (or meta: the dry run)."""
+    if t.device.type not in ("cuda", "meta"):
+        raise ValueError(f"{name} launches on CUDA, got {t.device}")
 
 
 def _group(bits: int) -> int:
@@ -88,20 +100,22 @@ def fused_encode(x: torch.Tensor, s: torch.Tensor,
     scalar or an (R, G, 128) tensor -> packed biased int32 words (R, 128).
     """
     g = _group(bits)
-    if x.device.type != "cuda":
-        raise ValueError(f"fused_encode launches on CUDA, got {x.device}")
+    on_card("fused_encode", x)
     R = x.shape[0]
     shape = (R, g, LANES)
     for name, t in (("x", x), ("s", s)):
         _check(name, t, torch.float32, shape, x.device)
-    step_ptr, step_val = _step_args(step, shape, x.device)
-    if step_ptr is None:
+    step_t, step_val = _step_args(step, shape, x.device)
+    if step_t is None:
         step_val = rcp(step_val)
     out = torch.empty((R, LANES), dtype=torch.int32, device=x.device)
+    if x.device.type == "meta":  # the dry run: no launch, the cost charged
+        meta.charge("fused_encode", 0, (x, s, step_t), (out,))
+        return out
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = _lib().fused_encode_launch(
-            x.data_ptr(), s.data_ptr(), step_ptr, step_val, R, bits, g,
+            x.data_ptr(), s.data_ptr(), _ptr(step_t), step_val, R, bits, g,
             int(m_max), out.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"fused_encode launch failed: CUDA error {err}")
@@ -117,22 +131,23 @@ def fused_decode(word: torch.Tensor, s_eff: torch.Tensor,
     the decode step (scalar or (R, G, 128)); ``offset`` the additive
     shared offset (R, G, 128) or None."""
     g = _group(bits)
-    if word.device.type != "cuda":
-        raise ValueError(f"fused_decode launches on CUDA, got {word.device}")
+    on_card("fused_decode", word)
     R = word.shape[0]
     shape = (R, g, LANES)
     _check("word", word, torch.int32, (R, LANES), word.device)
     _check("s_eff", s_eff, torch.float32, shape, word.device)
-    step_ptr, step_val = _step_args(step, shape, word.device)
-    off_ptr = None
+    step_t, step_val = _step_args(step, shape, word.device)
     if offset is not None:
         _check("offset", offset, torch.float32, shape, word.device)
-        off_ptr = offset.data_ptr()
     out = torch.empty(shape, dtype=torch.float32, device=word.device)
+    if word.device.type == "meta":
+        meta.charge("fused_decode", 0, (word, s_eff, step_t, offset), (out,))
+        return out
     with torch.cuda.device(word.device):
         stream = torch.cuda.current_stream(word.device).cuda_stream
         err = _lib().fused_decode_launch(
-            word.data_ptr(), s_eff.data_ptr(), step_ptr, step_val, off_ptr,
+            word.data_ptr(), s_eff.data_ptr(), _ptr(step_t), step_val,
+            _ptr(offset),
             R, bits, g, out.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"fused_decode launch failed: CUDA error {err}")

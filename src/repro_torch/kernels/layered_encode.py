@@ -17,9 +17,11 @@ order, which the reference pins its kernel to
 with XLA's f32 ``log`` (``core/f32.log``).  Inputs are (R, 128) f32 rows
 (int32 messages for the decode) on a CUDA device.  Each wrapper checks
 its inputs, allocates its output, launches on the current stream,
-raises if the launch failed, and adds one to its count in ``LAUNCHES``.
-The plain versions are ``ref.layered_encode_ref`` /
-``ref.layered_decode_ref``; ``ops`` picks between the two by device.
+raises if the launch failed, and adds one to its count in ``LAUNCHES``;
+on meta tensors (the dry run) it checks and allocates alike and charges
+its bytes to ``kernels.meta`` in place of the launch.  The plain
+versions are ``ref.layered_encode_ref`` / ``ref.layered_decode_ref``;
+``ops`` picks between the two by device.
 """
 from __future__ import annotations
 
@@ -29,8 +31,8 @@ import math
 import numpy as np
 import torch
 
-from repro_torch.kernels import build
-from repro_torch.kernels.fused_agg import _check
+from repro_torch.kernels import build, meta
+from repro_torch.kernels.fused_agg import _check, on_card
 
 LANES = 128
 
@@ -63,8 +65,7 @@ def _constants(sigma: float):
 
 def _launch(name: str, a: torch.Tensor, u: torch.Tensor, layer: torch.Tensor,
             sigma: float, a_dtype, out_dtype) -> torch.Tensor:
-    if a.device.type != "cuda":
-        raise ValueError(f"{name} launches on CUDA, got {a.device}")
+    on_card(name, a)
     if a.dim() != 2 or a.shape[1] != LANES:
         raise ValueError(f"{name} takes (R, {LANES}) rows, got "
                          f"{tuple(a.shape)}")
@@ -73,6 +74,9 @@ def _launch(name: str, a: torch.Tensor, u: torch.Tensor, layer: torch.Tensor,
     _check("u", u, torch.float32, shape, a.device)
     _check("layer", layer, torch.float32, shape, a.device)
     out = torch.empty(shape, dtype=out_dtype, device=a.device)
+    if a.device.type == "meta":  # the dry run: no launch, the cost charged
+        meta.charge(name, 0, (a, u, layer), (out,))
+        return out
     s, c, peak = _constants(sigma)
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream(a.device).cuda_stream

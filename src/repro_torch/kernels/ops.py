@@ -13,7 +13,10 @@ pass natural shapes.
 
 Dispatch follows the tensors' device: a CPU tensor runs the plain
 PyTorch version (``ref``), a CUDA tensor the hand-written kernel, which
-raises if it cannot launch.  There is no fallback between the two.
+raises if it cannot launch.  There is no fallback between the two.  A
+meta tensor (the dry run, ``launch.dryrun``) goes to the kernel's
+wrapper, which checks and allocates as on the card and charges the
+kernel's cost (``kernels.meta``) in place of the launch.
 """
 from __future__ import annotations
 
@@ -44,8 +47,10 @@ def _pad_rows(x: torch.Tensor, g: int, value: float = 0.0) -> torch.Tensor:
     return flat.reshape(R, g, LANES)
 
 
-def _on_cuda(t: torch.Tensor) -> bool:
-    if t.device.type == "cuda":
+def _kernel_path(t: torch.Tensor) -> bool:
+    """True for the kernel's wrapper (a CUDA tensor, or a meta one), False
+    for the plain version (a CPU tensor); other devices raise."""
+    if t.device.type in ("cuda", "meta"):
         return True
     if t.device.type == "cpu":
         return False
@@ -78,7 +83,7 @@ def fused_pack_encode(x: torch.Tensor, s: torch.Tensor, step, bits: int,
     xr, sr = _pad_rows(x, g), _pad_rows(s, g)
     tr = float(step) if _is_scalar(step) else _pad_rows(
         _full(step, x.shape), g, value=1.0)
-    if _on_cuda(x):
+    if _kernel_path(x):
         return fg.fused_encode(xr, sr, tr, bits, m_max)
     return ref.fused_encode_ref(xr, sr, tr, bits, m_max)
 
@@ -101,7 +106,7 @@ def fused_unpack_decode(word: torch.Tensor, s_eff: torch.Tensor, step_dec,
         _full(step_dec, s_eff.shape), g, value=1.0)
     off = None if offset is None else _pad_rows(
         _full(offset, s_eff.shape), g)
-    if _on_cuda(word):
+    if _kernel_path(word):
         y = fg.fused_decode(word, se, tr, off, bits)
     else:
         y = ref.fused_decode_ref(word, se, tr, off, bits)
@@ -125,7 +130,7 @@ def dither_pack_encode(x: torch.Tensor, s: torch.Tensor, w: float,
     if tuple(s.shape) != tuple(x.shape):
         raise ValueError(f"dither shape {tuple(s.shape)} != {tuple(x.shape)}")
     xr, sr = _pad_rows(x, g), _pad_rows(s, g)
-    if _on_cuda(x):
+    if _kernel_path(x):
         return dp.dither_pack(xr, sr, float(w), bits), x.numel()
     return ref.dither_pack_ref(xr, sr, float(w), bits), x.numel()
 
@@ -139,7 +144,7 @@ def dither_unpack_decode(word: torch.Tensor, s: torch.Tensor, w: float,
     if word.dim() != 2 or word.shape != (sr.shape[0], LANES):
         raise ValueError(f"words {tuple(word.shape)} do not match "
                          f"{sr.shape[0]} rows of {LANES}")
-    if _on_cuda(word):
+    if _kernel_path(word):
         y = dp.unpack_decode(word, sr, float(w), bits)
     else:
         y = ref.unpack_decode_ref(word, sr, float(w), bits)
@@ -163,7 +168,7 @@ def layered_encode(x: torch.Tensor, u: torch.Tensor, layer: torch.Tensor,
             raise ValueError(f"{name} shape {tuple(t.shape)} != "
                              f"{tuple(x.shape)}")
     xr, ur, lr = _rows(x), _rows(u), _rows(layer)
-    if _on_cuda(x):
+    if _kernel_path(x):
         m = le.layered_encode(xr, ur, lr, float(sigma))
     else:
         m = ref.layered_encode_ref(xr, ur, lr, float(sigma))
@@ -179,7 +184,7 @@ def layered_decode(m: torch.Tensor, u: torch.Tensor, layer: torch.Tensor,
             raise ValueError(f"{name} shape {tuple(t.shape)} != "
                              f"{tuple(m.shape)}")
     mr, ur, lr = _rows(m.to(torch.int32)), _rows(u), _rows(layer)
-    if _on_cuda(m):
+    if _kernel_path(m):
         y = le.layered_decode(mr, ur, lr, float(sigma))
     else:
         y = ref.layered_decode_ref(mr, ur, lr, float(sigma))
@@ -208,7 +213,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     shapes are refused on both devices."""
     fa.check_shapes(q, k, v)
     fa.check_window(window, causal, q.shape[1], k.shape[1])
-    _on_cuda(q)
+    _kernel_path(q)
     return fa.FlashAttention.apply(q, k, v, causal, kv_tile,
                                    0 if window is None else int(window))
 
@@ -224,5 +229,5 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
     a CUDA tensor, ``ref.wkv6_ref`` / ``ref.wkv6_bwd_ref`` on a CPU one,
     through ``wkv6.Wkv6``.  The same shapes are refused on both devices."""
     wk.check_shapes(r, k, v, w, u)
-    _on_cuda(r)
+    _kernel_path(r)
     return wk.Wkv6.apply(r, k, v, w, u, state)

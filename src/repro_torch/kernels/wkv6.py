@@ -33,7 +33,9 @@ stream, raises if the launch failed, and adds one to its kernel's
 ``LAUNCHES`` entry.  The plain versions are ``ref.wkv6_ref`` /
 ``ref.wkv6_bwd_ref``.  ``Wkv6`` is the autograd function over them: the
 kernels for CUDA tensors, the plain versions for CPU tensors, nothing in
-between; ``ops.wkv6`` goes through it.
+between; ``ops.wkv6`` goes through it.  On meta tensors (the dry run,
+``launch.dryrun``) the wrappers check and allocate as on the card and, in
+place of the launch, charge the kernel's cost to ``kernels.meta``.
 """
 from __future__ import annotations
 
@@ -41,7 +43,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import build, ref
+from repro_torch.kernels import build, meta, ref
 
 # rwkv6's full heads, and its smoke config's
 HEAD_DIMS = (16, 64)
@@ -117,10 +119,12 @@ def check_shapes(r, k, v, w, u):
 
 
 def _check_cuda(ref_t, named) -> None:
+    """Every tensor on ref_t's device, CUDA (or meta: the dry run), and
+    contiguous."""
     for name, t in named:
         if t is None:
             continue
-        if t.device.type != "cuda":
+        if t.device.type not in ("cuda", "meta"):
             raise ValueError(f"{name}: wkv6 launches on CUDA, got "
                              f"{t.device}")
         if t.device != ref_t.device:
@@ -144,7 +148,8 @@ def _ptr(t):
 def _aligned(t):
     """``t``, or a copy of it when its data does not start on a 16-byte
     boundary (the chunked kernels read 16 bytes a load)."""
-    return t if t.data_ptr() % 16 == 0 else t.clone()
+    return (t if t.device.type == "meta" or t.data_ptr() % 16 == 0
+            else t.clone())
 
 
 def _check_launch(name: str, err: int) -> None:
@@ -185,6 +190,11 @@ def wkv6_step(r, k, v, w, u, state=None, *, chunks: bool = False):
     B, T, H, K, y, s_out = _fwd_args(r, k, v, w, u, state)
     cs = (torch.empty((B, H, n_chunks(T), K, K), dtype=torch.float32,
                       device=r.device) if chunks else None)
+    if r.device.type == "meta":
+        # 5 K^2 a (b, t, h): K times r's elements
+        meta.charge("wkv6_step", 5 * K * r.numel(), (r, k, v, w, u, state),
+                    (y, s_out, cs))
+        return (y, s_out, cs) if chunks else (y, s_out)
     with torch.cuda.device(r.device):
         stream = torch.cuda.current_stream(r.device).cuda_stream
         err = _lib().wkv6_step_launch(
@@ -208,6 +218,10 @@ def wkv6_fwd(r, k, v, w, u, state=None, *, chunks: bool = False):
     nc = n_chunks(T)
     cs = torch.empty((B, H, nc, K, K), dtype=torch.float32, device=r.device)
     dsum, F = _chunk_scratch(B, H, nc, K, r.device)
+    if r.device.type == "meta":
+        meta.charge("wkv6_fwd", 5 * K * r.numel(), (r, k, v, w, u, state),
+                    (y, s_out, cs))
+        return (y, s_out, cs) if chunks else (y, s_out)
     with torch.cuda.device(r.device):
         stream = torch.cuda.current_stream(r.device).cuda_stream
         err = _lib().wkv6_fwd_launch(
@@ -244,6 +258,11 @@ def wkv6_bwd(r, k, v, w, u, dy, chunks, dstate=None, *,
     after = torch.empty((B, H, nc, K, K), dtype=torch.float32,
                         device=r.device)
     dsum, F = _chunk_scratch(B, H, nc, K, r.device)
+    if r.device.type == "meta":
+        meta.charge("wkv6_bwd", 14 * K * r.numel(),
+                    (r, k, v, w, u, dy, chunks, dstate),
+                    (dr, dk, dv, dw, du_part, ds0))
+        return dr, dk, dv, dw, du_part.sum((0, 2)), ds0
     with torch.cuda.device(r.device):
         stream = torch.cuda.current_stream(r.device).cuda_stream
         err = _lib().wkv6_bwd_launch(
@@ -275,7 +294,7 @@ class Wkv6(torch.autograd.Function):
     @staticmethod
     def forward(ctx, r, k, v, w, u, state):
         need = any(ctx.needs_input_grad)
-        cuda = _on_cuda(r)
+        cuda = r.device.type == "meta" or _on_cuda(r)
         u32 = u.to(torch.float32)
         s32 = None if state is None else state.to(torch.float32)
         if cuda:
@@ -298,7 +317,7 @@ class Wkv6(torch.autograd.Function):
         if dstate is not None:
             dstate = dstate.to(torch.float32).contiguous()
         want_ds = ctx.needs_input_grad[5]
-        if _on_cuda(r):
+        if r.device.type == "meta" or _on_cuda(r):
             dr, dk, dv, dw, du, ds0 = wkv6_bwd(r, k, v, w, u32, dy, chunks,
                                                dstate, want_dstate=want_ds)
         else:

@@ -29,11 +29,16 @@ def production_mesh_shape(*, multi_pod: bool = False
     return (16, 16), ("data", "model")
 
 
-def make_production_mesh(*, multi_pod: bool = False, abstract: bool = False):
+def make_production_mesh(*, multi_pod: bool = False, abstract: bool = False,
+                         record: Optional[dict] = None):
     """The production mesh over the world's ranks (256 or 512 of them),
     or, with ``abstract``, its shape alone, against which the rule tables
-    resolve without any process group."""
+    resolve without any process group; with ``record``
+    (``collectives.new_record``), rank 0 of it on recording groups (the
+    dry run: every collective adds itself to ``record``)."""
     sizes, axes = production_mesh_shape(multi_pod=multi_pod)
+    if record is not None:
+        return meshctx.recording_mesh(sizes, axes, record)
     if abstract:
         return meshctx.Mesh(sizes, axes)
     return meshctx.make_mesh(sizes, axes)

@@ -190,9 +190,9 @@ _NARROW = (torch.bfloat16, torch.float16)
 def _mm_f32(a, b):
     """a @ b for 2-D (or batched 3-D) narrow-float operands, accumulated
     and returned in f32 (the products of bf16 / f16 values are exact in
-    f32)."""
+    f32); a meta tensor (the dry run) takes the card's branch."""
     mm = torch.bmm if a.dim() == 3 else torch.mm
-    if a.is_cuda:
+    if a.is_cuda or a.is_meta:
         return mm(a, b, out_dtype=torch.float32)
     return mm(a.to(torch.float32), b.to(torch.float32))
 

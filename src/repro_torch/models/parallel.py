@@ -30,12 +30,19 @@ shape, so one code path serves every rule table and mesh:
     ``expert`` at full ``mlp`` under EP_PARAM_RULES; ``rank_experts``
     reshards the first layout to the expert-parallel one at use;
   * attention runs on the rank's query heads, ``n_heads / model`` of
-    them, contiguous (the head count must divide: a cut query head
-    raises).  Its KV heads are the rank's own columns when ``n_kv_heads``
-    divides ``model``; otherwise the column blocks of ``wk`` / ``wv`` cut
-    heads (starcoder2-3b's 2 heads of 128 over 4 ranks: 64 columns each)
-    and the rank gathers the whole K / V over ``model`` and takes the
-    heads its query heads use (``kv_for_local``);
+    them, contiguous, where the head count divides the axis.  Its KV
+    heads are the rank's own columns when ``n_kv_heads`` divides
+    ``model``; otherwise the column blocks of ``wk`` / ``wv`` cut heads
+    (starcoder2-3b's 2 heads of 128 over 4 ranks: 64 columns each) and
+    the rank gathers the whole K / V over ``model`` and takes the heads
+    its query heads use (``kv_for_local``).  Where the column blocks of
+    ``wq`` cut query heads too (24 heads over 16 ranks: 1.5 heads each),
+    the reference's layout runs: q, k and v projected by the rank's
+    column blocks and gathered whole in one collective (backward: the
+    reduce-scatter of every rank's partial gradient, which its block of
+    dO gives), attention over all heads on every rank, and the rank's
+    column block of the output into the row-parallel ``wo``
+    (``local_heads`` 0, ``rank_columns``);
   * rwkv6, zamba2 and whisper: the embedding is vocab-parallel and the
     logits the rank's vocab block (``embed_lookup``, ``unembed``); a norm
     over a dim split over ``model`` (rwkv6's ``ln_x``, mamba2's
@@ -225,11 +232,20 @@ def rank_experts(cfg, t: TP, w: torch.Tensor, f_dim: int) -> torch.Tensor:
 
 # ------------------------------------------------------------- attention
 def local_heads(cfg, t: TP) -> int:
-    if cfg.n_heads % t.size:
-        raise NotImplementedError(
-            f"{cfg.n_heads} query heads do not split over a model axis of "
-            f"{t.size}: tensor-parallel attention runs whole heads")
-    return cfg.n_heads // t.size
+    """The rank's query heads where whole heads fall to each rank (the
+    split-heads branch), else 0: ``wq``'s column blocks of ``n_heads hd /
+    model`` columns then cut heads, and every rank runs all of them
+    (``rank_columns``)."""
+    return 0 if cfg.n_heads % t.size else cfg.n_heads // t.size
+
+
+def rank_columns(x: torch.Tensor, t: TP, c: int) -> torch.Tensor:
+    """This rank's column block ``[r c, (r + 1) c)`` of ``x``'s last dim
+    (``x`` itself where it holds ``c`` columns already): the attention
+    output of every head narrowed to the rows of ``wo`` the rank holds."""
+    if x.shape[-1] == c:
+        return x
+    return x.narrow(-1, t.rank * c, c)
 
 
 def kv_heads_local(cfg, t: TP) -> bool:

@@ -219,23 +219,26 @@ def _ring(cfg: ModelConfig, seq_len: int) -> int:
 
 
 def serve_fn(cfg: ModelConfig) -> Callable:
-    """serve(model, batch{tokens (B, 1)}, cache) -> (logits, new kv); for
-    rwkv6 and zamba2 (logits, new state); whisper's new kv is the
-    decoder's self K / V (the cross K / V stay as they are)."""
+    """serve(model, batch{tokens (B, 1)}, cache, seq=None) -> (logits, new
+    kv); for rwkv6 and zamba2 (logits, new state); whisper's new kv is
+    the decoder's self K / V (the cross K / V stay as they are).
+    ``seq``: (model group, row0) when the (self) K / V cache holds rows
+    [row0, row0 + S) of a sequence split over the model axis
+    (``decode_state_shardings``; the transformer's kinds and whisper)."""
     _known(cfg)
 
-    def serve(model, batch, cache):
+    def serve(model, batch, cache, seq=None):
         if cfg.kind == "whisper":
             return whisper.decode_step(
                 cfg, model, batch["tokens"], (cache["k"], cache["v"]),
-                (cache["cross_k"], cache["cross_v"]))
+                (cache["cross_k"], cache["cross_v"]), seq=seq)
         if cfg.kind in _FAMILIES:
             return _FAMILIES[cfg.kind].decode(cfg, model, batch["tokens"],
                                               cache)
         dtype = torch_dtype(cfg.compute_dtype)
         x = transformer.embed_tokens(cfg, model, batch["tokens"], dtype)
-        y, new_kv = transformer.decoder_decode(cfg, model, x,
-                                               (cache["k"], cache["v"]))
+        y, new_kv = transformer.decoder_decode(
+            cfg, model, x, (cache["k"], cache["v"]), seq=seq)
         y = transformer.final_norm(cfg, model, y)
         return transformer.unembed(cfg, model, y), new_kv
 

@@ -225,13 +225,13 @@ def _norm(cfg: ModelConfig, x, p, name: str):
 
 
 def _attn_tp(cfg: ModelConfig, lp):
-    """The model axis when attention runs on the rank's query heads
-    (``wq`` held in column blocks), else None."""
+    """The model axis when attention is tensor parallel (``wq`` held in
+    column blocks: the rank's query heads, or, where the blocks cut heads,
+    all heads from the gathered blocks), else None."""
     t = parallel.tp()
     if t is None or not parallel.held_in_part(
             lp.attn["wq"], 1, cfg.n_heads * cfg.hd):
         return None
-    parallel.local_heads(cfg, t)
     return t
 
 
@@ -242,7 +242,8 @@ def _project_qkv(cfg: ModelConfig, lp: DecoderLayer, x, all_q=False):
     them: the column blocks of ``wk`` / ``wv`` then cut heads and are
     gathered, with q's for ``all_q``, in one collective; from a whole
     weight every rank computes all heads, its gradient summed at
-    ``copy_to`` (see ``parallel``)."""
+    ``copy_to`` (see ``parallel``).  Where ``wq``'s blocks cut query
+    heads, q is gathered whole as for ``all_q``."""
     B, T = x.shape[:2]
     hq, hk, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     a = lp.attn
@@ -255,6 +256,7 @@ def _project_qkv(cfg: ModelConfig, lp: DecoderLayer, x, all_q=False):
             q = nn.rms_norm(q, a["q_norm"])
             k = nn.rms_norm(k, a["k_norm"])
         return q, k, v
+    all_q = all_q or not parallel.local_heads(cfg, t)
     xm = coll.copy_to(x, t.group)
     q = nn.dense(xm, a["wq"], a.get("bq"))
     split = parallel.held_in_part(a["wk"], 1, hk * hd)
@@ -276,14 +278,23 @@ def _project_qkv(cfg: ModelConfig, lp: DecoderLayer, x, all_q=False):
 
 def _kv_sel(cfg: ModelConfig, t, x):
     """The KV heads the rank's query heads read: ``x`` itself when it
-    holds the rank's own heads (or without a model axis)."""
-    if t is None or x.shape[2] < cfg.n_kv_heads:
+    holds the rank's own heads, or when every rank runs all heads (cut
+    query heads; no model axis)."""
+    if (t is None or x.shape[2] < cfg.n_kv_heads
+            or not parallel.local_heads(cfg, t)):
         return x
     return parallel.kv_for_local(cfg, t, x)
 
 
 def _out_proj(lp, o, t):
-    return nn.row_parallel(o, lp.attn["wo"], None if t is None else t.group)
+    """The output projection of o (B, T, columns); on the model axis the
+    rank's column block of o (``o`` itself where it holds the rank's
+    heads) times its rows of ``wo``, summed over ``model``."""
+    if t is None:
+        return nn.row_parallel(o, lp.attn["wo"], None)
+    w = lp.attn["wo"]
+    return nn.row_parallel(parallel.rank_columns(o, t, w.shape[0]), w,
+                           t.group)
 
 
 def attn_block(cfg: ModelConfig, lp: DecoderLayer, x, rope, *, window=None):
@@ -311,7 +322,8 @@ def attn_block_decode(cfg: ModelConfig, lp: DecoderLayer, x, cache, *,
     cache holds rows [row0, row0 + S) of all KV heads, the sequence split
     over the model axis (``registry.decode_state_shardings`` where the KV
     heads do not split): every rank scores all query heads on its rows,
-    the softmax is combined across the group, and each keeps its heads."""
+    the softmax is combined across the group, and each keeps its column
+    block of the output (its heads, or a block that cuts heads)."""
     k_cache, v_cache = cache
     B = x.shape[0]
     if pos is None:
@@ -332,9 +344,6 @@ def attn_block_decode(cfg: ModelConfig, lp: DecoderLayer, x, cache, *,
         o = attention.decode_attention(
             q, k_cache, v_cache, k, v, window=window, valid_len=valid_len,
             kv_pos=kv_pos, q_pos=pos[:, 0], row0=row0, group=group)
-        if t is not None:
-            hq_l = cfg.n_heads // t.size
-            o = o[:, :, t.rank * hq_l:(t.rank + 1) * hq_l]
     return _out_proj(lp, o.reshape(B, 1, -1), t), (k, v)
 
 
@@ -401,18 +410,34 @@ def decoder(cfg: ModelConfig, model: Transformer, x, rope,
     return h, (torch.stack(ks), torch.stack(vs))
 
 
-def decoder_decode(cfg: ModelConfig, model: Transformer, x, caches):
+def seq_positions(x, caches, seq):
+    """The new token's position (B, 1) for a cache holding exactly the
+    previous positions: its rows, times the model axis's ranks for a
+    cache split over them (``seq``: (group, row0)), else None (the
+    cache's own length)."""
+    if seq is None:
+        return None
+    rows = caches[0].shape[2] * coll.size(seq[0])
+    return torch.full((x.shape[0], 1), rows, dtype=torch.int32,
+                      device=x.device)
+
+
+def decoder_decode(cfg: ModelConfig, model: Transformer, x, caches,
+                   seq=None):
     """Single-token decode through the layers; caches: stacked
-    (L, B, S, HK, hd) pair holding exactly the S previous positions.
+    (L, B, S, HK, hd) pair holding exactly the S previous positions (with
+    ``seq``, (group, row0): rows [row0, row0 + S) of them, the sequence
+    split over the model axis, ``registry.decode_state_shardings``).
     Returns (y, new_kv stacked (L, B, 1, HK, hd)); the caller appends."""
     k_all, v_all = caches
     h = x
     nks, nvs = [], []
+    pos = seq_positions(x, caches, seq)
     for i, lp in enumerate(model.layers):
         lp = _gathered(cfg, lp)
         a, (nk, nv) = attn_block_decode(
             cfg, lp, _norm(cfg, h, lp, "norm1"), (k_all[i], v_all[i]),
-            window=cfg.window)
+            pos=pos, window=cfg.window, seq=seq)
         h = h + a
         h = h + _ffn(cfg, lp, _norm(cfg, h, lp, "norm2"))
         nks.append(nk)

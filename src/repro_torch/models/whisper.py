@@ -38,10 +38,12 @@ cross K / V from ``encode`` with each layer's ``cross.wk`` / ``cross.wv``
 On the mesh each layer is gathered over ``data`` where held in part
 (``enc_pos`` too); over ``model`` every attention (the encoder's, the
 decoder's self- and cross-attention, the decode step's) runs on the
-rank's heads with a row-parallel ``wo``, the MLPs column- then
-row-parallel, and the tied embedding is vocab-parallel: the lookup and
-the unembedding read, and send their gradients to, the rank's vocab
-block.  Its caches hold the rank's heads.
+rank's heads with a row-parallel ``wo`` (all heads, and the rank's
+column block of the output, where the model axis cuts heads), the MLPs
+column- then row-parallel, and the tied embedding is vocab-parallel: the
+lookup and the unembedding read, and send their gradients to, the rank's
+vocab block.  Its caches hold the rank's heads (all heads where they are
+cut).
 """
 from __future__ import annotations
 
@@ -217,13 +219,13 @@ def encode(cfg: ModelConfig, model, frames):
 
 
 def _cross_tp(cfg: ModelConfig, lp):
-    """The model axis when the cross-attention runs on the rank's heads
-    (its ``wq`` held in column blocks), else None."""
+    """The model axis when the cross-attention is tensor parallel (its
+    ``wq`` held in column blocks: the rank's heads, or all heads where the
+    blocks cut them), else None."""
     t = parallel.tp()
     if t is None or not parallel.held_in_part(
             lp.cross["wq"], 1, cfg.n_heads * cfg.hd):
         return None
-    parallel.local_heads(cfg, t)
     if not parallel.held_in_part(lp.cross["wk"], 1, cfg.n_kv_heads * cfg.hd):
         raise NotImplementedError(
             "whisper's cross-attention on a model axis splits its KV heads "
@@ -234,28 +236,44 @@ def _cross_tp(cfg: ModelConfig, lp):
 def cross_kv(cfg: ModelConfig, lp, memory):
     """The cross-attention's K / V over the encoder memory (B, S, d) ->
     (B, S, heads, hd) each: column-parallel on the model axis (the
-    rank's heads)."""
+    rank's heads; all heads where the column blocks cut them, the blocks
+    gathered in one collective, as the reference's decode state holds
+    them replicated)."""
     B, S = memory.shape[:2]
     a = lp.cross
-    if _cross_tp(cfg, lp) is not None:
-        memory = coll.copy_to(memory, parallel.tp().group)
-    return (nn.dense(memory, a["wk"]).reshape(B, S, -1, cfg.hd),
-            nn.dense(memory, a["wv"]).reshape(B, S, -1, cfg.hd))
+    t = _cross_tp(cfg, lp)
+    if t is not None:
+        memory = coll.copy_to(memory, t.group)
+    k, v = nn.dense(memory, a["wk"]), nn.dense(memory, a["wv"])
+    if t is not None and not parallel.local_heads(cfg, t):
+        k, v = parallel.gather_blocks([k, v], t.group)
+    return k.reshape(B, S, -1, cfg.hd), v.reshape(B, S, -1, cfg.hd)
 
 
 def _cross_out(cfg: ModelConfig, lp, x, k, v):
     """The cross-attention of decoder states x (B, T, d) over K / V:
-    column-parallel ``wq`` and row-parallel ``wo`` on the model axis."""
+    column-parallel ``wq`` and row-parallel ``wo`` on the model axis;
+    where the column blocks cut heads, q gathered whole, attention over
+    all heads, and the rank's column block of the output into ``wo``."""
     B, T = x.shape[:2]
     a = lp.cross
     t = _cross_tp(cfg, lp)
     if t is not None:
         x = coll.copy_to(x, t.group)
-    q = nn.dense(x, a["wq"]).reshape(B, T, -1, cfg.hd)
-    o = attention.flash_attention(q, k, v, causal=False,
-                                  kv_chunk=cfg.kv_chunk)
-    return nn.row_parallel(o.reshape(B, T, -1), a["wo"],
-                           None if t is None else t.group)
+    q = nn.dense(x, a["wq"])
+    if t is not None and not parallel.local_heads(cfg, t):
+        if k.shape[1] < cfg.encoder_len:
+            raise NotImplementedError(
+                "cross K / V split over the sequence: cut query heads run "
+                "on the whole encoder memory")
+        q = coll.gather(q, -1, t.group)
+    o = attention.flash_attention(q.reshape(B, T, -1, cfg.hd), k, v,
+                                  causal=False, kv_chunk=cfg.kv_chunk)
+    o = o.reshape(B, T, -1)
+    if t is None:
+        return nn.row_parallel(o, a["wo"], None)
+    return nn.row_parallel(parallel.rank_columns(o, t, a["wo"].shape[0]),
+                           a["wo"], t.group)
 
 
 def _cross_attend(cfg: ModelConfig, lp, x, memory):
@@ -308,10 +326,13 @@ def forward(cfg: ModelConfig, model, tokens, frames,
     return _logits(cfg, model, x)
 
 
-def decode_step(cfg: ModelConfig, model, tokens, self_cache, cross_kv):
+def decode_step(cfg: ModelConfig, model, tokens, self_cache, cross_kv,
+                seq=None):
     """One-token decode: tokens (B, 1); self_cache (k, v) stacked (L, B,
-    S, HK, hd), the S previous positions; cross_kv (k, v) stacked (L, B,
-    encoder_len, HK, hd) (the rank's heads on the model axis, as
+    S, HK, hd), the S previous positions (with ``seq``, (group, row0):
+    rows [row0, row0 + S) of them, split over the model axis); cross_kv
+    (k, v) stacked (L, B, encoder_len, HK, hd) (the rank's heads on the
+    model axis, or all of them where the axis cuts heads, as
     ``registry.decode_state_shardings`` places them).  Returns (logits
     (B, 1, V), new (k, v) stacked (L, B, 1, HK, hd)); the caller
     appends."""
@@ -320,10 +341,12 @@ def decode_step(cfg: ModelConfig, model, tokens, self_cache, cross_kv):
     ck_all, cv_all = cross_kv
     nks, nvs = [], []
     h = x
+    pos = transformer.seq_positions(x, self_cache, seq)
     for i, lp in enumerate(model.dec_layers):
         lp = parallel.gather_layer(lp, _dec_layer_specs(cfg))
         a, (nk, nv) = transformer.attn_block_decode(
-            cfg, lp, _norm(cfg, h, lp, "norm1"), (k_all[i], v_all[i]))
+            cfg, lp, _norm(cfg, h, lp, "norm1"), (k_all[i], v_all[i]),
+            pos=pos, seq=seq)
         h = h + a
         h = h + _cross_out(cfg, lp, _norm(cfg, h, lp, "norm_cross"),
                            ck_all[i], cv_all[i])

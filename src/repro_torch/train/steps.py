@@ -70,9 +70,11 @@ class TrainConfig:
 
 
 # ------------------------------------------------------------- inputs
-def input_specs(cfg: ModelConfig, shape_name: str) -> Dict[str, torch.Tensor]:
-    """Meta-tensor stand-ins for every model input of a cell."""
-    sh = configs.SHAPES[shape_name]
+def input_specs(cfg: ModelConfig, shape_name) -> Dict[str, torch.Tensor]:
+    """Meta-tensor stand-ins for every model input of a cell (a
+    ``configs.SHAPES`` name, or such an entry itself)."""
+    sh = (configs.SHAPES[shape_name] if isinstance(shape_name, str)
+          else shape_name)
     B, T = sh["global_batch"], sh["seq_len"]
     dt = torch_dtype(cfg.compute_dtype)
 
@@ -90,7 +92,7 @@ def input_specs(cfg: ModelConfig, shape_name: str) -> Dict[str, torch.Tensor]:
     return specs
 
 
-def batch_shardings(cfg: ModelConfig, shape_name: str, mesh):
+def batch_shardings(cfg: ModelConfig, shape_name, mesh):
     return {k: sharding.NamedSharding(
         mesh, sharding.batch_spec(mesh, v.dim(), v.shape[0]))
         for k, v in input_specs(cfg, shape_name).items()}
@@ -247,10 +249,13 @@ def loss_and_grads(cfg: ModelConfig, tc: TrainConfig, params, batch):
     return loss_acc * inv, tree_map(lambda x: x * inv, g_acc)
 
 
-def _rank_rows(batch: Dict, mesh) -> Dict:
+def _rank_rows(batch: Dict, mesh, placed: bool = False) -> Dict:
     """This rank's rows of the global batch: its block along the batch
     axes (``batch_spec``; the reference's reshape to (pod, B / pod) and
-    GSPMD's split of each client's rows over ``data``)."""
+    GSPMD's split of each client's rows over ``data``); the batch itself
+    when it is ``placed`` (each rank given its block already)."""
+    if placed:
+        return batch
     return {k: sharding.shard_tensor(
         v, sharding.batch_spec(mesh, v.dim(), v.shape[0]), mesh)
         for k, v in batch.items()}
@@ -262,13 +267,14 @@ def _batch_group(mesh):
 
 
 def mesh_loss_and_grads(cfg: ModelConfig, tc: TrainConfig, mesh, params,
-                        batch, shardings):
+                        batch, shardings, placed: bool = False):
     """The global mean loss and gradient on a mesh, each rank's block of
     it: its rows differentiated on its blocks (FSDP's gathers
     reduce-scatter their gradients over ``data``), the rest summed over
     the batch axes, then divided by their size.  ``shardings``: the
-    params' NamedSharding tree."""
-    local = _rank_rows(batch, mesh)
+    params' NamedSharding tree; ``placed``: ``batch`` is the rank's rows
+    already."""
+    local = _rank_rows(batch, mesh, placed)
     leaves, rebuild = compress_mod._flatten(params)
     specs = [ns.spec for ns in sharding.tree_leaves(shardings)]
     if tc.gather_once and mesh.shape.get("data", 1) > 1:
@@ -297,14 +303,16 @@ def mesh_loss_and_grads(cfg: ModelConfig, tc: TrainConfig, mesh, params,
 
 
 def build_train_step(cfg: ModelConfig, tc: TrainConfig, group=None,
-                     mesh=None):
+                     mesh=None, placed: bool = False):
     """Returns step(state, batch, seed) -> (state, metrics{loss, cohort}).
 
     ``group``: a process group of the client ranks, each holding the
     whole model (a mesh of pods alone; it needs ``tc.compression``).
     ``mesh``: a ``meshctx.Mesh`` whose ranks hold the state's blocks
-    (``train_state_shardings``).  See the module's docstring for the
-    branches."""
+    (``train_state_shardings``); with ``placed`` each rank is given its
+    rows of the batch (its block under ``batch_shardings``, as the dry
+    run places its inputs) instead of the global batch.  See the module's
+    docstring for the branches."""
     opt = get_optimizer(tc.optimizer, tc.lr)
     comp = tc.compression
     if group is not None and mesh is not None:
@@ -328,10 +336,14 @@ def build_train_step(cfg: ModelConfig, tc: TrainConfig, group=None,
                 {"loss": loss, "cohort": cohort})
 
     def key_of(state, seed):
-        return prng.fold_in(prng.PRNGKey(int(seed)), int(state["step"]))
+        # a meta step (the dry run) has no value to read: its draws are
+        # shapes alone, so any key serves
+        step = state["step"]
+        return prng.fold_in(prng.PRNGKey(int(seed)),
+                            0 if step.is_meta else int(step))
 
     if _on_mesh(mesh):
-        return _mesh_step(cfg, tc, mesh, apply_update, key_of)
+        return _mesh_step(cfg, tc, mesh, apply_update, key_of, placed)
 
     if group is not None:
         rank = dist.get_rank(group)
@@ -362,7 +374,7 @@ def build_train_step(cfg: ModelConfig, tc: TrainConfig, group=None,
 
 
 def _mesh_step(cfg: ModelConfig, tc: TrainConfig, mesh, apply_update,
-               key_of):
+               key_of, placed: bool = False):
     """The step on a mesh of more than one rank."""
     comp = tc.compression
     shardings = train_state_shardings(cfg, tc, mesh)["params"]
@@ -390,7 +402,7 @@ def _mesh_step(cfg: ModelConfig, tc: TrainConfig, mesh, apply_update,
             device = state["step"].device
             with meshctx.use_mesh(mesh):
                 loss, grads = loss_and_grads(cfg, tc, state["params"],
-                                             _rank_rows(batch, mesh))
+                                             _rank_rows(batch, mesh, placed))
                 if n_data > 1:  # the pod's mean over its data ranks
                     grads = tree_map(
                         lambda g: coll.all_reduce(g, data) * (1.0 / n_data),
@@ -400,8 +412,12 @@ def _mesh_step(cfg: ModelConfig, tc: TrainConfig, mesh, apply_update,
                     whole(grads), comp, key_of(state, seed), axis=pod,
                     n_clients=n_pod, device=device)
                 del grads
-                realized = int(coll.all_reduce(
-                    torch.ones((), dtype=torch.int32, device=device), pod))
+                realized = coll.all_reduce(
+                    torch.ones((), dtype=torch.int32, device=device), pod)
+                # a meta count (the dry run's recording group) is the
+                # group's size, which it stands for; a real one is read
+                realized = (coll.size(pod) if realized.is_meta
+                            else int(realized))
                 loss = coll.all_reduce(loss.to(torch.float32), group) / n
             return apply_update(state, block(agg), loss, realized)
 
@@ -410,7 +426,7 @@ def _mesh_step(cfg: ModelConfig, tc: TrainConfig, mesh, apply_update,
     def step(state, batch, seed):
         with meshctx.use_mesh(mesh):
             loss, grads = mesh_loss_and_grads(cfg, tc, mesh, state["params"],
-                                              batch, shardings)
+                                              batch, shardings, placed)
             if comp is not None:  # the n = 1 mechanism on whole leaves
                 grads = block(compress_mod.compress_tree(
                     whole(grads), comp, key_of(state, seed), axis=None,
@@ -422,20 +438,35 @@ def _mesh_step(cfg: ModelConfig, tc: TrainConfig, mesh, apply_update,
 
 # ------------------------------------------------------------- serving
 def build_prefill_step(cfg: ModelConfig):
-    """prefill(model, batch) -> (last-position logits, caches)."""
+    """prefill(model, batch) -> (last-position logits, caches); ``model``
+    a model or a parameter tree (seen through ``registry.tree_model``)."""
     fn = registry.prefill_fn(cfg)
 
     def prefill(model, batch):
-        return fn(model, batch)
+        return fn(registry.tree_model(cfg, model), batch)
 
     return prefill
 
 
-def build_serve_step(cfg: ModelConfig):
-    """serve(model, batch, cache) -> (logits, new kv or state)."""
+def build_serve_step(cfg: ModelConfig, cache_shardings=None):
+    """serve(model, batch, cache) -> (logits, new kv or state); ``model``
+    a model or a parameter tree.  ``cache_shardings``: the placement of
+    the cache whose blocks each rank is given
+    (``registry.decode_state_shardings``): where it splits the K / V
+    sequence over ``model``, each rank decodes against its rows and the
+    softmax is combined across the axis (``registry.serve_fn(seq=)``)."""
     fn = registry.serve_fn(cfg)
+    split = None
+    if cache_shardings is not None and "k" in cache_shardings:
+        ns = cache_shardings["k"]
+        if len(ns.spec) > 2 and ns.spec[2] == "model":
+            split = ns.mesh
 
     def serve(model, batch, cache):
-        return fn(model, batch, cache)
+        seq = None
+        if split is not None:
+            seq = (split.group("model"),
+                   split.coord("model") * cache["k"].shape[2])
+        return fn(registry.tree_model(cfg, model), batch, cache, seq=seq)
 
     return serve
